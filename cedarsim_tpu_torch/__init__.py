@@ -6,7 +6,10 @@ path of the gf180 DFF benchmark so far: SPICE netlist → elaborated circuit →
 compiled batched residuals and Jacobians (through the Verilog-A BSIM4-class
 model) → DC operating point → transient over an explicit lane axis, with
 the mixed-precision chord solves on the hand-written CUDA GESP LU kernels
-(``ops/gesp_lu.py``).  What is still to be ported is listed in ROADMAP.md.
+(``ops/gesp_lu.py``), or with every chord iteration of a step attempt in one
+launch of the fused chord kernel (``ops/fused_chord.py``, the BSIM4 walk
+emitted as CUDA device code by ``va/emit.py``).  What is still to be ported
+is listed in ROADMAP.md.
 """
 
 from cedarsim_tpu_torch.core.circuit import Circuit
@@ -22,11 +25,13 @@ from cedarsim_tpu_torch.analysis.dc import (NewtonOptions, solve_dc,
                                             dc_core, default_newton_options)
 from cedarsim_tpu_torch.analysis.tran import (TranOptions, TranSolution,
                                               tran)
+from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
+                                                get_fused_plan)
 
 __all__ = [
     "Circuit", "SimSpec", "Modes", "CompiledCircuit", "compile_circuit",
     "Resistor", "Capacitor", "VSource", "VSourcePWL", "VSourcePULSE",
     "parse_spice", "elaborate", "load_spice", "NewtonOptions", "solve_dc",
     "dc_core", "default_newton_options", "TranOptions", "TranSolution",
-    "tran",
+    "tran", "FusedEnvelopeError", "get_fused_plan",
 ]

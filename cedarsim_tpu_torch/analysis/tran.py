@@ -16,7 +16,10 @@ predictor; LTE from the predictor-corrector difference on the differential
 unknowns; breakpoints clamp steps and restart the order; a Newton failure
 shrinks h by 4.  ``jac_reuse=1`` is the per-step chord Newton (factor once
 per step attempt, exact residuals after) with the full-Newton
-``chord_fallback`` rescue behind its ``rescue_after`` gate.
+``chord_fallback`` rescue behind its ``rescue_after`` gate.  The chord
+iterations run either in the loop below (``newton_impl="xla"``) or in one
+launch of the fused chord kernel per step attempt (``"fused"``,
+``ops/fused_chord.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import torch
 from cedarsim_tpu_torch.core.compile import CompiledCircuit, default_ctx
 from cedarsim_tpu_torch.core.context import SimSpec, Modes
 from cedarsim_tpu_torch.ops import linalg
+from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
+                                                get_fused_plan, split_lanes)
 from cedarsim_tpu_torch.analysis.dc import NewtonOptions, solve_dc
 
 _A14 = "ROADMAP A14"
@@ -84,27 +89,62 @@ class TranOptions:
     #: (float32 GESP kernels + float64 refinement) or "auto" ("mixed" on
     #: CUDA, "jax" on the CPU)
     dense_lu: str = "auto"
-    #: chord-iteration engine: "xla" (the loop below) or "auto" (= "xla");
-    #: "fused" is ROADMAP B1
+    #: chord-iteration engine: "xla" (the loop in ``tran_core``), "fused"
+    #: (one fused chord kernel launch per step attempt: cap form,
+    #: ``jac_reuse >= 1``) or "auto" (see :func:`resolve_impl`)
     newton_impl: str = "auto"
     #: output buffers grow by whole chunks of this many rows
     chunk_size: int = 64
 
 
-def resolve_impl(compiled: CompiledCircuit, opts: TranOptions):
+def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
+                 params=None):
     """Resolve ``dense_lu``/``newton_impl`` "auto" per device, as the JAX
-    package's ``auto_tpu_impl`` does per backend."""
+    package's ``auto_tpu_impl`` does per backend, with "on TPU" read as "on
+    CUDA": ``dense_lu`` is "mixed" on CUDA and "jax" on the CPU;
+    ``newton_impl`` is "fused" on CUDA when :func:`auto_newton_impl` says
+    so (``ctx`` given), else "xla"."""
     dl, ni = opts.dense_lu, opts.newton_impl
     if dl == "auto":
         dl = "mixed" if compiled.device.type == "cuda" else "jax"
     if ni == "auto":
         ni = "xla"
-    if ni == "fused":
-        raise NotImplementedError(
-            "newton_impl='fused' needs the fused chord kernel, ROADMAP B1")
-    if ni != "xla" or dl not in ("jax", "mixed"):
+        if compiled.device.type == "cuda" and ctx is not None:
+            ni = auto_newton_impl(compiled, opts, ctx, params)
+    if ni not in ("xla", "fused") or dl not in ("jax", "mixed"):
         raise ValueError(f"unknown newton_impl={ni!r} / dense_lu={dl!r}")
     return dataclasses.replace(opts, dense_lu=dl, newton_impl=ni)
+
+
+def auto_newton_impl(compiled: CompiledCircuit, opts: TranOptions, ctx,
+                     params=None):
+    """"fused" when the corrector is the cap form, ``jac_reuse == 1``, the
+    fused plan builds and every per-lane leaf of ``params`` reaches the
+    kernel (``dyn_leaf_safe``); else "xla".  Only
+    :class:`~cedarsim_tpu_torch.ops.fused_chord.FusedEnvelopeError` counts
+    as "outside the envelope": any other failure (an emit, a build)
+    propagates."""
+    if opts.formulation != "cap" or opts.jac_reuse != 1:
+        return "xla"
+    try:
+        fused_plan_for(compiled, ctx, params)
+    except FusedEnvelopeError:
+        return "xla"
+    return "fused"
+
+
+def fused_plan_for(compiled: CompiledCircuit, ctx, params=None):
+    """The fused chord plan of a (possibly lane-batched) params tree: built
+    from lane 0; raises ``FusedEnvelopeError`` when a leaf that differs
+    between lanes would be read by the kernel as a constant."""
+    base, varying = split_lanes(compiled, params)
+    plan = get_fused_plan(compiled, ctx.with_mode(Modes.TRAN), base)
+    for key, pn in varying:
+        if not plan.dyn_leaf_safe(key, pn):
+            raise FusedEnvelopeError(
+                f"fused chord: per-lane {key}.{pn} enters the constant "
+                "G_lin/C_lin of the kernel; use newton_impl='xla'")
+    return plan
 
 
 @dataclasses.dataclass
@@ -119,6 +159,9 @@ class TranSolution:
     compiled: CompiledCircuit
     ctx: SimSpec
     params: dict
+    #: step attempts of the lane-batched loop this lane ran in (the same
+    #: for every lane of one call; finished lanes sit the last ones out)
+    n_attempts: int = 0
 
     @property
     def t(self):
@@ -165,13 +208,6 @@ def _differential_mask(compiled, x, ctx, params):
     return xdot0_and_mask(compiled, x, ctx, params)[1]
 
 
-def _matvec(A, v):
-    """A·v over the lanes as a product and a row sum: on the CPU a batched
-    ``@`` picks its kernel by batch size, so a lane's rounding would depend
-    on how many lanes run beside it."""
-    return (A * v[..., None, :]).sum(-1)
-
-
 def _sel(m, a, b):
     """Per-lane select: ``m`` [L] bool over [L, ...] values."""
     if not isinstance(a, torch.Tensor):
@@ -187,10 +223,11 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     ``params`` leaves may carry the lane axis; ``bps`` is the breakpoint
     schedule shared by every lane (sorted, padded with tstop and inf);
     ``lte_mask`` [n_x] or [L, n_x].  Returns ``(ts [L, 1+R], xs [L, 1+R,
-    n_x], xdots, k [L], finished [L], n_rejected [L], n_newton [L])``: row 0
-    is the initial point, rows 1..k-1 the accepted points of each lane, and
-    the rows after them hold tstop and the lane's final state."""
-    opts = resolve_impl(compiled, opts)
+    n_x], xdots, k [L], finished [L], n_rejected [L], n_newton [L],
+    n_attempts)``: row 0 is the initial point, rows 1..k-1 the accepted
+    points of each lane, the rows after them hold tstop and the lane's
+    final state, and ``n_attempts`` counts the batched step attempts."""
+    opts = resolve_impl(compiled, opts, ctx, params)
     dt, dev = compiled.dtype, compiled.device
     x0 = torch.as_tensor(x0, dtype=dt, device=dev)
     xdot0 = torch.as_tensor(xdot0, dtype=dt, device=dev)
@@ -227,6 +264,15 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
             "jac_reuse=1 (per-step chord) or 0 (full Newton)")
     if opts.controller not in ("i", "pi"):
         raise ValueError(f"unknown controller {opts.controller!r}")
+    fused = None
+    if opts.newton_impl == "fused":
+        # the envelope of the fused chord kernel, checked before any step
+        if not cap_form:
+            raise ValueError("newton_impl='fused' requires the cap-form "
+                             "corrector (formulation='cap')")
+        if opts.jac_reuse < 1:
+            raise ValueError("newton_impl='fused' requires jac_reuse >= 1")
+        fused = fused_plan_for(compiled, ctx, params)
     mn = opts.jac_reuse > 0
     mixed = opts.dense_lu == "mixed"
     nv = compiled.n_nodes + compiled.n_internal
@@ -278,7 +324,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
             active = ~done & (it < opts.max_newton)
             if not bool(active.any()):
                 break
-            ic = _matvec(C, (c0[:, None] * x + xdh) / h[:, None]) \
+            ic = linalg.matvec(C, (c0[:, None] * x + xdh) / h[:, None]) \
                 if cap_form else torch.zeros_like(S)
             f, _ = fres(x, S, Q, ic, a0, Qhist, Sn, beta, h)
             J = damp_J(c0[:, None, None] * C / hh + G) if cap_form \
@@ -287,7 +333,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
             dx, bad = limit(lin_solve(J, -f))
             xn = x + dx
             Sn1, Qn1, Gn1, Cn1 = compiled.evaluate(xn, cx, lp, jac=True)
-            icn = _matvec(Cn1, (c0[:, None] * xn + xdh) / h[:, None]) \
+            icn = linalg.matvec(Cn1, (c0[:, None] * xn + xdh) / h[:, None]) \
                 if cap_form else ic
             f_new, scale = fres(xn, Sn1, Qn1, icn, a0, Qhist, Sn, beta, h)
             dn = converged(dx, xn, f_new, scale, bad)
@@ -435,26 +481,34 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         if mn:
             S0p, Q0p, G, C = compiled.evaluate(x_pred, ctx_at(t_new), lp,
                                                jac=True)
-            init_parts = (S0p, Q0p,
-                          _matvec(C, (c0[:, None] * x_pred + xdh)
-                                  / h_real[:, None])
-                          if cap_form else torch.zeros_like(S0p))
             J = damp_J(c0[:, None, None] * C / hh + G) if cap_form \
                 else damp_J(a0[:, None, None] * C / hh
                             + beta[:, None, None] * G)
-            if mixed:
-                fct = linalg.chord_factor(J)
-
-                def chord_solve(b):
-                    return linalg.chord_backsolve(*fct, J, b)
+            if fused is not None:
+                # one fused chord kernel launch for every lane's chord loop
+                # (model walks, assembly, direction, tests); the rescue
+                # below is unchanged
+                xn, Sn_new, Qn_new, nok, nnwt = fused(
+                    x_pred, J, fused.s_off(t_new, ctx_t, params), c0,
+                    h_real, xdh, t_new, opts, params=params, live=lv)
             else:
-                fct = linalg.lu_factor_exact(J)
+                init_parts = (S0p, Q0p,
+                              linalg.matvec(C, (c0[:, None] * x_pred + xdh)
+                                            / h_real[:, None])
+                              if cap_form else torch.zeros_like(S0p))
+                if mixed:
+                    fct = linalg.chord_factor(J)
 
-                def chord_solve(b):
-                    return linalg.lu_solve_exact(*fct, b)
-            xn, Sn_new, Qn_new, nok, nnwt = newton_mod(
-                x_pred, t_new, h_real, a0, Qhist, c["Sn"], beta, c0, xdh,
-                chord_solve, init_parts, ~lv)
+                    def chord_solve(b):
+                        return linalg.chord_backsolve(*fct, J, b)
+                else:
+                    fct = linalg.lu_factor_exact(J)
+
+                    def chord_solve(b):
+                        return linalg.lu_solve_exact(*fct, b)
+                xn, Sn_new, Qn_new, nok, nnwt = newton_mod(
+                    x_pred, t_new, h_real, a0, Qhist, c["Sn"], beta, c0,
+                    xdh, chord_solve, init_parts, ~lv)
             if opts.chord_fallback:
                 eligible = c["nfr"] >= opts.rescue_after
                 xfin = torch.isfinite(xn).all(-1)
@@ -592,7 +646,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     xd_all = torch.cat([xdot0[:, None], xd_all], 1)
     finished = c["ok"] & (c["t"] >= t_end)
     return (ts_all, xs_all, xd_all, c["k"] + 1, finished, c["nrej"],
-            c["nnwt"])
+            c["nnwt"], n_att)
 
 
 def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
@@ -604,10 +658,10 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
     axis and/or ``x0`` [L, n_x] — run together and return one
     ``TranSolution`` per lane.  Without ``x0`` the operating point is
     solved first (``Modes.TRANOP``; per lane when the lanes differ)."""
-    opts = resolve_impl(compiled, opts or TranOptions())
     params = compiled.params0 if params is None else params
     if ctx is None:
         ctx = default_ctx(compiled)
+    opts = resolve_impl(compiled, opts or TranOptions(), ctx, params)
     dt, dev = compiled.dtype, compiled.device
     t0, tstop = float(tspan[0]), float(tspan[1])
     span = tstop - t0
@@ -646,7 +700,7 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
     x0b = x0.expand(Lr, compiled.n_x) if x0.dim() == 1 else x0
     ctx_op = ctx.with_mode(Modes.TRANOP).at_time(t0)
     xdot0, lte_mask = xdot0_and_mask(compiled, x0b, ctx_op, params)
-    ts, xs, xd, k, fin, nrej, nnwt = tran_core(
+    ts, xs, xd, k, fin, nrej, nnwt, n_att = tran_core(
         compiled, params, ctx, x0b, xdot0, t0, tstop, bps, h0, opts,
         lte_mask)
     ts, xs, xd = ts.cpu().numpy(), xs.cpu().numpy(), xd.cpu().numpy()
@@ -665,5 +719,6 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
             ts=ts[i, :ki], xs=xs[i, :ki], xdots=xd[i, :ki],
             converged=bool(fin[i]), n_accepted=ki,
             n_rejected=int(nrej[i]), n_newton=int(nnwt[i]),
-            compiled=compiled, ctx=ctx.with_mode(Modes.TRAN), params=pi))
+            compiled=compiled, ctx=ctx.with_mode(Modes.TRAN), params=pi,
+            n_attempts=n_att))
     return sols if batched else sols[0]

@@ -253,11 +253,13 @@ class CompiledCircuit:
             return ctx.at_time(t.repeat_interleave(n_inst))
         return ctx
 
-    def evaluate(self, x, ctx: SimSpec, lp, jac=False, v=None):
+    def evaluate(self, x, ctx: SimSpec, lp, jac=False, v=None, keys=None):
         """Core walk over ``[L, n_x]`` states with prepared lane params
         ``lp`` (:meth:`lane_params`).  Returns (S, Q) [L, n_x]; with
         ``jac=True`` also (G, C) [L, n_x, n_x]; with a direction ``v``
-        [L, n_x] instead the charge tangent C(x)·v [L, n_x]."""
+        [L, n_x] instead the charge tangent C(x)·v [L, n_x].  ``keys``
+        restricts the walk to those groups (in the compiled order): the
+        fused chord plan's linear and nonlinear subsets."""
         L, n = x.shape
         n1 = n + 1
         dt, dev = self.dtype, self.device
@@ -271,7 +273,11 @@ class CompiledCircuit:
             C = torch.zeros(L * n1 * n1, dtype=dt, device=dev)
         if v is not None:
             Qd = torch.zeros(L * n1, dtype=dt, device=dev)
-        for key in self.group_order:
+        walk = self.group_order
+        if keys is not None:
+            keys = set(keys)
+            walk = [k for k in walk if k in keys]
+        for key in walk:
             g = self.groups[key]
             p, mult = lp[key]
             ni = _n_pad(len(g.instances))

@@ -22,6 +22,14 @@ from cedarsim_tpu_torch.ops import gesp_lu
 _REFINE = 2
 
 
+def matvec(A, v):
+    """A·v over the lanes as a product and a row sum (A [n, n] or
+    [L, n, n], v [L, n]): on the CPU a batched ``@`` picks its kernel by
+    batch size, so a lane's rounding would depend on how many lanes run
+    beside it."""
+    return (A * v[..., None, :]).sum(-1)
+
+
 def solve(A, b):
     """Exact A x = b (float64, batched over leading axes).  A singular
     system gives non-finite entries, as LAPACK's solve does in the JAX

@@ -719,8 +719,12 @@ class _State:
 
     def _merge(self, env, cond, env_t, env_f):
         """``cond``: a bool tensor.  Every key either branch touched becomes
-        a ``where`` of the two branch values."""
-        for k in set(env_t) | set(env_f):
+        a ``where`` of the two branch values.  Keys are merged in the order
+        the walk made them (not a set's order, which follows the process's
+        string-hash seed): a new contribution key's place in ``env`` fixes
+        the order in which ``run`` sums it into its rows, so the bits of a
+        model evaluation do not depend on the process."""
+        for k in dict.fromkeys([*env_t, *env_f]):
             base = env.get(k, (self.zero, None))
             tv = env_t.get(k, base)
             fv = env_f.get(k, base)

@@ -1,0 +1,374 @@
+"""Verilog-A → CUDA C++ emitter: one nonlinear device group's ``eval`` as a
+straight-line function.
+
+The fused chord kernel (``ops/fused_chord.py``, ``csrc/fused_chord.cu``)
+evaluates the nonlinear models inside its Newton loop, the way the Pallas
+kernel runs ``model.eval`` under ``jax.jvp`` inside the kernel
+(``cedarsim_tpu/ops/fused_chord.py:496-524``).  This module writes that walk
+as device code::
+
+    __host__ __device__ void <name>(const double* lv, const double* lvd,
+        const double* dyn, double t, double* s, double* q, double* qd)
+
+``lv``/``lvd``: the instance's local unknowns and their tangent; ``dyn``:
+its dynamic params in :func:`dyn_names` order; ``t``: the time.  Outputs:
+the static rows ``s``, the charge rows ``q`` and the tangent of the charge
+rows along ``lvd`` (``qd``), exactly what ``CompiledCircuit.evaluate(...,
+v=...)`` gives per instance before the scatter.
+
+The emitter does not restate any model: it runs the model's own ``eval``
+(for a Verilog-A device, the port's interpreter ``va/codegen.py``) once on
+placeholder tensors (:class:`_Sym`) that record every torch call made on
+them, with each local unknown a single-tangent
+:class:`~cedarsim_tpu_torch.core.dual.Dual`.  So the derivative rules, the
+NaN-safe ``pow``/``sqrt``/``log``, ``limexp`` and the select-not-blend
+``where`` are those of the eager path.  Host constant folding is unchanged:
+static params and the context (temperature, gmin, mode) are Python floats
+and fold into literals; a branch on a dynamic value is recorded as a select
+``c ? a : b`` of two computed sides, never as arithmetic.
+
+The recording is hash-consed (equal operations on equal operands are one
+node), pruned to what the outputs need and numbered in depth-first order
+from the outputs, so the text, and its hash, do not depend on the order the
+walk visited the model's variables in.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+
+import torch
+
+from cedarsim_tpu_torch.core.dual import Dual
+
+_A14 = "ROADMAP A14"
+
+#: C preamble of every emitted header: ``__host__ __device__`` compile away
+#: off nvcc (the host build of the tests), and NaN-propagating min/max
+#: with ``torch.maximum``/``torch.clamp`` semantics
+PREAMBLE = """\
+#pragma once
+#include <math.h>
+#ifndef __CUDACC__
+#define __host__
+#define __device__
+#endif
+#ifndef CS_EMIT_HELPERS
+#define CS_EMIT_HELPERS
+__host__ __device__ static inline double cs_max(double a, double b) {
+  return (a > b || a != a) ? a : b; }
+__host__ __device__ static inline double cs_min(double a, double b) {
+  return (a < b || a != a) ? a : b; }
+__host__ __device__ static inline double cs_sign(double a) {
+  return (double)((a > 0.0) - (a < 0.0)); }
+#endif
+"""
+
+_BIN = {"add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
+        "div": "({0} / {1})", "lt": "({0} < {1})", "le": "({0} <= {1})",
+        "gt": "({0} > {1})", "ge": "({0} >= {1})", "eq": "({0} == {1})",
+        "ne": "({0} != {1})", "and": "({0} && {1})", "or": "({0} || {1})",
+        "max": "cs_max({0}, {1})", "min": "cs_min({0}, {1})",
+        "atan2": "atan2({0}, {1})", "hypot": "hypot({0}, {1})",
+        "fmod": "fmod({0}, {1})", "pow": "pow({0}, {1})"}
+_UN = {"neg": "(-{0})", "not": "(!{0})", "exp": "exp({0})",
+       "log": "log({0})", "sqrt": "sqrt({0})", "abs": "fabs({0})",
+       "sign": "cs_sign({0})", "floor": "floor({0})", "ceil": "ceil({0})",
+       "rsqrt": "(1.0 / sqrt({0}))", "sin": "sin({0})", "cos": "cos({0})",
+       "tan": "tan({0})", "asin": "asin({0})", "acos": "acos({0})",
+       "atan": "atan({0})", "sinh": "sinh({0})", "cosh": "cosh({0})",
+       "tanh": "tanh({0})", "asinh": "asinh({0})", "acosh": "acosh({0})",
+       "atanh": "atanh({0})", "tobool": "({0} != 0.0)",
+       "todouble": "({0} ? 1.0 : 0.0)"}
+_BOOL_OPS = frozenset(("lt", "le", "gt", "ge", "eq", "ne", "and", "or",
+                       "not", "tobool"))
+#: torch names → recorded op (reflected forms swap their operands)
+_TORCH_BIN = {"add": "add", "__add__": "add", "__radd__": "radd",
+              "sub": "sub", "__sub__": "sub", "__rsub__": "rsub",
+              "mul": "mul", "__mul__": "mul", "__rmul__": "rmul",
+              "div": "div", "__truediv__": "div", "true_divide": "div",
+              "__rdiv__": "rdiv", "__rtruediv__": "rdiv",
+              "lt": "lt", "__lt__": "lt", "le": "le", "__le__": "le",
+              "gt": "gt", "__gt__": "gt", "ge": "ge", "__ge__": "ge",
+              "eq": "eq", "__eq__": "eq", "ne": "ne", "__ne__": "ne",
+              "__and__": "and", "bitwise_and": "and", "logical_and": "and",
+              "__rand__": "rand", "__or__": "or", "bitwise_or": "or",
+              "logical_or": "or", "__ror__": "ror", "maximum": "max",
+              "minimum": "min", "atan2": "atan2", "hypot": "hypot",
+              "fmod": "fmod", "pow": "pow", "__pow__": "pow",
+              "__rpow__": "rpow"}
+_TORCH_UN = {"neg": "neg", "__neg__": "neg", "negative": "neg",
+             "exp": "exp", "log": "log", "sqrt": "sqrt", "abs": "abs",
+             "__abs__": "abs", "sign": "sign", "floor": "floor",
+             "ceil": "ceil", "rsqrt": "rsqrt", "sin": "sin", "cos": "cos",
+             "tan": "tan", "asin": "asin", "acos": "acos", "atan": "atan",
+             "sinh": "sinh", "cosh": "cosh", "tanh": "tanh",
+             "asinh": "asinh", "acosh": "acosh", "atanh": "atanh",
+             "__invert__": "not", "bitwise_not": "not",
+             "logical_not": "not"}
+_IDENTITY = frozenset(("as_tensor", "expand", "expand_as", "clone",
+                       "contiguous", "reshape", "view", "detach",
+                       "squeeze", "unsqueeze"))
+#: ``torch.pow`` with these literal exponents takes another path in
+#: PyTorch's kernels (a product, a square root, a reciprocal); the emitted
+#: code follows it
+_POW_SPECIAL = {2.0: "({0} * {0})", 3.0: "({0} * {0} * {0})",
+                0.5: "sqrt({0})", -0.5: "(1.0 / sqrt({0}))",
+                -1.0: "(1.0 / {0})", -2.0: "(1.0 / ({0} * {0}))"}
+
+
+class _Recorder:
+    def __init__(self):
+        self.nodes = []          # (op, args, kind): kind "d" or "b"
+        self.cse = {}
+
+    def node(self, op, args, kind):
+        key = (op, tuple(_akey(a) for a in args))
+        hit = self.cse.get(key)
+        if hit is not None:
+            return hit
+        nid = len(self.nodes)
+        self.nodes.append((op, tuple(args), kind))
+        sym = _Sym._new(self, nid, kind)
+        self.cse[key] = sym
+        return sym
+
+
+def _akey(a):
+    if isinstance(a, _Sym):
+        return ("n", a._nid)
+    if isinstance(a, (bool, str)):
+        return (type(a).__name__, a)
+    return ("c", float(a).hex())
+
+
+class _Sym(torch.Tensor):
+    """A placeholder [1] tensor standing for one node of the recording.
+    Every torch function or operator applied to it records a node and
+    returns a new placeholder; nothing is computed."""
+
+    @staticmethod
+    def _new(rec, nid, kind):
+        dt = torch.bool if kind == "b" else torch.float64
+        s = torch.Tensor._make_subclass(_Sym, torch.zeros(1, dtype=dt))
+        s._rec, s._nid, s._kind = rec, nid, kind
+        return s
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", str(func))
+        if name == "__get__" or name in ("dim", "size", "numel",
+                                         "is_floating_point"):
+            with torch._C.DisableTorchFunctionSubclass():
+                return func(*args, **kwargs)
+        for a in list(args) + list(kwargs.values()):
+            if isinstance(a, Dual):
+                return NotImplemented      # Dual's reflected operator
+        rec = next((a._rec for a in list(args) + list(kwargs.values())
+                    if isinstance(a, _Sym)), None)
+        if rec is None:
+            raise NotImplementedError(f"emit: torch.{name} on nested "
+                                      f"operands ({_A14})")
+        return _record(rec, name, args, kwargs)
+
+
+def _lit(a):
+    """An operand as a node or a Python literal (a constant real tensor,
+    as the walk's ``torch.full`` makes, becomes its value)."""
+    if isinstance(a, _Sym):
+        return a
+    if isinstance(a, torch.Tensor):
+        flat = a.detach().reshape(-1)
+        if flat.numel() == 0 or not bool((flat == flat[0]).all()):
+            raise NotImplementedError(
+                "emit: a non-uniform constant tensor reached the model walk "
+                f"(point-list params are {_A14})")
+        v = flat[0].item()
+        return bool(v) if a.dtype == torch.bool else float(v)
+    if isinstance(a, bool):
+        return a
+    if isinstance(a, (int, float)):
+        return float(a)
+    raise NotImplementedError(f"emit: operand of type {type(a).__name__}")
+
+
+def _kind(a):
+    if isinstance(a, _Sym):
+        return a._kind
+    return "b" if isinstance(a, bool) else "d"
+
+
+def _record(rec, name, args, kwargs):
+    if name in _IDENTITY:
+        return args[0]
+    if name == "to":
+        dt = kwargs.get("dtype", args[1] if len(args) > 1 else None)
+        x = args[0]
+        if dt == torch.float64:
+            return rec.node("todouble", (x,), "d") if x._kind == "b" else x
+        if dt == torch.bool:
+            return x if x._kind == "b" else rec.node("tobool", (x,), "b")
+        raise NotImplementedError(
+            f"emit: cast to {dt} (integer VA arithmetic is {_A14})")
+    if name in ("full_like", "ones_like", "zeros_like"):
+        dt = kwargs.get("dtype") or args[0].dtype
+        v = {"ones_like": 1.0, "zeros_like": 0.0}.get(name)
+        if v is None:
+            v = float(_lit(args[1] if len(args) > 1 else kwargs["fill_value"]))
+        return bool(v) if dt == torch.bool else v
+    if name == "where":
+        c, a, b = (_lit(x) for x in args)
+        kind = "b" if _kind(a) == _kind(b) == "b" else "d"
+        return rec.node("where", (c, a, b), kind)
+    if name == "clamp":
+        x = _lit(args[0])
+        lo = kwargs.get("min", args[1] if len(args) > 1 else None)
+        hi = kwargs.get("max", args[2] if len(args) > 2 else None)
+        if lo is not None:
+            x = rec.node("max", (x, _lit(lo)), "d")
+        if hi is not None:
+            x = rec.node("min", (x, _lit(hi)), "d")
+        return x
+    if name == "addcmul":
+        if kwargs.get("value", 1) != 1:
+            raise NotImplementedError("emit: addcmul with value != 1")
+        a, b, c = (_lit(x) for x in args)
+        return rec.node("add", (a, rec.node("mul", (b, c), "d")), "d")
+    if name in _TORCH_UN and len(args) == 1 and not kwargs:
+        op = _TORCH_UN[name]
+        kind = "b" if op == "not" else "d"
+        if op == "not" and _kind(args[0]) != "b":
+            raise NotImplementedError(
+                f"emit: bitwise not of a number ({_A14})")
+        return rec.node(op, (_lit(args[0]),), kind)
+    if name in _TORCH_BIN and len(args) == 2 and not kwargs:
+        op = _TORCH_BIN[name]
+        a, b = _lit(args[0]), _lit(args[1])
+        if op in ("radd", "rsub", "rmul", "rdiv", "rand", "ror", "rpow"):
+            op, a, b = op[1:], b, a
+        if op in ("and", "or") and not (_kind(a) == _kind(b) == "b"):
+            raise NotImplementedError(
+                f"emit: bitwise '{op}' of numbers ({_A14})")
+        kind = "b" if op in _BOOL_OPS else "d"
+        return rec.node(op, (a, b), kind)
+    raise NotImplementedError(
+        f"emit: torch.{name} in a model walk has no device-code form yet "
+        f"({_A14})")
+
+
+def _c_lit(v):
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if math.isnan(v):
+        return "NAN"
+    if math.isinf(v):
+        return "INFINITY" if v > 0 else "(-INFINITY)"
+    r = repr(float(v))
+    return f"({r})" if r.startswith("-") else r
+
+
+def dyn_names(compiled, key):
+    """The dynamic params of group ``key`` (per-instance values, in the
+    compiled params' order; ``$mult`` is applied by the scatter)."""
+    return [pn for pn in compiled.params0[key] if pn != "$mult"]
+
+
+def emit_group(compiled, key, ctx):
+    """Emit group ``key``'s model as C++.  Returns ``(name, text, hash)``:
+    the function's name, the header text (preamble included) and the
+    sha256 of the text."""
+    g = compiled.groups[key]
+    model = g.model
+    nlv, nlr = model.n_lvar(), model.n_lrow()
+    rec = _Recorder()
+    lv = [Dual(rec.node("in", ("lv", k), "d"), rec.node("in", ("lvd", k), "d"))
+          for k in range(nlv)]
+    p = dict(g.static_params)
+    for pt in p.values():
+        if isinstance(pt, torch.Tensor):
+            raise NotImplementedError(
+                f"emit: group {key!r} has a point-list static param "
+                f"({_A14})")
+    for k, pn in enumerate(dyn_names(compiled, key)):
+        p[pn] = rec.node("in", ("dyn", k), "d")
+    ctx_e = ctx.at_time(rec.node("in", ("t",), "d"))
+    s_rows, q_rows = model.eval(lv, p, ctx_e, None)
+    if len(s_rows) != nlr or len(q_rows) != nlr:
+        raise ValueError(f"emit: {key!r} returned {len(s_rows)}/"
+                         f"{len(q_rows)} rows, expected {nlr}")
+    outs = []
+    for k, r in enumerate(s_rows):
+        outs.append((f"s[{k}]", _lit(r.v if isinstance(r, Dual) else r)))
+    for k, r in enumerate(q_rows):
+        outs.append((f"q[{k}]", _lit(r.v if isinstance(r, Dual) else r)))
+    for k, r in enumerate(q_rows):
+        d = r.d if isinstance(r, Dual) else 0.0
+        outs.append((f"qd[{k}]", _lit(d)))
+    body = _emit_body(rec, outs)
+    safe = "".join(ch if ch.isalnum() else "_" for ch in key)
+    sig = ("__host__ __device__ static inline void {name}(const double* lv, "
+           "const double* lvd, const double* dyn, double t, double* s, "
+           "double* q, double* qd)")
+    probe = sig.format(name="MODEL") + " {\n" + body + "}\n"
+    tag = hashlib.sha256(probe.encode()).hexdigest()
+    name = f"cs_{safe}_{tag[:12]}"
+    text = (PREAMBLE + f"// {key}: {nlv} local unknowns, {nlr} rows, "
+            f"{len(dyn_names(compiled, key))} dynamic params\n"
+            + sig.format(name=name) + " {\n" + body + "}\n")
+    return name, text, hashlib.sha256(text.encode()).hexdigest()
+
+
+def _emit_body(rec, outs):
+    """Straight-line C for ``outs`` [(lvalue, node or literal)]: only the
+    nodes the outputs need, in depth-first post-order from the outputs."""
+    order, seen = [], set()
+    for _, v in outs:
+        if not isinstance(v, _Sym) or v._nid in seen:
+            continue
+        stack = [(v._nid, False)]
+        while stack:
+            nid, expanded = stack.pop()
+            if expanded:
+                order.append(nid)
+                continue
+            if nid in seen:
+                continue
+            seen.add(nid)
+            stack.append((nid, True))
+            op, args, _ = rec.nodes[nid]
+            if op == "in":
+                continue
+            for a in reversed(args):
+                if isinstance(a, _Sym) and a._nid not in seen:
+                    stack.append((a._nid, False))
+    local = {nid: f"v{i}" for i, nid in enumerate(order)}
+
+    def ref(a):
+        return local[a._nid] if isinstance(a, _Sym) else _c_lit(a)
+
+    lines = []
+    for nid in order:
+        op, args, kind = rec.nodes[nid]
+        if op == "in":
+            src = args[0] if args[0] == "t" else f"{args[0]}[{args[1]}]"
+            expr = src
+        elif op == "where":
+            expr = "({0} ? {1} : {2})".format(*map(ref, args))
+        elif op == "pow" and not isinstance(args[1], _Sym) \
+                and args[1] in _POW_SPECIAL:
+            expr = _POW_SPECIAL[args[1]].format(ref(args[0]))
+        elif op in _BIN:
+            expr = _BIN[op].format(ref(args[0]), ref(args[1]))
+        else:
+            expr = _UN[op].format(ref(args[0]))
+        ty = "bool" if kind == "b" else "double"
+        lines.append(f"  const {ty} {local[nid]} = {expr};\n")
+    for lhs, v in outs:
+        val = ref(v)
+        if isinstance(v, _Sym) and v._kind == "b":
+            val = f"({val} ? 1.0 : 0.0)"
+        lines.append(f"  {lhs} = {val};\n")
+    return "".join(lines)
+

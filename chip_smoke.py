@@ -8,23 +8,37 @@ Phases, each printing one line (any failure raises, so the exit code is not
 
 1. device  — requires CUDA; prints the card's name and power limit; full
    float32 matmuls (no TF32).
-2. build   — compiles the CUDA GESP LU kernels from the checkout's sources.
-3. kernels — each kernel against its plain PyTorch version on the card
+2. build   — compiles the CUDA GESP LU kernels from the checkout's sources;
+   beside it, in a thread, the fused chord kernel with the BSIM4 model
+   emitted from the DFF's plan (the DFF is set up on the card first).
+3. kernels — each GESP kernel against its plain PyTorch version on the card
    (random, equilibrated, diagonally dominant inputs from a fixed numpy
    seed); the mixed chord solve against float64 ``torch.linalg.solve``;
    kernel and plain times at the DFF transient's shape.
 4. rc      — the RC step circuit against its closed form.
-5. slice   — the gf180 DFF BSIM4 testbench: parse → elaborate → compile on
-   the card → transient operating point → per-lane warm DC → an 8-lane
-   transient with a per-lane W scatter through the mixed chord path, gated
-   on the benchmark's golden Q levels; both kernels must have launched.
+5. slice   — the gf180 DFF BSIM4 testbench (parse → elaborate → compile
+   on the card → transient operating point → per-lane warm DC) as an 8-lane
+   transient with a per-lane W scatter through the mixed chord path
+   (``newton_impl="xla"``), gated on the benchmark's golden Q levels; both
+   GESP kernels must have launched.
+   repeat  — that path over 0-60 ns twice in this process and once in each
+   of two child processes with other string-hash seeds: bitwise equal.
+6. fused_kernel — the fused chord kernel against its plain version on the
+   DFF's lanes (seeded 0.05 V perturbation, BE start, two step sizes):
+   equal (ok, Newton count), xn/S/Q within 1e-9, two launches bitwise
+   equal; kernel and plain times, emit and nvcc seconds, ptxas registers
+   and spills.
+7. fused_slice — the DFF through the public ``tran()`` with
+   ``newton_impl="fused"`` (the JAX package's fused configuration), gated
+   like phase 5; one fused launch per batched step attempt.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
-launches on the main path, error and times.  The last line is
-``{"ok": true, "device": {...}}``.
+launches on its path (B1 in phase 7, B2/B3 in phase 5), error and times.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,6 +59,9 @@ KERNEL_RTOL = 1e-5
 #: the mixed chord solve (float32 GESP + two float64 refinement passes)
 #: against float64 torch.linalg.solve on well-conditioned systems
 CHORD_RTOL = 1e-10
+#: the fused chord kernel against its plain version: the same float64 loop
+#: (no FMA contraction), other summation orders in the row sums
+FUSED_RTOL = 1e-9
 
 
 def log(phase, **kw):
@@ -162,12 +179,13 @@ def phase_rc(T, dev):
         rejected=sol.n_rejected, wall_s=wall)
 
 
-def phase_slice(torch, T, gesp_lu, dev):
-    import dataclasses
+def dff_setup(torch, T, dev):
+    """The DFF testbench compiled on the card, its transient operating
+    point and the per-lane warm DC of the W scatter.  Returns (comp, ctx,
+    per-lane params, per-lane initial states, golden, set-up seconds)."""
     from cedarsim_tpu_torch.analysis.dc import dc_core
     with open(os.path.join(DFF_DIR, "golden_bsim4.json")) as f:
         golden = json.load(f)
-    tstop = 7e-7
     t0 = time.perf_counter()
     with open(os.path.join(DFF_DIR, "dff_tb_bsim4.cir")) as f:
         nl = T.parse_spice(f.read(), file="dff_tb_bsim4.cir")
@@ -192,33 +210,23 @@ def phase_slice(torch, T, gesp_lu, dev):
                    op.x.expand(N_LANES, comp.n_x), light)
     if not bool(warm.converged.all()):
         raise AssertionError("per-lane warm DC did not converge")
-    t_setup = time.perf_counter() - t0
-    # the mixed path's GESP factor has no pivoting: a Jacobian-only shunt
-    # on the voltage rows keeps the node-first MNA pivots away from exact
-    # cancellation (see PERF.md); the converged corrector is unchanged
-    opts = T.TranOptions(max_steps=8192, jac_reuse=1, dense_lu="mixed",
-                         newton_impl="xla", accept_slack=1.5,
-                         jac_shunt=1e-9)
-    gesp_lu.lu_factor_gesp_f32.launches = 0
-    gesp_lu.lu_subst_gesp_f32.launches = 0
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    sols = T.tran(comp, (0.0, tstop), params=pb, ctx=ctx, opts=opts,
-                  x0=warm.x)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    launches = {"factor": gesp_lu.lu_factor_gesp_f32.launches,
-                "subst": gesp_lu.lu_subst_gesp_f32.launches}
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"kernels not on the main path: {launches}")
+    return comp, ctx, pb, warm.x, golden, time.perf_counter() - t0
+
+
+def gate_golden(sols, golden, n_x, windows_ns=None):
+    """The benchmark's gate: every lane finished with finite waveforms,
+    the nominal lane within GOLDEN_TOL of every golden point, every lane at
+    the points outside the 401 ns race.  Returns the worst error."""
     worst, errs = 0.0, []
     for lane, sol in enumerate(sols):
         if not sol.converged:
             raise AssertionError(f"lane {lane} did not finish")
-        if not (np.isfinite(sol.xs).all() and sol.xs.shape[1] == comp.n_x):
+        if not (np.isfinite(sol.xs).all() and sol.xs.shape[1] == n_x):
             raise AssertionError(f"lane {lane}: bad waveform")
         for j, (t_ns, g) in enumerate(zip(golden["samples_ns"],
                                           golden["q"])):
+            if windows_ns is not None and t_ns not in windows_ns:
+                continue
             if j in (2, 3) and lane != N_LANES // 2:
                 continue        # the race points gate only the nominal lane
             err = abs(float(sol.interp("q", t_ns * 1e-9)) - g)
@@ -227,16 +235,248 @@ def phase_slice(torch, T, gesp_lu, dev):
                 errs.append((lane, t_ns, err))
     if errs:
         raise AssertionError(f"golden gate failed (lane, ns, err): {errs}")
+    return worst
+
+
+def counts(sols):
+    return dict(accepted=sum(s.n_accepted for s in sols),
+                rejected=sum(s.n_rejected for s in sols),
+                newton=sum(s.n_newton for s in sols))
+
+
+#: the mixed chord path of phase 5: the charge-form trap of
+#: bench.py::dff_batched_leg's CPU reference mode; the GESP factor has no
+#: pivoting, so a Jacobian-only shunt on the voltage rows keeps the
+#: node-first MNA pivots away from exact cancellation (see PERF.md); the
+#: converged corrector is unchanged
+XLA_OPTS = dict(max_steps=8192, jac_reuse=1, dense_lu="mixed",
+                newton_impl="xla", accept_slack=1.5, jac_shunt=1e-9)
+#: the JAX package's fused configuration: cap form, bench.py LEGS["bsim4"]
+#: ["tpu_opts"] (bench.py:96-98), accept_slack 1.0 (the strict TPU legs)
+FUSED_OPTS = dict(max_steps=8192, jac_reuse=1, formulation="cap",
+                  newton_impl="fused", dense_lu="mixed", newton_reltol=1e-4,
+                  newton_abstol=5e-7, res_tol=1e-3, jac_shunt=1e-7,
+                  res_rel=3e-5, rtol=1e-2, atol=1e-4)
+
+
+def phase_slice(torch, T, gesp_lu, dev, dff):
+    comp, ctx, pb, x0, golden, t_setup = dff
+    tstop = 7e-7
+    opts = T.TranOptions(**XLA_OPTS)
+    gesp_lu.lu_factor_gesp_f32.launches = 0
+    gesp_lu.lu_subst_gesp_f32.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sols = T.tran(comp, (0.0, tstop), params=pb, ctx=ctx, opts=opts, x0=x0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"factor": gesp_lu.lu_factor_gesp_f32.launches,
+                "subst": gesp_lu.lu_subst_gesp_f32.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"kernels not on the main path: {launches}")
+    worst = gate_golden(sols, golden, comp.n_x)
     log("slice", lanes=N_LANES, setup_s=t_setup, wall_s=wall,
         transients_per_s=N_LANES / wall, worst_golden_err=worst,
-        accepted=sum(s.n_accepted for s in sols),
-        rejected=sum(s.n_rejected for s in sols),
-        newton=sum(s.n_newton for s in sols), launches=launches,
+        **counts(sols), attempts=sols[0].n_attempts, launches=launches,
+        card=smi())
+    return launches
+
+
+#: the repeat phase's window (the mixed chord path, 8 lanes)
+REPEAT_TSTOP = 6e-8
+
+
+def repeat_run(T, dff):
+    """One run of the repeat phase: (ts per lane, xs per lane, counts)."""
+    comp, ctx, pb, x0, _, _ = dff
+    sols = T.tran(comp, (0.0, REPEAT_TSTOP), params=pb, ctx=ctx,
+                  opts=T.TranOptions(**XLA_OPTS), x0=x0)
+    return ([s.ts for s in sols], [s.xs for s in sols],
+            [(s.n_accepted, s.n_rejected, s.n_newton) for s in sols])
+
+
+def _same(a, b):
+    return a[2] == b[2] and all(
+        np.array_equal(u, w) for u, w in zip(a[0] + a[1], b[0] + b[1]))
+
+
+def phase_repeat(torch, T, dev, dff):
+    """The mixed chord path on identical inputs, twice in this process and
+    once in each of two child processes with string-hash seeds 1 and 2
+    (before the interpreter merged branches in walk order, those two seeds
+    summed the BSIM4 rows in two different orders): every run must be
+    bitwise equal to the first."""
+    import tempfile
+    t0 = time.perf_counter()
+    runs = [repeat_run(T, dff), repeat_run(T, dff)]
+    wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in ("1", "2"):
+            out = os.path.join(tmp, f"run{seed}.npz")
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--repeat-child",
+                 out], capture_output=True, text=True, timeout=600,
+                env={**os.environ, "PYTHONHASHSEED": seed})
+            if proc.returncode != 0:
+                raise AssertionError(f"repeat child (seed {seed}) failed:\n"
+                                     f"{proc.stderr[-4000:]}")
+            z = np.load(out)
+            L = int(z["lanes"])
+            runs.append(([z[f"ts{i}"] for i in range(L)],
+                         [z[f"xs{i}"] for i in range(L)],
+                         [tuple(int(c) for c in z["counts"][i])
+                          for i in range(L)]))
+    equal = [_same(runs[0], r) for r in runs[1:]]
+    dmax = 0.0
+    for r in runs[1:]:
+        for u, w in zip(runs[0][1], r[1]):
+            m = min(len(u), len(w))
+            dmax = max(dmax, float(np.abs(u[:m] - w[:m]).max()))
+    log("repeat", bitwise_equal_in_process=equal[0],
+        bitwise_equal_hash_seed_1_2=equal[1:], max_abs_dx=dmax,
+        steps=[[sum(c[k] for c in r[2]) for k in range(3)] for r in runs],
+        wall_s_two_runs=wall)
+    if not all(equal):
+        raise AssertionError("the mixed chord path is not reproducible: "
+                             f"{equal}")
+
+
+def repeat_child(out):
+    """``--repeat-child OUT``: the DFF set-up and one repeat run on the
+    card, saved to OUT (numpy .npz)."""
+    import torch
+    sys.path.insert(0, REPO)
+    import cedarsim_tpu_torch as T
+    dev = torch.device("cuda", 0)
+    ts, xs, cnt = repeat_run(T, dff_setup(torch, T, dev))
+    np.savez(out, lanes=len(ts), counts=np.asarray(cnt),
+             **{f"ts{i}": a for i, a in enumerate(ts)},
+             **{f"xs{i}": a for i, a in enumerate(xs)})
+
+
+def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
+    """The fused chord kernel against its plain version on the DFF's lanes
+    at a BE start from the warm state, with the node unknowns perturbed by
+    a seeded 0.05 V so that the loop iterates: equal (ok, nnwt) per lane,
+    xn, S and Q within FUSED_RTOL, and two kernel runs bitwise equal.  S
+    is held against the scale of the currents it is summed from (S at the
+    predictor): the converged S cancels to ~1e-11 A from device currents
+    of ~0.1 A, so its round-off relative to itself is ~1e-7 even where the
+    model walks agree to 1e-19."""
+    comp, ctx, pb, x0, _, _ = dff
+    opts = T.TranOptions(**FUSED_OPTS)
+    ctx_t = ctx.with_mode("tran")
+    info = plan.build()
+    rng = np.random.default_rng(0)
+    L, n = x0.shape
+    pert = np.zeros((L, n))
+    pert[:, :comp.n_nodes] = rng.uniform(-0.05, 0.05, (L, comp.n_nodes))
+    x_pred = x0 + torch.as_tensor(pert, dtype=comp.dtype, device=dev)
+    nv = comp.n_nodes + comp.n_internal
+    shunt = opts.jac_shunt * torch.diag(
+        (torch.arange(n, device=dev) < nv).to(comp.dtype))
+    worst = dict(xn=0.0, S=0.0, Q=0.0)
+    s_final_rel = 0.0
+    abs_err = 0.0
+    nnwt = []
+    times = times_b1 = None
+    for h in (1e-12, 1e-10):
+        t = torch.full((L,), h, dtype=comp.dtype, device=dev)
+        c0 = torch.ones(L, dtype=comp.dtype, device=dev)
+        _, _, G, C = comp.res_jacs_fwd(x_pred, ctx_t.at_time(t), pb)
+        J = C / h + G + shunt
+        args = plan.inputs(x_pred, J, plan.s_off(t, ctx_t, pb), c0,
+                           torch.full_like(t, h), -x0, t, pb)
+        k1 = fc.fused_chord(plan, *args, opts)
+        k2 = fc.fused_chord(plan, *args, opts)
+        p = fc.fused_chord_plain(plan, *args, opts)
+        # S at the predictor: the scale of the device currents that the
+        # converged S (a residual of ~1e-11 A) cancels from
+        s_scale = float(fc.fused_chord_plain(
+            plan, *args, dataclasses.replace(opts, max_newton=0))[1]
+            .abs().max())
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, w) for u, w in zip(k1, k2)):
+            raise AssertionError(f"h={h}: two kernel runs differ")
+        if not torch.equal(k1[3], p[3]):
+            raise AssertionError(f"h={h}: (ok, nnwt) kernel "
+                                 f"{k1[3].tolist()} vs plain {p[3].tolist()}")
+        for name, u, w in zip(("xn", "S", "Q"), k1[:3], p[:3]):
+            err = float((u - w).abs().max())
+            scale = float(w.abs().max())
+            if name == "S":
+                s_final_rel = max(s_final_rel, err / max(scale, 1e-300))
+                scale = max(scale, s_scale)
+            rel = err / max(scale, 1e-300)
+            if not (rel <= FUSED_RTOL):
+                raise AssertionError(f"h={h} {name}: relative error {rel:.3g}"
+                                     f" > {FUSED_RTOL}")
+            worst[name] = max(worst[name], rel)
+            if name == "xn":
+                abs_err = max(abs_err, err)
+        nnwt.append(k1[3].tolist())
+        if times is None:
+            times = (cuda_time_ms(lambda: fc.fused_chord(plan, *args, opts),
+                                  50),
+                     cuda_time_ms(lambda: fc.fused_chord_plain(
+                         plan, *args, opts), 5))
+            # B1': the same kernel for one lane (the nominal one)
+            p1 = {k: {pn: v[N_LANES // 2:N_LANES // 2 + 1]
+                      for pn, v in g.items()} for k, g in pb.items()}
+            one = slice(N_LANES // 2, N_LANES // 2 + 1)
+            args1 = plan.inputs(x_pred[one], J[one],
+                                plan.s_off(t[one], ctx_t, p1), c0[one],
+                                torch.full_like(t[one], h), -x0[one],
+                                t[one], p1)
+            times_b1 = (cuda_time_ms(
+                lambda: fc.fused_chord(plan, *args1, opts), 50),
+                cuda_time_ms(lambda: fc.fused_chord_plain(
+                    plan, *args1, opts), 5))
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if any(w in ln for w in ("Function properties", "registers",
+                                      "spill"))]
+    log("fused_kernel", worst_rel_err=worst,
+        s_rel_to_final_s=s_final_rel, ok_nnwt=nnwt,
+        ms_kernel_vs_plain=list(times),
+        ms_kernel_vs_plain_one_lane=list(times_b1), shape=[L, n],
+        n_inst=plan.n_inst,
+        threads=plan.threads, smem_bytes=plan.smem_bytes,
+        smem_limit=plan.smem_limit, plan_s=t_plan,
+        emit_s=info["emit_seconds"], nvcc_s=info["nvcc_seconds"],
+        ptxas=ptxas, header=os.path.relpath(info["path"], REPO))
+    return abs_err, times, info
+
+
+def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
+    comp, ctx, pb, x0, golden, t_setup = dff
+    tstop = 7e-7
+    opts = T.TranOptions(**FUSED_OPTS)
+    fc.fused_chord.launches = 0
+    gesp_lu.lu_factor_gesp_f32.launches = 0
+    gesp_lu.lu_subst_gesp_f32.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sols = T.tran(comp, (0.0, tstop), params=pb, ctx=ctx, opts=opts, x0=x0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"fused": fc.fused_chord.launches,
+                "factor": gesp_lu.lu_factor_gesp_f32.launches,
+                "subst": gesp_lu.lu_subst_gesp_f32.launches}
+    if launches["fused"] != sols[0].n_attempts or launches["fused"] <= 0:
+        raise AssertionError(f"fused launches {launches['fused']} != "
+                             f"{sols[0].n_attempts} step attempts")
+    worst = gate_golden(sols, golden, comp.n_x)
+    log("fused_slice", lanes=N_LANES,
+        setup_s=t_setup + fused_setup["plan_s"] + fused_setup["nvcc_s"],
+        fused_setup_s=fused_setup, wall_s=wall,
+        transients_per_s=N_LANES / wall, worst_golden_err=worst,
+        **counts(sols), attempts=sols[0].n_attempts, launches=launches,
         card=smi())
     return launches
 
 
 def main():
+    import threading
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -244,21 +484,56 @@ def main():
     sys.path.insert(0, REPO)
     import cedarsim_tpu_torch as T
     from cedarsim_tpu_torch.ops import gesp_lu, linalg
+    from cedarsim_tpu_torch.ops import fused_chord as fc
+    from cedarsim_tpu_torch.analysis.tran import fused_plan_for
     dev = torch.device("cuda", 0)
     card = smi()
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are enabled")
     log("device", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, count=torch.cuda.device_count())
+    dff = dff_setup(torch, T, dev)
+    # both kernel sources compile at once: the fused kernel with the
+    # BSIM4 model emitted from the DFF's plan, in a thread beside the GESP
+    # build (nvcc runs as its own process)
+    t_plan = time.perf_counter()
+    plan = fused_plan_for(dff[0], dff[1], dff[2])
+    t_plan = time.perf_counter() - t_plan
+    fused_build = {}
+
+    def build_fused():
+        try:
+            fused_build["info"] = plan.build()
+        except BaseException as e:          # re-raised after the join
+            fused_build["error"] = e
+
+    th = threading.Thread(target=build_fused)
+    th.start()
     b = gesp_lu.build()
     ptxas = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln]
     log("build", seconds=b["seconds"], path=os.path.relpath(b["path"], REPO),
         ptxas=ptxas)
     abs_err, times = phase_kernels(torch, gesp_lu, linalg, dev)
     phase_rc(T, dev)
-    launches = phase_slice(torch, T, gesp_lu, dev)
+    launches = phase_slice(torch, T, gesp_lu, dev, dff)
+    phase_repeat(torch, T, dev, dff)
+    th.join()
+    if "error" in fused_build:
+        raise fused_build["error"]
+    fabs_err, ftimes, info = phase_fused_kernel(torch, T, fc, dev, dff,
+                                                plan, t_plan)
+    flaunches = phase_fused_slice(
+        torch, T, gesp_lu, fc, dev, dff,
+        dict(plan_s=t_plan, emit_s=info["emit_seconds"],
+             nvcc_s=info["nvcc_seconds"]))
     src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
     kernels = [
+        {"name": "fused_chord_f64", "route": "cuda",
+         "source": "cedarsim_tpu_torch/csrc/fused_chord.cu",
+         "replaces": "cedarsim_tpu/ops/fused_chord.py:632",
+         "also_replaces": "cedarsim_tpu/ops/fused_chord.py:526",
+         "launches": flaunches["fused"], "max_abs_err": fabs_err,
+         "ms": ftimes[0], "plain_ms": ftimes[1]},
         {"name": "gesp_factor_f32", "route": "cuda", "source": src,
          "replaces": "cedarsim_tpu/ops/pallas_lu.py:313",
          "launches": launches["factor"], "max_abs_err": abs_err["factor"],
@@ -276,4 +551,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--repeat-child":
+        repeat_child(sys.argv[2])
+    else:
+        main()

@@ -13,14 +13,30 @@ which sets JAX up for the other files):
   float64 ``torch.linalg.solve`` (1e-10 relative, well-conditioned systems).
 - The RC step on the card through the mixed chord path: the closed form one
   τ after the edge (5e-3 V), with both kernels launched.
+- The fused chord kernel against its plain version on a VA diode circuit
+  and a BSIM4 inverter at B ∈ {1, 3, 8} lanes (seeded perturbation, BE
+  start): equal (ok, Newton count), xn and Q within 1e-9 relative, S
+  within 1e-9 of the currents' scale (S at the predictor: the converged S
+  is a residual that cancels far below it); two launches bitwise equal;
+  the wrapper refuses another dtype, a non-contiguous input or a CPU
+  tensor; ``tran(newton_impl="fused")`` launches once per step attempt.
 """
+
+import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
 import cedarsim_tpu_torch as T
+from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+from cedarsim_tpu_torch.ops import fused_chord as fc
 from cedarsim_tpu_torch.ops import gesp_lu, linalg
+from cedarsim_tpu_torch.va.codegen import load_va
+
+DFF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "benchmarks", "gf180_dff")
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +119,134 @@ def test_rc_closed_form_on_the_card(cuda_device):
     assert gesp_lu.lu_subst_gesp_f32.launches > s0
     want = 3.3 * (1.0 - np.exp(-1.0))
     assert abs(sol.interp("vout", 2.001e-6) - want) < 5e-3
+
+
+# ------------------------------------------------------- fused chord kernel
+
+VA_DIODE = """
+module fdiode(a, c);
+  inout a, c;
+  electrical a, c;
+  parameter real is_ = 1e-14 from (0:1];
+  parameter real n = 1.0;
+  real id, vd;
+  analog begin
+    vd = V(a, c);
+    if (vd > -5.0 * n * $vt)
+      id = is_ * (limexp(vd / (n * $vt)) - 1.0);
+    else
+      id = -is_;
+    I(a, c) <+ id;
+    I(a, c) <+ ddt(1e-13 * vd);
+  end
+endmodule
+"""
+
+INVERTER = """* BSIM4 inverter on the DFF's 5 V cards
+.include "models_bsim4.spice"
+vdd vdd 0 5.0
+vin in 0 PULSE(0 5 2n 0.2n 0.2n 4n 10n)
+xp out in vdd vdd pfet_06v0 w=2u l=0.6u
+xn out in 0 0 nfet_06v0 w=1u l=0.6u
+cl out 0 10f
+"""
+
+FUSED = dict(max_steps=4096, jac_reuse=1, formulation="cap",
+             newton_impl="fused", newton_reltol=1e-4, newton_abstol=5e-7,
+             res_tol=1e-3, jac_shunt=1e-7, res_rel=3e-5, rtol=1e-2,
+             atol=1e-4)
+
+
+def _circuit(which, dev):
+    if which == "inverter":
+        nl = T.parse_spice(INVERTER, file="inverter.cir")
+        comp = T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]),
+                                 device=dev)
+        return comp, "W"
+    diode = load_va(VA_DIODE)["fdiode"]
+    ckt = T.Circuit()
+    a, b = ckt.net("a"), ckt.net("b")
+    ckt.add(T.VSourcePULSE, "V1", (a, ckt.gnd),
+            dict(v1=0.0, v2=3.0, td=1e-9, tr=1e-10, tf=1e-10, pw=5e-9,
+                 per=20e-9))
+    ckt.add(T.Resistor, "R1", (a, b), dict(r=1000.0))
+    ckt.add(diode, "D1", (b, ckt.gnd), dict(is_=1e-14))
+    ckt.add(T.Capacitor, "C1", (b, ckt.gnd), dict(c=1e-12))
+    return T.compile_circuit(ckt, device=dev, dynamic_params=("is_",)), "is_"
+
+
+def _fused_case(which, B, dev):
+    """(plan, kernel inputs, opts): B lanes with a param scatter at a BE
+    start from the operating point, nodes perturbed by a seeded 0.05 V."""
+    comp, pn = _circuit(which, dev)
+    ctx = T.SimSpec.make()
+    key = [k for k in comp.group_order if k.startswith("VA_")][0]
+    pb = {k: dict(g) for k, g in comp.params0.items()}
+    scale = torch.linspace(0.9, 1.2, B, dtype=comp.dtype, device=dev)
+    pb[key][pn] = comp.params0[key][pn][None, :] * scale[:, None]
+    op = T.solve_dc(comp, ctx=ctx, mode="tranop")
+    rng = np.random.default_rng(B)
+    pert = np.zeros((B, comp.n_x))
+    pert[:, :comp.n_nodes] = rng.uniform(-0.05, 0.05, (B, comp.n_nodes))
+    x0 = op.x.expand(B, comp.n_x).contiguous()
+    x_pred = x0 + torch.as_tensor(pert, dtype=comp.dtype, device=dev)
+    opts = T.TranOptions(**FUSED)
+    plan = fused_plan_for(comp, ctx, pb)
+    h, t = 1e-11, 2.5e-9
+    tt = torch.full((B,), t, dtype=comp.dtype, device=dev)
+    ctx_t = ctx.with_mode("tran")
+    _, _, G, C = comp.res_jacs_fwd(x_pred, ctx_t.at_time(tt), pb)
+    nv = comp.n_nodes + comp.n_internal
+    J = C / h + G + opts.jac_shunt * torch.diag(
+        (torch.arange(comp.n_x, device=dev) < nv).to(comp.dtype))
+    args = plan.inputs(x_pred, J, plan.s_off(tt, ctx_t, pb),
+                       torch.ones(B, dtype=comp.dtype, device=dev),
+                       torch.full_like(tt, h), -x0, tt, pb)
+    return plan, args, opts
+
+
+@pytest.mark.parametrize("which", ["diode", "inverter"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_fused_kernel_matches_plain(cuda_device, which, B):
+    plan, args, opts = _fused_case(which, B, cuda_device)
+    n0 = fc.fused_chord.launches
+    k = fc.fused_chord(plan, *args, opts)
+    p = fc.fused_chord_plain(plan, *args, opts)
+    s_scale = fc.fused_chord_plain(
+        plan, *args, dataclasses.replace(opts, max_newton=0))[1]
+    torch.cuda.synchronize()
+    assert fc.fused_chord.launches == n0 + 1
+    assert torch.equal(k[3], p[3])
+    assert int(k[3][:, 1].max()) >= 2          # the loop iterated
+    assert _rel(k[0], p[0]) <= 1e-9
+    assert _rel(k[2], p[2]) <= 1e-9
+    assert float((k[1] - p[1]).abs().max()) <= 1e-9 * float(
+        torch.maximum(p[1].abs().max(), s_scale.abs().max()))
+
+
+def test_fused_kernel_is_deterministic(cuda_device):
+    plan, args, opts = _fused_case("inverter", 8, cuda_device)
+    a = fc.fused_chord(plan, *args, opts)
+    b = fc.fused_chord(plan, *args, opts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(a, b))
+
+
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    plan, args, opts = _fused_case("diode", 3, cuda_device)
+    x0, MT = args[0], args[1]
+    with pytest.raises(TypeError):
+        fc.fused_chord(plan, x0.float(), *args[1:], opts)
+    with pytest.raises(ValueError):
+        fc.fused_chord(plan, x0, MT.transpose(1, 2), *args[2:], opts)
+    with pytest.raises(ValueError):
+        fc.fused_chord(plan, x0, MT.cpu(), *args[2:], opts)
+
+
+def test_fused_tran_on_the_card(cuda_device):
+    comp, _ = _circuit("diode", cuda_device)
+    fc.fused_chord.launches = 0
+    sol = T.tran(comp, (0.0, 8e-9), opts=T.TranOptions(**FUSED))
+    assert sol.converged
+    assert fc.fused_chord.launches == sol.n_attempts > 0
+    assert 0.45 < float(sol.interp("b", 4e-9)) < 0.9

@@ -1,0 +1,243 @@
+"""The Verilog-A → C++ emitter (cedarsim_tpu_torch/va/emit.py) against the
+port's eager model walk.
+
+- The DFF's BSIM4 group and a VA diode are emitted, compiled as host code
+  with ``g++ -O1 -shared -fPIC`` (``__host__ __device__`` compile away off
+  nvcc) and called through ``ctypes``: the rows (s, q, qd) scattered into
+  the circuit must match ``evaluate(keys=[group], v=...)`` over a grid of
+  bias points, W values and tangent directions within rtol 1e-9, with
+  absolute floors of 1e-18 A (S, and the charge tangent) and 1e-24 C (Q).
+- The text and its hash do not depend on the walk's order: emitting twice
+  gives the same hash, in this process and under another hash seed.
+- A construct bsim4.va does not use (integer bitwise arithmetic) raises
+  ``NotImplementedError`` naming ROADMAP A14.
+
+Skips without ``g++``.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import cedarsim_tpu_torch as T
+from cedarsim_tpu_torch.va import emit
+from cedarsim_tpu_torch.va.codegen import load_va
+
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+DFF_DIR = os.path.join(REPO, "benchmarks", "gf180_dff")
+
+VA_DIODE = """
+module fdiode(a, c);
+  inout a, c;
+  electrical a, c;
+  parameter real is_ = 1e-14 from (0:1];
+  parameter real n = 1.0;
+  parameter real cj = 1e-12;
+  real id, vd;
+  analog begin
+    vd = V(a, c);
+    if (vd > -5.0 * n * $vt)
+      id = is_ * (limexp(vd / (n * $vt)) - 1.0);
+    else
+      id = -is_;
+    I(a, c) <+ id;
+    I(a, c) <+ ddt(cj * sqrt(1.0 + max(vd, -0.5) * vd * vd));
+  end
+endmodule
+"""
+
+
+@pytest.fixture(scope="module")
+def dff():
+    with open(os.path.join(DFF_DIR, "dff_tb_bsim4.cir")) as f:
+        nl = T.parse_spice(f.read(), file="dff_tb_bsim4.cir")
+    return T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]))
+
+
+def _diode_circuit():
+    dev = load_va(VA_DIODE)["fdiode"]
+    ckt = T.Circuit()
+    a, b = ckt.net("a"), ckt.net("b")
+    ckt.add(T.VSource, "V1", (a, ckt.gnd), dict(dc=1.0))
+    ckt.add(T.Resistor, "R1", (a, b), dict(r=1000.0))
+    ckt.add(dev, "D1", (b, ckt.gnd), dict(is_=1e-14))
+    ckt.add(dev, "D2", (a, b), dict(is_=3e-14, cj=2e-12))
+    return T.compile_circuit(ckt)
+
+
+def _host_harness(name, n_lvar, n_lrow, n_dyn):
+    """C++ source of an ``extern "C"`` loop over instances that calls the
+    emitted function ``name`` on the host::
+
+        void cs_run(int n, const double* lv, const double* lvd,
+                    const double* dyn, const double* t,
+                    double* s, double* q, double* qd)
+
+    with ``lv``/``lvd`` [n, n_lvar], ``dyn`` [n, n_dyn], ``t`` [n] and the
+    outputs [n, n_lrow]."""
+    return (
+        'extern "C" void cs_run(int n, const double* lv, const double* lvd,'
+        " const double* dyn, const double* t, double* s, double* q,"
+        " double* qd) {\n"
+        "  for (int i = 0; i < n; ++i)\n"
+        f"    {name}(lv + i * {n_lvar}, lvd + i * {n_lvar}, "
+        f"dyn + i * {max(n_dyn, 1)}, t[i], s + i * {n_lrow}, "
+        f"q + i * {n_lrow}, qd + i * {n_lrow});\n"
+        "}\n")
+
+
+def _host_build(tmp_path, comp, key, ctx):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the emitted header as host code")
+    name, text, _ = emit.emit_group(comp, key, ctx)
+    g = comp.groups[key]
+    hdr = tmp_path / "model.h"
+    hdr.write_text(text)
+    src = tmp_path / "run.cpp"
+    src.write_text('#include "model.h"\n' + _host_harness(
+        name, g.model.n_lvar(), g.model.n_lrow(),
+        len(emit.dyn_names(comp, key))))
+    so = tmp_path / "model.so"
+    out = subprocess.run(["g++", "-O1", "-shared", "-fPIC",
+                          "-ffp-contract=off", "-o", str(so), str(src)],
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lib = ctypes.CDLL(str(so))
+    lib.cs_run.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7
+    return lib
+
+
+def _emitted_vs_eager(lib, comp, key, ctx, x, v, t, params):
+    """Scatter the emitted rows per lane exactly as ``evaluate`` does and
+    return both (S, Q, Qd) triples as numpy."""
+    g = comp.groups[key]
+    L, n = x.shape
+    ni, nlv, nlr = len(g.instances), g.model.n_lvar(), g.model.n_lrow()
+    names = emit.dyn_names(comp, key)
+    xp = np.concatenate([x, np.zeros((L, 1))], 1)
+    vp = np.concatenate([v, np.zeros((L, 1))], 1)
+    lv = np.ascontiguousarray(xp[:, g.var_idx].reshape(-1, nlv))
+    lvd = np.ascontiguousarray(vp[:, g.var_idx].reshape(-1, nlv))
+    dyn = np.zeros((L, ni, max(len(names), 1)))
+    for k, pn in enumerate(names):
+        dyn[:, :, k] = np.broadcast_to(
+            torch.as_tensor(params[key][pn]).numpy(), (L, ni))
+    dyn = np.ascontiguousarray(dyn.reshape(L * ni, -1))
+    tt = np.ascontiguousarray(np.repeat(t, ni))
+    s, q, qd = (np.zeros((L * ni, nlr)) for _ in range(3))
+    lib.cs_run(L * ni, lv.ctypes.data, lvd.ctypes.data, dyn.ctypes.data,
+               tt.ctypes.data, s.ctypes.data, q.ctypes.data, qd.ctypes.data)
+    mult = torch.as_tensor(params[key]["$mult"]).numpy()
+    scale = np.where(g.kcl_mask[None, None, :],
+                     np.broadcast_to(mult, (L, ni))[:, :, None], 1.0)
+
+    def scatter(a):
+        a = a.reshape(L, ni, nlr) * scale
+        out = np.zeros((L, n + 1))
+        for lane in range(L):
+            np.add.at(out[lane], g.row_idx, a[lane])
+        return out[:, :n]
+
+    got = [scatter(a) for a in (s, q, qd)]
+    tx = torch.as_tensor
+    want = comp.evaluate(tx(x), ctx.at_time(tx(t)),
+                         comp.lane_params(params, L), v=tx(v), keys=[key])
+    return got, [w.numpy() for w in want]
+
+
+def _check(got, want):
+    for name, a, b, floor in zip(("S", "Q", "Qd"), got, want,
+                                 (1e-18, 1e-24, 1e-18)):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=floor,
+                                   err_msg=name)
+
+
+def test_bsim4_emitted_matches_eager(tmp_path, dff):
+    key = [k for k in dff.group_order if "bsim4" in k.lower()][0]
+    ctx = T.SimSpec.make(gmin=1e-15).with_mode("tran")
+    lib = _host_build(tmp_path, dff, key, ctx)
+    rng = np.random.default_rng(11)
+    L = 6
+    W = dff.params0[key]["W"]
+    params = {k: dict(g) for k, g in dff.params0.items()}
+    params[key]["W"] = W[None, :] * torch.as_tensor(
+        np.linspace(0.5, 2.0, L))[:, None]
+    # bias grid: every node from rail to rail and beyond; branch currents
+    x = np.zeros((L, dff.n_x))
+    levels = np.linspace(-0.6, 5.6, L)
+    x[:, :dff.n_nodes] = levels[:, None] + rng.uniform(
+        -0.8, 0.8, (L, dff.n_nodes))
+    x[:, dff.n_nodes:] = rng.normal(size=(L, dff.n_x - dff.n_nodes)) * 1e-3
+    v = rng.normal(size=(L, dff.n_x)) * 1e9
+    t = np.linspace(0.0, 7e-7, L)
+    _check(*_emitted_vs_eager(lib, dff, key, ctx, x, v, t, params))
+
+
+def test_diode_emitted_matches_eager(tmp_path):
+    comp = _diode_circuit()
+    key = [k for k in comp.group_order if "fdiode" in k][0]
+    ctx = T.SimSpec.make().with_mode("tran")
+    lib = _host_build(tmp_path, comp, key, ctx)
+    vd = np.linspace(-2.0, 1.2, 17)          # reverse, knee, limexp tail
+    L = vd.size
+    x = np.zeros((L, comp.n_x))
+    x[:, 0] = 1.0 + vd
+    x[:, 1] = vd
+    v = np.random.default_rng(5).normal(size=(L, comp.n_x)) * 1e8
+    _check(*_emitted_vs_eager(lib, comp, key, ctx, x, v, np.zeros(L),
+                              comp.params0))
+
+
+def test_emit_hash_is_stable(dff):
+    key = [k for k in dff.group_order if "bsim4" in k.lower()][0]
+    ctx = T.SimSpec.make(gmin=1e-15).with_mode("tran")
+    h1 = emit.emit_group(dff, key, ctx)[2]
+    h2 = emit.emit_group(dff, key, ctx)[2]
+    assert h1 == h2
+    code = (
+        "import os, sys\n"
+        f"sys.path.insert(0, {os.path.abspath(REPO)!r})\n"
+        "import cedarsim_tpu_torch as T\n"
+        "from cedarsim_tpu_torch.va import emit\n"
+        f"d = {DFF_DIR!r}\n"
+        "nl = T.parse_spice(open(os.path.join(d, 'dff_tb_bsim4.cir'))"
+        ".read(), file='dff_tb_bsim4.cir')\n"
+        "c = T.compile_circuit(T.elaborate(nl, include_paths=[d]))\n"
+        f"print(emit.emit_group(c, {key!r}, T.SimSpec.make(gmin=1e-15)"
+        ".with_mode('tran'))[2])\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**env, "PYTHONHASHSEED": "12345"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == h1
+    # the context folds into the function: another temperature, another
+    # hash
+    assert emit.emit_group(dff, key, T.SimSpec.make(
+        temp_c=60.0, gmin=1e-15).with_mode("tran"))[2] != h1
+
+
+def test_unsupported_construct_names_the_roadmap():
+    dev = load_va("""
+module bits(a, c);
+  inout a, c;
+  electrical a, c;
+  analog begin
+    I(a, c) <+ 1e-3 * (~V(a, c));
+  end
+endmodule
+""")["bits"]
+    ckt = T.Circuit()
+    a = ckt.net("a")
+    ckt.add(T.VSource, "V1", (a, ckt.gnd), dict(dc=1.0))
+    ckt.add(dev, "B1", (a, ckt.gnd), {})
+    comp = T.compile_circuit(ckt)
+    key = [k for k in comp.group_order if "bits" in k][0]
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        emit.emit_group(comp, key, T.SimSpec.make().with_mode("tran"))

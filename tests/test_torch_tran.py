@@ -9,7 +9,8 @@ forms and against the JAX package's ``tran``.
   one-lane runs of the same W with the exact solver: every node within
   1e-3 V at ten times, accepted steps within 10 %; the nominal lane equals
   a solo run of the port to 1e-12 V (lane independence).
-- The package never imports JAX (a fresh interpreter).
+- The package never imports JAX (a fresh interpreter), on the RC step and
+  on a VA diode through the fused chord path.
 """
 
 import os
@@ -130,6 +131,17 @@ def test_port_never_imports_jax():
         "ckt.add(T.Capacitor, 'C1', (b, ckt.gnd), dict(c=1e-9))\n"
         "sol = T.tran(T.compile_circuit(ckt), (0.0, 5e-6))\n"
         "assert sol.converged\n"
+        # the fused chord path (its plain version on the CPU) with a VA
+        # diode emitted as C++ by the plan
+        "from cedarsim_tpu_torch.va.codegen import load_va\n"
+        "d = load_va('module dd(a, c); inout a, c; electrical a, c; "
+        "analog I(a, c) <+ 1e-14 * (limexp(V(a, c) / $vt) - 1.0); "
+        "endmodule')['dd']\n"
+        "ckt.add(d, 'D1', (b, ckt.gnd), {})\n"
+        "sol = T.tran(T.compile_circuit(ckt), (0.0, 5e-6), "
+        "opts=T.TranOptions(formulation='cap', jac_reuse=1, "
+        "newton_impl='fused'))\n"
+        "assert sol.converged and 0.0 < sol.interp('b', 4e-6) < 0.9\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m.startswith('cedarsim_tpu.') or m == "
         "'cedarsim_tpu' for m in sys.modules)\n"

@@ -147,3 +147,37 @@ endmodule
 """
     with pytest.raises(NotImplementedError, match="A14"):
         load_va(src)
+
+
+def test_walk_bits_do_not_depend_on_the_hash_seed():
+    """The interpreter merges the two sides of a tensor branch in the order
+    the walk made the variables, not in a set's order: the DFF's (S, Q, G,
+    C) are bitwise the same in processes with other string-hash seeds (1
+    and 2 summed the BSIM4 rows in two different orders before)."""
+    import subprocess
+    import sys
+    REPO = os.path.abspath(os.path.join(DFF_DIR, "..", ".."))
+    code = (
+        "import hashlib, os, sys\n"
+        "import numpy as np, torch\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import cedarsim_tpu_torch as T\n"
+        f"d = {os.path.abspath(DFF_DIR)!r}\n"
+        "nl = T.parse_spice(open(os.path.join(d, 'dff_tb_bsim4.cir'))"
+        ".read(), file='dff_tb_bsim4.cir')\n"
+        "c = T.compile_circuit(T.elaborate(nl, include_paths=[d]))\n"
+        "x = torch.as_tensor(np.random.default_rng(3).uniform("
+        "0, 5, (4, c.n_x)))\n"
+        "out = c.res_jacs_fwd(x, T.SimSpec.make(gmin=1e-15)"
+        ".with_mode('tran'))\n"
+        "print(hashlib.sha256(b''.join(o.numpy().tobytes() for o in out))"
+        ".hexdigest())\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    digests = []
+    for seed in ("1", "2"):
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=300,
+                             env={**env, "PYTHONHASHSEED": seed})
+        assert out.returncode == 0, out.stderr
+        digests.append(out.stdout.strip())
+    assert digests[0] == digests[1]
