@@ -12,6 +12,23 @@ import torch
 #: dtype of simulator state, model evaluation and exact solves
 real_dtype = torch.float64
 
+
+def resolve_device(device=None):
+    """The device a circuit lives on: ``device`` if given, else the current
+    CUDA card.  With no card and no device given it raises: the port runs
+    on the card unless the caller asks for the CPU.  ``"cuda"`` becomes the
+    indexed current card, so that it compares equal to a tensor's device."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card by default; pass "
+                "device=\"cpu\" to run on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
 #: Boltzmann constant (J/K)
 K_BOLTZMANN = 1.380649e-23
 #: elementary charge (C)

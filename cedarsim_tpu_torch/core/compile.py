@@ -52,15 +52,16 @@ class Group:
 
 
 class CompiledCircuit:
-    def __init__(self, circuit: Circuit, dtype=None, device="cpu",
+    def __init__(self, circuit: Circuit, dtype=None, device=None,
                  dynamic_params=()):
         """``device``: the torch device every tensor of the circuit (and of
-        every solve on it) lives on.  ``dynamic_params``: param names kept
-        as per-instance tensors even when uniform across a group (bare names
-        apply to every instance, dotted names to one)."""
+        every solve on it) lives on; by default the CUDA card, and with no
+        card an error (pass ``device="cpu"``).  ``dynamic_params``: param
+        names kept as per-instance tensors even when uniform across a group
+        (bare names apply to every instance, dotted names to one)."""
         self.circuit = circuit
         self.dtype = dtype or config.real_dtype
-        self.device = torch.device(device)
+        self.device = config.resolve_device(device)
         self.dynamic_params = frozenset(
             d.lower() for d in (dynamic_params or ()))
         self._idx_cache = {}
@@ -486,8 +487,9 @@ def default_ctx(compiled: CompiledCircuit, temp_c=None) -> SimSpec:
     return SimSpec.make(temp_c=temp_c, gmin=o.get("gmin", 1e-12))
 
 
-def compile_circuit(circuit: Circuit, dtype=None, device="cpu",
+def compile_circuit(circuit: Circuit, dtype=None, device=None,
                     dynamic_params=()) -> CompiledCircuit:
-    """Compile a circuit for the dense path on ``device``."""
+    """Compile a circuit for the dense path on ``device`` (by default the
+    CUDA card; without one, pass ``device="cpu"``)."""
     return CompiledCircuit(circuit, dtype=dtype, device=device,
                            dynamic_params=dynamic_params)

@@ -1,5 +1,5 @@
 // Batched no-pivot GESP LU for small dense systems, in float32, for Hopper
-// (sm_90a).  Two kernels with a plain C interface, loaded with ctypes by
+// (sm_90a).  Three kernels with a plain C interface, loaded with ctypes by
 // cedarsim_tpu_torch/ops/gesp_lu.py:
 //
 //   gesp_factor_f32  replaces the Pallas kernel
@@ -8,12 +8,19 @@
 //   gesp_subst_f32   replaces the Pallas kernel
 //       cedarsim_tpu/ops/pallas_lu.py::_lu_subst_sublane_kernel
 //       (launched by lu_subst_batched_sublane_f32).
+//   gesp_solve_f32   replaces the Pallas kernel
+//       cedarsim_tpu/ops/pallas_lu.py::_lu_sublane_kernel
+//       (launched by lu_solve_batched_sublane_f32): factor and solve in one
+//       launch, b eliminated in each factor step, the boost applied again
+//       to U's diagonal in the back substitution.
 //
 // GESP: no pivoting; a pivot p with |p| < 1e-20 becomes -1e-20 if p < 0 and
 // +1e-20 otherwise (so p = 0 gives +1e-20), and the boosted pivot is stored
 // on the diagonal.  The packed LU holds the unit-L multipliers below the
 // diagonal and U on and above it.  The substitution divides by the stored
-// diagonal as it is: it does not boost again.
+// diagonal as it is: it does not boost again.  The fused solve keeps no LU:
+// it boosts each pivot for its multipliers and again for the division of
+// its back substitution, as the Pallas kernel does.
 //
 // What bounds these kernels on an H100.  At the transient's shape (n = 25,
 // B = lanes, a handful) the work is a few thousand flops per matrix, far
@@ -31,6 +38,17 @@
 // with shuffles, and a warp needs no block barrier between rows.  Launch
 // latency is not hidden here: batching several matrices per block, CUDA
 // graphs and tensor-core (wgmma) trailing updates are later work.
+//
+// The fused solve: one block per system, A and b in shared memory
+// (n² + n floats, so n <= 240 on an H100).  In step k each warp owns rows
+// i > k (i = k + 1 + warp, stepping by the warps of the block): its lanes
+// update the row's columns j > k from the multiplier, and lane 0
+// eliminates b_i with the same multiplier.  A row and its b_i are written
+// only by their owner and row k is only read, so one block barrier ends a
+// step.  Warp 0 then substitutes backwards as gesp_subst_kernel does.  At
+// the bench's shapes ([512, 25] and [64, 122]) the work is 10^4-10^6 flops
+// a system: the bound is the n dependent steps and their barriers, not
+// the card's rates (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -39,6 +57,23 @@ namespace {
 constexpr float kTau = 1e-20f;
 constexpr int kFactorThreads = 256;
 constexpr int kSubstWarps = 4;
+constexpr int kSolveThreads = 256;
+
+__device__ __forceinline__ float gesp_boost(float p) {
+  return fabsf(p) < kTau ? (p < 0.0f ? -kTau : kTau) : p;
+}
+
+// Opt a kernel into `bytes` of dynamic shared memory (needed above 48 KB).
+// `done` is that kernel's own record of what it was given: the attribute
+// belongs to one kernel function, so each kernel keeps its own.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* done) {
+  if (bytes <= *done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *done = bytes;
+  return err;
+}
 
 __global__ void gesp_factor_kernel(const float* __restrict__ A,
                                    float* __restrict__ LU, int n,
@@ -53,8 +88,7 @@ __global__ void gesp_factor_kernel(const float* __restrict__ A,
   }
   __syncthreads();
   for (int k = 0; k < n; ++k) {
-    float piv = s[k * n + k];
-    if (fabsf(piv) < kTau) piv = piv < 0.0f ? -kTau : kTau;
+    const float piv = gesp_boost(s[k * n + k]);
     // multipliers of the rows below the pivot, stored in column k
     for (int i = k + 1 + threadIdx.x; i < n; i += blockDim.x) {
       s[i * n + k] = s[i * n + k] / piv;
@@ -118,6 +152,49 @@ __global__ void gesp_subst_kernel(const float* __restrict__ LU,
   for (int j = lane; j < n; j += 32) xx[j] = y[j];
 }
 
+__global__ void gesp_solve_kernel(const float* __restrict__ A,
+                                  const float* __restrict__ b,
+                                  float* __restrict__ x, int n,
+                                  long long a_batch, long long a_row,
+                                  long long b_batch, long long x_batch) {
+  extern __shared__ float s[];  // n × n row-major, then b (n)
+  float* sb = s + n * n;
+  const float* a = A + (long long)blockIdx.x * a_batch;
+  const float* bb = b + (long long)blockIdx.x * b_batch;
+  const int nn = n * n;
+  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
+    s[e] = a[(long long)(e / n) * a_row + (e % n)];
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) sb[i] = bb[i];
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  for (int k = 0; k < n; ++k) {
+    const float piv = gesp_boost(s[k * n + k]);
+    const float* rk = s + k * n;
+    for (int i = k + 1 + warp; i < n; i += warps) {
+      float* ri = s + i * n;
+      const float m = ri[k] / piv;
+      for (int j = k + 1 + lane; j < n; j += 32) ri[j] -= m * rk[j];
+      if (lane == 0) sb[i] -= m * sb[k];
+    }
+    __syncthreads();
+  }
+  if (warp != 0) return;  // no block barrier below
+  // back substitution, the diagonal boosted again
+  for (int i = n - 1; i >= 0; --i) {
+    const float* ri = s + i * n;
+    float acc = 0.0f;
+    for (int j = i + 1 + lane; j < n; j += 32) acc += ri[j] * sb[j];
+    acc = warp_sum(acc);
+    if (lane == 0) sb[i] = (sb[i] - acc) / gesp_boost(ri[i]);
+    __syncwarp();
+  }
+  float* xx = x + (long long)blockIdx.x * x_batch;
+  for (int j = lane; j < n; j += 32) xx[j] = sb[j];
+}
+
 }  // namespace
 
 extern "C" {
@@ -129,13 +206,8 @@ int gesp_factor_f32(const float* A, float* LU, int B, int n,
                     long long lu_row, void* stream) {
   const size_t smem = (size_t)n * n * sizeof(float);
   static size_t smem_set = 48 * 1024;
-  if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gesp_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = smem;
-  }
+  cudaError_t err = allow_smem(gesp_factor_kernel, smem, &smem_set);
+  if (err != cudaSuccess) return (int)err;
   gesp_factor_kernel<<<B, kFactorThreads, smem, (cudaStream_t)stream>>>(
       A, LU, n, a_batch, a_row, lu_batch, lu_row);
   return (int)cudaGetLastError();
@@ -151,6 +223,20 @@ int gesp_subst_f32(const float* LU, const float* b, float* x, int B, int n,
   gesp_subst_kernel<<<blocks, kSubstWarps * 32, smem,
                       (cudaStream_t)stream>>>(LU, b, x, B, n, lu_batch,
                                               lu_row, b_batch, x_batch);
+  return (int)cudaGetLastError();
+}
+
+// A: [B, n, n], b and x: [B, n], float32, strides in elements (columns
+// contiguous).  Returns cudaGetLastError() after the launch.
+int gesp_solve_f32(const float* A, const float* b, float* x, int B, int n,
+                   long long a_batch, long long a_row, long long b_batch,
+                   long long x_batch, void* stream) {
+  const size_t smem = (size_t)n * (n + 1) * sizeof(float);
+  static size_t smem_set = 48 * 1024;
+  cudaError_t err = allow_smem(gesp_solve_kernel, smem, &smem_set);
+  if (err != cudaSuccess) return (int)err;
+  gesp_solve_kernel<<<B, kSolveThreads, smem, (cudaStream_t)stream>>>(
+      A, b, x, n, a_batch, a_row, b_batch, x_batch);
   return (int)cudaGetLastError();
 }
 

@@ -1,20 +1,19 @@
 """Compact models compiled through the port's Verilog-A interpreter
 (counterpart of ``cedarsim_tpu/models/__init__.py``).
 
-The Verilog-A sources are data files of the JAX package, read by path: the
-port keeps no copy of them, and importing ``cedarsim_tpu`` would run JAX.
-Only the BSIM4-class model is ported so far; BSIM-CMG is ROADMAP A12 and
-VBIC is part of A14.
+``bsim4.va`` here is a byte-for-byte copy of ``cedarsim_tpu/models/
+bsim4.va``, the JAX package's original BSIM4-class model (a test holds the
+two equal, so a fix goes into both).  The port reads no file of the JAX
+package.  Only the BSIM4-class model is ported so far; BSIM-CMG is ROADMAP
+A12 and VBIC is part of A14: their sources come across with those slices.
 """
 
 from __future__ import annotations
 
 import os
 
-#: the JAX package's model directory (``cedarsim_tpu/models``)
-MODELS_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "cedarsim_tpu", "models")
+#: the port's own model directory (``cedarsim_tpu_torch/models``)
+MODELS_DIR = os.path.dirname(os.path.abspath(__file__))
 
 #: implicit include-path tail searched by the elaborator for model files
 MODEL_SEARCH_PATHS = (MODELS_DIR,)

@@ -1,0 +1,137 @@
+"""What the port's CUDA kernel modules share: the build of a ``csrc/``
+source into a shared library with a plain C interface, loaded with
+``ctypes``, and the checks a wrapper makes around a launch.
+
+Every kernel module builds this way: ``nvcc`` for ``sm_90a`` at first use,
+into ``build/kernels/`` beside the package, under a name keyed on a hash of
+the source, any generated header and the flags, so a changed source builds
+anew and an unchanged one loads at once.  A failed build or launch raises;
+nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+#: the flags of every kernel library: Hopper's ``sm_90a``, a shared object,
+#: and ptxas's registers, shared memory and spills in the log
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: opt-in shared memory per block of an H100 (bytes); on a card the card's
+#: own value is read
+H100_SMEM_PER_BLOCK = 232448
+
+
+def nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels need the "
+                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build_library(prefix, source, flags=NVCC_FLAGS, header=None):
+    """Compile ``source`` (if not built yet) and load it.  ``header``, if
+    given, is ``(macro, text)``: the text is written beside the library and
+    its path passed to nvcc as ``-D<macro>="<path>"``.  Returns a dict with
+    the loaded ``lib``, the shared object's ``path``, nvcc's ``seconds``
+    (0.0 when it was already built) and its ``log``."""
+    with open(source, "rb") as f:
+        src = f.read()
+    hdr = header[1].encode() if header else b""
+    tag = hashlib.sha256(src + b"\0" + hdr + b"\0"
+                         + " ".join(flags).encode()).hexdigest()
+    stem = os.path.join(BUILD_DIR, f"{prefix}_{tag[:16]}")
+    path = stem + ".so"
+    seconds, log = 0.0, ""
+    if not os.path.isfile(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        defines = []
+        if header:
+            with open(stem + ".cuh", "wb") as f:
+                f.write(hdr)
+            defines = [f'-D{header[0]}="{stem}.cuh"']
+        tmp = f"{path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc(), *flags, *defines, "-o", tmp, source],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                               f"{os.path.basename(source)}:\n{log[-20000:]}")
+        os.replace(tmp, path)
+    return dict(lib=ctypes.CDLL(path), path=path, seconds=seconds, log=log)
+
+
+def raise_on(err, what):
+    """Raise if a launch function returned a CUDA error (it returns
+    ``cudaGetLastError()`` right after the launch)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def smem_per_block(device):
+    """The shared memory one block may opt into on ``device`` (bytes): the
+    card's own value, or an H100's where there is no card."""
+    if device.type != "cuda":
+        return H100_SMEM_PER_BLOCK
+    prop = torch.cuda.get_device_properties(device)
+    return getattr(prop, "shared_memory_per_block_optin",
+                   H100_SMEM_PER_BLOCK)
+
+
+def check_smem(what, device, need):
+    """Raise if a block needs more shared memory than the card gives one
+    (the dense solves keep a whole system in shared memory and never fall
+    back)."""
+    limit = smem_per_block(device)
+    if need > limit:
+        raise ValueError(
+            f"{what}: the system needs {need} bytes of shared memory per "
+            f"block; the card ({torch.cuda.get_device_name(device)}) gives "
+            f"a block at most {limit} bytes of shared memory (n <= 240 on "
+            "an H100)")
+
+
+def check_f32(name, t, shape):
+    """A kernel's float32 operand: its dtype, shape and contiguity."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def check_system(what, A, b):
+    """The checks of a batched solve's wrapper before it picks a path: A
+    [B, n, n] and b [B, n] on one device, the CPU or a card.  Returns
+    (B, n)."""
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"{what}: expected A [B, n, n], got "
+                         f"{tuple(A.shape)}")
+    B, n, _ = A.shape
+    if b.device != A.device:
+        raise ValueError(f"{what}: A on {A.device}, b on {b.device}")
+    if tuple(b.shape) != (B, n):
+        raise ValueError(f"{what}: expected b of shape {(B, n)}, got "
+                         f"{tuple(b.shape)}")
+    if A.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {A.device}")
+    return B, n

@@ -32,27 +32,19 @@ import ctypes
 import dataclasses
 import hashlib
 import os
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-from cedarsim_tpu_torch.ops import linalg
-from cedarsim_tpu_torch.ops.gesp_lu import BUILD_DIR, _nvcc
+from cedarsim_tpu_torch.ops import cuda_lib, linalg
 from cedarsim_tpu_torch.va import emit
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_chord.cu")
+SOURCE = os.path.join(cuda_lib.CSRC, "fused_chord.cu")
 #: ``--fmad=false``: every multiply and add rounds on its own, as PyTorch's
 #: elementwise kernels do, so the kernel follows its plain version to
 #: round-off and not to contraction error
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-#: opt-in shared memory per block of an H100 (bytes); on a card the plan
-#: reads the card's own value
-H100_SMEM_PER_BLOCK = 232448
+NVCC_FLAGS = cuda_lib.NVCC_FLAGS + ("--fmad=false",)
 #: the kernel's block: at most this many threads (the emitted model walk
 #: may take up to 255 registers a thread, and an SM has 65,536)
 MAX_THREADS = 256
@@ -248,10 +240,7 @@ class FusedChordPlan:
                            -(-max(self.n_inst, n, 1) // 32) * 32)
         self.smem_bytes = 8 * (12 * n + n * n
                                + 3 * self.n_inst * self.max_lrow + 32)
-        limit = H100_SMEM_PER_BLOCK
-        if dev.type == "cuda":
-            prop = torch.cuda.get_device_properties(dev)
-            limit = getattr(prop, "shared_memory_per_block_optin", limit)
+        limit = cuda_lib.smem_per_block(dev)
         self.smem_limit = limit
         if self.smem_bytes > limit:
             raise FusedEnvelopeError(
@@ -367,39 +356,19 @@ class FusedChordPlan:
         already built) and nvcc's ``log``."""
         if self._lib is not None:
             return self.build_info
-        with open(SOURCE, "rb") as f:
-            src = f.read()
-        hdr = self.header().encode()
-        tag = hashlib.sha256(src + b"\0" + hdr + b"\0"
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        stem = os.path.join(BUILD_DIR, f"fused_{tag[:16]}")
-        path = stem + ".so"
-        seconds, log = 0.0, ""
-        if not os.path.isfile(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            with open(stem + ".cuh", "wb") as f:
-                f.write(hdr)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, f'-DFC_MODEL_HEADER="{stem}.cuh"',
-                 "-o", tmp, SOURCE], capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {stem}.cuh:\n"
-                    f"{log[-20000:]}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
+        b = cuda_lib.build_library(
+            "fused", SOURCE, NVCC_FLAGS,
+            header=("FC_MODEL_HEADER", self.header()))
+        lib = b["lib"]
         p, i, d, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                        ctypes.c_longlong)
         lib.fused_chord_f64.argtypes = (
             [p] * 20 + [i] * 5 + [d] * 4 + [i, ll, p])
         lib.fused_chord_f64.restype = i
         self._lib = lib
-        self.build_info = dict(path=path, emit_seconds=self.emit_seconds,
-                               nvcc_seconds=seconds, log=log)
+        self.build_info = dict(path=b["path"],
+                               emit_seconds=self.emit_seconds,
+                               nvcc_seconds=b["seconds"], log=b["log"])
         return self.build_info
 
     # -------------------------------------------------------------- solve
@@ -584,8 +553,7 @@ def fused_chord(plan, x0, MT, rinv, soff, vanch, coef, live, lanes, opts):
         float(opts.newton_abstol), float(opts.res_rel), float(opts.res_tol),
         plan.threads, plan.smem_bytes,
         torch.cuda.current_stream(x0.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_chord_f64: CUDA error {err} at launch")
+    cuda_lib.raise_on(err, "fused_chord_f64")
     fused_chord.launches += 1
     return xn, S, Q, stat
 

@@ -2,48 +2,30 @@
 ``csrc/gesp_lu.cu`` and their plain PyTorch versions.
 
 ``lu_factor_gesp_f32`` replaces ``cedarsim_tpu/ops/pallas_lu.py::
-_lu_factor_sublane_kernel`` and ``lu_subst_gesp_f32`` replaces
-``_lu_subst_sublane_kernel``.  Each wrapper takes the plain version for a
-tensor on the CPU and launches its kernel for a CUDA tensor; there is no
-other path.  The kernels are compiled with ``nvcc`` at first use into
-``build/kernels/`` beside the package (keyed on a hash of the source) and
-loaded with ``ctypes``.  Each wrapper counts its kernel launches in its
-``launches`` attribute.
+_lu_factor_sublane_kernel``, ``lu_subst_gesp_f32`` replaces
+``_lu_subst_sublane_kernel`` and ``lu_solve_gesp_f32`` (factor and solve in
+one launch) replaces ``_lu_sublane_kernel``.  Each wrapper takes the plain
+version for a tensor on the CPU and launches its kernel for a CUDA tensor;
+there is no other path.  The kernels are compiled with ``nvcc`` at first
+use (``ops/cuda_lib.py``) and loaded with ``ctypes``.  Each wrapper
+counts its kernel launches in its ``launches`` attribute.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 
 import torch
+
+from cedarsim_tpu_torch.ops import cuda_lib
 
 #: pivot magnitude below which GESP boosts the pivot to ±TAU
 TAU = 1e-20
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "gesp_lu.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = os.path.join(cuda_lib.CSRC, "gesp_lu.cu")
 
 _LIB = {}
-
-
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.isfile(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the GESP LU kernels need the CUDA "
-                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
 def build():
@@ -53,45 +35,17 @@ def build():
     and nvcc's ``log`` (registers and shared memory per kernel)."""
     if "lib" in _LIB:
         return _LIB
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    path = os.path.join(BUILD_DIR, f"gesp_lu_{tag[:16]}.so")
-    seconds, log = 0.0, ""
-    if not os.path.isfile(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
+    b = cuda_lib.build_library("gesp_lu", SOURCE)
+    lib = b["lib"]
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gesp_factor_f32.argtypes = [p, p, i, i, ll, ll, ll, ll, p]
     lib.gesp_factor_f32.restype = i
     lib.gesp_subst_f32.argtypes = [p, p, p, i, i, ll, ll, ll, ll, p]
     lib.gesp_subst_f32.restype = i
-    _LIB.update(lib=lib, path=path, seconds=seconds, log=log)
+    lib.gesp_solve_f32.argtypes = [p, p, p, i, i, ll, ll, ll, ll, p]
+    lib.gesp_solve_f32.restype = i
+    _LIB.update(b)
     return _LIB
-
-
-def _check(name, t, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _raise_on(err, what):
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
 # ------------------------------------------------------------------ factor
@@ -126,7 +80,7 @@ def lu_factor_gesp_f32(A):
     if A.device.type != "cuda":
         raise ValueError(f"lu_factor_gesp_f32: unsupported device {A.device}")
     B, n, _ = A.shape
-    _check("A", A, (B, n, n))
+    cuda_lib.check_f32("A", A, (B, n, n))
     LU = torch.empty_like(A)
     if B == 0 or n == 0:
         return LU
@@ -134,7 +88,7 @@ def lu_factor_gesp_f32(A):
     err = lib.gesp_factor_f32(
         A.data_ptr(), LU.data_ptr(), B, n, n * n, n, n * n, n,
         torch.cuda.current_stream(A.device).cuda_stream)
-    _raise_on(err, "gesp_factor_f32")
+    cuda_lib.raise_on(err, "gesp_factor_f32")
     lu_factor_gesp_f32.launches += 1
     return LU
 
@@ -163,19 +117,11 @@ def lu_subst_gesp_f32(LU, b):
     """Solve with a packed GESP LU: LU [B, n, n], b [B, n] float32 → x
     [B, n].  CPU tensors take :func:`lu_subst_gesp_f32_plain`; CUDA tensors
     launch ``gesp_subst_f32`` (one warp per system) or raise."""
-    if LU.dim() != 3 or LU.shape[1] != LU.shape[2]:
-        raise ValueError(f"lu_subst_gesp_f32: expected LU [B, n, n], got "
-                         f"{tuple(LU.shape)}")
-    B, n, _ = LU.shape
-    if b.device != LU.device:
-        raise ValueError(f"lu_subst_gesp_f32: LU on {LU.device}, b on "
-                         f"{b.device}")
+    B, n = cuda_lib.check_system("lu_subst_gesp_f32", LU, b)
     if LU.device.type == "cpu":
         return lu_subst_gesp_f32_plain(LU, b)
-    if LU.device.type != "cuda":
-        raise ValueError(f"lu_subst_gesp_f32: unsupported device {LU.device}")
-    _check("LU", LU, (B, n, n))
-    _check("b", b, (B, n))
+    cuda_lib.check_f32("LU", LU, (B, n, n))
+    cuda_lib.check_f32("b", b, (B, n))
     x = torch.empty_like(b)
     if B == 0 or n == 0:
         return x
@@ -183,9 +129,62 @@ def lu_subst_gesp_f32(LU, b):
     err = lib.gesp_subst_f32(
         LU.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, n * n, n, n, n,
         torch.cuda.current_stream(LU.device).cuda_stream)
-    _raise_on(err, "gesp_subst_f32")
+    cuda_lib.raise_on(err, "gesp_subst_f32")
     lu_subst_gesp_f32.launches += 1
     return x
 
 
 lu_subst_gesp_f32.launches = 0
+
+
+# ------------------------------------------------------- fused solve (B4)
+
+def lu_solve_gesp_f32_plain(A, b):
+    """Plain PyTorch GESP solve in the fused kernel's order: each factor
+    step boosts its pivot, updates the trailing block and eliminates b
+    with the same multipliers; back substitution boosts U's diagonal again.
+    A [B, n, n], b [B, n] float32 → x [B, n]."""
+    A = A.clone()
+    b = b.clone()
+    n = A.shape[-1]
+    tau = torch.tensor(TAU, dtype=A.dtype, device=A.device)
+
+    def boost(p):
+        return torch.where(p.abs() < tau, torch.where(p < 0, -tau, tau), p)
+
+    for k in range(n):
+        mult = A[:, k + 1:, k] / boost(A[:, k, k])[:, None]
+        A[:, k + 1:, k + 1:] -= mult[:, :, None] * A[:, k, None, k + 1:]
+        b[:, k + 1:] -= mult * b[:, k, None]
+    x = torch.zeros_like(b)
+    for i in range(n - 1, -1, -1):
+        x[:, i] = ((b[:, i] - (A[:, i, i + 1:] * x[:, i + 1:]).sum(-1))
+                   / boost(A[:, i, i]))
+    return x
+
+
+def lu_solve_gesp_f32(A, b):
+    """GESP factor and solve of a batch in one launch: A [B, n, n], b
+    [B, n] float32 → x [B, n].  CPU tensors take
+    :func:`lu_solve_gesp_f32_plain`; CUDA tensors launch
+    ``gesp_solve_f32`` (one thread block per system, A and b in shared
+    memory, so n <= 240 on an H100) or raise."""
+    B, n = cuda_lib.check_system("lu_solve_gesp_f32", A, b)
+    if A.device.type == "cpu":
+        return lu_solve_gesp_f32_plain(A, b)
+    cuda_lib.check_f32("A", A, (B, n, n))
+    cuda_lib.check_f32("b", b, (B, n))
+    cuda_lib.check_smem("lu_solve_gesp_f32", A.device, 4 * n * (n + 1))
+    x = torch.empty_like(b)
+    if B == 0 or n == 0:
+        return x
+    lib = build()["lib"]
+    err = lib.gesp_solve_f32(
+        A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, n * n, n, n, n,
+        torch.cuda.current_stream(A.device).cuda_stream)
+    cuda_lib.raise_on(err, "gesp_solve_f32")
+    lu_solve_gesp_f32.launches += 1
+    return x
+
+
+lu_solve_gesp_f32.launches = 0

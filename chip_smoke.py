@@ -8,13 +8,14 @@ Phases, each printing one line (any failure raises, so the exit code is not
 
 1. device  — requires CUDA; prints the card's name and power limit; full
    float32 matmuls (no TF32).
-2. build   — compiles the CUDA GESP LU kernels from the checkout's sources;
-   beside it, in a thread, the fused chord kernel with the BSIM4 model
-   emitted from the DFF's plan (the DFF is set up on the card first).
+2. build   — compiles every CUDA source of the checkout at once, one nvcc
+   each: the GESP LU kernels, the pivoting LU kernel and the fused chord
+   kernel with the BSIM4 model emitted from the DFF's plan (the DFF is set
+   up on the card first).
 3. kernels — each GESP kernel against its plain PyTorch version on the card
    (random, equilibrated, diagonally dominant inputs from a fixed numpy
    seed); the mixed chord solve against float64 ``torch.linalg.solve``;
-   kernel and plain times at the DFF transient's shape.
+   kernel, plain and library-call times at the DFF transient's shape.
 4. rc      — the RC step circuit against its closed form.
 5. slice   — the gf180 DFF BSIM4 testbench (parse → elaborate → compile
    on the card → transient operating point → per-lane warm DC) as an 8-lane
@@ -31,16 +32,29 @@ Phases, each printing one line (any failure raises, so the exit code is not
 7. fused_slice — the DFF through the public ``tran()`` with
    ``newton_impl="fused"`` (the JAX package's fused configuration), gated
    like phase 5; one fused launch per batched step attempt.
+8. lu_bench — the dense solve kernels B4 (fused GESP) and B5 (partial
+   pivoting) against their plain versions at (B, n) in {(1, 25), (37, 11),
+   (512, 25), (64, 122), (4, 240)} and a pivot-forcing case (1e-5
+   relative, non-finite where the plain version is, two launches bitwise
+   equal); then the dense-LU bench (``cedarsim_tpu_torch.benchmarks.
+   lu_bench``) at full width, every gate passing, with both kernels
+   launched; then each kernel's, its plain version's, its library call's
+   and B2+B3's time per launch at the bench's two shapes.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
-launches on its path (B1 in phase 7, B2/B3 in phase 5), error and times.
-The last line is ``{"ok": true, "device": {...}}``.
+the TPU kernel it replaces, launches on its path (B1 in phase 7, B2/B3 in
+phase 5, B4/B5 in phase 8), error, times (kernel, plain version, one
+PyTorch library call computing the same function where there is one) and
+its bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the card's peak for their type, both counted from this
+run's inputs.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +76,35 @@ CHORD_RTOL = 1e-10
 #: the fused chord kernel against its plain version: the same float64 loop
 #: (no FMA contraction), other summation orders in the row sums
 FUSED_RTOL = 1e-9
+#: H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): memory bytes/s
+#: and operations/s outside the tensor cores by type
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+
+
+def bound(nbytes, ops, dtype):
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the peak rate of ``dtype``."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lu_ops(n, B, kind):
+    """Operations of the dense LU kernels on B systems of n unknowns, a
+    multiply-add counted as two: the factor's multipliers and trailing
+    updates, the substitution's row sums and divisions, the fused solves'
+    elimination of b, and the pivoting solve's |A[i, k]| and comparison of
+    each candidate row."""
+    m = np.arange(n)                       # rows below the pivot per step
+    factor = int((m + 2 * m * m).sum())
+    subst = 2 * n * (n - 1) + n
+    elim_b = n * (n - 1)
+    back = n * (n - 1) + n
+    per = {"factor": factor, "subst": subst,
+           "gesp_solve": factor + elim_b + back,
+           "pivot_solve": factor + elim_b + back + n * (n + 1)}[kind]
+    return B * per
 
 
 def log(phase, **kw):
@@ -137,24 +180,49 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
         if rel > CHORD_RTOL:
             raise AssertionError(f"chord solve B={B} n={n}: relative error "
                                  f"{rel:.3g} > {CHORD_RTOL}")
-    # times at the transient's shape: B = lanes, n = 25 unknowns
-    A, b = test_matrices(rng, N_LANES, 25)
+    # times at the transient's shape: B = lanes, n = 25 unknowns; beside
+    # each kernel, one PyTorch call computing the same function (timed
+    # here only: the port never calls it)
+    B, n = N_LANES, 25
+    A, b = test_matrices(rng, B, n)
     A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
     b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
     LU = gesp_lu.lu_factor_gesp_f32(A32)
+    ident = torch.arange(1, n + 1, dtype=torch.int32,
+                         device=dev).expand(B, n).contiguous()
     times = {
         "factor": (cuda_time_ms(lambda: gesp_lu.lu_factor_gesp_f32(A32), 200),
                    cuda_time_ms(
-                       lambda: gesp_lu.lu_factor_gesp_f32_plain(A32), 20)),
+                       lambda: gesp_lu.lu_factor_gesp_f32_plain(A32), 20),
+                   library_ms(lambda: torch.linalg.lu_factor_ex(
+                       A32, pivot=False), 200)),
         "subst": (cuda_time_ms(lambda: gesp_lu.lu_subst_gesp_f32(LU, b32),
                                200),
                   cuda_time_ms(
-                      lambda: gesp_lu.lu_subst_gesp_f32_plain(LU, b32), 20)),
+                      lambda: gesp_lu.lu_subst_gesp_f32_plain(LU, b32), 20),
+                  library_ms(lambda: torch.linalg.lu_solve(
+                      LU, ident, b32[..., None]), 200)),
     }
+    bounds = {"factor": bound(8 * B * n * n, lu_ops(n, B, "factor"),
+                              "float32"),
+              "subst": bound(4 * B * n * (n + 2), lu_ops(n, B, "subst"),
+                             "float32")}
     log("kernels", worst_rel_err=worst, max_abs_err_dff_shape=abs_err,
-        ms_kernel_vs_plain={k: list(v) for k, v in times.items()},
-        shape=[N_LANES, 25, 25])
-    return abs_err, times
+        ms_kernel_plain_library={k: list(v) for k, v in times.items()},
+        bound_ms=bounds, shape=[B, n, n])
+    return abs_err, times, bounds
+
+
+def library_ms(fn, reps):
+    """``cuda_time_ms`` of a PyTorch library call, or None where this
+    build of PyTorch does not run it on the card (it is a yardstick only)."""
+    import torch
+    try:
+        return cuda_time_ms(fn, reps)
+    except (RuntimeError, NotImplementedError) as e:
+        log("library_call_unavailable", error=str(e)[:300])
+        torch.cuda.synchronize()
+        return None
 
 
 def phase_rc(T, dev):
@@ -432,6 +500,7 @@ def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
                 lambda: fc.fused_chord(plan, *args1, opts), 50),
                 cuda_time_ms(lambda: fc.fused_chord_plain(
                     plan, *args1, opts), 5))
+            b1_bound, walk_ops = fused_bound(plan, args, k1)
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if any(w in ln for w in ("Function properties", "registers",
                                       "spill"))]
@@ -439,12 +508,46 @@ def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
         s_rel_to_final_s=s_final_rel, ok_nnwt=nnwt,
         ms_kernel_vs_plain=list(times),
         ms_kernel_vs_plain_one_lane=list(times_b1), shape=[L, n],
+        bound_ms=b1_bound, walk_ops_per_eval=walk_ops,
         n_inst=plan.n_inst,
         threads=plan.threads, smem_bytes=plan.smem_bytes,
         smem_limit=plan.smem_limit, plan_s=t_plan,
         emit_s=info["emit_seconds"], nvcc_s=info["nvcc_seconds"],
         ptxas=ptxas, header=os.path.relpath(info["path"], REPO))
-    return abs_err, times, info
+    return abs_err, times, info, b1_bound
+
+
+def emitted_ops(text):
+    """Arithmetic nodes of an emitted model walk: its ``const`` lines
+    that are not an input (``lv``, ``lvd``, ``dyn``, ``t``)."""
+    ops = 0
+    for m in re.finditer(r"^  const (?:double|bool) v\d+ = (.*);$", text,
+                         re.M):
+        if not re.fullmatch(r"(?:lv|lvd|dyn)\[\d+\]|t", m.group(1)):
+            ops += 1
+    return ops
+
+
+def fused_bound(plan, args, out):
+    """B1's bound for one launch, from its inputs and outputs: the bytes
+    of every tensor it reads or writes; the operations of each lane's
+    (Newton iterations + 1) evaluations (the emitted walk's arithmetic
+    nodes times the instances, and the G_lin/C_lin matvecs, 3·2n²) and
+    of its direction per iteration (2n²).  Returns ((ms, by), walk
+    operations per evaluation)."""
+    comp = plan.compiled
+    lanes = args[7]
+    tensors = (list(args[:7]) + list(out)
+               + [plan.G_lin_t, plan.C_lin_t, plan.q_off_t,
+                  plan.inst_group_t, plan.inst_var_t, plan.row_ptr_t,
+                  plan.ent_slot_t, lanes.dyn, lanes.ent_scale])
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = plan.n_x
+    walk = sum(emitted_ops(text) * len(comp.groups[key].instances)
+               for key, _, text, _ in plan.emitted)
+    nnwt = out[3][:, 1].double().cpu()
+    ops = float(((nnwt + 1) * (walk + 6 * n * n) + nnwt * 2 * n * n).sum())
+    return bound(nbytes, ops, "float64"), walk
 
 
 def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
@@ -475,6 +578,126 @@ def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
     return launches
 
 
+#: phase 8's kernel checks: the bench's two shapes, one system alone, an
+#: odd batch at an odd n, and the largest n a block's shared memory holds
+LU_CHECK_SHAPES = [(1, 25), (37, 11), (512, 25), (64, 122), (4, 240)]
+
+
+def check_solve(torch, name, fn, plain, A32, b32):
+    """A dense solve kernel against its plain version on the same card
+    tensors: two launches bitwise equal, non-finite exactly where the plain
+    version is, the finite entries within KERNEL_RTOL of the plain
+    version's largest.  Returns (relative, absolute) error."""
+    x1 = fn(A32, b32)
+    x2 = fn(A32, b32)
+    xp = plain(A32, b32)
+    torch.cuda.synchronize()
+    if not torch.equal(x1.view(torch.int32), x2.view(torch.int32)):
+        raise AssertionError(f"{name}: two launches differ")
+    fin = torch.isfinite(xp)
+    if not torch.equal(torch.isfinite(x1), fin):
+        raise AssertionError(f"{name}: non-finite entries differ from the "
+                             "plain version's")
+    err = float((x1[fin] - xp[fin]).abs().max()) if bool(fin.any()) else 0.0
+    rel = err / max(float(xp[fin].abs().max()) if bool(fin.any()) else 0.0,
+                    1e-300)
+    if not rel <= KERNEL_RTOL:
+        raise AssertionError(f"{name}: relative error {rel:.3g} > "
+                             f"{KERNEL_RTOL}")
+    return rel, err
+
+
+def phase_lu(torch, gesp_lu, pivot_lu, dev):
+    """Phase 8: B4 and B5 against their plain versions, the dense-LU
+    bench at full width (both kernels must launch), and per-launch times
+    at the bench's shapes.  Returns (launches, per-shape numbers)."""
+    from cedarsim_tpu_torch.benchmarks import lu_bench
+    solves = {"gesp": (gesp_lu.lu_solve_gesp_f32,
+                       gesp_lu.lu_solve_gesp_f32_plain),
+              "pivot": (pivot_lu.lu_solve_pivot_f32,
+                        pivot_lu.lu_solve_pivot_f32_plain)}
+    rng = np.random.default_rng(0)
+    worst = {k: 0.0 for k in solves}
+    checked = []
+    for B, n in LU_CHECK_SHAPES + [(16, 25)]:
+        A, b = test_matrices(rng, B, n)
+        pivot_forcing = (B, n) == (16, 25)
+        for key, (fn, plain) in solves.items():
+            Ak = A.copy()
+            if key == "pivot":
+                # rows shuffled per system: the kernel swaps at almost
+                # every step; or a tiny corner that forces a swap at step
+                # 0 (tests/test_pallas_lu.py:26)
+                if pivot_forcing:
+                    Ak[:, 0, 0] = 1e-8
+                else:
+                    Ak = np.stack([a[rng.permutation(n)] for a in Ak])
+            elif pivot_forcing:
+                continue        # GESP does not pivot: no such case
+            A32 = torch.as_tensor(Ak, dtype=torch.float32, device=dev)
+            b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
+            rel, _ = check_solve(torch, f"{key} B={B} n={n}", fn, plain,
+                                 A32, b32)
+            worst[key] = max(worst[key], rel)
+            checked.append([key, B, n])
+    # the bench, at full width, through its entry point
+    gesp_lu.lu_solve_gesp_f32.launches = 0
+    pivot_lu.lu_solve_pivot_f32.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = lu_bench.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gesp": gesp_lu.lu_solve_gesp_f32.launches,
+                "pivot": pivot_lu.lu_solve_pivot_f32.launches}
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("dense-LU bench gate failed: "
+                             f"{[r for r in rows if not r['ok']]}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"kernels not on the bench's path: {launches}")
+    # per-launch times at the bench's shapes on the bench's systems
+    per_shape = {}
+    for B, n in lu_bench.SHAPES:
+        A, b = lu_bench.make_systems(B, n)
+        A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
+        b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
+        ent = {}
+        for key, (fn, plain) in solves.items():
+            _, err = check_solve(torch, f"{key} bench B={B} n={n}", fn,
+                                 plain, A32, b32)
+            lib = (library_ms(lambda: torch.linalg.solve_ex(A32, b32), 200)
+                   if key == "pivot" else None)
+            bnd = bound(4 * B * n * (n + 2), lu_ops(n, B, f"{key}_solve"),
+                        "float32")
+            ent[key] = dict(
+                max_abs_err=err, ms=cuda_time_ms(lambda: fn(A32, b32), 200),
+                plain_ms=cuda_time_ms(lambda: plain(A32, b32), 3),
+                library_ms=lib, bound_ms=bnd[0], bound_by=bnd[1])
+        # B2 then B3 back to back: the two-launch form of B4's function
+        ent["factor_then_subst_ms"] = cuda_time_ms(
+            lambda: gesp_lu.lu_subst_gesp_f32(
+                gesp_lu.lu_factor_gesp_f32(A32), b32), 200)
+        per_shape[(B, n)] = ent
+    log("lu_bench", worst_rel_err=worst, checked=checked,
+        bench_wall_s=wall, launches=launches,
+        bench_us_per_solve={f"{r['variant']} {r['B']}x{r['n']}":
+                            r["us_per_solve"] for r in rows},
+        bench_rel_err={f"{r['variant']} {r['B']}x{r['n']}": r["rel_err"]
+                       for r in rows},
+        per_launch={f"{B}x{n}": v for (B, n), v in per_shape.items()},
+        card=smi())
+    return launches, per_shape
+
+
+def kernel_entry(name, source, replaces, launches, ms, plain_ms, library,
+                 bnd, max_abs_err, **extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library,
+            **extra}
+
+
 def main():
     import threading
     import torch
@@ -483,7 +706,7 @@ def main():
                          "is_available() is False)")
     sys.path.insert(0, REPO)
     import cedarsim_tpu_torch as T
-    from cedarsim_tpu_torch.ops import gesp_lu, linalg
+    from cedarsim_tpu_torch.ops import gesp_lu, linalg, pivot_lu
     from cedarsim_tpu_torch.ops import fused_chord as fc
     from cedarsim_tpu_torch.analysis.tran import fused_plan_for
     dev = torch.device("cuda", 0)
@@ -493,56 +716,79 @@ def main():
     log("device", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, count=torch.cuda.device_count())
     dff = dff_setup(torch, T, dev)
-    # both kernel sources compile at once: the fused kernel with the
-    # BSIM4 model emitted from the DFF's plan, in a thread beside the GESP
-    # build (nvcc runs as its own process)
+    # every kernel source compiles at once, one nvcc process each: the
+    # fused kernel with the BSIM4 model emitted from the DFF's plan and the
+    # pivoting LU in threads beside the GESP build
     t_plan = time.perf_counter()
     plan = fused_plan_for(dff[0], dff[1], dff[2])
     t_plan = time.perf_counter() - t_plan
-    fused_build = {}
+    built = {}
 
-    def build_fused():
-        try:
-            fused_build["info"] = plan.build()
-        except BaseException as e:          # re-raised after the join
-            fused_build["error"] = e
+    def build_in_thread(name, fn):
+        def run():
+            try:
+                built[name] = fn()
+            except BaseException as e:      # re-raised after the join
+                built[name] = e
+        th = threading.Thread(target=run)
+        th.start()
+        return th
 
-    th = threading.Thread(target=build_fused)
-    th.start()
+    th_fused = build_in_thread("fused", plan.build)
+    th_pivot = build_in_thread("pivot", pivot_lu.build)
     b = gesp_lu.build()
-    ptxas = [ln.strip() for ln in b["log"].splitlines() if "registers" in ln]
-    log("build", seconds=b["seconds"], path=os.path.relpath(b["path"], REPO),
+    th_pivot.join()
+    if isinstance(built["pivot"], BaseException):
+        raise built["pivot"]
+    ptxas = {name: [ln.strip() for ln in lib["log"].splitlines()
+                    if "registers" in ln]
+             for name, lib in (("gesp_lu", b), ("pivot_lu", built["pivot"]))}
+    log("build", seconds={"gesp_lu": b["seconds"],
+                          "pivot_lu": built["pivot"]["seconds"]},
+        path=[os.path.relpath(b["path"], REPO),
+              os.path.relpath(built["pivot"]["path"], REPO)],
         ptxas=ptxas)
-    abs_err, times = phase_kernels(torch, gesp_lu, linalg, dev)
+    abs_err, times, bounds = phase_kernels(torch, gesp_lu, linalg, dev)
     phase_rc(T, dev)
     launches = phase_slice(torch, T, gesp_lu, dev, dff)
     phase_repeat(torch, T, dev, dff)
-    th.join()
-    if "error" in fused_build:
-        raise fused_build["error"]
-    fabs_err, ftimes, info = phase_fused_kernel(torch, T, fc, dev, dff,
-                                                plan, t_plan)
+    th_fused.join()
+    if isinstance(built["fused"], BaseException):
+        raise built["fused"]
+    fabs_err, ftimes, info, b1_bound = phase_fused_kernel(
+        torch, T, fc, dev, dff, plan, t_plan)
     flaunches = phase_fused_slice(
         torch, T, gesp_lu, fc, dev, dff,
         dict(plan_s=t_plan, emit_s=info["emit_seconds"],
              nvcc_s=info["nvcc_seconds"]))
+    lu_launches, per_shape = phase_lu(torch, gesp_lu, pivot_lu, dev)
     src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
     kernels = [
-        {"name": "fused_chord_f64", "route": "cuda",
-         "source": "cedarsim_tpu_torch/csrc/fused_chord.cu",
-         "replaces": "cedarsim_tpu/ops/fused_chord.py:632",
-         "also_replaces": "cedarsim_tpu/ops/fused_chord.py:526",
-         "launches": flaunches["fused"], "max_abs_err": fabs_err,
-         "ms": ftimes[0], "plain_ms": ftimes[1]},
-        {"name": "gesp_factor_f32", "route": "cuda", "source": src,
-         "replaces": "cedarsim_tpu/ops/pallas_lu.py:313",
-         "launches": launches["factor"], "max_abs_err": abs_err["factor"],
-         "ms": times["factor"][0], "plain_ms": times["factor"][1]},
-        {"name": "gesp_subst_f32", "route": "cuda", "source": src,
-         "replaces": "cedarsim_tpu/ops/pallas_lu.py:354",
-         "launches": launches["subst"], "max_abs_err": abs_err["subst"],
-         "ms": times["subst"][0], "plain_ms": times["subst"][1]},
+        kernel_entry("fused_chord_f64",
+                     "cedarsim_tpu_torch/csrc/fused_chord.cu",
+                     "cedarsim_tpu/ops/fused_chord.py:632",
+                     flaunches["fused"], ftimes[0], ftimes[1], None,
+                     b1_bound, fabs_err,
+                     also_replaces="cedarsim_tpu/ops/fused_chord.py:526",
+                     shape=[N_LANES, dff[0].n_x]),
     ]
+    for key, line in (("factor", 313), ("subst", 354)):
+        kernels.append(kernel_entry(
+            f"gesp_{key}_f32", src, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
+            launches[key], *times[key], bounds[key], abs_err[key],
+            shape=[N_LANES, 25]))
+    for key, name, source, line in (
+            ("gesp", "gesp_solve_f32", src, 164),
+            ("pivot", "pivot_solve_f32",
+             "cedarsim_tpu_torch/csrc/pivot_lu.cu", 50)):
+        (B, n), *rest = list(per_shape)
+        e = per_shape[(B, n)][key]
+        kernels.append(kernel_entry(
+            name, source, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
+            lu_launches[key], e["ms"], e["plain_ms"], e["library_ms"],
+            (e["bound_ms"], e["bound_by"]), e["max_abs_err"], shape=[B, n],
+            other_shapes=[{"shape": list(s), **per_shape[s][key]}
+                          for s in rest]))
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,7 @@ def _both():
         include_paths=[DFF_DIR]))
     ct = T.compile_circuit(T.elaborate(
         T.parse_spice(text, file="dff_tb_bsim4.cir"),
-        include_paths=[DFF_DIR]))
+        include_paths=[DFF_DIR]), device="cpu")
     return cj, ct
 
 
@@ -52,7 +52,8 @@ def test_dff_structure_matches_jax():
 
 def test_dff_residuals_and_jacobians_match_jax():
     cj, ct = _both()
-    params = params_from_numpy(jax.tree.map(np.asarray, cj.params0))
+    params = params_from_numpy(jax.tree.map(np.asarray, cj.params0),
+                               device="cpu")
     rng = np.random.default_rng(5)
     fj = jax.jit(lambda x, t: cj.res_jacs_fwd(
         x, J.SimSpec.make(gmin=1e-15).at_time(t)))

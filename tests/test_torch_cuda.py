@@ -20,6 +20,13 @@ which sets JAX up for the other files):
   is a residual that cancels far below it); two launches bitwise equal;
   the wrapper refuses another dtype, a non-contiguous input or a CPU
   tensor; ``tran(newton_impl="fused")`` launches once per step attempt.
+- The dense solves B4 (fused GESP, ``gesp_lu.lu_solve_gesp_f32``) and B5
+  (partial pivoting, ``pivot_lu.lu_solve_pivot_f32``) against their plain
+  versions at n in {11, 25, 122, 240} (1e-5 relative), two launches
+  bitwise equal, non-finite where the plain version is; n = 241 is refused
+  with the card's shared memory per block named; on a tie of magnitudes
+  the pivoting kernel takes the first row, so it is bitwise the GESP
+  kernel where no row is swapped.
 """
 
 import dataclasses
@@ -32,7 +39,7 @@ import torch
 import cedarsim_tpu_torch as T
 from cedarsim_tpu_torch.analysis.tran import fused_plan_for
 from cedarsim_tpu_torch.ops import fused_chord as fc
-from cedarsim_tpu_torch.ops import gesp_lu, linalg
+from cedarsim_tpu_torch.ops import gesp_lu, linalg, pivot_lu
 from cedarsim_tpu_torch.va.codegen import load_va
 
 DFF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -250,3 +257,68 @@ def test_fused_tran_on_the_card(cuda_device):
     assert sol.converged
     assert fc.fused_chord.launches == sol.n_attempts > 0
     assert 0.45 < float(sol.interp("b", 4e-9)) < 0.9
+
+
+# ------------------------------------------------- dense solves (B4, B5)
+
+SOLVES = {"gesp": (gesp_lu.lu_solve_gesp_f32, gesp_lu.lu_solve_gesp_f32_plain),
+          "pivot": (pivot_lu.lu_solve_pivot_f32,
+                    pivot_lu.lu_solve_pivot_f32_plain)}
+
+
+def _solve_case(kernel, B, n, dev):
+    """Dominant systems; for the pivoting kernel with rows shuffled per
+    system, so that it swaps at almost every step."""
+    A, b = _systems(1000 + n, B, n)
+    if kernel == "pivot":
+        rng = np.random.default_rng(n)
+        A = np.stack([a[rng.permutation(n)] for a in A])
+    return (torch.as_tensor(A, dtype=torch.float32, device=dev),
+            torch.as_tensor(b, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("kernel", ["gesp", "pivot"])
+@pytest.mark.parametrize("B, n", [(37, 11), (512, 25), (64, 122), (4, 240)])
+def test_dense_solve_matches_plain(cuda_device, kernel, B, n):
+    fn, plain = SOLVES[kernel]
+    A, b = _solve_case(kernel, B, n, cuda_device)
+    n0 = fn.launches
+    x1 = fn(A, b)
+    x2 = fn(A, b)
+    xp = plain(A, b)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 2
+    assert torch.equal(x1, x2)
+    assert bool(torch.isfinite(x1).all())
+    assert _rel(x1, xp) <= 1e-5
+
+
+def test_pivot_kernel_zero_pivot_is_not_finite(cuda_device):
+    A, b = _solve_case("pivot", 4, 9, cuda_device)
+    A[:, :, 3] = 0.0
+    x = pivot_lu.lu_solve_pivot_f32(A, b)
+    xp = pivot_lu.lu_solve_pivot_f32_plain(A, b)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(xp).all())
+    assert torch.equal(torch.isfinite(x), torch.isfinite(xp))
+
+
+def test_pivot_kernel_ties_go_to_the_first_row(cuda_device):
+    A, b = _solve_case("gesp", 8, 25, cuda_device)
+    A[:, 2, 0] = -A[:, 0, 0]
+    x = pivot_lu.lu_solve_pivot_f32(A, b)
+    xg = gesp_lu.lu_solve_gesp_f32(A, b)
+    torch.cuda.synchronize()
+    assert torch.equal(x, xg)
+
+
+@pytest.mark.parametrize("kernel", ["gesp", "pivot"])
+def test_dense_solve_refuses_n_241(cuda_device, kernel):
+    fn, _ = SOLVES[kernel]
+    A, b = _solve_case("gesp", 2, 241, cuda_device)
+    n0 = fn.launches
+    with pytest.raises(ValueError, match="shared memory per block"):
+        fn(A, b)
+    assert fn.launches == n0
+    with pytest.raises(TypeError):
+        fn(A[:, :25, :25].double().contiguous(), b[:, :25].double())

@@ -28,7 +28,7 @@ def test_dff_tranop_matches_jax():
         include_paths=[DFF_DIR]))
     ct = T.compile_circuit(T.elaborate(
         T.parse_spice(text, file="dff_tb_bsim4.cir"),
-        include_paths=[DFF_DIR]))
+        include_paths=[DFF_DIR]), device="cpu")
     rj = J.solve_dc(cj, ctx=J.SimSpec.make(gmin=1e-15), mode="tranop",
                     artifact_cache=False)
     rt = T.solve_dc(ct, ctx=T.SimSpec.make(gmin=1e-15), mode="tranop")
@@ -45,7 +45,7 @@ R1 in mid 1k
 R2 mid 0 2k
 .end
 """
-    ct = T.compile_circuit(T.elaborate(T.parse_spice(text)))
+    ct = T.compile_circuit(T.elaborate(T.parse_spice(text)), device="cpu")
     r = T.solve_dc(ct)
     assert bool(r.converged)
     # 1e-12 S of gmin on every node pulls mid down by ~1.3e-9 V
@@ -58,7 +58,7 @@ def test_dc_lanes_are_independent():
     each lane equals the same solve run alone."""
     ct = T.compile_circuit(T.elaborate(
         T.parse_spice(_dff_text(), file="dff_tb_bsim4.cir"),
-        include_paths=[DFF_DIR]))
+        include_paths=[DFF_DIR]), device="cpu")
     ctx = T.SimSpec.make(gmin=1e-15)
     op = T.solve_dc(ct, ctx=ctx, mode="tranop")
     key = [k for k in ct.group_order if "bsim4" in k.lower()][0]

@@ -57,7 +57,8 @@ endmodule
 def dff():
     with open(os.path.join(DFF_DIR, "dff_tb_bsim4.cir")) as f:
         nl = T.parse_spice(f.read(), file="dff_tb_bsim4.cir")
-    return T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]))
+    return T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]),
+                             device="cpu")
 
 
 def _diode_circuit():
@@ -68,7 +69,7 @@ def _diode_circuit():
     ckt.add(T.Resistor, "R1", (a, b), dict(r=1000.0))
     ckt.add(dev, "D1", (b, ckt.gnd), dict(is_=1e-14))
     ckt.add(dev, "D2", (a, b), dict(is_=3e-14, cj=2e-12))
-    return T.compile_circuit(ckt)
+    return T.compile_circuit(ckt, device="cpu")
 
 
 def _host_harness(name, n_lvar, n_lrow, n_dyn):
@@ -208,7 +209,8 @@ def test_emit_hash_is_stable(dff):
         f"d = {DFF_DIR!r}\n"
         "nl = T.parse_spice(open(os.path.join(d, 'dff_tb_bsim4.cir'))"
         ".read(), file='dff_tb_bsim4.cir')\n"
-        "c = T.compile_circuit(T.elaborate(nl, include_paths=[d]))\n"
+        "c = T.compile_circuit(T.elaborate(nl, include_paths=[d]), "
+        "device='cpu')\n"
         f"print(emit.emit_group(c, {key!r}, T.SimSpec.make(gmin=1e-15)"
         ".with_mode('tran'))[2])\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -237,7 +239,7 @@ endmodule
     a = ckt.net("a")
     ckt.add(T.VSource, "V1", (a, ckt.gnd), dict(dc=1.0))
     ckt.add(dev, "B1", (a, ckt.gnd), {})
-    comp = T.compile_circuit(ckt)
+    comp = T.compile_circuit(ckt, device="cpu")
     key = [k for k in comp.group_order if "bits" in k][0]
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         emit.emit_group(comp, key, T.SimSpec.make().with_mode("tran"))

@@ -75,6 +75,12 @@ BASE = dict(max_steps=4096, jac_reuse=1, formulation="cap",
             jac_shunt=1e-7, res_rel=3e-5, rtol=1e-2, atol=1e-4)
 
 
+def _cpu(P):
+    """The device argument of P's ``compile_circuit``: the port's runs on
+    the card unless told otherwise; the JAX package's takes none."""
+    return {"device": "cpu"} if P is T else {}
+
+
 def _diode(P, load_va):
     dev = load_va(VA_DIODE)["fdiode"]
     ckt = P.Circuit()
@@ -85,12 +91,13 @@ def _diode(P, load_va):
     ckt.add(P.Resistor, "R1", (a, b), dict(r=1000.0))
     ckt.add(dev, "D1", (b, ckt.gnd), dict(is_=1e-14))
     ckt.add(P.Capacitor, "C1", (b, ckt.gnd), dict(c=1e-12))
-    return P.compile_circuit(ckt, dynamic_params=("is_",))
+    return P.compile_circuit(ckt, dynamic_params=("is_",), **_cpu(P))
 
 
 def _inverter(P):
     nl = P.parse_spice(INVERTER, file="inverter.cir")
-    return P.compile_circuit(P.elaborate(nl, include_paths=[DFF_DIR]))
+    return P.compile_circuit(P.elaborate(nl, include_paths=[DFF_DIR]),
+                             **_cpu(P))
 
 
 @pytest.fixture(scope="module")
@@ -273,7 +280,7 @@ def _ladder(n):
     for i in range(n - 1):
         ckt.add(T.Resistor, f"R{i}", (nets[i], nets[i + 1]), dict(r=100.0))
     ckt.add(dev, "D1", (nets[-1], ckt.gnd), dict(is_=1e-14))
-    return T.compile_circuit(ckt)
+    return T.compile_circuit(ckt, device="cpu")
 
 
 def test_resolve_impl_rules(circuits, monkeypatch):
@@ -290,7 +297,8 @@ def test_resolve_impl_rules(circuits, monkeypatch):
     # a per-lane resistor value enters the constant G_lin: not fused, and
     # refused when asked for explicitly
     rk = [k for k in ct.group_order if k.startswith("Resistor")][0]
-    ct2 = T.compile_circuit(ct.circuit, dynamic_params=("is_", "r"))
+    ct2 = T.compile_circuit(ct.circuit, dynamic_params=("is_", "r"),
+                            device="cpu")
     pr = {k: dict(g) for k, g in ct2.params0.items()}
     pr[rk]["r"] = torch.tensor([[1000.0], [1200.0]], dtype=torch.float64)
     assert ttran.auto_newton_impl(ct2, cap, ctx, pr) == "xla"

@@ -9,8 +9,9 @@ forms and against the JAX package's ``tran``.
   one-lane runs of the same W with the exact solver: every node within
   1e-3 V at ten times, accepted steps within 10 %; the nominal lane equals
   a solo run of the port to 1e-12 V (lane independence).
-- The package never imports JAX (a fresh interpreter), on the RC step and
-  on a VA diode through the fused chord path.
+- The package never imports JAX (a fresh interpreter), on the RC step, on
+  a VA diode through the fused chord path, and in the dense-LU bench's
+  module.
 """
 
 import os
@@ -37,7 +38,8 @@ def _rc(P):
                  per=10e-6))
     ckt.add(P.Resistor, "R1", (vin, vout), dict(r=1000.0))
     ckt.add(P.Capacitor, "C1", (vout, ckt.gnd), dict(c=1e-9))
-    return P.compile_circuit(ckt)
+    # the port's compile runs on the card unless told otherwise
+    return P.compile_circuit(ckt, **({"device": "cpu"} if P is T else {}))
 
 
 def test_rc_closed_form_mixed():
@@ -94,7 +96,7 @@ def test_dff_lanes_mixed_vs_jax():
                            opts=JTranOptions(dense_lu="jax", **_OPTS)))
     ct = T.compile_circuit(T.elaborate(
         T.parse_spice(_dff_text(), file="dff_tb_bsim4.cir"),
-        include_paths=[DFF_DIR]))
+        include_paths=[DFF_DIR]), device="cpu")
     ctx = T.SimSpec.make(gmin=1e-15)
     key = [k for k in ct.group_order if "bsim4" in k.lower()][0]
     sc = torch.tensor(scale, dtype=torch.float64)
@@ -129,7 +131,7 @@ def test_port_never_imports_jax():
         "td=1e-6, tr=1e-9, tf=1e-9, pw=4e-6, per=10e-6))\n"
         "ckt.add(T.Resistor, 'R1', (a, b), dict(r=1e3))\n"
         "ckt.add(T.Capacitor, 'C1', (b, ckt.gnd), dict(c=1e-9))\n"
-        "sol = T.tran(T.compile_circuit(ckt), (0.0, 5e-6))\n"
+        "sol = T.tran(T.compile_circuit(ckt, device='cpu'), (0.0, 5e-6))\n"
         "assert sol.converged\n"
         # the fused chord path (its plain version on the CPU) with a VA
         # diode emitted as C++ by the plan
@@ -138,10 +140,12 @@ def test_port_never_imports_jax():
         "analog I(a, c) <+ 1e-14 * (limexp(V(a, c) / $vt) - 1.0); "
         "endmodule')['dd']\n"
         "ckt.add(d, 'D1', (b, ckt.gnd), {})\n"
-        "sol = T.tran(T.compile_circuit(ckt), (0.0, 5e-6), "
+        "sol = T.tran(T.compile_circuit(ckt, device='cpu'), (0.0, 5e-6), "
         "opts=T.TranOptions(formulation='cap', jac_reuse=1, "
         "newton_impl='fused'))\n"
         "assert sol.converged and 0.0 < sol.interp('b', 4e-6) < 0.9\n"
+        # the dense-LU bench and its kernels' modules
+        "import cedarsim_tpu_torch.benchmarks.lu_bench\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m.startswith('cedarsim_tpu.') or m == "
         "'cedarsim_tpu' for m in sys.modules)\n"

@@ -165,7 +165,8 @@ def test_walk_bits_do_not_depend_on_the_hash_seed():
         f"d = {os.path.abspath(DFF_DIR)!r}\n"
         "nl = T.parse_spice(open(os.path.join(d, 'dff_tb_bsim4.cir'))"
         ".read(), file='dff_tb_bsim4.cir')\n"
-        "c = T.compile_circuit(T.elaborate(nl, include_paths=[d]))\n"
+        "c = T.compile_circuit(T.elaborate(nl, include_paths=[d]), "
+        "device='cpu')\n"
         "x = torch.as_tensor(np.random.default_rng(3).uniform("
         "0, 5, (4, c.n_x)))\n"
         "out = c.res_jacs_fwd(x, T.SimSpec.make(gmin=1e-15)"
