@@ -1,0 +1,293 @@
+"""Device time and call time per launch of every CUDA kernel of the port,
+at the shapes of its path.
+
+    python -m cedarsim_tpu_torch.benchmarks.kernel_times [--out FILE]
+    python cedarsim_tpu_torch/benchmarks/kernel_times.py --tree DIR
+
+Two times per kernel, both from CUDA events on the card:
+
+* ``device_ms``: 100 wrapper calls captured in one CUDA graph (the wrappers
+  launch on the current stream, which is the capturing one, and the graph's
+  pool takes their outputs), the graph replayed between two events, divided
+  by the calls.  Nothing of the host runs between the launches, so this is
+  the card's time per launch.
+* ``call_ms``: a Python loop of wrapper calls between two events, divided
+  by the calls, the least of five such loops (the host's clock is shared
+  with other work): the host's checks, allocation and ctypes call
+  included, as the solvers call the wrapper.
+
+The shapes: B1 (``fused_chord``) on the gf180 DFF at 8 lanes and B1' at one
+lane (the nominal one), both on the smoke's phase-6 inputs (the per-lane
+warm DC, nodes perturbed by a seeded 0.05 V, a BE start at h = 1e-12); B2
+and B3 at [8, 25, 25] on seeded dominant systems; B4 and B5 at the
+dense-LU bench's [512, 25] and [64, 122].
+
+``--tree DIR`` imports ``cedarsim_tpu_torch`` from another checkout (for
+instance the parent commit unpacked with ``git archive``), so that two
+designs are timed by the same code on one card; its kernels build into that
+checkout's own ``build/``.  ``--dump FILE`` saves each kernel's outputs on
+these inputs (numpy ``.npz``); ``--compare FILE`` reports, per kernel,
+whether its outputs are bitwise equal to those saved there.  One JSON
+object is printed, with the card's name and power limit; ``--out`` also
+writes it to a file.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+#: wrapper calls captured in one graph, and the graph's timed replays
+GRAPH_CALLS = 100
+GRAPH_REPLAYS = 10
+#: timed loops of ``call_ms``, of which the least is taken
+CALL_ROUNDS = 5
+#: lanes of the DFF transient and the per-lane W scatter (bench.py:217-225)
+N_LANES = 8
+#: cell A, the mixed chord path of chip_smoke.py's phase 5: the charge-form
+#: trap of bench.py::dff_batched_leg's CPU reference mode; the GESP factor
+#: has no pivoting, so a Jacobian-only shunt on the voltage rows keeps the
+#: node-first MNA pivots away from exact cancellation (PERF.md)
+XLA_OPTS = dict(max_steps=8192, jac_reuse=1, dense_lu="mixed",
+                newton_impl="xla", accept_slack=1.5, jac_shunt=1e-9)
+#: cell B, the fused engine's options of chip_smoke.py's phase 7 (the JAX
+#: package's fused configuration, bench.py:96-98, accept_slack 1.0)
+FUSED_OPTS = dict(max_steps=8192, jac_reuse=1, formulation="cap",
+                  newton_impl="fused", dense_lu="mixed", newton_reltol=1e-4,
+                  newton_abstol=5e-7, res_tol=1e-3, jac_shunt=1e-7,
+                  res_rel=3e-5, rtol=1e-2, atol=1e-4)
+
+
+def call_ms(fn, reps, rounds=CALL_ROUNDS):
+    """ms per call of a Python loop of ``reps`` calls of ``fn`` between two
+    CUDA events, after three warm-up calls: the least of ``rounds``
+    loops."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(rounds):
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1) / reps)
+    return best
+
+
+def device_ms(fn, calls=GRAPH_CALLS, replays=GRAPH_REPLAYS):
+    """ms per launch on the card: ``calls`` calls of ``fn`` captured in one
+    CUDA graph after three warm-up calls (the build, the shared-memory
+    opt-in and any plan are done by then), replayed ``replays`` times
+    between two events.  The capture is thread-local, so a build thread
+    loading a library beside it does not break it."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (calls * replays)
+
+
+def dominant_systems(rng, B, n):
+    """Random, row-equilibrated, diagonally dominant systems (float64 A
+    [B, n, n] and b [B, n])."""
+    A = rng.standard_normal((B, n, n))
+    A += (n + 8) * np.eye(n)
+    A /= np.abs(A).max(-1, keepdims=True)
+    b = rng.standard_normal((B, n))
+    return A, b
+
+
+def dff_lanes(torch, T, dev, lanes=N_LANES):
+    """The DFF testbench compiled on ``dev``, its transient operating point
+    and the per-lane warm DC of the W scatter (``linspace(0.99, 1.01)``,
+    the middle lane nominal).  Returns (compiled, ctx, per-lane params,
+    per-lane initial states)."""
+    from cedarsim_tpu_torch.analysis.dc import dc_core
+    dff_dir = os.path.join(_repo(T), "benchmarks", "gf180_dff")
+    with open(os.path.join(dff_dir, "dff_tb_bsim4.cir")) as f:
+        nl = T.parse_spice(f.read(), file="dff_tb_bsim4.cir")
+    comp = T.compile_circuit(T.elaborate(nl, include_paths=[dff_dir]),
+                             device=dev)
+    ctx = T.SimSpec.make(gmin=1e-15)
+    op = T.solve_dc(comp, ctx=ctx, mode="tranop")
+    if not bool(op.converged):
+        raise AssertionError("DFF operating point did not converge")
+    key = [k for k in comp.group_order if "bsim4" in k.lower()][0]
+    sc = np.linspace(0.99, 1.01, lanes)
+    sc[lanes // 2] = 1.0
+    scatter = torch.as_tensor(sc, dtype=comp.dtype, device=dev)
+    pb = {k: {pn: v.expand((lanes,) + tuple(v.shape))
+              for pn, v in grp.items()} for k, grp in comp.params0.items()}
+    pb[key] = dict(pb[key])
+    pb[key]["W"] = comp.params0[key]["W"][None, :] * scatter[:, None]
+    light = dataclasses.replace(T.default_newton_options(comp),
+                                gmin_steps=2, src_steps=2, restarts=0,
+                                gmin_start=1e-6)
+    warm = dc_core(comp, pb, ctx.with_mode("tranop"),
+                   op.x.expand(lanes, comp.n_x), light)
+    if not bool(warm.converged.all()):
+        raise AssertionError("per-lane warm DC did not converge")
+    return comp, ctx, pb, warm.x
+
+
+def _repo(T):
+    return os.path.dirname(os.path.dirname(os.path.abspath(T.__file__)))
+
+
+def fused_args(torch, T, plan, dff, h, lanes=None):
+    """The fused kernel's inputs on the DFF's lanes (all, or the slice
+    ``lanes``): a BE start of step ``h`` from the warm state, the node
+    unknowns perturbed by a seeded 0.05 V so that the chord loop iterates,
+    J = C/h + G + the Jacobian shunt at the predictor."""
+    comp, ctx, pb, x0 = dff
+    dev = x0.device
+    opts = T.TranOptions(**FUSED_OPTS)
+    ctx_t = ctx.with_mode("tran")
+    L, n = x0.shape
+    pert = np.zeros((L, n))
+    pert[:, :comp.n_nodes] = np.random.default_rng(0).uniform(
+        -0.05, 0.05, (L, comp.n_nodes))
+    x_pred = x0 + torch.as_tensor(pert, dtype=comp.dtype, device=dev)
+    if lanes is not None:
+        pb = {k: {pn: v[lanes] for pn, v in g.items()} for k, g in pb.items()}
+        x0, x_pred = x0[lanes], x_pred[lanes]
+        L = x0.shape[0]
+    nv = comp.n_nodes + comp.n_internal
+    shunt = opts.jac_shunt * torch.diag(
+        (torch.arange(n, device=dev) < nv).to(comp.dtype))
+    t = torch.full((L,), h, dtype=comp.dtype, device=dev)
+    _, _, G, C = comp.res_jacs_fwd(x_pred, ctx_t.at_time(t), pb)
+    J = C / h + G + shunt
+    return plan.inputs(x_pred, J, plan.s_off(t, ctx_t, pb),
+                       torch.ones(L, dtype=comp.dtype, device=dev),
+                       torch.full_like(t, h), -x0, t, pb), opts
+
+
+def measure(torch, T, dev):
+    """({kernel: {shape, device_ms, call_ms}} for B1, B1', B2-B5 at their
+    paths' shapes, nvcc's register and spill lines per library, each
+    kernel's outputs)."""
+    from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+    from cedarsim_tpu_torch.benchmarks import lu_bench
+    from cedarsim_tpu_torch.ops import fused_chord as fc
+    from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu
+    out, results = {}, {}
+    dff = dff_lanes(torch, T, dev)
+
+    def put(name, shape, fn, reps):
+        res = fn()
+        results[name] = [t.cpu().numpy() for t in
+                         (res if isinstance(res, tuple) else (res,))]
+        out[name] = dict(shape=list(shape), device_ms=device_ms(fn),
+                         call_ms=call_ms(fn, reps))
+
+    plan = fused_plan_for(*dff[:3])
+    logs = {"fused_chord": plan.build()["log"],
+            "gesp_lu": gesp_lu.build()["log"],
+            "pivot_lu": pivot_lu.build()["log"]}
+    n = dff[0].n_x
+    args, opts = fused_args(torch, T, plan, dff, 1e-12)
+    put("B1 fused_chord_f64", (N_LANES, n),
+        lambda: fc.fused_chord(plan, *args, opts), 50)
+    one = slice(N_LANES // 2, N_LANES // 2 + 1)
+    args1, _ = fused_args(torch, T, plan, dff, 1e-12, lanes=one)
+    put("B1' fused_chord_f64", (1, n),
+        lambda: fc.fused_chord(plan, *args1, opts), 50)
+    A, b = dominant_systems(np.random.default_rng(1), N_LANES, 25)
+    A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
+    b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    LU = gesp_lu.lu_factor_gesp_f32(A32)
+    put("B2 gesp_factor_f32", A32.shape,
+        lambda: gesp_lu.lu_factor_gesp_f32(A32), 200)
+    put("B3 gesp_subst_f32", A32.shape,
+        lambda: gesp_lu.lu_subst_gesp_f32(LU, b32), 200)
+    for B, nb in lu_bench.SHAPES:
+        A, b = lu_bench.make_systems(B, nb)
+        A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
+        b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
+        put(f"B4 gesp_solve_f32 {B}x{nb}", (B, nb),
+            lambda: gesp_lu.lu_solve_gesp_f32(A32, b32), 200)
+        put(f"B5 pivot_solve_f32 {B}x{nb}", (B, nb),
+            lambda: pivot_lu.lu_solve_pivot_f32(A32, b32), 200)
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if any(w in ln for w in ("Function properties",
+                                          "registers", "spill"))]
+             for k, v in logs.items()}
+    return out, ptxas, results
+
+
+def smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", help="import cedarsim_tpu_torch from this "
+                    "checkout instead of the one this file is in")
+    ap.add_argument("--out", help="also write the JSON object here")
+    ap.add_argument("--dump", help="save the kernels' outputs here (.npz)")
+    ap.add_argument("--compare", help="report which kernels' outputs are "
+                    "bitwise equal to those saved in this .npz")
+    args = ap.parse_args(argv)
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "..")
+    sys.path.insert(0, os.path.abspath(args.tree or here))
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: no CUDA device")
+    import cedarsim_tpu_torch as T
+    dev = torch.device("cuda", 0)
+    times, ptxas, results = measure(torch, T, dev)
+    flat = {f"{k}#{i}": a for k, v in results.items()
+            for i, a in enumerate(v)}
+    res = {"tree": _repo(T), "card": smi(), "kernels": times,
+           "ptxas": ptxas}
+    if args.dump:
+        np.savez(args.dump, **flat)
+    if args.compare:
+        other = np.load(args.compare)
+        res["bitwise_equal_to"] = {
+            "file": args.compare,
+            "kernels": {k: all(f"{k}#{i}" in other.files and np.array_equal(
+                a, other[f"{k}#{i}"]) for i, a in enumerate(v))
+                for k, v in results.items()}}
+    text = json.dumps(res)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    print(text, flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -14,22 +14,33 @@
 //
 // The nonlinear models S_nl, Q_nl and their charge tangent come from the
 // header emitted from the Verilog-A interpreter (va/emit.py), included as
-// FC_MODEL_HEADER; it defines fc_eval(group, ...), FC_MAX_LVAR,
-// FC_MAX_LROW and FC_MAX_DYN.
+// FC_MODEL_HEADER; it defines fc_pre(group, dyn, t, h), fc_eval(group, lv,
+// lvd, h, s, q, qd), FC_MAX_LVAR, FC_MAX_LROW, FC_MAX_DYN and FC_MAX_HOIST.
 //
 // What bounds it on an H100: the loop is serial (at most max_newton
 // iterations, each a model walk, a dense n x n product and two block
 // reductions), so a launch is latency-bound; one block per lane keeps 8
 // lanes on 8 of the 132 SMs.  The per-instance model walk is one long
-// straight-line function per thread, bound by registers (ptxas -v reports
-// them and any spills).  The simple design: one block per lane, one thread
-// per device instance (threads loop when there are more), every per-lane
-// row, this lane's MT and the per-instance row contributions in shared
-// memory, the constant G_lin/C_lin/q_off read from global memory (L2).
-// The scatter of instance rows into the circuit rows is a fixed-order sum
-// over a precomputed per-row list, and every reduction is a block vote or a
-// max, so a lane's result does not depend on scheduling: two launches on
-// the same inputs give the same bits.
+// straight-line float64 function per thread (divisions, pow, exp, sqrt),
+// bound by its dependent long-latency operations and by registers (ptxas -v
+// reports them and any spills).
+//
+// The design: one block per lane, one thread per device instance (threads
+// loop when there are more), every per-lane row, this lane's MT and the
+// per-instance row contributions in shared memory.  The part of each model
+// walk that reads only the instance's params and the time (the size- and
+// temperature-dependent parameter algebra) runs once per instance at the
+// start of the launch, fc_pre, into a per-lane scratch in device memory
+// (hs, written and read only by the thread that owns the instance); every
+// evaluation of the loop runs only the rest, fc_eval, reading those values
+// from hs.  The constant G_lin/C_lin come
+// transposed, so the threads of a row loop read neighbouring addresses;
+// each thread's row bounds of the scatter are loaded once per launch.  The
+// scatter of instance rows into the circuit rows is a fixed-order sum over
+// a precomputed per-row list, and every reduction is a block vote or a max,
+// so a lane's result does not depend on scheduling: two launches on the
+// same inputs give the same bits, and the same bits as the walk without the
+// cut (the same operations in the same order, built with --fmad=false).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,8 +57,8 @@ struct Args {
   const double* vanch;  // [B, n] (c0 x0 + xdh)/h
   const double* coef;   // [B, 2] (c0/h, t)
   const int* live;      // [B] 0: the lane enters done
-  const double* Glin;   // [n, n]
-  const double* Clin;   // [n, n]
+  const double* GlinT;  // [n, n] G_lin transposed (column j at j * n)
+  const double* ClinT;  // [n, n] C_lin transposed
   const double* qoff;   // [n]
   const int* inst_group;  // [n_inst]
   const int* inst_var;    // [n_inst, FC_MAX_LVAR], n = ground / pad
@@ -55,6 +66,7 @@ struct Args {
   const int* row_ptr;     // [n + 1]
   const int* ent_slot;    // [nnz] instance * FC_MAX_LROW + local row
   const double* ent_scale;  // [B, nnz] $mult on KCL rows, else 1
+  double* hs;             // [B, n_inst, FC_MAX_HOIST] scratch: fc_pre's values
   double* xn;           // [B, n]
   double* S;            // [B, n]
   double* Q;            // [B, n]
@@ -75,18 +87,20 @@ __device__ double block_max(double v, double* red) {
   return m;
 }
 
-// S, Q and the charge tangent ic at the iterate x0 + d
+// S, Q and the charge tangent ic at the iterate x0 + d; e0/e1 are this
+// thread's row bounds of the scatter (its row is tid: n <= blockDim.x)
 // (not inlined: the model walk is long, and the kernel calls this twice)
 __device__ __noinline__ void parts(const Args& a, int b, double c0h,
-                                   double t, const double* x0,
-                                   const double* d, const double* va,
-                                   const double* so, double* x, double* v,
+                                   const double* x0, const double* d,
+                                   const double* va, const double* so,
+                                   const double* hs, int e0, int e1,
+                                   double* x, double* v,
                                    double* S, double* Q, double* ic,
                                    double* is, double* iq, double* iqd) {
   const int n = a.n, tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < n; i += nt) {
-    x[i] = x0[i] + d[i];
-    v[i] = va[i] + c0h * d[i];
+  if (tid < n) {
+    x[tid] = x0[tid] + d[tid];
+    v[tid] = va[tid] + c0h * d[tid];
   }
   __syncthreads();
   for (int k = tid; k < a.n_inst; k += nt) {
@@ -98,8 +112,8 @@ __device__ __noinline__ void parts(const Args& a, int b, double c0h,
       lvd[j] = idx < n ? v[idx] : 0.0;
     }
     for (int r = 0; r < FC_MAX_LROW; ++r) s[r] = q[r] = qd[r] = 0.0;
-    fc_eval(a.inst_group[k], lv, lvd,
-            a.dyn + ((size_t)b * a.n_inst + k) * FC_MAX_DYN, t, s, q, qd);
+    fc_eval(a.inst_group[k], lv, lvd, hs + (size_t)k * FC_MAX_HOIST, s, q,
+            qd);
     for (int r = 0; r < FC_MAX_LROW; ++r) {
       is[k * FC_MAX_LROW + r] = s[r];
       iq[k * FC_MAX_LROW + r] = q[r];
@@ -107,19 +121,21 @@ __device__ __noinline__ void parts(const Args& a, int b, double c0h,
     }
   }
   __syncthreads();
-  for (int i = tid; i < n; i += nt) {
+  if (tid < n) {
+    const int i = tid;
     double sv = 0.0, qv = 0.0, cv = 0.0;
-    const double* gr = a.Glin + (size_t)i * n;
-    const double* cr = a.Clin + (size_t)i * n;
     for (int j = 0; j < n; ++j) {
-      sv += gr[j] * x[j];
-      qv += cr[j] * x[j];
-      cv += cr[j] * v[j];
+      const double gij = a.GlinT[(size_t)j * n + i];
+      const double cij = a.ClinT[(size_t)j * n + i];
+      sv += gij * x[j];
+      qv += cij * x[j];
+      cv += cij * v[j];
     }
     sv += so[i];
     qv += a.qoff[i];
-    for (int e = a.row_ptr[i]; e < a.row_ptr[i + 1]; ++e) {
-      const double sc = a.ent_scale[(size_t)b * a.nnz + e];
+    const double* scale = a.ent_scale + (size_t)b * a.nnz;
+    for (int e = e0; e < e1; ++e) {
+      const double sc = scale[e];
       const int sl = a.ent_slot[e];
       sv += is[sl] * sc;
       qv += iq[sl] * sc;
@@ -152,6 +168,7 @@ __global__ void fused_chord_kernel(Args a) {
   double* iq = is + (size_t)a.n_inst * FC_MAX_LROW;
   double* iqd = iq + (size_t)a.n_inst * FC_MAX_LROW;
   double* red = iqd + (size_t)a.n_inst * FC_MAX_LROW;
+  double* hs = a.hs + (size_t)b * a.n_inst * FC_MAX_HOIST;  // lane b's part
 
   const size_t rb = (size_t)b * n;
   for (int i = tid; i < n; i += nt) {
@@ -163,8 +180,16 @@ __global__ void fused_chord_kernel(Args a) {
   }
   for (int k = tid; k < n * n; k += nt) MT[k] = a.MT[(size_t)b * n * n + k];
   const double c0h = a.coef[2 * b], t = a.coef[2 * b + 1];
+  // the launch-invariant part of every instance's model walk, once
+  for (int k = tid; k < a.n_inst; k += nt) {
+    fc_pre(a.inst_group[k], a.dyn + ((size_t)b * a.n_inst + k) * FC_MAX_DYN,
+           t, hs + (size_t)k * FC_MAX_HOIST);
+  }
+  const int e0 = tid < n ? a.row_ptr[tid] : 0;
+  const int e1 = tid < n ? a.row_ptr[tid + 1] : 0;
   __syncthreads();
-  parts(a, b, c0h, t, x0, d, va, so, x, v, S, Q, ic, is, iq, iqd);
+  parts(a, b, c0h, x0, d, va, so, hs, e0, e1, x, v, S, Q, ic, is, iq,
+        iqd);
 
   bool done = a.live[b] == 0;
   int it = 0;
@@ -189,7 +214,8 @@ __global__ void fused_chord_kernel(Args a) {
       d[i] += di;
     }
     __syncthreads();
-    parts(a, b, c0h, t, x0, d, va, so, x, v, S, Q, ic, is, iq, iqd);
+    parts(a, b, c0h, x0, d, va, so, hs, e0, e1, x, v, S, Q, ic, is, iq,
+        iqd);
     int viol = 0;
     for (int i = tid; i < n; i += nt) {
       const double fn = S[i] + ic[i];
@@ -216,25 +242,33 @@ __global__ void fused_chord_kernel(Args a) {
 
 }  // namespace
 
+// n <= threads (one circuit row per thread).  Returns cudaGetLastError()
+// after the launch.
 extern "C" int fused_chord_f64(
     const double* x0, const double* MT, const double* rinv,
     const double* soff, const double* vanch, const double* coef,
-    const int* live, const double* Glin, const double* Clin,
+    const int* live, const double* GlinT, const double* ClinT,
     const double* qoff, const int* inst_group, const int* inst_var,
     const double* dyn, const int* row_ptr, const int* ent_slot,
-    const double* ent_scale, double* xn, double* S, double* Q, int* stat,
-    int B, int n, int n_inst, int nnz, int max_newton, double reltol,
-    double abstol, double res_rel, double res_tol, int threads,
-    long long smem, void* stream) {
-  Args a{x0, MT, rinv, soff, vanch, coef, live, Glin, Clin, qoff,
-         inst_group, inst_var, dyn, row_ptr, ent_slot, ent_scale, xn, S, Q,
-         stat, n, n_inst, nnz, max_newton, reltol, abstol, res_rel,
+    const double* ent_scale, double* hs, double* xn, double* S, double* Q,
+    int* stat, int B, int n, int n_inst, int nnz, int max_newton,
+    double reltol, double abstol, double res_rel, double res_tol,
+    int threads, long long smem, void* stream) {
+  if (n > threads) return (int)cudaErrorInvalidValue;
+  Args a{x0, MT, rinv, soff, vanch, coef, live, GlinT, ClinT, qoff,
+         inst_group, inst_var, dyn, row_ptr, ent_slot, ent_scale, hs, xn,
+         S, Q, stat, n, n_inst, nnz, max_newton, reltol, abstol, res_rel,
          res_tol};
-  if (smem > 48 * 1024) {
+  // opt into more than 48 KB of dynamic shared memory once per size: the
+  // attribute belongs to the kernel function, so this records what it was
+  // given
+  static long long smem_set = 48 * 1024;
+  if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
         fused_chord_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
   }
   fused_chord_kernel<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

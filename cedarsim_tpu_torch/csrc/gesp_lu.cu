@@ -28,16 +28,20 @@
 // n sequential elimination steps, each ending in a barrier, bound them.  At
 // large n the bound is shared memory per matrix: the factor keeps the whole
 // matrix in shared memory, n² · 4 bytes, which caps n at 240 (230,400 of the
-// 232,448 bytes a block may hold).
+// 232,448 bytes a block may hold); the substitution stages n (n | 1) floats
+// (231,360 bytes at n = 240).
 //
-// What the simple design does about it.  One thread block per matrix for
-// the factor, so B matrices run on B SMs in one launch and the n steps of a
+// What the design does about it.  One thread block per matrix for the
+// factor, so B matrices run on B SMs in one launch and the n steps of a
 // matrix never leave shared memory; the threads of the block share the
-// trailing update of each step.  One warp per system for the substitution:
-// a row is a dot product that the warp splits across its lanes and reduces
-// with shuffles, and a warp needs no block barrier between rows.  Launch
-// latency is not hidden here: batching several matrices per block, CUDA
-// graphs and tensor-core (wgmma) trailing updates are later work.
+// trailing update of each step.  The substitution is a chain of 2n
+// dependent steps, so its time is the length of one step: one warp per
+// system and one system per block (8 lanes on 8 SMs), the system staged
+// once into shared memory with all its loads in flight, then column-order
+// steps of one shuffle and one multiply-subtract, with no barrier and no
+// device-memory load inside the chain (gesp_subst_kernel below).  Launch
+// latency is not hidden here: CUDA graphs and tensor-core (wgmma) trailing
+// updates are later work.
 //
 // The fused solve: one block per system, A and b in shared memory
 // (n² + n floats, so n <= 240 on an H100).  In step k each warp owns rows
@@ -45,7 +49,8 @@
 // update the row's columns j > k from the multiplier, and lane 0
 // eliminates b_i with the same multiplier.  A row and its b_i are written
 // only by their owner and row k is only read, so one block barrier ends a
-// step.  Warp 0 then substitutes backwards as gesp_subst_kernel does.  At
+// step.  Warp 0 then substitutes backwards row by row, each row a dot
+// product split across the lanes and reduced with shuffles.  At
 // the bench's shapes ([512, 25] and [64, 122]) the work is 10^4-10^6 flops
 // a system: the bound is the n dependent steps and their barriers, not
 // the card's rates (PERF.md).
@@ -56,7 +61,6 @@ namespace {
 
 constexpr float kTau = 1e-20f;
 constexpr int kFactorThreads = 256;
-constexpr int kSubstWarps = 4;
 constexpr int kSolveThreads = 256;
 
 __device__ __forceinline__ float gesp_boost(float p) {
@@ -117,39 +121,94 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// y[r] for a row slot r known only at run time, without indexing the
+// register array (an indexed read would put it in local memory)
+template <int R>
+__device__ __forceinline__ float pick(const float (&y)[R], int r) {
+  float v = y[0];
+#pragma unroll
+  for (int q = 1; q < R; ++q) {
+    if (q == r) v = y[q];
+  }
+  return v;
+}
+
+// One warp per system, one system per block.  Lane l owns the rows
+// i = l + 32 r (r < R) and keeps y_i in a register.  Step k of the forward
+// pass broadcasts y_k with one shuffle and every row below subtracts
+// L_ik y_k; step k of the back pass broadcasts y_k, every lane divides it by
+// the stored U_kk (the same operands, so the same bits) and every row above
+// subtracts U_ik x_k.  The column reads LU[i][k] come from the system staged
+// in shared memory at row stride n | 1 (odd, so the 32 lanes of a column
+// read hit 32 banks); they do not depend on the broadcast value.
+template <int R>
 __global__ void gesp_subst_kernel(const float* __restrict__ LU,
                                   const float* __restrict__ b,
-                                  float* __restrict__ x, int B, int n,
+                                  float* __restrict__ x, int n,
                                   long long lu_batch, long long lu_row,
                                   long long b_batch, long long x_batch) {
-  extern __shared__ float s[];  // kSubstWarps × n: the running solution
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int sys = blockIdx.x * kSubstWarps + warp;
-  if (sys >= B) return;  // whole warps exit together: no block barrier below
-  const float* lu = LU + (long long)sys * lu_batch;
-  const float* bb = b + (long long)sys * b_batch;
-  float* y = s + warp * n;
-  // forward substitution with unit L: y_i = b_i - sum_{j<i} L_ij y_j
-  for (int i = 0; i < n; ++i) {
-    const float* row = lu + (long long)i * lu_row;
-    float acc = 0.0f;
-    for (int j = lane; j < i; j += 32) acc += row[j] * y[j];
-    acc = warp_sum(acc);
-    if (lane == 0) y[i] = bb[i] - acc;
-    __syncwarp();
+  extern __shared__ float s[];  // n rows of stride n | 1: the packed LU
+  const int lane = threadIdx.x;
+  const int ld = n | 1;
+  const float* lu = LU + (long long)blockIdx.x * lu_batch;
+  const float* bb = b + (long long)blockIdx.x * b_batch;
+  const int nn = n * n;
+  for (int e = lane; e < nn; e += 32) {
+    const int i = e / n, j = e - i * n;
+    s[i * ld + j] = lu[(long long)i * lu_row + j];
+  }
+  float y[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+    y[r] = i < n ? bb[i] : 0.0f;
+  }
+  __syncwarp();
+  // forward substitution with unit L, column by column
+#pragma unroll 4
+  for (int k = 0; k < n - 1; ++k) {
+    const float yk = __shfl_sync(0xffffffffu, pick<R>(y, k >> 5), k & 31);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = lane + 32 * r;
+      if (i > k && i < n) y[r] -= s[i * ld + k] * yk;
+    }
   }
   // back substitution with U's stored (already boosted) diagonal
-  for (int i = n - 1; i >= 0; --i) {
-    const float* row = lu + (long long)i * lu_row;
-    float acc = 0.0f;
-    for (int j = i + 1 + lane; j < n; j += 32) acc += row[j] * y[j];
-    acc = warp_sum(acc);
-    if (lane == 0) y[i] = (y[i] - acc) / row[i];
-    __syncwarp();
+#pragma unroll 4
+  for (int k = n - 1; k >= 0; --k) {
+    const float xk =
+        __shfl_sync(0xffffffffu, pick<R>(y, k >> 5), k & 31) / s[k * ld + k];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = lane + 32 * r;
+      if (i == k) {
+        y[r] = xk;
+      } else if (i < k) {
+        y[r] -= s[i * ld + k] * xk;
+      }
+    }
   }
-  float* xx = x + (long long)sys * x_batch;
-  for (int j = lane; j < n; j += 32) xx[j] = y[j];
+  float* xx = x + (long long)blockIdx.x * x_batch;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+    if (i < n) xx[i] = y[r];
+  }
+}
+
+template <int R>
+cudaError_t launch_subst(const float* LU, const float* b, float* x, int B,
+                         int n, long long lu_batch, long long lu_row,
+                         long long b_batch, long long x_batch,
+                         cudaStream_t stream) {
+  const size_t smem = (size_t)n * (n | 1) * sizeof(float);
+  static size_t smem_set = 48 * 1024;
+  cudaError_t err = allow_smem(gesp_subst_kernel<R>, smem, &smem_set);
+  if (err != cudaSuccess) return err;
+  gesp_subst_kernel<R><<<B, 32, smem, stream>>>(LU, b, x, n, lu_batch,
+                                                lu_row, b_batch, x_batch);
+  return cudaGetLastError();
 }
 
 __global__ void gesp_solve_kernel(const float* __restrict__ A,
@@ -213,17 +272,30 @@ int gesp_factor_f32(const float* A, float* LU, int B, int n,
   return (int)cudaGetLastError();
 }
 
-// LU: [B, n, n], b and x: [B, n], float32, strides in elements.  Returns
+// LU: [B, n, n], b and x: [B, n], float32, strides in elements, n <= 256
+// (and n (n | 1) floats within a block's shared memory).  Returns
 // cudaGetLastError() after the launch.
 int gesp_subst_f32(const float* LU, const float* b, float* x, int B, int n,
                    long long lu_batch, long long lu_row, long long b_batch,
                    long long x_batch, void* stream) {
-  const int blocks = (B + kSubstWarps - 1) / kSubstWarps;
-  const size_t smem = (size_t)kSubstWarps * n * sizeof(float);
-  gesp_subst_kernel<<<blocks, kSubstWarps * 32, smem,
-                      (cudaStream_t)stream>>>(LU, b, x, B, n, lu_batch,
-                                              lu_row, b_batch, x_batch);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 32) {
+    return (int)launch_subst<1>(LU, b, x, B, n, lu_batch, lu_row, b_batch,
+                                x_batch, st);
+  }
+  if (n <= 64) {
+    return (int)launch_subst<2>(LU, b, x, B, n, lu_batch, lu_row, b_batch,
+                                x_batch, st);
+  }
+  if (n <= 128) {
+    return (int)launch_subst<4>(LU, b, x, B, n, lu_batch, lu_row, b_batch,
+                                x_batch, st);
+  }
+  if (n <= 256) {
+    return (int)launch_subst<8>(LU, b, x, B, n, lu_batch, lu_row, b_batch,
+                                x_batch, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // A: [B, n, n], b and x: [B, n], float32, strides in elements (columns

@@ -12,6 +12,7 @@ nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -90,9 +91,26 @@ def smem_per_block(device):
     card's own value, or an H100's where there is no card."""
     if device.type != "cuda":
         return H100_SMEM_PER_BLOCK
-    prop = torch.cuda.get_device_properties(device)
+    index = device.index
+    return _smem_optin(torch.cuda.current_device() if index is None
+                       else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index):
+    # read once per card: a wrapper checks it at every launch
+    prop = torch.cuda.get_device_properties(index)
     return getattr(prop, "shared_memory_per_block_optin",
                    H100_SMEM_PER_BLOCK)
+
+
+def current_stream(device):
+    """The handle of the current CUDA stream on ``device``, an int for the
+    launch functions: the stream PyTorch's own operators use next, the
+    capturing one under CUDA graph capture.  It equals
+    ``torch.cuda.current_stream(device).cuda_stream`` without building a
+    Stream object, which costs a few µs at every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_smem(what, device, need):

@@ -23,11 +23,13 @@ lane's ``MT`` (:class:`FusedEnvelopeError`).
 The kernel is compiled with ``nvcc`` at first use into ``build/kernels/``
 beside the package, keyed on a hash of the skeleton, the emitted model
 header and the flags, and loaded with ``ctypes``.  :func:`fused_chord`
-counts its kernel launches in ``fused_chord.launches``.
+counts its kernel launches in ``fused_chord.launches``, and by lane count
+in ``fused_chord.launches_by_lanes``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
@@ -116,6 +118,10 @@ class FusedChordPlan:
         self._build_split(params, ctx)
         self.G_lin_t = torch.as_tensor(self.G_lin, dtype=dt, device=dev)
         self.C_lin_t = torch.as_tensor(self.C_lin, dtype=dt, device=dev)
+        # the kernel's copies: column j at j * n, so that the threads of a
+        # row loop read neighbouring addresses
+        self.G_lin_T = self.G_lin_t.T.contiguous()
+        self.C_lin_T = self.C_lin_t.T.contiguous()
         self.q_off_t = torch.as_tensor(self.q_off, dtype=dt, device=dev)
         self._build_nl(ctx)
         self._lanes_last = None
@@ -190,10 +196,10 @@ class FusedChordPlan:
         dev = comp.device
         n = self.n_x
         t0 = time.perf_counter()
-        self.emitted = []                # (key, function name, text, hash)
-        for key in self.nl_keys:
-            self.emitted.append((key, *emit.emit_group(comp, key, ctx)))
+        self.emitted = [(key, emit.emit_group(comp, key, ctx))
+                        for key in self.nl_keys]     # (key, emit.Emitted)
         self.emit_seconds = time.perf_counter() - t0
+        self.max_hoist = max([e.n_hoist for _, e in self.emitted] + [1])
         groups = [comp.groups[k] for k in self.nl_keys]
         self.max_lvar = max([g.model.n_lvar() for g in groups], default=1)
         self.max_lrow = max([g.model.n_lrow() for g in groups], default=1)
@@ -236,6 +242,8 @@ class FusedChordPlan:
         self._ent_kcl = torch.as_tensor([e[1] for e in flat], device=dev)
         self._ent_inst = torch.as_tensor([e[2] for e in flat],
                                          dtype=torch.int64, device=dev)
+        # the kernel also gives each circuit row one thread: the envelope
+        # below keeps n_x far under MAX_THREADS (n_x <= 164 on an H100)
         self.threads = min(MAX_THREADS,
                            -(-max(self.n_inst, n, 1) // 32) * 32)
         self.smem_bytes = 8 * (12 * n + n * n
@@ -249,20 +257,35 @@ class FusedChordPlan:
                 f"card's {limit} B per block; use newton_impl='xla'")
 
     def header(self):
-        """The emitted model header: every nonlinear group's function and
-        the ``fc_eval`` dispatch the kernel calls."""
-        parts = [text for _, _, text, _ in self.emitted] or [emit.PREAMBLE]
-        cases = "".join(
-            f"    case {gi}: {name}(lv, lvd, dyn, t, s, q, qd); break;\n"
-            for gi, (_, name, _, _) in enumerate(self.emitted))
+        """The emitted model header: every nonlinear group's two functions
+        and the ``fc_pre`` and ``fc_eval`` dispatches the kernel calls."""
+        parts = [e.text for _, e in self.emitted] or [emit.PREAMBLE]
+        pre = "".join(f"    case {gi}: {e.name}_pre(dyn, t, h); break;\n"
+                      for gi, (_, e) in enumerate(self.emitted))
+        walk = "".join(
+            f"    case {gi}: {e.name}(lv, lvd, h, s, q, qd); break;\n"
+            for gi, (_, e) in enumerate(self.emitted))
         return ("".join(parts)
                 + f"#define FC_MAX_LVAR {self.max_lvar}\n"
                 f"#define FC_MAX_LROW {self.max_lrow}\n"
                 f"#define FC_MAX_DYN {self.max_dyn}\n"
+                f"#define FC_MAX_HOIST {self.max_hoist}\n"
+                "__device__ static inline void fc_pre(int g, const double* "
+                "dyn, double t, double* h) {\n"
+                "  switch (g) {\n" + pre + "    default: break;\n  }\n}\n"
                 "__device__ static inline void fc_eval(int g, const double* "
-                "lv, const double* lvd, const double* dyn, double t, "
-                "double* s, double* q, double* qd) {\n"
-                "  switch (g) {\n" + cases + "    default: break;\n  }\n}\n")
+                "lv, const double* lvd, const double* h, double* s, "
+                "double* q, double* qd) {\n"
+                "  switch (g) {\n" + walk + "    default: break;\n  }\n}\n")
+
+    def hoist_scratch(self, B):
+        """The kernel's device-memory scratch for the hoisted values, [B,
+        n_inst, FC_MAX_HOIST] float64 (written by the kernel before it is
+        read; it stays out of shared memory, so the envelope above is
+        that of the walk without the cut)."""
+        comp = self.compiled
+        return torch.empty(B, max(self.n_inst, 1), self.max_hoist,
+                           dtype=torch.float64, device=comp.device)
 
     # ------------------------------------------------------------ envelope
 
@@ -363,7 +386,7 @@ class FusedChordPlan:
         p, i, d, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                        ctypes.c_longlong)
         lib.fused_chord_f64.argtypes = (
-            [p] * 20 + [i] * 5 + [d] * 4 + [i, ll, p])
+            [p] * 21 + [i] * 5 + [d] * 4 + [i, ll, p])
         lib.fused_chord_f64.restype = i
         self._lib = lib
         self.build_info = dict(path=b["path"],
@@ -540,22 +563,27 @@ def fused_chord(plan, x0, MT, rinv, soff, vanch, coef, live, lanes, opts):
     stat = torch.empty(B, 2, dtype=torch.int32, device=x0.device)
     if B == 0:
         return xn, S, Q, stat
+    hs = plan.hoist_scratch(B)
     err = lib.fused_chord_f64(
         x0.data_ptr(), MT.data_ptr(), rinv.data_ptr(), soff.data_ptr(),
         vanch.data_ptr(), coef.data_ptr(), live.data_ptr(),
-        plan.G_lin_t.data_ptr(), plan.C_lin_t.data_ptr(),
+        plan.G_lin_T.data_ptr(), plan.C_lin_T.data_ptr(),
         plan.q_off_t.data_ptr(), plan.inst_group_t.data_ptr(),
         plan.inst_var_t.data_ptr(), lanes.dyn.data_ptr(),
         plan.row_ptr_t.data_ptr(), plan.ent_slot_t.data_ptr(),
-        lanes.ent_scale.data_ptr(), xn.data_ptr(), S.data_ptr(),
-        Q.data_ptr(), stat.data_ptr(), B, n, plan.n_inst, plan.nnz,
-        int(opts.max_newton), float(opts.newton_reltol),
+        lanes.ent_scale.data_ptr(), hs.data_ptr(), xn.data_ptr(),
+        S.data_ptr(), Q.data_ptr(), stat.data_ptr(), B, n, plan.n_inst,
+        plan.nnz, int(opts.max_newton), float(opts.newton_reltol),
         float(opts.newton_abstol), float(opts.res_rel), float(opts.res_tol),
         plan.threads, plan.smem_bytes,
-        torch.cuda.current_stream(x0.device).cuda_stream)
+        cuda_lib.current_stream(x0.device))
     cuda_lib.raise_on(err, "fused_chord_f64")
     fused_chord.launches += 1
+    fused_chord.launches_by_lanes[B] += 1
     return xn, S, Q, stat
 
 
 fused_chord.launches = 0
+#: launches by lane count B (B1′, the JAX package's one-lane kernel, is the
+#: count at B = 1)
+fused_chord.launches_by_lanes = collections.Counter()

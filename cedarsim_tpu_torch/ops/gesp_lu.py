@@ -87,7 +87,7 @@ def lu_factor_gesp_f32(A):
     lib = build()["lib"]
     err = lib.gesp_factor_f32(
         A.data_ptr(), LU.data_ptr(), B, n, n * n, n, n * n, n,
-        torch.cuda.current_stream(A.device).cuda_stream)
+        cuda_lib.current_stream(A.device))
     cuda_lib.raise_on(err, "gesp_factor_f32")
     lu_factor_gesp_f32.launches += 1
     return LU
@@ -101,34 +101,39 @@ lu_factor_gesp_f32.launches = 0
 def lu_subst_gesp_f32_plain(LU, b):
     """Plain PyTorch substitution with a packed GESP LU: y = L⁻¹b (unit
     diagonal), x = U⁻¹y with U's stored diagonal.  LU [B, n, n], b [B, n],
-    float32 → x [B, n]."""
+    float32 → x [B, n].  Column order, as the kernel: step k of the forward
+    pass subtracts L[i, k]·y_k from every row i > k; step k of the back pass
+    divides y_k by U[k, k] and subtracts U[i, k]·x_k from every row i < k.
+    So each y_i collects its terms in increasing k forwards and decreasing
+    k backwards, one rounding per term."""
     n = LU.shape[-1]
-    y = torch.zeros_like(b)
-    for i in range(n):
-        y[:, i] = b[:, i] - (LU[:, i, :i] * y[:, :i]).sum(-1)
-    x = torch.zeros_like(b)
-    for i in range(n - 1, -1, -1):
-        x[:, i] = ((y[:, i] - (LU[:, i, i + 1:] * x[:, i + 1:]).sum(-1))
-                   / LU[:, i, i])
-    return x
+    y = b.clone()
+    for k in range(n - 1):
+        y[:, k + 1:] -= LU[:, k + 1:, k] * y[:, k, None]
+    for k in range(n - 1, -1, -1):
+        y[:, k] = y[:, k] / LU[:, k, k]
+        y[:, :k] -= LU[:, :k, k] * y[:, k, None]
+    return y
 
 
 def lu_subst_gesp_f32(LU, b):
     """Solve with a packed GESP LU: LU [B, n, n], b [B, n] float32 → x
     [B, n].  CPU tensors take :func:`lu_subst_gesp_f32_plain`; CUDA tensors
-    launch ``gesp_subst_f32`` (one warp per system) or raise."""
+    launch ``gesp_subst_f32`` (one warp per system, the system staged in
+    shared memory at row stride n | 1, so n <= 241 on an H100) or raise."""
     B, n = cuda_lib.check_system("lu_subst_gesp_f32", LU, b)
     if LU.device.type == "cpu":
         return lu_subst_gesp_f32_plain(LU, b)
     cuda_lib.check_f32("LU", LU, (B, n, n))
     cuda_lib.check_f32("b", b, (B, n))
+    cuda_lib.check_smem("lu_subst_gesp_f32", LU.device, 4 * n * (n | 1))
     x = torch.empty_like(b)
     if B == 0 or n == 0:
         return x
     lib = build()["lib"]
     err = lib.gesp_subst_f32(
         LU.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, n * n, n, n, n,
-        torch.cuda.current_stream(LU.device).cuda_stream)
+        cuda_lib.current_stream(LU.device))
     cuda_lib.raise_on(err, "gesp_subst_f32")
     lu_subst_gesp_f32.launches += 1
     return x
@@ -181,7 +186,7 @@ def lu_solve_gesp_f32(A, b):
     lib = build()["lib"]
     err = lib.gesp_solve_f32(
         A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, n * n, n, n, n,
-        torch.cuda.current_stream(A.device).cuda_stream)
+        cuda_lib.current_stream(A.device))
     cuda_lib.raise_on(err, "gesp_solve_f32")
     lu_solve_gesp_f32.launches += 1
     return x

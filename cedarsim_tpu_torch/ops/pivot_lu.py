@@ -99,7 +99,7 @@ def lu_solve_pivot_f32(A, b):
     lib = build()["lib"]
     err = lib.pivot_solve_f32(
         A.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, n * n, n, n, n,
-        torch.cuda.current_stream(A.device).cuda_stream)
+        cuda_lib.current_stream(A.device))
     cuda_lib.raise_on(err, "pivot_solve_f32")
     lu_solve_pivot_f32.launches += 1
     return x

@@ -5,16 +5,25 @@ The fused chord kernel (``ops/fused_chord.py``, ``csrc/fused_chord.cu``)
 evaluates the nonlinear models inside its Newton loop, the way the Pallas
 kernel runs ``model.eval`` under ``jax.jvp`` inside the kernel
 (``cedarsim_tpu/ops/fused_chord.py:496-524``).  This module writes that walk
-as device code::
+as device code, cut in two::
 
+    __host__ __device__ void <name>_pre(const double* dyn, double t,
+        double* h)
     __host__ __device__ void <name>(const double* lv, const double* lvd,
-        const double* dyn, double t, double* s, double* q, double* qd)
+        const double* h, double* s, double* q, double* qd)
 
-``lv``/``lvd``: the instance's local unknowns and their tangent; ``dyn``:
-its dynamic params in :func:`dyn_names` order; ``t``: the time.  Outputs:
-the static rows ``s``, the charge rows ``q`` and the tangent of the charge
-rows along ``lvd`` (``qd``), exactly what ``CompiledCircuit.evaluate(...,
-v=...)`` gives per instance before the scatter.
+``dyn``: the instance's dynamic params in :func:`dyn_names` order; ``t``:
+the time; ``lv``/``lvd``: its local unknowns and their tangent.
+``<name>_pre`` computes every node that depends on no local unknown or
+tangent (for BSIM4, the size- and temperature-dependent parameter
+algebra) and writes the values the rest reads into ``h``; ``<name>``
+computes the rest from ``lv``, ``lvd`` and ``h``.  A chord loop runs the
+first once and the second at every evaluation.  Together they are the
+same operations in the same order as one walk, so they give the same
+bits.  Outputs: the static rows ``s``, the charge rows ``q`` and the
+tangent of the charge rows along ``lvd`` (``qd``), exactly what
+``CompiledCircuit.evaluate(..., v=...)`` gives per instance before the
+scatter.
 
 The emitter does not restate any model: it runs the model's own ``eval``
 (for a Verilog-A device, the port's interpreter ``va/codegen.py``) once on
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import hashlib
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -275,10 +285,24 @@ def dyn_names(compiled, key):
     return [pn for pn in compiled.params0[key] if pn != "$mult"]
 
 
+class Emitted(NamedTuple):
+    """One group's emitted model: the walk function's ``name`` (the
+    hoisted part is ``<name>_pre``), the header ``text`` (preamble
+    included), the ``hash`` (sha256 of the text), ``n_hoist`` (the values
+    the walk reads from ``h``), and the arithmetic nodes of the two parts,
+    ``n_pre`` and ``n_walk``."""
+    name: str
+    text: str
+    hash: str
+    n_hoist: int
+    n_pre: int
+    n_walk: int
+
+
 def emit_group(compiled, key, ctx):
-    """Emit group ``key``'s model as C++.  Returns ``(name, text, hash)``:
-    the function's name, the header text (preamble included) and the
-    sha256 of the text."""
+    """Emit group ``key``'s model as C++: the hoisted part
+    ``<name>_pre(dyn, t, h)`` and the walk ``<name>(lv, lvd, h, s, q, qd)``
+    (module docstring).  Returns an :class:`Emitted`."""
     g = compiled.groups[key]
     model = g.model
     nlv, nlr = model.n_lvar(), model.n_lrow()
@@ -306,23 +330,35 @@ def emit_group(compiled, key, ctx):
     for k, r in enumerate(q_rows):
         d = r.d if isinstance(r, Dual) else 0.0
         outs.append((f"qd[{k}]", _lit(d)))
-    body = _emit_body(rec, outs)
+    pre, walk, n_hoist, n_pre, n_walk = _emit_bodies(rec, outs)
     safe = "".join(ch if ch.isalnum() else "_" for ch in key)
+    sig_pre = ("__host__ __device__ static inline void {name}_pre("
+               "const double* dyn, double t, double* h)")
     sig = ("__host__ __device__ static inline void {name}(const double* lv, "
-           "const double* lvd, const double* dyn, double t, double* s, "
-           "double* q, double* qd)")
-    probe = sig.format(name="MODEL") + " {\n" + body + "}\n"
+           "const double* lvd, const double* h, double* s, double* q, "
+           "double* qd)")
+    probe = (sig_pre.format(name="MODEL") + " {\n" + pre + "}\n"
+             + sig.format(name="MODEL") + " {\n" + walk + "}\n")
     tag = hashlib.sha256(probe.encode()).hexdigest()
     name = f"cs_{safe}_{tag[:12]}"
     text = (PREAMBLE + f"// {key}: {nlv} local unknowns, {nlr} rows, "
-            f"{len(dyn_names(compiled, key))} dynamic params\n"
-            + sig.format(name=name) + " {\n" + body + "}\n")
-    return name, text, hashlib.sha256(text.encode()).hexdigest()
+            f"{len(dyn_names(compiled, key))} dynamic params, {n_hoist} "
+            "hoisted values\n"
+            + sig_pre.format(name=name) + " {\n" + pre + "}\n"
+            + sig.format(name=name) + " {\n" + walk + "}\n")
+    return Emitted(name, text, hashlib.sha256(text.encode()).hexdigest(),
+                   n_hoist, n_pre, n_walk)
 
 
-def _emit_body(rec, outs):
-    """Straight-line C for ``outs`` [(lvalue, node or literal)]: only the
-    nodes the outputs need, in depth-first post-order from the outputs."""
+def _emit_bodies(rec, outs):
+    """Straight-line C for ``outs`` [(lvalue, node or literal)], cut in
+    two: only the nodes the outputs need, in depth-first post-order from
+    the outputs, the nodes that depend on no ``lv``/``lvd`` input in the
+    hoisted part and the rest in the walk.  The hoisted values the walk
+    (or an output) reads go through ``h``, numbered in the order the walk
+    first reads them; each is read right before its first use.  Returns
+    (hoisted body, walk body, values in ``h``, arithmetic nodes of each
+    part)."""
     order, seen = [], set()
     for _, v in outs:
         if not isinstance(v, _Sym) or v._nid in seen:
@@ -344,16 +380,20 @@ def _emit_body(rec, outs):
                 if isinstance(a, _Sym) and a._nid not in seen:
                     stack.append((a._nid, False))
     local = {nid: f"v{i}" for i, nid in enumerate(order)}
+    varying = set()
+    for nid in order:          # post-order: every operand comes first
+        op, args, _ = rec.nodes[nid]
+        if (args[0] in ("lv", "lvd") if op == "in" else any(
+                isinstance(a, _Sym) and a._nid in varying for a in args)):
+            varying.add(nid)
 
     def ref(a):
         return local[a._nid] if isinstance(a, _Sym) else _c_lit(a)
 
-    lines = []
-    for nid in order:
+    def define(nid):
         op, args, kind = rec.nodes[nid]
         if op == "in":
-            src = args[0] if args[0] == "t" else f"{args[0]}[{args[1]}]"
-            expr = src
+            expr = args[0] if args[0] == "t" else f"{args[0]}[{args[1]}]"
         elif op == "where":
             expr = "({0} ? {1} : {2})".format(*map(ref, args))
         elif op == "pow" and not isinstance(args[1], _Sym) \
@@ -364,11 +404,41 @@ def _emit_body(rec, outs):
         else:
             expr = _UN[op].format(ref(args[0]))
         ty = "bool" if kind == "b" else "double"
-        lines.append(f"  const {ty} {local[nid]} = {expr};\n")
+        return f"  const {ty} {local[nid]} = {expr};\n"
+
+    hoist = {}                 # hoisted node → its slot in h
+    walk = []
+
+    def read(a):
+        if (isinstance(a, _Sym) and a._nid not in varying
+                and a._nid not in hoist):
+            j = hoist[a._nid] = len(hoist)
+            if a._kind == "b":
+                walk.append(f"  const bool {local[a._nid]} = h[{j}] != 0.0;"
+                            "\n")
+            else:
+                walk.append(f"  const double {local[a._nid]} = h[{j}];\n")
+
+    for nid in order:
+        if nid in varying:
+            for a in rec.nodes[nid][1]:
+                read(a)
+            walk.append(define(nid))
     for lhs, v in outs:
+        read(v)
         val = ref(v)
         if isinstance(v, _Sym) and v._kind == "b":
             val = f"({val} ? 1.0 : 0.0)"
-        lines.append(f"  {lhs} = {val};\n")
-    return "".join(lines)
+        walk.append(f"  {lhs} = {val};\n")
+    pre = [define(nid) for nid in order if nid not in varying]
+    for nid, j in hoist.items():
+        val = local[nid]
+        if rec.nodes[nid][2] == "b":
+            val = f"({val} ? 1.0 : 0.0)"
+        pre.append(f"  h[{j}] = {val};\n")
 
+    def arith(nids):
+        return sum(1 for nid in nids if rec.nodes[nid][0] != "in")
+
+    return ("".join(pre), "".join(walk), len(hoist),
+            arith(n for n in order if n not in varying), arith(varying))

@@ -14,21 +14,27 @@ Phases, each printing one line (any failure raises, so the exit code is not
    up on the card first).
 3. kernels — each GESP kernel against its plain PyTorch version on the card
    (random, equilibrated, diagonally dominant inputs from a fixed numpy
-   seed); the mixed chord solve against float64 ``torch.linalg.solve``;
-   kernel, plain and library-call times at the DFF transient's shape.
+   seed; n from 25 to 240, with n = 32, 33, 64, 96 and 122 reaching each
+   of the substitution's rows-per-lane paths, its two launches bitwise
+   equal); the mixed chord solve against float64
+   ``torch.linalg.solve``; kernel, plain and library-call times at the DFF
+   transient's shape.
 4. rc      — the RC step circuit against its closed form.
 5. slice   — the gf180 DFF BSIM4 testbench (parse → elaborate → compile
    on the card → transient operating point → per-lane warm DC) as an 8-lane
    transient with a per-lane W scatter through the mixed chord path
    (``newton_impl="xla"``), gated on the benchmark's golden Q levels; both
-   GESP kernels must have launched.
+   GESP kernels must have launched.  It also counts how near the systems
+   run to float32's edge (``MixedMargin``; the wall includes its few small
+   reductions per solve).
    repeat  — that path over 0-60 ns twice in this process and once in each
    of two child processes with other string-hash seeds: bitwise equal.
 6. fused_kernel — the fused chord kernel against its plain version on the
    DFF's lanes (seeded 0.05 V perturbation, BE start, two step sizes):
    equal (ok, Newton count), xn/S/Q within 1e-9, two launches bitwise
-   equal; kernel and plain times, emit and nvcc seconds, ptxas registers
-   and spills.
+   equal; kernel and plain times at 8 lanes and at one (B1'), emit and
+   nvcc seconds, ptxas registers and spills, the model walk's hoisted and
+   per-evaluation node counts.
 7. fused_slice — the DFF through the public ``tran()`` with
    ``newton_impl="fused"`` (the JAX package's fused configuration), gated
    like phase 5; one fused launch per batched step attempt.
@@ -44,17 +50,21 @@ Phases, each printing one line (any failure raises, so the exit code is not
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
 the TPU kernel it replaces, launches on its path (B1 in phase 7, B2/B3 in
-phase 5, B4/B5 in phase 8), error, times (kernel, plain version, one
-PyTorch library call computing the same function where there is one) and
-its bound: the larger of the bytes it must move over 3.35 TB/s and its
-operations over the card's peak for their type, both counted from this
-run's inputs.  The last line is ``{"ok": true, "device": {...}}``.
+phase 5, B4/B5 in phase 8), error, times and its bound: the larger of the
+bytes it must move over 3.35 TB/s and its operations over the card's peak
+for their type, both counted from this run's inputs.  The times
+(``benchmarks/kernel_times.py``): ``call_ms`` (= ``ms``), a Python loop of
+wrapper calls between two events, per call, the least of five loops;
+``device_ms``, 100 wrapper calls captured in one CUDA graph and replayed,
+per launch; the plain version's call time; and one PyTorch library call
+computing the same function where there is one, timed both ways
+(``library_ms``, ``library_device_ms``).  The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import dataclasses
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -62,11 +72,14 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+from cedarsim_tpu_torch.benchmarks import kernel_times as kt  # noqa: E402
+
 DFF_DIR = os.path.join(REPO, "benchmarks", "gf180_dff")
 #: golden tolerance of the DFF benchmark (bench.py GOLDEN_TOL)
 GOLDEN_TOL = 0.05
 #: lanes of the transient and the per-lane W scatter (bench.py:217-225)
-N_LANES = 8
+N_LANES = kt.N_LANES
 #: relative tolerance of a kernel against its plain version: float32 with
 #: FMA contraction and another summation order than the plain rounding
 KERNEL_RTOL = 1e-5
@@ -121,45 +134,24 @@ def smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def test_matrices(rng, B, n):
-    """Random, row-equilibrated, diagonally dominant float32 systems."""
-    A = rng.standard_normal((B, n, n))
-    A += (n + 8) * np.eye(n)
-    A /= np.abs(A).max(-1, keepdims=True)
-    b = rng.standard_normal((B, n))
-    return A, b
-
-
-def cuda_time_ms(fn, reps):
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
-
-
 def phase_kernels(torch, gesp_lu, linalg, dev):
     rng = np.random.default_rng(0)
     n_max = 240          # 240² · 4 B = 230,400 B of an H100 block's 232,448
     worst = {"factor": 0.0, "subst": 0.0}
     abs_err = {"factor": 0.0, "subst": 0.0}
-    for B, n in [(1, 25), (8, 25), (37, 25), (128, 25), (8, 64),
-                 (4, n_max)]:
-        A, b = test_matrices(rng, B, n)
+    for B, n in [(1, 25), (8, 25), (37, 25), (128, 25), (8, 32), (8, 33),
+                 (8, 64), (8, 96), (8, 122), (4, n_max)]:
+        A, b = kt.dominant_systems(rng, B, n)
         A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
         b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
         LU_k = gesp_lu.lu_factor_gesp_f32(A32)
         LU_p = gesp_lu.lu_factor_gesp_f32_plain(A32)
         x_k = gesp_lu.lu_subst_gesp_f32(LU_p, b32)
+        x_k2 = gesp_lu.lu_subst_gesp_f32(LU_p, b32)
         x_p = gesp_lu.lu_subst_gesp_f32_plain(LU_p, b32)
         torch.cuda.synchronize()
+        if not torch.equal(x_k.view(torch.int32), x_k2.view(torch.int32)):
+            raise AssertionError(f"subst B={B} n={n}: two launches differ")
         for name, k, p in (("factor", LU_k, LU_p), ("subst", x_k, x_p)):
             if not bool(torch.isfinite(k).all()):
                 raise AssertionError(f"{name} B={B} n={n}: non-finite")
@@ -184,23 +176,30 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
     # each kernel, one PyTorch call computing the same function (timed
     # here only: the port never calls it)
     B, n = N_LANES, 25
-    A, b = test_matrices(rng, B, n)
+    A, b = kt.dominant_systems(rng, B, n)
     A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
     b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
     LU = gesp_lu.lu_factor_gesp_f32(A32)
     ident = torch.arange(1, n + 1, dtype=torch.int32,
                          device=dev).expand(B, n).contiguous()
+
+    def factor():
+        return gesp_lu.lu_factor_gesp_f32(A32)
+
+    def subst():
+        return gesp_lu.lu_subst_gesp_f32(LU, b32)
+
+    # (device ms, call ms, plain ms, library call ms, library device ms)
     times = {
-        "factor": (cuda_time_ms(lambda: gesp_lu.lu_factor_gesp_f32(A32), 200),
-                   cuda_time_ms(
+        "factor": (kt.device_ms(factor), kt.call_ms(factor, 200),
+                   kt.call_ms(
                        lambda: gesp_lu.lu_factor_gesp_f32_plain(A32), 20),
-                   library_ms(lambda: torch.linalg.lu_factor_ex(
+                   *library_ms(lambda: torch.linalg.lu_factor_ex(
                        A32, pivot=False), 200)),
-        "subst": (cuda_time_ms(lambda: gesp_lu.lu_subst_gesp_f32(LU, b32),
-                               200),
-                  cuda_time_ms(
+        "subst": (kt.device_ms(subst), kt.call_ms(subst, 200),
+                  kt.call_ms(
                       lambda: gesp_lu.lu_subst_gesp_f32_plain(LU, b32), 20),
-                  library_ms(lambda: torch.linalg.lu_solve(
+                  *library_ms(lambda: torch.linalg.lu_solve(
                       LU, ident, b32[..., None]), 200)),
     }
     bounds = {"factor": bound(8 * B * n * n, lu_ops(n, B, "factor"),
@@ -208,21 +207,27 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
               "subst": bound(4 * B * n * (n + 2), lu_ops(n, B, "subst"),
                              "float32")}
     log("kernels", worst_rel_err=worst, max_abs_err_dff_shape=abs_err,
-        ms_kernel_plain_library={k: list(v) for k, v in times.items()},
+        ms_device_call_plain_library_call_device={
+            k: list(v) for k, v in times.items()},
         bound_ms=bounds, shape=[B, n, n])
     return abs_err, times, bounds
 
 
 def library_ms(fn, reps):
-    """``cuda_time_ms`` of a PyTorch library call, or None where this
-    build of PyTorch does not run it on the card (it is a yardstick only)."""
+    """(``kt.call_ms``, ``kt.device_ms``) of a PyTorch library call, each
+    None where this build of PyTorch does not run it on the card or cannot
+    capture it in a CUDA graph (it is a yardstick only)."""
     import torch
-    try:
-        return cuda_time_ms(fn, reps)
-    except (RuntimeError, NotImplementedError) as e:
-        log("library_call_unavailable", error=str(e)[:300])
-        torch.cuda.synchronize()
-        return None
+    out = []
+    for what, timer in (("call", lambda: kt.call_ms(fn, reps)),
+                        ("device", lambda: kt.device_ms(fn))):
+        try:
+            out.append(timer())
+        except (RuntimeError, NotImplementedError) as e:
+            log("library_call_unavailable", timer=what, error=str(e)[:300])
+            torch.cuda.synchronize()
+            out.append(None)
+    return tuple(out)
 
 
 def phase_rc(T, dev):
@@ -251,34 +256,11 @@ def dff_setup(torch, T, dev):
     """The DFF testbench compiled on the card, its transient operating
     point and the per-lane warm DC of the W scatter.  Returns (comp, ctx,
     per-lane params, per-lane initial states, golden, set-up seconds)."""
-    from cedarsim_tpu_torch.analysis.dc import dc_core
     with open(os.path.join(DFF_DIR, "golden_bsim4.json")) as f:
         golden = json.load(f)
     t0 = time.perf_counter()
-    with open(os.path.join(DFF_DIR, "dff_tb_bsim4.cir")) as f:
-        nl = T.parse_spice(f.read(), file="dff_tb_bsim4.cir")
-    comp = T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]),
-                             device=dev)
-    ctx = T.SimSpec.make(gmin=1e-15)
-    op = T.solve_dc(comp, ctx=ctx, mode="tranop")
-    if not bool(op.converged):
-        raise AssertionError("DFF operating point did not converge")
-    key = [k for k in comp.group_order if "bsim4" in k.lower()][0]
-    sc = np.linspace(0.99, 1.01, N_LANES)
-    sc[N_LANES // 2] = 1.0
-    scatter = torch.as_tensor(sc, dtype=comp.dtype, device=dev)
-    pb = {k: {pn: v.expand((N_LANES,) + tuple(v.shape))
-              for pn, v in grp.items()} for k, grp in comp.params0.items()}
-    pb[key] = dict(pb[key])
-    pb[key]["W"] = comp.params0[key]["W"][None, :] * scatter[:, None]
-    light = dataclasses.replace(T.default_newton_options(comp),
-                                gmin_steps=2, src_steps=2, restarts=0,
-                                gmin_start=1e-6)
-    warm = dc_core(comp, pb, ctx.with_mode("tranop"),
-                   op.x.expand(N_LANES, comp.n_x), light)
-    if not bool(warm.converged.all()):
-        raise AssertionError("per-lane warm DC did not converge")
-    return comp, ctx, pb, warm.x, golden, time.perf_counter() - t0
+    comp, ctx, pb, x0 = kt.dff_lanes(torch, T, dev)
+    return comp, ctx, pb, x0, golden, time.perf_counter() - t0
 
 
 def gate_golden(sols, golden, n_x, windows_ns=None):
@@ -312,22 +294,60 @@ def counts(sols):
                 newton=sum(s.n_newton for s in sols))
 
 
-#: the mixed chord path of phase 5: the charge-form trap of
-#: bench.py::dff_batched_leg's CPU reference mode; the GESP factor has no
-#: pivoting, so a Jacobian-only shunt on the voltage rows keeps the
-#: node-first MNA pivots away from exact cancellation (see PERF.md); the
-#: converged corrector is unchanged
-XLA_OPTS = dict(max_steps=8192, jac_reuse=1, dense_lu="mixed",
-                newton_impl="xla", accept_slack=1.5, jac_shunt=1e-9)
-#: the JAX package's fused configuration: cap form, bench.py LEGS["bsim4"]
-#: ["tpu_opts"] (bench.py:96-98), accept_slack 1.0 (the strict TPU legs)
-FUSED_OPTS = dict(max_steps=8192, jac_reuse=1, formulation="cap",
-                  newton_impl="fused", dense_lu="mixed", newton_reltol=1e-4,
-                  newton_abstol=5e-7, res_tol=1e-3, jac_shunt=1e-7,
-                  res_rel=3e-5, rtol=1e-2, atol=1e-4)
+#: the mixed chord path of phase 5 and the fused configuration of phase 7
+#: (kernel_times.py says where each comes from)
+XLA_OPTS = kt.XLA_OPTS
+FUSED_OPTS = kt.FUSED_OPTS
 
 
-def phase_slice(torch, T, gesp_lu, dev, dff):
+class MixedMargin:
+    """How near the mixed chord path's systems run to float32's edge,
+    counted on the card without a host sync: while active it wraps
+    ``linalg.chord_factor`` and ``linalg.chord_backsolve`` (which ``tran``
+    looks up at each call) and adds up, over the systems they see, the
+    factors with a pivot boosted to 1e-20, the factors with a non-finite
+    entry, the largest finite |LU| entry (float32's largest is 3.4e38), the
+    chord solves, and the solves with a non-finite entry.  A few small
+    reductions per call beside each kernel launch."""
+
+    def __init__(self, torch, linalg, dev):
+        self.torch, self.linalg = torch, linalg
+        self.acc = torch.zeros(6, dtype=torch.float64, device=dev)
+
+    def __enter__(self):
+        torch, lg, acc = self.torch, self.linalg, self.acc
+        self.saved = factor, backsolve = lg.chord_factor, lg.chord_backsolve
+
+        def chord_factor(J):
+            LU, perm, r = factor(J)
+            fin = torch.isfinite(LU)
+            acc[0] += J.shape[0]
+            acc[1] += (LU.diagonal(dim1=-2, dim2=-1).abs() <= 1e-20).any(-1) \
+                .sum()
+            acc[2] += (~fin).flatten(1).any(-1).sum()
+            acc[3] = torch.maximum(
+                acc[3], torch.where(fin, LU.abs(), 0).amax().double())
+            return LU, perm, r
+
+        def chord_backsolve(*args):
+            x = backsolve(*args)
+            acc[4] += x.shape[0]
+            acc[5] += (~torch.isfinite(x)).any(-1).sum()
+            return x
+        lg.chord_factor, lg.chord_backsolve = chord_factor, chord_backsolve
+        return self
+
+    def __exit__(self, *exc):
+        self.linalg.chord_factor, self.linalg.chord_backsolve = self.saved
+
+    def read(self):
+        v = self.acc.tolist()
+        return dict(factors=int(v[0]), factors_boosted_pivot=int(v[1]),
+                    factors_nonfinite=int(v[2]), lu_max_abs_finite=v[3],
+                    solves=int(v[4]), solves_nonfinite=int(v[5]))
+
+
+def phase_slice(torch, T, gesp_lu, linalg, dev, dff):
     comp, ctx, pb, x0, golden, t_setup = dff
     tstop = 7e-7
     opts = T.TranOptions(**XLA_OPTS)
@@ -335,7 +355,9 @@ def phase_slice(torch, T, gesp_lu, dev, dff):
     gesp_lu.lu_subst_gesp_f32.launches = 0
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    sols = T.tran(comp, (0.0, tstop), params=pb, ctx=ctx, opts=opts, x0=x0)
+    with MixedMargin(torch, linalg, dev) as margin:
+        sols = T.tran(comp, (0.0, tstop), params=pb, ctx=ctx, opts=opts,
+                      x0=x0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = {"factor": gesp_lu.lu_factor_gesp_f32.launches,
@@ -346,7 +368,7 @@ def phase_slice(torch, T, gesp_lu, dev, dff):
     log("slice", lanes=N_LANES, setup_s=t_setup, wall_s=wall,
         transients_per_s=N_LANES / wall, worst_golden_err=worst,
         **counts(sols), attempts=sols[0].n_attempts, launches=launches,
-        card=smi())
+        margin=margin.read(), card=smi())
     return launches
 
 
@@ -413,7 +435,6 @@ def repeat_child(out):
     """``--repeat-child OUT``: the DFF set-up and one repeat run on the
     card, saved to OUT (numpy .npz)."""
     import torch
-    sys.path.insert(0, REPO)
     import cedarsim_tpu_torch as T
     dev = torch.device("cuda", 0)
     ts, xs, cnt = repeat_run(T, dff_setup(torch, T, dev))
@@ -430,31 +451,16 @@ def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
     is held against the scale of the currents it is summed from (S at the
     predictor): the converged S cancels to ~1e-11 A from device currents
     of ~0.1 A, so its round-off relative to itself is ~1e-7 even where the
-    model walks agree to 1e-19."""
-    comp, ctx, pb, x0, _, _ = dff
-    opts = T.TranOptions(**FUSED_OPTS)
-    ctx_t = ctx.with_mode("tran")
+    model walks agree to 1e-19.  Times and bounds at 8 lanes (B1) and at
+    the nominal lane alone (B1')."""
     info = plan.build()
-    rng = np.random.default_rng(0)
-    L, n = x0.shape
-    pert = np.zeros((L, n))
-    pert[:, :comp.n_nodes] = rng.uniform(-0.05, 0.05, (L, comp.n_nodes))
-    x_pred = x0 + torch.as_tensor(pert, dtype=comp.dtype, device=dev)
-    nv = comp.n_nodes + comp.n_internal
-    shunt = opts.jac_shunt * torch.diag(
-        (torch.arange(n, device=dev) < nv).to(comp.dtype))
     worst = dict(xn=0.0, S=0.0, Q=0.0)
     s_final_rel = 0.0
     abs_err = 0.0
     nnwt = []
-    times = times_b1 = None
+    times = None
     for h in (1e-12, 1e-10):
-        t = torch.full((L,), h, dtype=comp.dtype, device=dev)
-        c0 = torch.ones(L, dtype=comp.dtype, device=dev)
-        _, _, G, C = comp.res_jacs_fwd(x_pred, ctx_t.at_time(t), pb)
-        J = C / h + G + shunt
-        args = plan.inputs(x_pred, J, plan.s_off(t, ctx_t, pb), c0,
-                           torch.full_like(t, h), -x0, t, pb)
+        args, opts = kt.fused_args(torch, T, plan, dff[:4], h)
         k1 = fc.fused_chord(plan, *args, opts)
         k2 = fc.fused_chord(plan, *args, opts)
         p = fc.fused_chord_plain(plan, *args, opts)
@@ -484,70 +490,58 @@ def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
                 abs_err = max(abs_err, err)
         nnwt.append(k1[3].tolist())
         if times is None:
-            times = (cuda_time_ms(lambda: fc.fused_chord(plan, *args, opts),
-                                  50),
-                     cuda_time_ms(lambda: fc.fused_chord_plain(
-                         plan, *args, opts), 5))
-            # B1': the same kernel for one lane (the nominal one)
-            p1 = {k: {pn: v[N_LANES // 2:N_LANES // 2 + 1]
-                      for pn, v in g.items()} for k, g in pb.items()}
+            # (device ms, call ms, plain ms) at 8 lanes and, B1', at one
             one = slice(N_LANES // 2, N_LANES // 2 + 1)
-            args1 = plan.inputs(x_pred[one], J[one],
-                                plan.s_off(t[one], ctx_t, p1), c0[one],
-                                torch.full_like(t[one], h), -x0[one],
-                                t[one], p1)
-            times_b1 = (cuda_time_ms(
-                lambda: fc.fused_chord(plan, *args1, opts), 50),
-                cuda_time_ms(lambda: fc.fused_chord_plain(
-                    plan, *args1, opts), 5))
-            b1_bound, walk_ops = fused_bound(plan, args, k1)
+            args1, _ = kt.fused_args(torch, T, plan, dff[:4], h, lanes=one)
+            times, bounds = {}, {}
+            for key, a in (("B1", args), ("B1'", args1)):
+                def run(a=a):
+                    return fc.fused_chord(plan, *a, opts)
+                times[key] = (kt.device_ms(run), kt.call_ms(run, 50),
+                              kt.call_ms(lambda a=a: fc.fused_chord_plain(
+                                  plan, *a, opts), 5))
+                bounds[key], counted = fused_bound(plan, a, run())
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if any(w in ln for w in ("Function properties", "registers",
                                       "spill"))]
     log("fused_kernel", worst_rel_err=worst,
         s_rel_to_final_s=s_final_rel, ok_nnwt=nnwt,
-        ms_kernel_vs_plain=list(times),
-        ms_kernel_vs_plain_one_lane=list(times_b1), shape=[L, n],
-        bound_ms=b1_bound, walk_ops_per_eval=walk_ops,
-        n_inst=plan.n_inst,
+        ms_device_call_plain={k: list(v) for k, v in times.items()},
+        shape=list(dff[3].shape), bound_ms=bounds, nodes=counted,
+        n_inst=plan.n_inst, fc_max_hoist=plan.max_hoist,
         threads=plan.threads, smem_bytes=plan.smem_bytes,
         smem_limit=plan.smem_limit, plan_s=t_plan,
         emit_s=info["emit_seconds"], nvcc_s=info["nvcc_seconds"],
         ptxas=ptxas, header=os.path.relpath(info["path"], REPO))
-    return abs_err, times, info, b1_bound
-
-
-def emitted_ops(text):
-    """Arithmetic nodes of an emitted model walk: its ``const`` lines
-    that are not an input (``lv``, ``lvd``, ``dyn``, ``t``)."""
-    ops = 0
-    for m in re.finditer(r"^  const (?:double|bool) v\d+ = (.*);$", text,
-                         re.M):
-        if not re.fullmatch(r"(?:lv|lvd|dyn)\[\d+\]|t", m.group(1)):
-            ops += 1
-    return ops
+    return abs_err, times, info, bounds
 
 
 def fused_bound(plan, args, out):
     """B1's bound for one launch, from its inputs and outputs: the bytes
-    of every tensor it reads or writes; the operations of each lane's
-    (Newton iterations + 1) evaluations (the emitted walk's arithmetic
-    nodes times the instances, and the G_lin/C_lin matvecs, 3·2n²) and
-    of its direction per iteration (2n²).  Returns ((ms, by), walk
-    operations per evaluation)."""
+    of every tensor it reads or writes (not its scratch of hoisted
+    values); the operations of each lane's hoisted model part (once per
+    instance) and of its (Newton iterations + 1) evaluations (the walk's
+    arithmetic nodes times the instances, and the G_lin/C_lin matvecs,
+    3·2n²) and of its direction per iteration (2n²).  Returns ((ms, by),
+    node counts of the emitted models)."""
     comp = plan.compiled
     lanes = args[7]
     tensors = (list(args[:7]) + list(out)
-               + [plan.G_lin_t, plan.C_lin_t, plan.q_off_t,
+               + [plan.G_lin_T, plan.C_lin_T, plan.q_off_t,
                   plan.inst_group_t, plan.inst_var_t, plan.row_ptr_t,
                   plan.ent_slot_t, lanes.dyn, lanes.ent_scale])
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     n = plan.n_x
-    walk = sum(emitted_ops(text) * len(comp.groups[key].instances)
-               for key, _, text, _ in plan.emitted)
+    ni = {key: len(comp.groups[key].instances) for key, _ in plan.emitted}
+    pre = sum(e.n_pre * ni[key] for key, e in plan.emitted)
+    walk = sum(e.n_walk * ni[key] for key, e in plan.emitted)
     nnwt = out[3][:, 1].double().cpu()
-    ops = float(((nnwt + 1) * (walk + 6 * n * n) + nnwt * 2 * n * n).sum())
-    return bound(nbytes, ops, "float64"), walk
+    ops = float((pre + (nnwt + 1) * (walk + 6 * n * n)
+                 + nnwt * 2 * n * n).sum())
+    counted = {key: {"hoisted_nodes": e.n_pre, "walk_nodes": e.n_walk,
+                     "hoisted_values": e.n_hoist, "instances": ni[key]}
+               for key, e in plan.emitted}
+    return bound(nbytes, ops, "float64"), counted
 
 
 def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
@@ -555,6 +549,7 @@ def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
     tstop = 7e-7
     opts = T.TranOptions(**FUSED_OPTS)
     fc.fused_chord.launches = 0
+    fc.fused_chord.launches_by_lanes.clear()
     gesp_lu.lu_factor_gesp_f32.launches = 0
     gesp_lu.lu_subst_gesp_f32.launches = 0
     torch.cuda.synchronize()
@@ -563,6 +558,7 @@ def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = {"fused": fc.fused_chord.launches,
+                "fused_one_lane": fc.fused_chord.launches_by_lanes[1],
                 "factor": gesp_lu.lu_factor_gesp_f32.launches,
                 "subst": gesp_lu.lu_subst_gesp_f32.launches}
     if launches["fused"] != sols[0].n_attempts or launches["fused"] <= 0:
@@ -620,7 +616,7 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
     worst = {k: 0.0 for k in solves}
     checked = []
     for B, n in LU_CHECK_SHAPES + [(16, 25)]:
-        A, b = test_matrices(rng, B, n)
+        A, b = kt.dominant_systems(rng, B, n)
         pivot_forcing = (B, n) == (16, 25)
         for key, (fn, plain) in solves.items():
             Ak = A.copy()
@@ -666,15 +662,20 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
             _, err = check_solve(torch, f"{key} bench B={B} n={n}", fn,
                                  plain, A32, b32)
             lib = (library_ms(lambda: torch.linalg.solve_ex(A32, b32), 200)
-                   if key == "pivot" else None)
+                   if key == "pivot" else (None, None))
             bnd = bound(4 * B * n * (n + 2), lu_ops(n, B, f"{key}_solve"),
                         "float32")
+
+            def run(fn=fn):
+                return fn(A32, b32)
             ent[key] = dict(
-                max_abs_err=err, ms=cuda_time_ms(lambda: fn(A32, b32), 200),
-                plain_ms=cuda_time_ms(lambda: plain(A32, b32), 3),
-                library_ms=lib, bound_ms=bnd[0], bound_by=bnd[1])
+                max_abs_err=err, device_ms=kt.device_ms(run),
+                call_ms=kt.call_ms(run, 200),
+                plain_ms=kt.call_ms(lambda: plain(A32, b32), 3),
+                library_ms=lib[0], library_device_ms=lib[1],
+                bound_ms=bnd[0], bound_by=bnd[1])
         # B2 then B3 back to back: the two-launch form of B4's function
-        ent["factor_then_subst_ms"] = cuda_time_ms(
+        ent["factor_then_subst_ms"] = kt.call_ms(
             lambda: gesp_lu.lu_subst_gesp_f32(
                 gesp_lu.lu_factor_gesp_f32(A32), b32), 200)
         per_shape[(B, n)] = ent
@@ -689,13 +690,18 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
     return launches, per_shape
 
 
-def kernel_entry(name, source, replaces, launches, ms, plain_ms, library,
-                 bnd, max_abs_err, **extra):
+def kernel_entry(name, source, replaces, launches, device, call, plain_ms,
+                 library, library_device, bnd, max_abs_err, **extra):
+    """One kernel of the ``kernels`` line.  ``ms``, ``plain_ms`` and
+    ``library_ms`` are call times (a Python loop of calls between two
+    events, as every ``ms`` since the port began); ``device_ms`` and
+    ``library_device_ms`` are CUDA-graph replay times per launch."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library,
-            **extra}
+            "max_abs_err": max_abs_err, "ms": call, "device_ms": device,
+            "call_ms": call, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": library,
+            "library_device_ms": library_device, **extra}
 
 
 def main():
@@ -704,7 +710,6 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False)")
-    sys.path.insert(0, REPO)
     import cedarsim_tpu_torch as T
     from cedarsim_tpu_torch.ops import gesp_lu, linalg, pivot_lu
     from cedarsim_tpu_torch.ops import fused_chord as fc
@@ -750,12 +755,12 @@ def main():
         ptxas=ptxas)
     abs_err, times, bounds = phase_kernels(torch, gesp_lu, linalg, dev)
     phase_rc(T, dev)
-    launches = phase_slice(torch, T, gesp_lu, dev, dff)
+    launches = phase_slice(torch, T, gesp_lu, linalg, dev, dff)
     phase_repeat(torch, T, dev, dff)
     th_fused.join()
     if isinstance(built["fused"], BaseException):
         raise built["fused"]
-    fabs_err, ftimes, info, b1_bound = phase_fused_kernel(
+    fabs_err, ftimes, info, fbounds = phase_fused_kernel(
         torch, T, fc, dev, dff, plan, t_plan)
     flaunches = phase_fused_slice(
         torch, T, gesp_lu, fc, dev, dff,
@@ -763,14 +768,21 @@ def main():
              nvcc_s=info["nvcc_seconds"]))
     lu_launches, per_shape = phase_lu(torch, gesp_lu, pivot_lu, dev)
     src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
+    b1p = ftimes["B1'"]
     kernels = [
         kernel_entry("fused_chord_f64",
                      "cedarsim_tpu_torch/csrc/fused_chord.cu",
                      "cedarsim_tpu/ops/fused_chord.py:632",
-                     flaunches["fused"], ftimes[0], ftimes[1], None,
-                     b1_bound, fabs_err,
+                     flaunches["fused"], *ftimes["B1"], None, None,
+                     fbounds["B1"], fabs_err,
                      also_replaces="cedarsim_tpu/ops/fused_chord.py:526",
-                     shape=[N_LANES, dff[0].n_x]),
+                     shape=[N_LANES, dff[0].n_x],
+                     one_lane={"shape": [1, dff[0].n_x],
+                               "launches": flaunches["fused_one_lane"],
+                               "device_ms": b1p[0], "call_ms": b1p[1],
+                               "plain_ms": b1p[2],
+                               "bound_ms": fbounds["B1'"][0],
+                               "bound_by": fbounds["B1'"][1]}),
     ]
     for key, line in (("factor", 313), ("subst", 354)):
         kernels.append(kernel_entry(
@@ -785,7 +797,8 @@ def main():
         e = per_shape[(B, n)][key]
         kernels.append(kernel_entry(
             name, source, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
-            lu_launches[key], e["ms"], e["plain_ms"], e["library_ms"],
+            lu_launches[key], e["device_ms"], e["call_ms"], e["plain_ms"],
+            e["library_ms"], e["library_device_ms"],
             (e["bound_ms"], e["bound_by"]), e["max_abs_err"], shape=[B, n],
             other_shapes=[{"shape": list(s), **per_shape[s][key]}
                           for s in rest]))

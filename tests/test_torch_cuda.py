@@ -7,7 +7,9 @@ which sets JAX up for the other files):
 
 - Each kernel against its plain PyTorch version on the same CUDA tensors
   (1e-5 relative: float32 with FMA contraction and another summation order),
-  with one launch counted per call.
+  with one launch counted per call; the substitution (B3) also at n from 1
+  to 240 (1, 2, 4 and 8 rows per lane) and B in {1, 8, 37}, its two
+  launches bitwise equal.
 - The wrappers refuse what the kernels do not take.
 - The mixed chord solve (kernels + two float64 refinement passes) against
   float64 ``torch.linalg.solve`` (1e-10 relative, well-conditioned systems).
@@ -19,7 +21,9 @@ which sets JAX up for the other files):
   within 1e-9 of the currents' scale (S at the predictor: the converged S
   is a residual that cancels far below it); two launches bitwise equal;
   the wrapper refuses another dtype, a non-contiguous input or a CPU
-  tensor; ``tran(newton_impl="fused")`` launches once per step attempt.
+  tensor; the scratch of hoisted model values is written before it is
+  read (the same bits from a scratch of zeros and one of NaNs);
+  ``tran(newton_impl="fused")`` launches once per step attempt.
 - The dense solves B4 (fused GESP, ``gesp_lu.lu_solve_gesp_f32``) and B5
   (partial pivoting, ``pivot_lu.lu_solve_pivot_f32``) against their plain
   versions at n in {11, 25, 122, 240} (1e-5 relative), two launches
@@ -85,6 +89,24 @@ def test_kernels_match_plain(cuda_device, B, n):
     assert gesp_lu.lu_subst_gesp_f32.launches == s0 + 1
     assert _rel(lu_k, lu_p) <= 1e-5
     assert _rel(x_k, x_p) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [1, 25, 31, 32, 33, 64, 96, 122, 240])
+@pytest.mark.parametrize("B", [1, 8, 37])
+def test_subst_kernel_matches_plain(cuda_device, B, n):
+    A, b = _systems(3 * n + B, B, n)
+    A32 = torch.as_tensor(A, dtype=torch.float32, device=cuda_device)
+    b32 = torch.as_tensor(b, dtype=torch.float32, device=cuda_device)
+    lu = gesp_lu.lu_factor_gesp_f32_plain(A32)
+    s0 = gesp_lu.lu_subst_gesp_f32.launches
+    x1 = gesp_lu.lu_subst_gesp_f32(lu, b32)
+    x2 = gesp_lu.lu_subst_gesp_f32(lu, b32)
+    xp = gesp_lu.lu_subst_gesp_f32_plain(lu, b32)
+    torch.cuda.synchronize()
+    assert gesp_lu.lu_subst_gesp_f32.launches == s0 + 2
+    assert torch.equal(x1.view(torch.int32), x2.view(torch.int32))
+    assert bool(torch.isfinite(x1).all())
+    assert _rel(x1, xp) <= 1e-5
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -237,6 +259,20 @@ def test_fused_kernel_is_deterministic(cuda_device):
     b = fc.fused_chord(plan, *args, opts)
     torch.cuda.synchronize()
     assert all(torch.equal(u, w) for u, w in zip(a, b))
+
+
+def test_fused_hoist_scratch_is_written_before_read(cuda_device,
+                                                   monkeypatch):
+    plan, args, opts = _fused_case("inverter", 3, cuda_device)
+    outs = []
+    for fill in (0.0, float("nan")):
+        monkeypatch.setattr(plan, "hoist_scratch", lambda B, fill=fill: (
+            torch.full((B, plan.n_inst, plan.max_hoist), fill,
+                       dtype=torch.float64, device=cuda_device)))
+        outs.append(fc.fused_chord(plan, *args, opts))
+    torch.cuda.synchronize()
+    assert int(outs[0][3][:, 1].max()) >= 2
+    assert all(torch.equal(u, w) for u, w in zip(*outs))
 
 
 def test_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):

@@ -36,7 +36,7 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-@pytest.mark.parametrize("n", [11, 25])
+@pytest.mark.parametrize("n", [1, 11, 24, 25, 32, 33])
 @pytest.mark.parametrize("B", [1, 12, 37])
 def test_plain_gesp_matches_pallas(n, B):
     A, b = _systems(100 * n + B, B, n)
@@ -50,6 +50,23 @@ def test_plain_gesp_matches_pallas(n, B):
     x_t = gesp_lu.lu_subst_gesp_f32(torch.from_numpy(lu_j.copy()),
                                     torch.from_numpy(b))
     assert _rel(x_t.numpy(), x_j) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [1, 11, 24, 25, 33, 96, 122])
+def test_plain_subst_matches_numpy_triangular(n):
+    """The column-order substitution on packed factors against float64
+    triangular solves of the same factors: x = U⁻¹ L⁻¹ b with L's unit
+    diagonal (1e-5 relative: float32 substitution on factors of dominant
+    systems, whose triangles are well conditioned)."""
+    A, b = _systems(7 * n, 9, n)
+    LU = gesp_lu.lu_factor_gesp_f32(torch.from_numpy(A)).numpy()
+    x_t = gesp_lu.lu_subst_gesp_f32(torch.from_numpy(LU),
+                                    torch.from_numpy(b)).numpy()
+    L64 = np.tril(LU.astype(np.float64), -1) + np.eye(n)
+    U64 = np.triu(LU.astype(np.float64))
+    y = np.linalg.solve(L64, b.astype(np.float64)[..., None])
+    x_e = np.linalg.solve(U64, y)[..., 0]
+    assert _rel(x_t, x_e) <= 1e-5
 
 
 @pytest.mark.parametrize("pivot, boosted", [(0.0, 1e-20), (-1e-25, -1e-20)])

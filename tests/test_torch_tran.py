@@ -9,6 +9,8 @@ forms and against the JAX package's ``tran``.
   one-lane runs of the same W with the exact solver: every node within
   1e-3 V at ten times, accepted steps within 10 %; the nominal lane equals
   a solo run of the port to 1e-12 V (lane independence).
+- gf180 DFF, 0-1 ns from the smoke's per-lane warm DC at W·0.99: the
+  mixed path's float32 margin (ROADMAP Queue C), the exact chord beside it.
 - The package never imports JAX (a fresh interpreter), on the RC step, on
   a VA diode through the fused chord path, and in the dense-LU bench's
   module.
@@ -118,6 +120,65 @@ def test_dff_lanes_mixed_vs_jax():
     assert solo.n_accepted == nominal.n_accepted
     np.testing.assert_allclose(nominal.xs[:, :ct.n_nodes],
                                solo.xs[:, :ct.n_nodes], rtol=0, atol=1e-12)
+
+
+def _row_order_subst(LU, b):
+    """The GESP substitution in row order (each y_i one row sum), the order
+    of the Pallas kernel and of the port before the column-order kernel."""
+    n = LU.shape[-1]
+    y = torch.zeros_like(b)
+    for i in range(n):
+        y[:, i] = b[:, i] - (LU[:, i, :i] * y[:, :i]).sum(-1)
+    x = torch.zeros_like(b)
+    for i in range(n - 1, -1, -1):
+        x[:, i] = ((y[:, i] - (LU[:, i, i + 1:] * x[:, i + 1:]).sum(-1))
+                   / LU[:, i, i])
+    return x
+
+
+def test_dff_mixed_path_float32_margin(monkeypatch):
+    """The open fault of ROADMAP Queue C: the DFF's first nanosecond from
+    the per-lane warm DC of the smoke's W scatter at two lanes (W·0.99 and
+    nominal), cell A's options.  The exact float64 chord finishes both
+    lanes with no rejected step.  The mixed path's float32 GESP factors
+    carry pivots boosted to 1e-20, and in either substitution order over 1 %
+    of its chord solves are non-finite, so whether the W·0.99 lane survives
+    depends on the order of rounding (Queue C has each order's outcome).
+    The nominal lane finishes in both orders."""
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    from cedarsim_tpu_torch.ops import gesp_lu, linalg
+    comp, ctx, pb, x0 = kt.dff_lanes(torch, T, "cpu", lanes=2)
+
+    def run(**kw):
+        return T.tran(comp, (0.0, 1e-9), params=pb, ctx=ctx, x0=x0,
+                      opts=T.TranOptions(**dict(kt.XLA_OPTS, **kw)))
+
+    exact = run(dense_lu="auto")        # the CPU's exact float64 chord
+    assert all(s.converged and s.n_rejected == 0 for s in exact)
+    factor, backsolve = linalg.chord_factor, linalg.chord_backsolve
+    seen = dict(boosted=0, solves=0, nonfinite=0)
+
+    def chord_factor(J):
+        LU, perm, r = factor(J)
+        seen["boosted"] += int((LU.diagonal(dim1=-2, dim2=-1).abs()
+                                <= 1e-20).any(-1).sum())
+        return LU, perm, r
+
+    def chord_backsolve(*args):
+        x = backsolve(*args)
+        seen["solves"] += x.shape[0]
+        seen["nonfinite"] += int((~torch.isfinite(x)).any(-1).sum())
+        return x
+
+    monkeypatch.setattr(linalg, "chord_factor", chord_factor)
+    monkeypatch.setattr(linalg, "chord_backsolve", chord_backsolve)
+    for subst in (gesp_lu.lu_subst_gesp_f32_plain, _row_order_subst):
+        monkeypatch.setattr(gesp_lu, "lu_subst_gesp_f32_plain", subst)
+        seen.update(boosted=0, solves=0, nonfinite=0)
+        sols = run()
+        assert sols[1].converged
+        assert seen["boosted"] > 0
+        assert seen["nonfinite"] > 0.01 * seen["solves"]
 
 
 def test_port_never_imports_jax():
