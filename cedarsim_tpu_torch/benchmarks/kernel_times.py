@@ -20,14 +20,22 @@ The shapes: B1 (``fused_chord``) on the gf180 DFF at 8 lanes and B1' at one
 lane (the nominal one), both on the smoke's phase-6 inputs (the per-lane
 warm DC, nodes perturbed by a seeded 0.05 V, a BE start at h = 1e-12); B2
 and B3 at [8, 25, 25] on seeded dominant systems; B4 and B5 at the
-dense-LU bench's [512, 25] and [64, 122].
+dense-LU bench's [512, 25] and [64, 122], beside ``torch.linalg.solve_ex``
+in float32 on the same systems (the same x within the bench's gates), and
+over an n-sweep at the bench's batch sizes (``SWEEP``: n in {8, 16, 25, 32}
+at B = 512, {33, 64, 96, 122, 240} at B = 64), each also per elimination
+step (device µs / n).  ``solve_ex`` cannot be captured in a CUDA graph, so
+its device time is the sum of its CUDA kernels' times per call in a
+``torch.profiler`` trace of 50 calls (``profiler_device_ms``).
 
 ``--tree DIR`` imports ``cedarsim_tpu_torch`` from another checkout (for
 instance the parent commit unpacked with ``git archive``), so that two
 designs are timed by the same code on one card; its kernels build into that
 checkout's own ``build/``.  ``--dump FILE`` saves each kernel's outputs on
 these inputs (numpy ``.npz``); ``--compare FILE`` reports, per kernel,
-whether its outputs are bitwise equal to those saved there.  One JSON
+whether its outputs are bitwise equal to those saved there and their
+largest difference relative to the saved outputs' largest magnitude.
+``--dense`` times B4 and B5 alone (bench shapes and sweep).  One JSON
 object is printed, with the card's name and power limit; ``--out`` also
 writes it to a file.  Needs a CUDA card.
 """
@@ -48,6 +56,13 @@ GRAPH_CALLS = 100
 GRAPH_REPLAYS = 10
 #: timed loops of ``call_ms``, of which the least is taken
 CALL_ROUNDS = 5
+#: calls of a library function traced by ``profiler_device_ms``
+PROFILED_CALLS = 50
+#: (B, n) of the dense solves' n-sweep: the bench's two batch sizes, n on
+#: both sides of the one-warp regime's edge (32) and up to the largest n a
+#: block's shared memory holds (240)
+SWEEP = ((512, 8), (512, 16), (512, 25), (512, 32), (64, 33), (64, 64),
+         (64, 96), (64, 122), (64, 240))
 #: lanes of the DFF transient and the per-lane W scatter (bench.py:217-225)
 N_LANES = 8
 #: cell A, the mixed chord path of chip_smoke.py's phase 5: the charge-form
@@ -109,6 +124,51 @@ def device_ms(fn, calls=GRAPH_CALLS, replays=GRAPH_REPLAYS):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / (calls * replays)
+
+
+def profiler_device_ms(fn, calls=PROFILED_CALLS):
+    """ms of device time per call of ``fn``, for a function that a CUDA
+    graph cannot capture: the durations of the CUDA kernels and copies in a
+    ``torch.profiler`` trace of ``calls`` calls (after three warm-up
+    calls), summed and divided by the calls.  Raises if the trace holds no
+    device activity (the profiler cannot see the card)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us * 1e-3 / calls
+
+
+def library_times(fn, reps):
+    """A PyTorch library call timed as a yardstick (the port never calls
+    it): ``call_ms``; ``device_ms`` by CUDA-graph replay where the call can
+    be captured, else by ``profiler_device_ms``; and how the device time
+    was taken ("graph", "profiler", or the reason it was not)."""
+    import torch
+    out = dict(call_ms=call_ms(fn, reps), device_ms=None)
+    try:
+        out.update(device_ms=device_ms(fn), device_by="graph")
+    except (RuntimeError, NotImplementedError) as e:
+        torch.cuda.synchronize()
+        graph_error = str(e).splitlines()[0][:200]
+        try:
+            out.update(device_ms=profiler_device_ms(fn),
+                       device_by="profiler", graph_error=graph_error)
+        except (RuntimeError, NotImplementedError) as e2:
+            out.update(device_by=f"not measured: {graph_error}; "
+                       f"{str(e2).splitlines()[0][:200]}")
+    return out
 
 
 def dominant_systems(rng, B, n):
@@ -187,57 +247,82 @@ def fused_args(torch, T, plan, dff, h, lanes=None):
                        torch.full_like(t, h), -x0, t, pb), opts
 
 
-def measure(torch, T, dev):
+def measure(torch, T, dev, dense_only=False):
     """({kernel: {shape, device_ms, call_ms}} for B1, B1', B2-B5 at their
-    paths' shapes, nvcc's register and spill lines per library, each
-    kernel's outputs)."""
-    from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+    paths' shapes (B4 and B5 alone with ``dense_only``), B4 and B5 over
+    ``SWEEP`` and ``solve_ex`` at the bench's shapes; nvcc's register and
+    spill lines per library; each kernel's outputs)."""
     from cedarsim_tpu_torch.benchmarks import lu_bench
-    from cedarsim_tpu_torch.ops import fused_chord as fc
     from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu
     out, results = {}, {}
-    dff = dff_lanes(torch, T, dev)
 
-    def put(name, shape, fn, reps):
+    def put(name, shape, fn, reps, **extra):
         res = fn()
         results[name] = [t.cpu().numpy() for t in
                          (res if isinstance(res, tuple) else (res,))]
         out[name] = dict(shape=list(shape), device_ms=device_ms(fn),
-                         call_ms=call_ms(fn, reps))
+                         call_ms=call_ms(fn, reps), **extra)
 
-    plan = fused_plan_for(*dff[:3])
-    logs = {"fused_chord": plan.build()["log"],
-            "gesp_lu": gesp_lu.build()["log"],
+    logs = {"gesp_lu": gesp_lu.build()["log"],
             "pivot_lu": pivot_lu.build()["log"]}
-    n = dff[0].n_x
-    args, opts = fused_args(torch, T, plan, dff, 1e-12)
-    put("B1 fused_chord_f64", (N_LANES, n),
-        lambda: fc.fused_chord(plan, *args, opts), 50)
-    one = slice(N_LANES // 2, N_LANES // 2 + 1)
-    args1, _ = fused_args(torch, T, plan, dff, 1e-12, lanes=one)
-    put("B1' fused_chord_f64", (1, n),
-        lambda: fc.fused_chord(plan, *args1, opts), 50)
-    A, b = dominant_systems(np.random.default_rng(1), N_LANES, 25)
-    A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
-    b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
-    LU = gesp_lu.lu_factor_gesp_f32(A32)
-    put("B2 gesp_factor_f32", A32.shape,
-        lambda: gesp_lu.lu_factor_gesp_f32(A32), 200)
-    put("B3 gesp_subst_f32", A32.shape,
-        lambda: gesp_lu.lu_subst_gesp_f32(LU, b32), 200)
-    for B, nb in lu_bench.SHAPES:
+    if not dense_only:
+        from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+        from cedarsim_tpu_torch.ops import fused_chord as fc
+        dff = dff_lanes(torch, T, dev)
+        plan = fused_plan_for(*dff[:3])
+        logs["fused_chord"] = plan.build()["log"]
+        n = dff[0].n_x
+        args, opts = fused_args(torch, T, plan, dff, 1e-12)
+        put("B1 fused_chord_f64", (N_LANES, n),
+            lambda: fc.fused_chord(plan, *args, opts), 50)
+        one = slice(N_LANES // 2, N_LANES // 2 + 1)
+        args1, _ = fused_args(torch, T, plan, dff, 1e-12, lanes=one)
+        put("B1' fused_chord_f64", (1, n),
+            lambda: fc.fused_chord(plan, *args1, opts), 50)
+        A, b = dominant_systems(np.random.default_rng(1), N_LANES, 25)
+        A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
+        b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
+        LU = gesp_lu.lu_factor_gesp_f32(A32)
+        put("B2 gesp_factor_f32", A32.shape,
+            lambda: gesp_lu.lu_factor_gesp_f32(A32), 200)
+        put("B3 gesp_subst_f32", A32.shape,
+            lambda: gesp_lu.lu_subst_gesp_f32(LU, b32), 200)
+    library = {}
+    for B, nb in lu_bench.SHAPES + tuple(
+            s for s in SWEEP if s not in lu_bench.SHAPES):
         A, b = lu_bench.make_systems(B, nb)
         A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
         b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
-        put(f"B4 gesp_solve_f32 {B}x{nb}", (B, nb),
-            lambda: gesp_lu.lu_solve_gesp_f32(A32, b32), 200)
-        put(f"B5 pivot_solve_f32 {B}x{nb}", (B, nb),
-            lambda: pivot_lu.lu_solve_pivot_f32(A32, b32), 200)
+        bench = (B, nb) in lu_bench.SHAPES
+        reps = 200 if bench else 50
+        for key, fn in (("B4 gesp_solve_f32", gesp_lu.lu_solve_gesp_f32),
+                        ("B5 pivot_solve_f32", pivot_lu.lu_solve_pivot_f32)):
+            name = f"{key} {B}x{nb}"
+            put(name, (B, nb), lambda fn=fn: fn(A32, b32), reps)
+            out[name]["device_us_per_step"] = \
+                out[name]["device_ms"] * 1e3 / nb
+        if bench:
+            library[f"solve_ex_f32 {B}x{nb}"] = dict(
+                shape=[B, nb], **library_times(
+                    lambda: torch.linalg.solve_ex(A32, b32), reps))
     ptxas = {k: [ln.strip() for ln in v.splitlines()
                  if any(w in ln for w in ("Function properties",
                                           "registers", "spill"))]
              for k, v in logs.items()}
-    return out, ptxas, results
+    return out, library, ptxas, results
+
+
+def _rel_diff(a, ref):
+    """Largest |a - ref| over the finite entries of ``ref``, relative to
+    its largest finite magnitude (inf where the shapes differ)."""
+    if a.shape != ref.shape:
+        return float("inf")
+    a, ref = a.astype(np.float64), ref.astype(np.float64)
+    fin = np.isfinite(ref)
+    if not fin.any():
+        return 0.0
+    return float(np.abs(a - ref)[fin].max()
+                 / max(np.abs(ref[fin]).max(), 1e-300))
 
 
 def smi():
@@ -258,6 +343,8 @@ def main(argv=None):
     ap.add_argument("--dump", help="save the kernels' outputs here (.npz)")
     ap.add_argument("--compare", help="report which kernels' outputs are "
                     "bitwise equal to those saved in this .npz")
+    ap.add_argument("--dense", action="store_true",
+                    help="time only the dense solves B4 and B5")
     args = ap.parse_args(argv)
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                         "..")
@@ -267,11 +354,11 @@ def main(argv=None):
         raise SystemExit("kernel_times: no CUDA device")
     import cedarsim_tpu_torch as T
     dev = torch.device("cuda", 0)
-    times, ptxas, results = measure(torch, T, dev)
+    times, library, ptxas, results = measure(torch, T, dev, args.dense)
     flat = {f"{k}#{i}": a for k, v in results.items()
             for i, a in enumerate(v)}
     res = {"tree": _repo(T), "card": smi(), "kernels": times,
-           "ptxas": ptxas}
+           "library": library, "ptxas": ptxas}
     if args.dump:
         np.savez(args.dump, **flat)
     if args.compare:
@@ -280,7 +367,12 @@ def main(argv=None):
             "file": args.compare,
             "kernels": {k: all(f"{k}#{i}" in other.files and np.array_equal(
                 a, other[f"{k}#{i}"]) for i, a in enumerate(v))
-                for k, v in results.items()}}
+                for k, v in results.items()},
+            "max_rel_diff": {k: max(_rel_diff(a, other[f"{k}#{i}"])
+                                    for i, a in enumerate(v))
+                             for k, v in results.items()
+                             if all(f"{k}#{i}" in other.files
+                                    for i in range(len(v)))}}
     text = json.dumps(res)
     if args.out:
         with open(args.out, "w") as f:

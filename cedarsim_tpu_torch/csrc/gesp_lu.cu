@@ -43,41 +43,28 @@
 // latency is not hidden here: CUDA graphs and tensor-core (wgmma) trailing
 // updates are later work.
 //
-// The fused solve: one block per system, A and b in shared memory
-// (n² + n floats, so n <= 240 on an H100).  In step k each warp owns rows
-// i > k (i = k + 1 + warp, stepping by the warps of the block): its lanes
-// update the row's columns j > k from the multiplier, and lane 0
-// eliminates b_i with the same multiplier.  A row and its b_i are written
-// only by their owner and row k is only read, so one block barrier ends a
-// step.  Warp 0 then substitutes backwards row by row, each row a dot
-// product split across the lanes and reduced with shuffles.  At
-// the bench's shapes ([512, 25] and [64, 122]) the work is 10^4-10^6 flops
-// a system: the bound is the n dependent steps and their barriers, not
-// the card's rates (PERF.md).
+// The fused solve (B4) is the PIVOT = false instantiation of the dense
+// solve shared with the pivoting solve (B5), dense_solve.cuh, whose note
+// says what bounds it and what the design does: one warp per system with
+// the system in registers at n <= 32; one block per system above, [A | b]
+// in shared memory, the steps taken in pairs with one pass over the
+// trailing block for both.
 
 #include <cuda_runtime.h>
+
+#include "dense_solve.cuh"
 
 namespace {
 
 constexpr float kTau = 1e-20f;
 constexpr int kFactorThreads = 256;
-constexpr int kSolveThreads = 256;
 
 __device__ __forceinline__ float gesp_boost(float p) {
   return fabsf(p) < kTau ? (p < 0.0f ? -kTau : kTau) : p;
 }
 
-// Opt a kernel into `bytes` of dynamic shared memory (needed above 48 KB).
-// `done` is that kernel's own record of what it was given: the attribute
-// belongs to one kernel function, so each kernel keeps its own.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* done) {
-  if (bytes <= *done) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *done = bytes;
-  return err;
-}
+using dense_solve::allow_smem;
+using dense_solve::pick;
 
 __global__ void gesp_factor_kernel(const float* __restrict__ A,
                                    float* __restrict__ LU, int n,
@@ -112,25 +99,6 @@ __global__ void gesp_factor_kernel(const float* __restrict__ A,
   for (int e = threadIdx.x; e < nn; e += blockDim.x) {
     lu[(long long)(e / n) * lu_row + (e % n)] = s[e];
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-// y[r] for a row slot r known only at run time, without indexing the
-// register array (an indexed read would put it in local memory)
-template <int R>
-__device__ __forceinline__ float pick(const float (&y)[R], int r) {
-  float v = y[0];
-#pragma unroll
-  for (int q = 1; q < R; ++q) {
-    if (q == r) v = y[q];
-  }
-  return v;
 }
 
 // One warp per system, one system per block.  Lane l owns the rows
@@ -211,49 +179,6 @@ cudaError_t launch_subst(const float* LU, const float* b, float* x, int B,
   return cudaGetLastError();
 }
 
-__global__ void gesp_solve_kernel(const float* __restrict__ A,
-                                  const float* __restrict__ b,
-                                  float* __restrict__ x, int n,
-                                  long long a_batch, long long a_row,
-                                  long long b_batch, long long x_batch) {
-  extern __shared__ float s[];  // n × n row-major, then b (n)
-  float* sb = s + n * n;
-  const float* a = A + (long long)blockIdx.x * a_batch;
-  const float* bb = b + (long long)blockIdx.x * b_batch;
-  const int nn = n * n;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-    s[e] = a[(long long)(e / n) * a_row + (e % n)];
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) sb[i] = bb[i];
-  __syncthreads();
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int warps = blockDim.x / 32;
-  for (int k = 0; k < n; ++k) {
-    const float piv = gesp_boost(s[k * n + k]);
-    const float* rk = s + k * n;
-    for (int i = k + 1 + warp; i < n; i += warps) {
-      float* ri = s + i * n;
-      const float m = ri[k] / piv;
-      for (int j = k + 1 + lane; j < n; j += 32) ri[j] -= m * rk[j];
-      if (lane == 0) sb[i] -= m * sb[k];
-    }
-    __syncthreads();
-  }
-  if (warp != 0) return;  // no block barrier below
-  // back substitution, the diagonal boosted again
-  for (int i = n - 1; i >= 0; --i) {
-    const float* ri = s + i * n;
-    float acc = 0.0f;
-    for (int j = i + 1 + lane; j < n; j += 32) acc += ri[j] * sb[j];
-    acc = warp_sum(acc);
-    if (lane == 0) sb[i] = (sb[i] - acc) / gesp_boost(ri[i]);
-    __syncwarp();
-  }
-  float* xx = x + (long long)blockIdx.x * x_batch;
-  for (int j = lane; j < n; j += 32) xx[j] = sb[j];
-}
-
 }  // namespace
 
 extern "C" {
@@ -303,13 +228,8 @@ int gesp_subst_f32(const float* LU, const float* b, float* x, int B, int n,
 int gesp_solve_f32(const float* A, const float* b, float* x, int B, int n,
                    long long a_batch, long long a_row, long long b_batch,
                    long long x_batch, void* stream) {
-  const size_t smem = (size_t)n * (n + 1) * sizeof(float);
-  static size_t smem_set = 48 * 1024;
-  cudaError_t err = allow_smem(gesp_solve_kernel, smem, &smem_set);
-  if (err != cudaSuccess) return (int)err;
-  gesp_solve_kernel<<<B, kSolveThreads, smem, (cudaStream_t)stream>>>(
-      A, b, x, n, a_batch, a_row, b_batch, x_batch);
-  return (int)cudaGetLastError();
+  return dense_solve::solve<false>(A, b, x, B, n, a_batch, a_row, b_batch,
+                                   x_batch, stream);
 }
 
 }  // extern "C"

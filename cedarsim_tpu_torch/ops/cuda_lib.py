@@ -4,7 +4,8 @@ source into a shared library with a plain C interface, loaded with
 
 Every kernel module builds this way: ``nvcc`` for ``sm_90a`` at first use,
 into ``build/kernels/`` beside the package, under a name keyed on a hash of
-the source, any generated header and the flags, so a changed source builds
+the source, the ``csrc/`` headers it includes, any generated header and
+the flags, so a changed source builds
 anew and an unchanged one loads at once.  A failed build or launch raises;
 nothing falls back.
 """
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -51,8 +53,7 @@ def build_library(prefix, source, flags=NVCC_FLAGS, header=None):
     its path passed to nvcc as ``-D<macro>="<path>"``.  Returns a dict with
     the loaded ``lib``, the shared object's ``path``, nvcc's ``seconds``
     (0.0 when it was already built) and its ``log``."""
-    with open(source, "rb") as f:
-        src = f.read()
+    src = _source_bytes(source)
     hdr = header[1].encode() if header else b""
     tag = hashlib.sha256(src + b"\0" + hdr + b"\0"
                          + " ".join(flags).encode()).hexdigest()
@@ -77,6 +78,21 @@ def build_library(prefix, source, flags=NVCC_FLAGS, header=None):
                                f"{os.path.basename(source)}:\n{log[-20000:]}")
         os.replace(tmp, path)
     return dict(lib=ctypes.CDLL(path), path=path, seconds=seconds, log=log)
+
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_bytes(source):
+    """The bytes a library is keyed on: the source and each header it
+    includes by a quoted name from its own directory (``csrc/*.cuh``)."""
+    with open(source, "rb") as f:
+        parts = [f.read()]
+    for name in _LOCAL_INCLUDE.findall(parts[0]):
+        with open(os.path.join(os.path.dirname(source), name.decode()),
+                  "rb") as f:
+            parts.append(f.read())
+    return b"\0".join(parts)
 
 
 def raise_on(err, what):
@@ -124,6 +140,17 @@ def check_smem(what, device, need):
             f"block; the card ({torch.cuda.get_device_name(device)}) gives "
             f"a block at most {limit} bytes of shared memory (n <= 240 on "
             "an H100)")
+
+
+def dense_solve_smem(n, static_bytes):
+    """Shared memory per block of the dense solves (``csrc/
+    dense_solve.cuh``, B4 and B5) at n unknowns: none at n <= 32 (one warp
+    per system, in registers); above, [A | b] at an odd row stride
+    ((n + 1) | 1 floats, ``block_ld``) and one column of n floats, plus
+    the kernel's ``static_bytes``."""
+    if n <= 32:
+        return 0
+    return 4 * (n * ((n + 1) | 1) + n) + static_bytes
 
 
 def check_f32(name, t, shape):

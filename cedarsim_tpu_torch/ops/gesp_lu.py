@@ -24,6 +24,9 @@ from cedarsim_tpu_torch.ops import cuda_lib
 TAU = 1e-20
 
 SOURCE = os.path.join(cuda_lib.CSRC, "gesp_lu.cu")
+#: static shared memory of the fused solve's block kernels, as ptxas
+#: reports it (the argmax buffers belong to the pivoting instantiation)
+_SOLVE_STATIC_SMEM = 0
 
 _LIB = {}
 
@@ -146,9 +149,11 @@ lu_subst_gesp_f32.launches = 0
 
 def lu_solve_gesp_f32_plain(A, b):
     """Plain PyTorch GESP solve in the fused kernel's order: each factor
-    step boosts its pivot, updates the trailing block and eliminates b
-    with the same multipliers; back substitution boosts U's diagonal again.
-    A [B, n, n], b [B, n] float32 → x [B, n]."""
+    step boosts its pivot, divides each row's entry in column k by it once
+    (the multiplier), updates the trailing block and eliminates b with the
+    same multipliers; the back substitution runs in column order, step k
+    dividing y_k by U's diagonal boosted again and subtracting U[i, k]·x_k
+    from every row i < k.  A [B, n, n], b [B, n] float32 → x [B, n]."""
     A = A.clone()
     b = b.clone()
     n = A.shape[-1]
@@ -161,25 +166,37 @@ def lu_solve_gesp_f32_plain(A, b):
         mult = A[:, k + 1:, k] / boost(A[:, k, k])[:, None]
         A[:, k + 1:, k + 1:] -= mult[:, :, None] * A[:, k, None, k + 1:]
         b[:, k + 1:] -= mult * b[:, k, None]
-    x = torch.zeros_like(b)
-    for i in range(n - 1, -1, -1):
-        x[:, i] = ((b[:, i] - (A[:, i, i + 1:] * x[:, i + 1:]).sum(-1))
-                   / boost(A[:, i, i]))
-    return x
+    return back_substitute(A, b, boost)
+
+
+def back_substitute(U, y, diag=None):
+    """Column-order back substitution, the dense solves' (B4, B5) order: for
+    k from n - 1 down, x_k = y_k / diag(U[k, k]), then y_i -= U[i, k]·x_k
+    for every i < k.  ``diag`` maps the stored diagonal to the divisor (B4
+    boosts it again; B5 divides by it as it is).  U [B, n, n] (read on and
+    above the diagonal), y [B, n] float32 → x [B, n]."""
+    y = y.clone()
+    for k in range(U.shape[-1] - 1, -1, -1):
+        d = U[:, k, k] if diag is None else diag(U[:, k, k])
+        y[:, k] = y[:, k] / d
+        y[:, :k] -= U[:, :k, k] * y[:, k, None]
+    return y
 
 
 def lu_solve_gesp_f32(A, b):
     """GESP factor and solve of a batch in one launch: A [B, n, n], b
     [B, n] float32 → x [B, n].  CPU tensors take
     :func:`lu_solve_gesp_f32_plain`; CUDA tensors launch
-    ``gesp_solve_f32`` (one thread block per system, A and b in shared
-    memory, so n <= 240 on an H100) or raise."""
+    ``gesp_solve_f32`` or raise: one warp per system with the system in
+    registers at n <= 32, one thread block per system with [A | b] in
+    shared memory above (so n <= 240 on an H100)."""
     B, n = cuda_lib.check_system("lu_solve_gesp_f32", A, b)
     if A.device.type == "cpu":
         return lu_solve_gesp_f32_plain(A, b)
     cuda_lib.check_f32("A", A, (B, n, n))
     cuda_lib.check_f32("b", b, (B, n))
-    cuda_lib.check_smem("lu_solve_gesp_f32", A.device, 4 * n * (n + 1))
+    cuda_lib.check_smem("lu_solve_gesp_f32", A.device,
+                        cuda_lib.dense_solve_smem(n, _SOLVE_STATIC_SMEM))
     x = torch.empty_like(b)
     if B == 0 or n == 0:
         return x

@@ -23,14 +23,15 @@ import os
 import torch
 
 from cedarsim_tpu_torch.ops import cuda_lib
+from cedarsim_tpu_torch.ops.gesp_lu import back_substitute
 
 #: pivot magnitude below which the multipliers' divisor is boosted to ±TINY
 TINY = 1e-30
 
 SOURCE = os.path.join(cuda_lib.CSRC, "pivot_lu.cu")
-#: static shared memory of the kernel (the 8 warps' argmax winners, value
-#: and row, and the pivot row): 80 bytes with alignment, as ptxas reports
-_STATIC_SMEM = 80
+#: static shared memory of the block kernels (the 8 warps' argmax winners:
+#: key, row and entry), as ptxas reports it
+_STATIC_SMEM = 96
 
 _LIB = {}
 
@@ -51,8 +52,13 @@ def build():
 
 
 def lu_solve_pivot_f32_plain(A, b):
-    """Plain PyTorch partial-pivoting solve in the kernel's order.  A
-    [B, n, n], b [B, n] float32 → x [B, n]."""
+    """Plain PyTorch partial-pivoting solve in the kernel's order: step k
+    takes the first row of largest |A[i, k]| (i >= k, NaN below every
+    number), exchanges it with row k, divides each row's entry in column k
+    by the pivot (boosted to ±TINY) once and updates the trailing block and
+    b; then the column-order back substitution with the stored diagonal
+    (``gesp_lu.back_substitute``).  A [B, n, n], b [B, n] float32 → x
+    [B, n]."""
     A = A.clone()
     b = b.clone()
     B, n, _ = A.shape
@@ -74,25 +80,22 @@ def lu_solve_pivot_f32_plain(A, b):
         mult = A[:, k + 1:, k] / safe[:, None]
         A[:, k + 1:, k + 1:] -= mult[:, :, None] * A[:, k, None, k + 1:]
         b[:, k + 1:] -= mult * b[:, k, None]
-    x = torch.zeros_like(b)
-    for i in range(n - 1, -1, -1):
-        x[:, i] = ((b[:, i] - (A[:, i, i + 1:] * x[:, i + 1:]).sum(-1))
-                   / A[:, i, i])
-    return x
+    return back_substitute(A, b)
 
 
 def lu_solve_pivot_f32(A, b):
     """Partial-pivoting LU solve of a batch: A [B, n, n], b [B, n] float32
     → x [B, n].  CPU tensors take :func:`lu_solve_pivot_f32_plain`; CUDA
-    tensors launch ``pivot_solve_f32`` (one thread block per system, A and
-    b in shared memory, so n <= 240 on an H100) or raise."""
+    tensors launch ``pivot_solve_f32`` or raise: one warp per system with
+    the system in registers at n <= 32, one thread block per system with
+    [A | b] in shared memory above (so n <= 240 on an H100)."""
     B, n = cuda_lib.check_system("lu_solve_pivot_f32", A, b)
     if A.device.type == "cpu":
         return lu_solve_pivot_f32_plain(A, b)
     cuda_lib.check_f32("A", A, (B, n, n))
     cuda_lib.check_f32("b", b, (B, n))
     cuda_lib.check_smem("lu_solve_pivot_f32", A.device,
-                        4 * n * (n + 1) + _STATIC_SMEM)
+                        cuda_lib.dense_solve_smem(n, _STATIC_SMEM))
     x = torch.empty_like(b)
     if B == 0 or n == 0:
         return x

@@ -40,12 +40,14 @@ Phases, each printing one line (any failure raises, so the exit code is not
    like phase 5; one fused launch per batched step attempt.
 8. lu_bench — the dense solve kernels B4 (fused GESP) and B5 (partial
    pivoting) against their plain versions at (B, n) in {(1, 25), (37, 11),
-   (512, 25), (64, 122), (4, 240)} and a pivot-forcing case (1e-5
-   relative, non-finite where the plain version is, two launches bitwise
-   equal); then the dense-LU bench (``cedarsim_tpu_torch.benchmarks.
-   lu_bench``) at full width, every gate passing, with both kernels
-   launched; then each kernel's, its plain version's, its library call's
-   and B2+B3's time per launch at the bench's two shapes.
+   (512, 25), (8, 32), (8, 33), (64, 122), (4, 240)} (both sides of the
+   edge between the one-warp and the one-block regime) and a pivot-forcing
+   case (1e-5 relative, non-finite where the plain version is, two
+   launches bitwise equal); then the dense-LU bench (``cedarsim_tpu_torch.
+   benchmarks.lu_bench``) at full width, every gate passing, with both
+   kernels launched; then each kernel's, its plain version's, its library
+   call's (``torch.linalg.solve_ex`` in float32 for both) and B2+B3's time
+   per launch at the bench's two shapes.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
@@ -58,8 +60,10 @@ wrapper calls between two events, per call, the least of five loops;
 ``device_ms``, 100 wrapper calls captured in one CUDA graph and replayed,
 per launch; the plain version's call time; and one PyTorch library call
 computing the same function where there is one, timed both ways
-(``library_ms``, ``library_device_ms``).  The last line is ``{"ok": true,
-"device": {...}}``.
+(``library_ms``, ``library_device_ms``; a call that a CUDA graph cannot
+capture, as ``solve_ex``, has its device time from its kernels in a
+``torch.profiler`` trace, and ``library_device_by`` says which).  The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -189,7 +193,8 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
     def subst():
         return gesp_lu.lu_subst_gesp_f32(LU, b32)
 
-    # (device ms, call ms, plain ms, library call ms, library device ms)
+    # (device ms, call ms, plain ms, library call ms, library device ms,
+    # how the library's device time was taken)
     times = {
         "factor": (kt.device_ms(factor), kt.call_ms(factor, 200),
                    kt.call_ms(
@@ -207,27 +212,23 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
               "subst": bound(4 * B * n * (n + 2), lu_ops(n, B, "subst"),
                              "float32")}
     log("kernels", worst_rel_err=worst, max_abs_err_dff_shape=abs_err,
-        ms_device_call_plain_library_call_device={
+        ms_device_call_plain_library_call_device_by={
             k: list(v) for k, v in times.items()},
         bound_ms=bounds, shape=[B, n, n])
     return abs_err, times, bounds
 
 
 def library_ms(fn, reps):
-    """(``kt.call_ms``, ``kt.device_ms``) of a PyTorch library call, each
-    None where this build of PyTorch does not run it on the card or cannot
-    capture it in a CUDA graph (it is a yardstick only)."""
-    import torch
-    out = []
-    for what, timer in (("call", lambda: kt.call_ms(fn, reps)),
-                        ("device", lambda: kt.device_ms(fn))):
-        try:
-            out.append(timer())
-        except (RuntimeError, NotImplementedError) as e:
-            log("library_call_unavailable", timer=what, error=str(e)[:300])
-            torch.cuda.synchronize()
-            out.append(None)
-    return tuple(out)
+    """(call ms, device ms, how the device time was taken) of a PyTorch
+    library call (a yardstick only: the port never calls it), from
+    ``kt.library_times``: the device time by CUDA-graph replay, or, for a
+    call that a graph cannot capture (``solve_ex``), from its kernels in a
+    ``torch.profiler`` trace; None with the reason where neither works."""
+    t = kt.library_times(fn, reps)
+    if "graph_error" in t:
+        log("library_call_not_captured", error=t["graph_error"],
+            device_by=t["device_by"])
+    return t["call_ms"], t["device_ms"], t["device_by"]
 
 
 def phase_rc(T, dev):
@@ -575,8 +576,11 @@ def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
 
 
 #: phase 8's kernel checks: the bench's two shapes, one system alone, an
-#: odd batch at an odd n, and the largest n a block's shared memory holds
-LU_CHECK_SHAPES = [(1, 25), (37, 11), (512, 25), (64, 122), (4, 240)]
+#: odd batch at an odd n, the two sides of the one-warp regime's edge
+#: (n = 32 in registers, n = 33 in shared memory), and the largest n a
+#: block's shared memory holds
+LU_CHECK_SHAPES = [(1, 25), (37, 11), (512, 25), (8, 32), (8, 33),
+                   (64, 122), (4, 240)]
 
 
 def check_solve(torch, name, fn, plain, A32, b32):
@@ -661,8 +665,7 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
         for key, (fn, plain) in solves.items():
             _, err = check_solve(torch, f"{key} bench B={B} n={n}", fn,
                                  plain, A32, b32)
-            lib = (library_ms(lambda: torch.linalg.solve_ex(A32, b32), 200)
-                   if key == "pivot" else (None, None))
+            lib = library_ms(lambda: torch.linalg.solve_ex(A32, b32), 200)
             bnd = bound(4 * B * n * (n + 2), lu_ops(n, B, f"{key}_solve"),
                         "float32")
 
@@ -673,7 +676,7 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
                 call_ms=kt.call_ms(run, 200),
                 plain_ms=kt.call_ms(lambda: plain(A32, b32), 3),
                 library_ms=lib[0], library_device_ms=lib[1],
-                bound_ms=bnd[0], bound_by=bnd[1])
+                library_device_by=lib[2], bound_ms=bnd[0], bound_by=bnd[1])
         # B2 then B3 back to back: the two-launch form of B4's function
         ent["factor_then_subst_ms"] = kt.call_ms(
             lambda: gesp_lu.lu_subst_gesp_f32(
@@ -691,7 +694,8 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
 
 
 def kernel_entry(name, source, replaces, launches, device, call, plain_ms,
-                 library, library_device, bnd, max_abs_err, **extra):
+                 library, library_device, library_device_by, bnd,
+                 max_abs_err, **extra):
     """One kernel of the ``kernels`` line.  ``ms``, ``plain_ms`` and
     ``library_ms`` are call times (a Python loop of calls between two
     events, as every ``ms`` since the port began); ``device_ms`` and
@@ -701,7 +705,8 @@ def kernel_entry(name, source, replaces, launches, device, call, plain_ms,
             "max_abs_err": max_abs_err, "ms": call, "device_ms": device,
             "call_ms": call, "plain_ms": plain_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": library,
-            "library_device_ms": library_device, **extra}
+            "library_device_ms": library_device,
+            "library_device_by": library_device_by, **extra}
 
 
 def main():
@@ -773,7 +778,7 @@ def main():
         kernel_entry("fused_chord_f64",
                      "cedarsim_tpu_torch/csrc/fused_chord.cu",
                      "cedarsim_tpu/ops/fused_chord.py:632",
-                     flaunches["fused"], *ftimes["B1"], None, None,
+                     flaunches["fused"], *ftimes["B1"], None, None, None,
                      fbounds["B1"], fabs_err,
                      also_replaces="cedarsim_tpu/ops/fused_chord.py:526",
                      shape=[N_LANES, dff[0].n_x],
@@ -798,7 +803,7 @@ def main():
         kernels.append(kernel_entry(
             name, source, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
             lu_launches[key], e["device_ms"], e["call_ms"], e["plain_ms"],
-            e["library_ms"], e["library_device_ms"],
+            e["library_ms"], e["library_device_ms"], e["library_device_by"],
             (e["bound_ms"], e["bound_by"]), e["max_abs_err"], shape=[B, n],
             other_shapes=[{"shape": list(s), **per_shape[s][key]}
                           for s in rest]))

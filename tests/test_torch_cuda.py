@@ -25,12 +25,14 @@ which sets JAX up for the other files):
   read (the same bits from a scratch of zeros and one of NaNs);
   ``tran(newton_impl="fused")`` launches once per step attempt.
 - The dense solves B4 (fused GESP, ``gesp_lu.lu_solve_gesp_f32``) and B5
-  (partial pivoting, ``pivot_lu.lu_solve_pivot_f32``) against their plain
-  versions at n in {11, 25, 122, 240} (1e-5 relative), two launches
-  bitwise equal, non-finite where the plain version is; n = 241 is refused
+  (partial pivoting, ``pivot_lu.lu_solve_pivot_f32``, rows shuffled per
+  system) against their plain versions in both regimes and at their edges,
+  n in {1, 2, 11, 25, 31, 32, 33, 64, 122, 240} and B in {1, 4, 37, 512}
+  (1e-5 relative), two launches bitwise equal; non-finite where the plain
+  version is on a zero pivot and on a column of NaNs; n = 241 is refused
   with the card's shared memory per block named; on a tie of magnitudes
   the pivoting kernel takes the first row, so it is bitwise the GESP
-  kernel where no row is swapped.
+  kernel where no row is swapped, in each regime.
 """
 
 import dataclasses
@@ -313,8 +315,16 @@ def _solve_case(kernel, B, n, dev):
             torch.as_tensor(b, dtype=torch.float32, device=dev))
 
 
+#: (B, n) of the dense solves' checks: both regimes (one warp per system at
+#: n <= 32, one block above) and their edges, up to the largest n a block's
+#: shared memory holds; B = 512 (the bench's batch) only in the warp regime
+DENSE_SHAPES = ([(37, 11), (512, 25), (64, 122), (4, 240)]
+                + [(B, n) for n in (1, 2, 25, 31, 32) for B in (1, 37, 512)]
+                + [(B, n) for n in (33, 64, 122, 240) for B in (1, 37)])
+
+
 @pytest.mark.parametrize("kernel", ["gesp", "pivot"])
-@pytest.mark.parametrize("B, n", [(37, 11), (512, 25), (64, 122), (4, 240)])
+@pytest.mark.parametrize("B, n", DENSE_SHAPES)
 def test_dense_solve_matches_plain(cuda_device, kernel, B, n):
     fn, plain = SOLVES[kernel]
     A, b = _solve_case(kernel, B, n, cuda_device)
@@ -324,13 +334,14 @@ def test_dense_solve_matches_plain(cuda_device, kernel, B, n):
     xp = plain(A, b)
     torch.cuda.synchronize()
     assert fn.launches == n0 + 2
-    assert torch.equal(x1, x2)
+    assert torch.equal(x1.view(torch.int32), x2.view(torch.int32))
     assert bool(torch.isfinite(x1).all())
     assert _rel(x1, xp) <= 1e-5
 
 
-def test_pivot_kernel_zero_pivot_is_not_finite(cuda_device):
-    A, b = _solve_case("pivot", 4, 9, cuda_device)
+@pytest.mark.parametrize("n", [9, 64])
+def test_pivot_kernel_zero_pivot_is_not_finite(cuda_device, n):
+    A, b = _solve_case("pivot", 4, n, cuda_device)
     A[:, :, 3] = 0.0
     x = pivot_lu.lu_solve_pivot_f32(A, b)
     xp = pivot_lu.lu_solve_pivot_f32_plain(A, b)
@@ -339,8 +350,28 @@ def test_pivot_kernel_zero_pivot_is_not_finite(cuda_device):
     assert torch.equal(torch.isfinite(x), torch.isfinite(xp))
 
 
-def test_pivot_kernel_ties_go_to_the_first_row(cuda_device):
-    A, b = _solve_case("gesp", 8, 25, cuda_device)
+@pytest.mark.parametrize("kernel", ["gesp", "pivot"])
+@pytest.mark.parametrize("n", [9, 64])
+def test_dense_solve_nan_column(cuda_device, kernel, n):
+    """A column of NaNs: the pivoting kernel never takes a NaN magnitude
+    for the largest, so it keeps row k there, as its plain version does;
+    both solves are non-finite where their plain versions are."""
+    fn, plain = SOLVES[kernel]
+    A, b = _solve_case(kernel, 4, n, cuda_device)
+    A[:, :, 3] = float("nan")
+    x = fn(A, b)
+    xp = plain(A, b)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(xp).all())
+    assert torch.equal(torch.isfinite(x), torch.isfinite(xp))
+
+
+@pytest.mark.parametrize("n", [25, 64])
+def test_pivot_kernel_ties_go_to_the_first_row(cuda_device, n):
+    """On a tie of magnitudes the pivoting kernel takes the first row, so
+    no row is exchanged and it is bitwise the GESP kernel, in each
+    regime."""
+    A, b = _solve_case("gesp", 8, n, cuda_device)
     A[:, 2, 0] = -A[:, 0, 0]
     x = pivot_lu.lu_solve_pivot_f32(A, b)
     xg = gesp_lu.lu_solve_gesp_f32(A, b)

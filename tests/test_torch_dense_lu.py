@@ -6,10 +6,12 @@
   and ``pivot_lu.lu_solve_pivot_f32_plain`` (B5's) against
   ``lu_solve_batched_f32(..., interpret=True)``: 1e-5 relative (float32,
   another reduction order than Pallas's masked sums).  Cases: random
-  systems at (B, n) in {(1, 25), (16, 25), (37, 11)}; B4 with a zero and a
-  tiny negative pivot (boosted to ±1e-20); B5 with a pivot-forcing tiny
-  corner and with two rows of equal magnitude in a column (the first
-  wins).
+  systems at (B, n) in {(1, 25), (16, 25), (37, 11), (4, 32), (3, 33),
+  (2, 64)}; B4 with a zero and a tiny negative pivot (boosted to
+  ±1e-20); B5 with a pivot-forcing tiny corner, with two rows of equal
+  magnitude in a column (the first wins) and with an exactly zero pivot;
+  both on a column of NaNs.  Both plain versions substitute backwards in
+  column order (``gesp_lu.back_substitute``), as their kernels do.
 - ``cedarsim_tpu_torch.benchmarks.lu_bench`` on the CPU at shapes
   [(8, 11), (4, 20)], chain 2: every gate passes, the last line is under
   500 bytes, and no file is written; its systems equal those of
@@ -76,7 +78,8 @@ def _pivot(A, b):
 
 
 @pytest.mark.parametrize("kernel", ["gesp", "pivot"])
-@pytest.mark.parametrize("B, n", [(1, 25), (16, 25), (37, 11)])
+@pytest.mark.parametrize("B, n", [(1, 25), (16, 25), (37, 11), (4, 32),
+                                  (3, 33), (2, 64)])
 def test_plain_solve_matches_pallas(kernel, B, n):
     if kernel == "gesp":
         x_t, x_j = _gesp(*_dominant(10 * n + B, B, n))
@@ -147,6 +150,45 @@ def test_pivot_solve_zero_pivot_is_not_finite():
     x_t, x_j = _pivot(A, b)
     assert not np.isfinite(x_j).all()
     assert (np.isfinite(x_t) == np.isfinite(x_j)).all()
+
+
+@pytest.mark.parametrize("kernel", ["gesp", "pivot"])
+def test_solve_nan_column_is_not_finite_where_pallas_is_not(kernel):
+    """A column of NaNs: the pivoting solve never takes a NaN magnitude
+    for the largest (it keeps row k), and both solves are non-finite in
+    the entries where the Pallas kernels are (here all of them)."""
+    A, b = _dominant(11, 3, 7)
+    A[:, :, 3] = np.nan
+    x_t, x_j = (_gesp if kernel == "gesp" else _pivot)(A, b)
+    assert not np.isfinite(x_j).any()
+    assert (np.isfinite(x_t) == np.isfinite(x_j)).all()
+
+
+def test_back_substitution_in_column_order():
+    """The dense solves' back substitution (column order) against numpy's
+    float64 triangular solve, and its two divisor rules."""
+    rng = np.random.default_rng(4)
+    U = np.triu(rng.standard_normal((5, 9, 9))) + 12 * np.eye(9)
+    y = rng.standard_normal((5, 9))
+    x = gesp_lu.back_substitute(torch.from_numpy(U), torch.from_numpy(y))
+    ref = np.linalg.solve(U, y[..., None])[..., 0]
+    np.testing.assert_allclose(x.numpy(), ref, rtol=1e-12, atol=0)
+    x2 = gesp_lu.back_substitute(torch.from_numpy(U), torch.from_numpy(y),
+                                 lambda d: 2 * d)
+    assert not np.allclose(x2.numpy(), ref)
+
+
+def test_ablation_cuts_match_the_kernel_source():
+    """Each cut of ``benchmarks/dense_ablation.py`` (the dense solves' time
+    by part, on the card) finds its text once in ``csrc/
+    dense_solve.cuh``."""
+    from cedarsim_tpu_torch.benchmarks import dense_ablation
+    from cedarsim_tpu_torch.ops import cuda_lib
+    with open(os.path.join(cuda_lib.CSRC, "dense_solve.cuh")) as f:
+        header = f.read()
+    for cuts in dense_ablation.CUTS.values():
+        for old, _ in cuts:
+            assert header.count(old) == 1, old
 
 
 def test_wrappers_check_shapes():

@@ -10,7 +10,9 @@ forms and against the JAX package's ``tran``.
   1e-3 V at ten times, accepted steps within 10 %; the nominal lane equals
   a solo run of the port to 1e-12 V (lane independence).
 - gf180 DFF, 0-1 ns from the smoke's per-lane warm DC at W·0.99: the
-  mixed path's float32 margin (ROADMAP Queue C), the exact chord beside it.
+  mixed path's float32 margin (ROADMAP Queue C), the exact chord beside it,
+  and the JAX package's own mixed path (its Pallas kernels in interpret
+  mode) on the same input, which finishes both lanes.
 - The package never imports JAX (a fresh interpreter), on the RC step, on
   a VA diode through the fused chord path, and in the dense-LU bench's
   module.
@@ -179,6 +181,57 @@ def test_dff_mixed_path_float32_margin(monkeypatch):
         assert sols[1].converged
         assert seen["boosted"] > 0
         assert seen["nonfinite"] > 0.01 * seen["solves"]
+
+
+def test_dff_mixed_path_reference_finishes_both_lanes(monkeypatch):
+    """ROADMAP Queue C against the reference: the JAX package's own mixed
+    chord path (its Pallas GESP factor and substitution in interpret mode,
+    switched on by ``cedarsim_tpu.ops.linalg._MIXED_INTERPRET``) on the
+    margin test's input: the DFF from the port's per-lane warm DC at W·0.99
+    and nominal, cell A's options, 0-1 ns, the two lanes vmapped through
+    ``tran_core`` as ``bench.py`` runs them.  The reference finishes both
+    lanes with at most a few rejected steps, where the port's mixed path
+    stops the W·0.99 lane (the test above): a fault of the port."""
+    import jax
+    import jax.numpy as jnp
+    from cedarsim_tpu.analysis.tran import (_consistent_xdot,
+                                            _differential_mask, tran_core)
+    from cedarsim_tpu.ops import linalg as jlinalg
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    _, _, _, x0_t = kt.dff_lanes(torch, T, "cpu", lanes=2)
+    cj = J.compile_circuit(J.elaborate(
+        J.parse_spice(_dff_text(), file="dff_tb_bsim4.cir"),
+        include_paths=[DFF_DIR]))
+    key = [k for k in cj.group_order if "bsim4" in k.lower()][0]
+    pb = jax.tree.map(lambda a: jnp.repeat(a[None], 2, 0), cj.params0)
+    pb[key] = dict(pb[key], W=pb[key]["W"] * jnp.asarray([0.99, 1.0])[:, None])
+    ctx = J.SimSpec.make(gmin=1e-15)
+    opts = JTranOptions(**kt.XLA_OPTS)
+    assert opts.dense_lu == "mixed" and opts.newton_impl == "xla"
+    x0 = jnp.asarray(x0_t.numpy())
+    ctx_op = ctx.with_mode("tranop").at_time(0.0)
+    xd0 = jax.vmap(lambda x, p: _consistent_xdot(cj, x, ctx_op, p))(x0, pb)
+    mask = jax.vmap(lambda x, p: _differential_mask(cj, x, ctx_op, p))(
+        x0, pb)
+    # the schedule and first step of J.tran / T.tran over 0-1 ns
+    tstop = 1e-9
+    bps = cj.breakpoints(tstop)
+    bps = np.concatenate([bps[bps > 0.0], [tstop], [np.inf]])
+    h0 = tstop * 1e-6
+    if len(bps) > 2:
+        h0 = min(h0, max(float(bps[0]) * 0.1, tstop * 1e-9))
+    d = cj.dtype
+    monkeypatch.setattr(jlinalg, "_MIXED_INTERPRET", True)
+    run = jax.jit(jax.vmap(lambda p, x, xd, m: tran_core(
+        cj, p, ctx, x, xd, jnp.asarray(0.0, d), jnp.asarray(tstop, d),
+        jnp.asarray(bps, d), jnp.asarray(h0, d), opts, m)))
+    _, _, _, k, fin, nrej, _, final = run(pb, x0, xd0, mask)
+    # accepted and rejected steps per lane (W·0.99, nominal), shown by -s
+    print("reference mixed path: accepted", np.asarray(k).tolist(),
+          "rejected", np.asarray(nrej).tolist())
+    assert np.asarray(fin).all(), (np.asarray(k), np.asarray(nrej))
+    np.testing.assert_allclose(np.asarray(final["t"]), tstop, rtol=1e-12)
+    assert int(np.asarray(nrej).max()) <= 5
 
 
 def test_port_never_imports_jax():
