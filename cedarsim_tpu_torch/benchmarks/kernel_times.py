@@ -3,6 +3,7 @@ at the shapes of its path.
 
     python -m cedarsim_tpu_torch.benchmarks.kernel_times [--out FILE]
     python cedarsim_tpu_torch/benchmarks/kernel_times.py --tree DIR
+    python -m cedarsim_tpu_torch.benchmarks.kernel_times --factor
 
 Two times per kernel, both from CUDA events on the card:
 
@@ -24,9 +25,13 @@ dense-LU bench's [512, 25] and [64, 122], beside ``torch.linalg.solve_ex``
 in float32 on the same systems (the same x within the bench's gates), and
 over an n-sweep at the bench's batch sizes (``SWEEP``: n in {8, 16, 25, 32}
 at B = 512, {33, 64, 96, 122, 240} at B = 64), each also per elimination
-step (device µs / n).  ``solve_ex`` cannot be captured in a CUDA graph, so
-its device time is the sum of its CUDA kernels' times per call in a
-``torch.profiler`` trace of 50 calls (``profiler_device_ms``).
+step (device µs / n); B2 over its own n-sweep at the transient's lane count
+(``FACTOR_SWEEP``: n in {8, 16, 25, 32, 33, 64, 122, 240} at B = 8) on
+seeded dominant systems, with B4 on the same systems beside it (B4's
+elimination is B2's plus b), each also per elimination step.
+``solve_ex`` cannot be captured in a CUDA graph, so its device time is the
+sum of its CUDA kernels' times per call in a ``torch.profiler`` trace of 50
+calls (``profiler_device_ms``).
 
 ``--tree DIR`` imports ``cedarsim_tpu_torch`` from another checkout (for
 instance the parent commit unpacked with ``git archive``), so that two
@@ -35,7 +40,11 @@ checkout's own ``build/``.  ``--dump FILE`` saves each kernel's outputs on
 these inputs (numpy ``.npz``); ``--compare FILE`` reports, per kernel,
 whether its outputs are bitwise equal to those saved there and their
 largest difference relative to the saved outputs' largest magnitude.
-``--dense`` times B4 and B5 alone (bench shapes and sweep).  One JSON
+``--dense`` times B4 and B5 alone (bench shapes and sweep), ``--factor``
+B2's sweep alone (with B4 beside it).  ``--sass`` adds, for each kernel of
+the GESP and pivoting libraries, the count of its floating-point SASS
+instructions by opcode (``cuobjdump -sass``): whether an update compiled
+to a fused multiply-add (``FFMA``) or to a product and a sum.  One JSON
 object is printed, with the card's name and power limit; ``--out`` also
 writes it to a file.  Needs a CUDA card.
 """
@@ -65,6 +74,10 @@ SWEEP = ((512, 8), (512, 16), (512, 25), (512, 32), (64, 33), (64, 64),
          (64, 96), (64, 122), (64, 240))
 #: lanes of the DFF transient and the per-lane W scatter (bench.py:217-225)
 N_LANES = 8
+#: (B, n) of the GESP factor's n-sweep (B2): the transient's lane count, n
+#: on both sides of the one-warp regime's edge and up to 240
+FACTOR_SWEEP = tuple((N_LANES, n) for n in (8, 16, 25, 32, 33, 64, 122,
+                                              240))
 #: cell A, the mixed chord path of chip_smoke.py's phase 5: the charge-form
 #: trap of bench.py::dff_batched_leg's CPU reference mode; the GESP factor
 #: has no pivoting, so a Jacobian-only shunt on the voltage rows keeps the
@@ -247,11 +260,12 @@ def fused_args(torch, T, plan, dff, h, lanes=None):
                        torch.full_like(t, h), -x0, t, pb), opts
 
 
-def measure(torch, T, dev, dense_only=False):
+def measure(torch, T, dev, which="all"):
     """({kernel: {shape, device_ms, call_ms}} for B1, B1', B2-B5 at their
-    paths' shapes (B4 and B5 alone with ``dense_only``), B4 and B5 over
-    ``SWEEP`` and ``solve_ex`` at the bench's shapes; nvcc's register and
-    spill lines per library; each kernel's outputs)."""
+    paths' shapes, B2 (and B4 beside it) over ``FACTOR_SWEEP``, B4 and B5
+    over ``SWEEP`` and ``solve_ex`` at the bench's shapes; nvcc's register
+    and spill lines per library; each kernel's outputs).  ``which``:
+    "all", "dense" (B4 and B5 alone) or "factor" (B2's sweep alone)."""
     from cedarsim_tpu_torch.benchmarks import lu_bench
     from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu
     out, results = {}, {}
@@ -265,7 +279,21 @@ def measure(torch, T, dev, dense_only=False):
 
     logs = {"gesp_lu": gesp_lu.build()["log"],
             "pivot_lu": pivot_lu.build()["log"]}
-    if not dense_only:
+    if which in ("all", "factor"):
+        for B, nf in FACTOR_SWEEP:
+            A, b = dominant_systems(np.random.default_rng(nf), B, nf)
+            A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
+            b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
+            for key, fn in (
+                    ("B2 gesp_factor_f32",
+                     lambda: gesp_lu.lu_factor_gesp_f32(A32)),
+                    ("B4 gesp_solve_f32",
+                     lambda: gesp_lu.lu_solve_gesp_f32(A32, b32))):
+                name = f"{key} {B}x{nf}"
+                put(name, (B, nf), fn, 50)
+                out[name]["device_us_per_step"] = \
+                    out[name]["device_ms"] * 1e3 / nf
+    if which == "all":
         from cedarsim_tpu_torch.analysis.tran import fused_plan_for
         from cedarsim_tpu_torch.ops import fused_chord as fc
         dff = dff_lanes(torch, T, dev)
@@ -288,8 +316,9 @@ def measure(torch, T, dev, dense_only=False):
         put("B3 gesp_subst_f32", A32.shape,
             lambda: gesp_lu.lu_subst_gesp_f32(LU, b32), 200)
     library = {}
-    for B, nb in lu_bench.SHAPES + tuple(
-            s for s in SWEEP if s not in lu_bench.SHAPES):
+    dense = () if which == "factor" else lu_bench.SHAPES + tuple(
+        s for s in SWEEP if s not in lu_bench.SHAPES)
+    for B, nb in dense:
         A, b = lu_bench.make_systems(B, nb)
         A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
         b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
@@ -310,6 +339,36 @@ def measure(torch, T, dev, dense_only=False):
                                           "registers", "spill"))]
              for k, v in logs.items()}
     return out, library, ptxas, results
+
+
+#: the SASS opcodes ``sass_counts`` reports
+SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU.RCP", "SHFL", "BAR")
+
+
+def sass_counts(path):
+    """{kernel (mangled name): {opcode: count}} of a built library's
+    machine code, from ``cuobjdump -sass`` (opcodes in ``SASS_OPS``; a
+    prefix match, so FADD counts FADD.FTZ too)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name and m:
+            op = m.group(1)
+            for key in SASS_OPS:
+                if op == key or op.startswith(key + "."):
+                    out[name][key] += 1
+    return out
 
 
 def _rel_diff(a, ref):
@@ -345,6 +404,12 @@ def main(argv=None):
                     "bitwise equal to those saved in this .npz")
     ap.add_argument("--dense", action="store_true",
                     help="time only the dense solves B4 and B5")
+    ap.add_argument("--sass", action="store_true",
+                    help="count each GESP and pivoting kernel's "
+                    "floating-point SASS instructions by opcode")
+    ap.add_argument("--factor", action="store_true",
+                    help="time only the GESP factor B2 over its n-sweep, "
+                    "with B4 beside it")
     args = ap.parse_args(argv)
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                         "..")
@@ -354,11 +419,17 @@ def main(argv=None):
         raise SystemExit("kernel_times: no CUDA device")
     import cedarsim_tpu_torch as T
     dev = torch.device("cuda", 0)
-    times, library, ptxas, results = measure(torch, T, dev, args.dense)
+    which = "dense" if args.dense else "factor" if args.factor else "all"
+    times, library, ptxas, results = measure(torch, T, dev, which)
     flat = {f"{k}#{i}": a for k, v in results.items()
             for i, a in enumerate(v)}
     res = {"tree": _repo(T), "card": smi(), "kernels": times,
            "library": library, "ptxas": ptxas}
+    if args.sass:
+        from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu
+        res["sass"] = {m.__name__.rsplit(".", 1)[-1]:
+                       sass_counts(m.build()["path"])
+                       for m in (gesp_lu, pivot_lu)}
     if args.dump:
         np.savez(args.dump, **flat)
     if args.compare:

@@ -13,11 +13,17 @@
 //       boosted to +-1e-30 for the multipliers only, and the back
 //       substitution divides by the stored diagonal (so an exactly zero
 //       pivot gives a non-finite x).
+//   FACTOR = true (with PIVOT = false): gesp_lu.cu::gesp_factor_f32 (B2),
+//       replacing pallas_lu.py::_lu_factor_sublane_kernel.  B4's
+//       elimination without b and without the back substitution; it writes
+//       the packed LU: the multipliers below the diagonal, U above it and
+//       the boosted pivot on it.
 //
-// Both instantiations run the same operations in the same order, so where
-// no row is exchanged and no pivot is below 1e-20 the two give the same
-// bits.  Step k computes each row's multiplier once, m_i = A[i, k] / pivot,
-// updates A[i, j] -= m_i A[k, j] (j > k) and b_i -= m_i b_k; the back
+// All instantiations run the same operations in the same order, so where
+// no row is exchanged and no pivot is below 1e-20 they give the same bits
+// (and B2's factor is the elimination that B4 runs).  Step k computes each
+// row's multiplier once, m_i = A[i, k] / pivot, updates A[i, j] -= m_i
+// A[k, j] (j > k, one fused multiply-add) and b_i -= m_i b_k; the back
 // substitution runs in column order: x_k = y_k / U[k, k], then every row
 // above subtracts U[i, k] x_k.
 //
@@ -46,7 +52,9 @@
 // and every register index stays static in a loop that is not unrolled;
 // the back substitution rotates back.  The lanes that are not below divide
 // the pivot by itself rather than a zero (a zero dividend takes the
-// division's slow path for the whole warp).
+// division's slow path for the whole warp).  The factor takes the same
+// steps in panels of four (factor_panels), which keeps the trailing
+// updates of a panel free of divisions and branches.
 //
 // 32 < n <= 240 (solve_block_kernel): one block of 256 threads per system,
 // [A | b] (b as column n, at an odd row stride, so that a column's 32
@@ -93,7 +101,8 @@ __device__ __forceinline__ float boost(float p, float tau) {
 }
 
 // the two boosting rules: the multipliers' divisor and the back
-// substitution's
+// substitution's (the factor stores the multipliers' divisor on the
+// diagonal)
 template <bool PIVOT>
 struct Rule;
 template <>
@@ -147,6 +156,83 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* done) {
 
 // ------------------------------------------------- n <= 32: one warp each
 
+// The steps of one panel of the factor's warp regime
+constexpr int kPanel = 4;
+
+// The factor's elimination in the warp regime (B2): lane `lane` holds row
+// `lane` in r, column k0 + j in r[j] at the start of the panel of steps
+// k0 .. k0 + kPanel - 1.  Each step is the solves' step above (the same
+// multiplier, one IEEE division, and the same fused multiply-add on each
+// entry, in the same order of steps, so the same bits), but the steps of a
+// panel are taken together: first the panel's own columns, step by step,
+// which make the kPanel multipliers and leave each column of the packed LU
+// in its register (the multiplier below the pivot, the boosted pivot on
+// the pivot's lane); then the columns to the right, each 8-column group
+// applying the panel's steps in order.  The chain that bounds a step
+// (broadcast the pivot, divide, update the next column) runs once a step
+// in the panel, and the trailing updates of kPanel steps, independent
+// across columns, follow it with no division or branch between them; the
+// rotation runs once a panel.  A last panel past n changes nothing (no
+// lane is below its steps).  After it, column j sits in r[(j - R) mod NP],
+// R = kPanel ceil(n / kPanel).
+template <int NP>
+__device__ __forceinline__ void factor_panels(float (&r)[NP], int n,
+                                              int lane) {
+  static_assert(NP % 8 == 0 && kPanel <= NP, "panels of at most NP steps");
+  const bool own = lane < n;
+  for (int k0 = 0; k0 < n; k0 += kPanel) {
+    const int live = n - k0;  // r[0 .. live - 1] hold columns k0 .. n - 1
+    float m[kPanel];
+    bool below[kPanel];
+#pragma unroll
+    for (int s = 0; s < kPanel; ++s) {
+      const int k = k0 + s;
+      const float piv =
+          Rule<false>::mult(__shfl_sync(kFull, r[s], k & 31));
+      below[s] = own && lane > k;
+      // as in the solves: lanes not below divide the pivot by itself
+      m[s] = (below[s] ? r[s] : piv) / piv;
+#pragma unroll
+      for (int j = s + 1; j < kPanel; ++j) {
+        const float t = __shfl_sync(kFull, r[j], k & 31);
+        const float upd = __fmaf_rn(-m[s], t, r[j]);
+        r[j] = below[s] && j < live ? upd : r[j];
+      }
+      r[s] = below[s] ? m[s] : (own && lane == k ? piv : r[s]);
+    }
+#pragma unroll
+    for (int g = 0; g < NP / 8; ++g) {
+      if (8 * g + 7 >= kPanel && 8 * g < live) {  // warp-uniform
+#pragma unroll
+        for (int s = 0; s < kPanel; ++s) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int j = 8 * g + q;
+            if (j >= kPanel) {
+              const float t = __shfl_sync(kFull, r[j], (k0 + s) & 31);
+              const float upd = __fmaf_rn(-m[s], t, r[j]);
+              r[j] = below[s] && j < live ? upd : r[j];
+            }
+          }
+        }
+      }
+    }
+    float done[kPanel];
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j) done[j] = r[j];
+#pragma unroll
+    for (int j = 0; j < NP - kPanel; ++j) r[j] = r[j + kPanel];
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j) r[NP - kPanel + j] = done[j];
+  }
+}
+
+// Rows of the warp regime's staging buffer: the factor writes its rows
+// there and copies them out a row at a time, so that its stores are
+// coalesced (the odd stride keeps the 32 lanes' writes of a column on 32
+// banks)
+constexpr int kStageLd = 33;
+
 // NP: the registers of a row, 8, 16 or 32 >= n.  The step loop is not
 // unrolled (an unrolled elimination is tens of kilobytes of straight-line
 // code, run once, and waits on instruction fetch), so a register index
@@ -155,12 +241,19 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* done) {
 // its row by one register after each step: column k of step k is always
 // in r[0] and column k + j in r[j], and after the n steps column j sits in
 // r[(j - n) mod NP] on every lane; the back substitution rotates the other
-// way, so that column k of its step k is always in r[NP - 1].
-template <bool PIVOT, int NP>
+// way, so that column k of its step k is always in r[NP - 1].  The factor
+// (FACTOR) eliminates in panels (factor_panels) and writes its rows out
+// through shared memory.
+//
+// x, x_batch, x_row: the output, x [B, n] (x_row unused) or, for the
+// factor, the packed LU [B, n, n] (b unused).
+template <bool PIVOT, int NP, bool FACTOR>
 __global__ void __launch_bounds__(32 * kWarpSystems)
 solve_warp_kernel(const float* __restrict__ A, const float* __restrict__ b,
                   float* __restrict__ x, int B, int n, long long a_batch,
-                  long long a_row, long long b_batch, long long x_batch) {
+                  long long a_row, long long b_batch, long long x_batch,
+                  long long x_row) {
+  static_assert(!(PIVOT && FACTOR), "the factor does not pivot");
   const int lane = threadIdx.x & 31;
   const long long sys = (long long)blockIdx.x * kWarpSystems +
                         (threadIdx.x >> 5);
@@ -170,6 +263,25 @@ solve_warp_kernel(const float* __restrict__ A, const float* __restrict__ b,
   float r[NP];
 #pragma unroll
   for (int j = 0; j < NP; ++j) r[j] = (own && j < n) ? a[j] : 0.0f;
+  if constexpr (FACTOR) {
+    factor_panels<NP>(r, n, lane);
+    // row `lane` into the warp's rows of the staging buffer, then each
+    // row out with one coalesced store
+    __shared__ float stage[kWarpSystems][32 * kStageLd];
+    float* st = stage[threadIdx.x >> 5];
+    const int turned = (n + kPanel - 1) / kPanel * kPanel;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int j = (q + turned) & (NP - 1);  // r[q] holds column j
+      if (own && j < n) st[lane * kStageLd + j] = r[q];
+    }
+    __syncwarp();
+    float* lu = x + sys * x_batch;
+    for (int i = 0; i < n; ++i) {
+      if (lane < n) lu[(long long)i * x_row + lane] = st[i * kStageLd + lane];
+    }
+    return;
+  }
   float y = own ? b[sys * b_batch + lane] : 0.0f;
   int pos = lane;  // the position of this lane's row
   for (int k = 0; k < n; ++k) {
@@ -231,14 +343,15 @@ solve_warp_kernel(const float* __restrict__ A, const float* __restrict__ b,
   if (own) x[sys * x_batch + pos] = y;
 }
 
-template <bool PIVOT, int NP>
+template <bool PIVOT, bool FACTOR, int NP>
 cudaError_t launch_warp(const float* A, const float* b, float* x, int B,
                         int n, long long a_batch, long long a_row,
-                        long long b_batch, long long x_batch,
+                        long long b_batch, long long x_batch, long long x_row,
                         cudaStream_t stream) {
   const int blocks = (B + kWarpSystems - 1) / kWarpSystems;
-  solve_warp_kernel<PIVOT, NP><<<blocks, 32 * kWarpSystems, 0, stream>>>(
-      A, b, x, B, n, a_batch, a_row, b_batch, x_batch);
+  solve_warp_kernel<PIVOT, NP, FACTOR>
+      <<<blocks, 32 * kWarpSystems, 0, stream>>>(
+          A, b, x, B, n, a_batch, a_row, b_batch, x_batch, x_row);
   return cudaGetLastError();
 }
 
@@ -281,11 +394,17 @@ __device__ __forceinline__ int block_winner(const unsigned* red_k,
 // k's update of column k + 1 (into `col`) and, after step k + 1's pivot is
 // known, its pivot row (row k + 1, updated by step k) and multipliers
 // (into column k + 1).  B5 needs four block barriers a pair, B4 three.
-template <bool PIVOT, int CM>
+// The factor (FACTOR) stages no b, stores each boosted pivot on the
+// diagonal, and writes the packed LU back instead of substituting; an odd
+// n's last step is its pivot alone.  x, x_batch, x_row as in the warp
+// regime.
+template <bool PIVOT, int CM, bool FACTOR>
 __global__ void __launch_bounds__(kBlockThreads)
 solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
                    float* __restrict__ x, int n, long long a_batch,
-                   long long a_row, long long b_batch, long long x_batch) {
+                   long long a_row, long long b_batch, long long x_batch,
+                   long long x_row) {
+  static_assert(!(PIVOT && FACTOR), "the factor does not pivot");
   constexpr int RU = kInFlight / (2 * CM);  // rows a thread has in flight
   // [A | b]: n rows of n + 1 entries at stride ld, then step k's update of
   // column k + 1
@@ -299,8 +418,8 @@ solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const float* a = A + (long long)blockIdx.x * a_batch;
-  const float* bb = b + (long long)blockIdx.x * b_batch;
   const int nn = n * n;
+  const int nc = FACTOR ? n : n + 1;  // the staged columns: A, then b
   // staged kStage elements a thread at a time, all loads before any store
   for (int e0 = tid; e0 < nn; e0 += kBlockThreads * kStage) {
     float v[kStage];
@@ -317,7 +436,10 @@ solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
       if (e0 + q * kBlockThreads < nn) s[at[q]] = v[q];
     }
   }
-  for (int i = tid; i < n; i += kBlockThreads) s[i * ld + n] = bb[i];
+  if constexpr (!FACTOR) {
+    const float* bb = b + (long long)blockIdx.x * b_batch;
+    for (int i = tid; i < n; i += kBlockThreads) s[i * ld + n] = bb[i];
+  }
   if (PIVOT) {
     __syncthreads();
     // the argmax of column 0: lane 0 of warp w over rows w, w + 8, ...
@@ -351,7 +473,7 @@ solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
       p = block_winner(red_k, red_i, &w);
       pk = red_s[w];
       if (p != k) {  // the same in every thread; columns k + 1 .. n (b)
-        for (int j = k1 + tid; j <= n; j += kBlockThreads) {
+        for (int j = k1 + tid; j < nc; j += kBlockThreads) {
           const float t = s[k * ld + j];
           s[k * ld + j] = s[p * ld + j];
           s[p * ld + j] = t;
@@ -398,8 +520,10 @@ solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
     } else {
       // phase 2-3 (no pivoting): step k's update of column k + 1 and of
       // the pivot entry, computed in each thread that needs it (the same
-      // operands, so the same bits), then step k + 1's multipliers
+      // operands, so the same bits), then step k + 1's multipliers; the
+      // factor stores step k's boosted pivot (no thread reads it again)
       pk1 = __fmaf_rn(-s[k1 * ld + k], s[k * ld + k1], s[k1 * ld + k1]);
+      if (FACTOR && tid == 0) s[k * ld + k] = Rule<PIVOT>::mult(pk);
     }
     {
       const float piv1 = Rule<PIVOT>::mult(pk1);
@@ -411,7 +535,7 @@ solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
         s[i * ld + k1] = c / piv1;
       }
       const int j = k1 + 1 + tid;
-      if (j <= n) {
+      if (j < nc) {
         // the pivot row of step k + 1, updated by step k with its own
         // multiplier; the row it displaces moves to row p1 as it is
         const float rk1 = s[k1 * ld + j];
@@ -424,15 +548,17 @@ solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
     __syncthreads();
     // phase 4: the trailing block, rows and columns k + 2 .. (b is column
     // n), with both steps; B4 puts step k + 1's pivot on the diagonal
-    if (!PIVOT && tid == 0) s[k1 * ld + k1] = pk1;
+    if (!PIVOT && tid == 0) {
+      s[k1 * ld + k1] = FACTOR ? Rule<PIVOT>::mult(pk1) : pk1;
+    }
     const int k2 = k + 2;
     const int mr = n - k2;
     float u0[CM], u1[CM];
 #pragma unroll
     for (int c = 0; c < CM; ++c) {
       const int j = k2 + lane + 32 * c;
-      u0[c] = j <= n ? s[k * ld + j] : 0.0f;
-      u1[c] = j <= n ? s[k1 * ld + j] : 0.0f;
+      u0[c] = j < nc ? s[k * ld + j] : 0.0f;
+      u1[c] = j < nc ? s[k1 * ld + j] : 0.0f;
     }
     unsigned bk = 0u;  // lane 0: the argmax of column k + 2 over its rows
     int bi = kNoRow;
@@ -450,7 +576,7 @@ solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
 #pragma unroll
         for (int c = 0; c < CM; ++c) {
           const int j = k2 + lane + 32 * c;
-          v[u][c] = (i < n && j <= n) ? s[i * ld + j] : 0.0f;
+          v[u][c] = (i < n && j < nc) ? s[i * ld + j] : 0.0f;
         }
       }
 #pragma unroll
@@ -468,7 +594,7 @@ solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
 #pragma unroll
           for (int c = 0; c < CM; ++c) {
             const int j = k2 + lane + 32 * c;
-            if (j <= n) s[i * ld + j] = v[u][c];
+            if (j < nc) s[i * ld + j] = v[u][c];
           }
           if (PIVOT) {  // every lane, selects; lane 0's is column k + 2
             const unsigned key = magnitude_key(v[u][0]);
@@ -486,6 +612,19 @@ solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
       red_s[warp] = bs;
     }
     __syncthreads();
+  }
+  if constexpr (FACTOR) {
+    // an odd n's last step: its boosted pivot; then the packed LU out
+    if ((n & 1) && tid == 0) {
+      s[(n - 1) * ld + n - 1] = Rule<PIVOT>::mult(s[(n - 1) * ld + n - 1]);
+    }
+    __syncthreads();
+    float* lu = x + (long long)blockIdx.x * x_batch;
+    for (int e = tid; e < nn; e += kBlockThreads) {
+      const int i = e / n;
+      lu[(long long)i * x_row + (e - i * n)] = s[i * ld + (e - i * n)];
+    }
+    return;
   }
   if (warp != 0) return;  // no block barrier below
   // back substitution in column order, y_i in lane i % 32, slot i / 32
@@ -515,19 +654,54 @@ solve_block_kernel(const float* __restrict__ A, const float* __restrict__ b,
   }
 }
 
-template <bool PIVOT, int CM>
+template <bool PIVOT, bool FACTOR, int CM>
 cudaError_t launch_block(const float* A, const float* b, float* x, int B,
                          int n, long long a_batch, long long a_row,
                          long long b_batch, long long x_batch,
-                         cudaStream_t stream) {
+                         long long x_row, cudaStream_t stream) {
   static size_t smem_set = 48 * 1024;
   const size_t smem = block_smem(n);
   cudaError_t err =
-      allow_smem(solve_block_kernel<PIVOT, CM>, smem, &smem_set);
+      allow_smem(solve_block_kernel<PIVOT, CM, FACTOR>, smem, &smem_set);
   if (err != cudaSuccess) return err;
-  solve_block_kernel<PIVOT, CM><<<B, kBlockThreads, smem, stream>>>(
-      A, b, x, n, a_batch, a_row, b_batch, x_batch);
+  solve_block_kernel<PIVOT, CM, FACTOR><<<B, kBlockThreads, smem, stream>>>(
+      A, b, x, n, a_batch, a_row, b_batch, x_batch, x_row);
   return cudaGetLastError();
+}
+
+// The regime and the registers a row or a lane's columns take, by n.  The
+// factor (FACTOR, gesp_lu.cu::gesp_factor_f32) passes b = nullptr, x = LU
+// and x_row = LU's row stride.
+template <bool PIVOT, bool FACTOR>
+int dispatch(const float* A, const float* b, float* x, int B, int n,
+             long long a_batch, long long a_row, long long b_batch,
+             long long x_batch, long long x_row, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 8) {
+    return (int)launch_warp<PIVOT, FACTOR, 8>(
+        A, b, x, B, n, a_batch, a_row, b_batch, x_batch, x_row, st);
+  }
+  if (n <= 16) {
+    return (int)launch_warp<PIVOT, FACTOR, 16>(
+        A, b, x, B, n, a_batch, a_row, b_batch, x_batch, x_row, st);
+  }
+  if (n <= 32) {
+    return (int)launch_warp<PIVOT, FACTOR, 32>(
+        A, b, x, B, n, a_batch, a_row, b_batch, x_batch, x_row, st);
+  }
+  if (n <= 64) {
+    return (int)launch_block<PIVOT, FACTOR, 2>(
+        A, b, x, B, n, a_batch, a_row, b_batch, x_batch, x_row, st);
+  }
+  if (n <= 128) {
+    return (int)launch_block<PIVOT, FACTOR, 4>(
+        A, b, x, B, n, a_batch, a_row, b_batch, x_batch, x_row, st);
+  }
+  if (n <= 256) {
+    return (int)launch_block<PIVOT, FACTOR, 8>(
+        A, b, x, B, n, a_batch, a_row, b_batch, x_batch, x_row, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // A: [B, n, n], b and x: [B, n], float32, strides in elements (columns
@@ -537,32 +711,8 @@ template <bool PIVOT>
 int solve(const float* A, const float* b, float* x, int B, int n,
           long long a_batch, long long a_row, long long b_batch,
           long long x_batch, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 8) {
-    return (int)launch_warp<PIVOT, 8>(A, b, x, B, n, a_batch, a_row, b_batch,
-                                      x_batch, st);
-  }
-  if (n <= 16) {
-    return (int)launch_warp<PIVOT, 16>(A, b, x, B, n, a_batch, a_row,
-                                       b_batch, x_batch, st);
-  }
-  if (n <= 32) {
-    return (int)launch_warp<PIVOT, 32>(A, b, x, B, n, a_batch, a_row,
-                                       b_batch, x_batch, st);
-  }
-  if (n <= 64) {
-    return (int)launch_block<PIVOT, 2>(A, b, x, B, n, a_batch, a_row,
-                                       b_batch, x_batch, st);
-  }
-  if (n <= 128) {
-    return (int)launch_block<PIVOT, 4>(A, b, x, B, n, a_batch, a_row,
-                                       b_batch, x_batch, st);
-  }
-  if (n <= 256) {
-    return (int)launch_block<PIVOT, 8>(A, b, x, B, n, a_batch, a_row,
-                                       b_batch, x_batch, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch<PIVOT, false>(A, b, x, B, n, a_batch, a_row, b_batch,
+                                x_batch, 0, stream);
 }
 
 }  // namespace

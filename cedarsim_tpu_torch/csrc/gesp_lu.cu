@@ -4,7 +4,8 @@
 //
 //   gesp_factor_f32  replaces the Pallas kernel
 //       cedarsim_tpu/ops/pallas_lu.py::_lu_factor_sublane_kernel
-//       (launched by lu_factor_batched_sublane_f32).
+//       (launched by lu_factor_batched_sublane_f32): the FACTOR
+//       instantiation of dense_solve.cuh, B4's elimination without b.
 //   gesp_subst_f32   replaces the Pallas kernel
 //       cedarsim_tpu/ops/pallas_lu.py::_lu_subst_sublane_kernel
 //       (launched by lu_subst_batched_sublane_f32).
@@ -22,33 +23,37 @@
 // it boosts each pivot for its multipliers and again for the division of
 // its back substitution, as the Pallas kernel does.
 //
+// Rounding.  Every update is one fused multiply-add (one rounding of
+// a - m u) and every multiplier one IEEE division, as in the plain versions
+// (ops/gesp_lu.py, through ops/rounding.py::fma_f32) and in the Pallas
+// factor under XLA; the substitution rounds each product and each
+// difference, as its plain version does (__fmul_rn and __fsub_rn, which
+// nvcc never contracts into an FMA).  So each kernel is bitwise its plain
+// version.
+//
 // What bounds these kernels on an H100.  At the transient's shape (n = 25,
 // B = lanes, a handful) the work is a few thousand flops per matrix, far
 // below what one SM does in the time a launch takes: launch latency and the
-// n sequential elimination steps, each ending in a barrier, bound them.  At
-// large n the bound is shared memory per matrix: the factor keeps the whole
-// matrix in shared memory, n² · 4 bytes, which caps n at 240 (230,400 of the
-// 232,448 bytes a block may hold); the substitution stages n (n | 1) floats
-// (231,360 bytes at n = 240).
+// chain of n (factor) or 2n (substitution) dependent steps bound them.
 //
-// What the design does about it.  One thread block per matrix for the
-// factor, so B matrices run on B SMs in one launch and the n steps of a
-// matrix never leave shared memory; the threads of the block share the
-// trailing update of each step.  The substitution is a chain of 2n
-// dependent steps, so its time is the length of one step: one warp per
-// system and one system per block (8 lanes on 8 SMs), the system staged
-// once into shared memory with all its loads in flight, then column-order
-// steps of one shuffle and one multiply-subtract, with no barrier and no
-// device-memory load inside the chain (gesp_subst_kernel below).  Launch
-// latency is not hidden here: CUDA graphs and tensor-core (wgmma) trailing
-// updates are later work.
+// What the design does about it.  The factor is the elimination of the
+// fused solve (dense_solve.cuh), whose note says what bounds it and what
+// the design does: one warp per system with the system in registers at
+// n <= 32, with no shared memory and no barrier in the elimination (the
+// rows leave through shared memory, so that the stores are coalesced); one
+// block per system above, the matrix in shared memory, the steps taken in
+// pairs with one pass over the trailing block for both.  Its shared memory
+// caps n at 240 (232,320 of the 232,448 bytes a block may hold).  The
+// substitution is a chain of 2n dependent steps, so its time is the length
+// of one step: one warp per system and one system per block (8 lanes on 8
+// SMs), the system staged once into shared memory with all its loads in
+// flight, then column-order steps of one shuffle and one multiply-subtract,
+// with no barrier and no device-memory load inside the chain
+// (gesp_subst_kernel below); n (n | 1) floats staged cap n at 241.
+// Launch latency is not hidden here: CUDA graphs are later work.
 //
 // The fused solve (B4) is the PIVOT = false instantiation of the dense
-// solve shared with the pivoting solve (B5), dense_solve.cuh, whose note
-// says what bounds it and what the design does: one warp per system with
-// the system in registers at n <= 32; one block per system above, [A | b]
-// in shared memory, the steps taken in pairs with one pass over the
-// trailing block for both.
+// solve shared with the pivoting solve (B5), dense_solve.cuh.
 
 #include <cuda_runtime.h>
 
@@ -56,59 +61,18 @@
 
 namespace {
 
-constexpr float kTau = 1e-20f;
-constexpr int kFactorThreads = 256;
-
-__device__ __forceinline__ float gesp_boost(float p) {
-  return fabsf(p) < kTau ? (p < 0.0f ? -kTau : kTau) : p;
-}
-
 using dense_solve::allow_smem;
 using dense_solve::pick;
-
-__global__ void gesp_factor_kernel(const float* __restrict__ A,
-                                   float* __restrict__ LU, int n,
-                                   long long a_batch, long long a_row,
-                                   long long lu_batch, long long lu_row) {
-  extern __shared__ float s[];  // n × n, row-major
-  const float* a = A + (long long)blockIdx.x * a_batch;
-  float* lu = LU + (long long)blockIdx.x * lu_batch;
-  const int nn = n * n;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-    s[e] = a[(long long)(e / n) * a_row + (e % n)];
-  }
-  __syncthreads();
-  for (int k = 0; k < n; ++k) {
-    const float piv = gesp_boost(s[k * n + k]);
-    // multipliers of the rows below the pivot, stored in column k
-    for (int i = k + 1 + threadIdx.x; i < n; i += blockDim.x) {
-      s[i * n + k] = s[i * n + k] / piv;
-    }
-    __syncthreads();
-    // trailing update of the (n-k-1)² block; the boosted pivot goes onto
-    // the diagonal (row k and column k are not read-modified here)
-    const int m = n - k - 1;
-    for (int e = threadIdx.x; e < m * m; e += blockDim.x) {
-      const int i = k + 1 + e / m;
-      const int j = k + 1 + e % m;
-      s[i * n + j] -= s[i * n + k] * s[k * n + j];
-    }
-    if (threadIdx.x == 0) s[k * n + k] = piv;
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-    lu[(long long)(e / n) * lu_row + (e % n)] = s[e];
-  }
-}
 
 // One warp per system, one system per block.  Lane l owns the rows
 // i = l + 32 r (r < R) and keeps y_i in a register.  Step k of the forward
 // pass broadcasts y_k with one shuffle and every row below subtracts
 // L_ik y_k; step k of the back pass broadcasts y_k, every lane divides it by
 // the stored U_kk (the same operands, so the same bits) and every row above
-// subtracts U_ik x_k.  The column reads LU[i][k] come from the system staged
-// in shared memory at row stride n | 1 (odd, so the 32 lanes of a column
-// read hit 32 banks); they do not depend on the broadcast value.
+// subtracts U_ik x_k, each product and difference rounded on its own.  The
+// column reads LU[i][k] come from the system staged in shared memory at row
+// stride n | 1 (odd, so the 32 lanes of a column read hit 32 banks); they
+// do not depend on the broadcast value.
 template <int R>
 __global__ void gesp_subst_kernel(const float* __restrict__ LU,
                                   const float* __restrict__ b,
@@ -139,7 +103,9 @@ __global__ void gesp_subst_kernel(const float* __restrict__ LU,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = lane + 32 * r;
-      if (i > k && i < n) y[r] -= s[i * ld + k] * yk;
+      if (i > k && i < n) {
+        y[r] = __fsub_rn(y[r], __fmul_rn(s[i * ld + k], yk));
+      }
     }
   }
   // back substitution with U's stored (already boosted) diagonal
@@ -153,7 +119,7 @@ __global__ void gesp_subst_kernel(const float* __restrict__ LU,
       if (i == k) {
         y[r] = xk;
       } else if (i < k) {
-        y[r] -= s[i * ld + k] * xk;
+        y[r] = __fsub_rn(y[r], __fmul_rn(s[i * ld + k], xk));
       }
     }
   }
@@ -184,17 +150,14 @@ cudaError_t launch_subst(const float* LU, const float* b, float* x, int B,
 extern "C" {
 
 // A, LU: [B, n, n] float32 with the given batch and row strides (elements;
-// columns contiguous).  Returns cudaGetLastError() after the launch.
+// columns contiguous), n <= 240 on an H100.  Returns cudaGetLastError()
+// after the launch.
 int gesp_factor_f32(const float* A, float* LU, int B, int n,
                     long long a_batch, long long a_row, long long lu_batch,
                     long long lu_row, void* stream) {
-  const size_t smem = (size_t)n * n * sizeof(float);
-  static size_t smem_set = 48 * 1024;
-  cudaError_t err = allow_smem(gesp_factor_kernel, smem, &smem_set);
-  if (err != cudaSuccess) return (int)err;
-  gesp_factor_kernel<<<B, kFactorThreads, smem, (cudaStream_t)stream>>>(
-      A, LU, n, a_batch, a_row, lu_batch, lu_row);
-  return (int)cudaGetLastError();
+  return dense_solve::dispatch<false, true>(A, nullptr, LU, B, n, a_batch,
+                                            a_row, 0, lu_batch, lu_row,
+                                            stream);
 }
 
 // LU: [B, n, n], b and x: [B, n], float32, strides in elements, n <= 256

@@ -143,9 +143,10 @@ def check_smem(what, device, need):
 
 
 def dense_solve_smem(n, static_bytes):
-    """Shared memory per block of the dense solves (``csrc/
-    dense_solve.cuh``, B4 and B5) at n unknowns: none at n <= 32 (one warp
-    per system, in registers); above, [A | b] at an odd row stride
+    """Dynamic shared memory per block of the dense solves and the GESP
+    factor (``csrc/dense_solve.cuh``, B4, B5 and B2) at n unknowns: none at
+    n <= 32 (one warp per system, in registers; the factor's 16.5 KB of
+    static staging always fits); above, [A | b] at an odd row stride
     ((n + 1) | 1 floats, ``block_ld``) and one column of n floats, plus
     the kernel's ``static_bytes``."""
     if n <= 32:

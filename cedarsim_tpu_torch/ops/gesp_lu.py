@@ -19,13 +19,15 @@ import os
 import torch
 
 from cedarsim_tpu_torch.ops import cuda_lib
+from cedarsim_tpu_torch.ops.rounding import fma_f32
 
 #: pivot magnitude below which GESP boosts the pivot to ±TAU
 TAU = 1e-20
 
 SOURCE = os.path.join(cuda_lib.CSRC, "gesp_lu.cu")
-#: static shared memory of the fused solve's block kernels, as ptxas
-#: reports it (the argmax buffers belong to the pivoting instantiation)
+#: static shared memory of the fused solve's and the factor's block kernels,
+#: as ptxas reports it (the argmax buffers belong to the pivoting
+#: instantiation)
 _SOLVE_STATIC_SMEM = 0
 
 _LIB = {}
@@ -56,7 +58,9 @@ def build():
 def lu_factor_gesp_f32_plain(A):
     """Plain PyTorch GESP factor: A [B, n, n] float32 (row-equilibrated) →
     packed LU [B, n, n] (unit-L multipliers below the diagonal, U with the
-    boosted pivot on and above it)."""
+    boosted pivot on and above it).  Each multiplier is one IEEE division
+    and each update one fused multiply-add (one rounding), as in the kernel
+    and in the Pallas factor under XLA, so the three give the same bits."""
     LU = A.clone()
     n = A.shape[-1]
     tau = torch.tensor(TAU, dtype=A.dtype, device=A.device)
@@ -65,7 +69,9 @@ def lu_factor_gesp_f32_plain(A):
         piv = torch.where(piv.abs() < tau, torch.where(piv < 0, -tau, tau),
                           piv)
         mult = LU[:, k + 1:, k] / piv[:, None]
-        LU[:, k + 1:, k + 1:] -= mult[:, :, None] * LU[:, k, None, k + 1:]
+        LU[:, k + 1:, k + 1:] = fma_f32(-mult[:, :, None],
+                                        LU[:, k, None, k + 1:],
+                                        LU[:, k + 1:, k + 1:])
         LU[:, k + 1:, k] = mult
         LU[:, k, k] = piv
     return LU
@@ -74,7 +80,10 @@ def lu_factor_gesp_f32_plain(A):
 def lu_factor_gesp_f32(A):
     """GESP factor of a batch A [B, n, n] float32.  CPU tensors take
     :func:`lu_factor_gesp_f32_plain`; CUDA tensors launch
-    ``gesp_factor_f32`` (one thread block per matrix) or raise."""
+    ``gesp_factor_f32`` or raise: B4's elimination without b, one warp per
+    system with the system in registers at n <= 32, one thread block per
+    system with the matrix in shared memory above (so n <= 240 on an
+    H100)."""
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"lu_factor_gesp_f32: expected [B, n, n], got "
                          f"{tuple(A.shape)}")
@@ -84,6 +93,8 @@ def lu_factor_gesp_f32(A):
         raise ValueError(f"lu_factor_gesp_f32: unsupported device {A.device}")
     B, n, _ = A.shape
     cuda_lib.check_f32("A", A, (B, n, n))
+    cuda_lib.check_smem("lu_factor_gesp_f32", A.device,
+                        cuda_lib.dense_solve_smem(n, _SOLVE_STATIC_SMEM))
     LU = torch.empty_like(A)
     if B == 0 or n == 0:
         return LU
@@ -108,7 +119,8 @@ def lu_subst_gesp_f32_plain(LU, b):
     pass subtracts L[i, k]·y_k from every row i > k; step k of the back pass
     divides y_k by U[k, k] and subtracts U[i, k]·x_k from every row i < k.
     So each y_i collects its terms in increasing k forwards and decreasing
-    k backwards, one rounding per term."""
+    k backwards, each product and each difference rounded on its own (the
+    kernel's ``__fmul_rn`` and ``__fsub_rn``)."""
     n = LU.shape[-1]
     y = b.clone()
     for k in range(n - 1):
@@ -164,22 +176,29 @@ def lu_solve_gesp_f32_plain(A, b):
 
     for k in range(n):
         mult = A[:, k + 1:, k] / boost(A[:, k, k])[:, None]
-        A[:, k + 1:, k + 1:] -= mult[:, :, None] * A[:, k, None, k + 1:]
-        b[:, k + 1:] -= mult * b[:, k, None]
+        A[:, k + 1:, k + 1:] = fma_f32(-mult[:, :, None],
+                                       A[:, k, None, k + 1:],
+                                       A[:, k + 1:, k + 1:])
+        b[:, k + 1:] = fma_f32(-mult, b[:, k, None], b[:, k + 1:])
     return back_substitute(A, b, boost)
 
 
 def back_substitute(U, y, diag=None):
     """Column-order back substitution, the dense solves' (B4, B5) order: for
     k from n - 1 down, x_k = y_k / diag(U[k, k]), then y_i -= U[i, k]·x_k
-    for every i < k.  ``diag`` maps the stored diagonal to the divisor (B4
+    for every i < k, one rounding in float32 (the kernels' fused
+    multiply-add).  ``diag`` maps the stored diagonal to the divisor (B4
     boosts it again; B5 divides by it as it is).  U [B, n, n] (read on and
-    above the diagonal), y [B, n] float32 → x [B, n]."""
+    above the diagonal), y [B, n] float32 (or float64, rounded as PyTorch
+    rounds) → x [B, n]."""
     y = y.clone()
     for k in range(U.shape[-1] - 1, -1, -1):
         d = U[:, k, k] if diag is None else diag(U[:, k, k])
         y[:, k] = y[:, k] / d
-        y[:, :k] -= U[:, :k, k] * y[:, k, None]
+        if y.dtype == torch.float32:
+            y[:, :k] = fma_f32(-U[:, :k, k], y[:, k, None], y[:, :k])
+        else:
+            y[:, :k] -= U[:, :k, k] * y[:, k, None]
     return y
 
 

@@ -24,6 +24,7 @@ import torch
 
 from cedarsim_tpu_torch.ops import cuda_lib
 from cedarsim_tpu_torch.ops.gesp_lu import back_substitute
+from cedarsim_tpu_torch.ops.rounding import fma_f32
 
 #: pivot magnitude below which the multipliers' divisor is boosted to ±TINY
 TINY = 1e-30
@@ -78,8 +79,10 @@ def lu_solve_pivot_f32_plain(A, b):
         safe = torch.where(piv.abs() < tiny,
                            torch.where(piv < 0, -tiny, tiny), piv)
         mult = A[:, k + 1:, k] / safe[:, None]
-        A[:, k + 1:, k + 1:] -= mult[:, :, None] * A[:, k, None, k + 1:]
-        b[:, k + 1:] -= mult * b[:, k, None]
+        A[:, k + 1:, k + 1:] = fma_f32(-mult[:, :, None],
+                                       A[:, k, None, k + 1:],
+                                       A[:, k + 1:, k + 1:])
+        b[:, k + 1:] = fma_f32(-mult, b[:, k, None], b[:, k + 1:])
     return back_substitute(A, b)
 
 

@@ -12,21 +12,23 @@ Phases, each printing one line (any failure raises, so the exit code is not
    each: the GESP LU kernels, the pivoting LU kernel and the fused chord
    kernel with the BSIM4 model emitted from the DFF's plan (the DFF is set
    up on the card first).
-3. kernels — each GESP kernel against its plain PyTorch version on the card
-   (random, equilibrated, diagonally dominant inputs from a fixed numpy
-   seed; n from 25 to 240, with n = 32, 33, 64, 96 and 122 reaching each
-   of the substitution's rows-per-lane paths, its two launches bitwise
-   equal); the mixed chord solve against float64
-   ``torch.linalg.solve``; kernel, plain and library-call times at the DFF
-   transient's shape.
+3. kernels — the GESP factor (B2) and substitution (B3) bitwise equal to
+   their plain PyTorch versions on the card (random, equilibrated,
+   diagonally dominant inputs from a fixed numpy seed; n from 8 to 240,
+   with n = 32 and 33 on both sides of the factor's one-warp regime and n
+   = 32, 33, 64, 96 and 122 reaching each of the substitution's
+   rows-per-lane paths; each kernel's two launches bitwise equal); the
+   mixed chord solve against float64 ``torch.linalg.solve``; kernel, plain
+   and library-call times at the DFF transient's shape.
 4. rc      — the RC step circuit against its closed form.
 5. slice   — the gf180 DFF BSIM4 testbench (parse → elaborate → compile
    on the card → transient operating point → per-lane warm DC) as an 8-lane
    transient with a per-lane W scatter through the mixed chord path
    (``newton_impl="xla"``), gated on the benchmark's golden Q levels; both
-   GESP kernels must have launched.  It also counts how near the systems
-   run to float32's edge (``MixedMargin``; the wall includes its few small
-   reductions per solve).
+   GESP kernels must have launched, and the step counts must be cell A's
+   (``CELL_A``).  It also counts how near the systems run to float32's
+   edge (``MixedMargin``; the wall includes its few small reductions per
+   solve).
    repeat  — that path over 0-60 ns twice in this process and once in each
    of two child processes with other string-hash seeds: bitwise equal.
 6. fused_kernel — the fused chord kernel against its plain version on the
@@ -37,13 +39,14 @@ Phases, each printing one line (any failure raises, so the exit code is not
    per-evaluation node counts.
 7. fused_slice — the DFF through the public ``tran()`` with
    ``newton_impl="fused"`` (the JAX package's fused configuration), gated
-   like phase 5; one fused launch per batched step attempt.
+   like phase 5; one fused launch per batched step attempt; the step
+   counts must be cell B's (``CELL_B``).
 8. lu_bench — the dense solve kernels B4 (fused GESP) and B5 (partial
-   pivoting) against their plain versions at (B, n) in {(1, 25), (37, 11),
-   (512, 25), (8, 32), (8, 33), (64, 122), (4, 240)} (both sides of the
-   edge between the one-warp and the one-block regime) and a pivot-forcing
-   case (1e-5 relative, non-finite where the plain version is, two
-   launches bitwise equal); then the dense-LU bench (``cedarsim_tpu_torch.
+   pivoting) bitwise equal to their plain versions at (B, n) in {(1, 25),
+   (37, 11), (512, 25), (8, 32), (8, 33), (64, 122), (4, 240)} (both sides
+   of the edge between the one-warp and the one-block regime) and a
+   pivot-forcing case (two launches bitwise equal); then the dense-LU bench
+   (``cedarsim_tpu_torch.
    benchmarks.lu_bench``) at full width, every gate passing, with both
    kernels launched; then each kernel's, its plain version's, its library
    call's (``torch.linalg.solve_ex`` in float32 for both) and B2+B3's time
@@ -62,8 +65,11 @@ per launch; the plain version's call time; and one PyTorch library call
 computing the same function where there is one, timed both ways
 (``library_ms``, ``library_device_ms``; a call that a CUDA graph cannot
 capture, as ``solve_ex``, has its device time from its kernels in a
-``torch.profiler`` trace, and ``library_device_by`` says which).  The last
-line is ``{"ok": true, "device": {...}}``.
+``torch.profiler`` trace, and ``library_device_by`` says which).  B2's
+entry names its design; ``kernel_times.py --factor`` times it over its
+n-sweep (n = 8-240 at B = 8) beside B4, and ``--sass`` shows which updates
+compiled to fused multiply-adds.  The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import dataclasses
@@ -84,9 +90,12 @@ DFF_DIR = os.path.join(REPO, "benchmarks", "gf180_dff")
 GOLDEN_TOL = 0.05
 #: lanes of the transient and the per-lane W scatter (bench.py:217-225)
 N_LANES = kt.N_LANES
-#: relative tolerance of a kernel against its plain version: float32 with
-#: FMA contraction and another summation order than the plain rounding
-KERNEL_RTOL = 1e-5
+#: cell A's and cell B's step counts over all lanes (accepted, rejected,
+#: Newton, attempts) on the card: every kernel is bitwise its plain
+#: version, so these move only with the code (cell A's since the
+#: substitution rounds each product and difference on its own, PERF.md)
+CELL_A = (11478, 1107, 28560, 1580)
+CELL_B = (4832, 1291, 16754, 776)
 #: the mixed chord solve (float32 GESP + two float64 refinement passes)
 #: against float64 torch.linalg.solve on well-conditioned systems
 CHORD_RTOL = 1e-10
@@ -138,35 +147,43 @@ def smi():
     return out.stdout.strip().splitlines()[0]
 
 
+def bitwise(torch, a, b):
+    """The same float32 bits (NaNs included), not only equal values."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def phase_kernels(torch, gesp_lu, linalg, dev):
     rng = np.random.default_rng(0)
-    n_max = 240          # 240² · 4 B = 230,400 B of an H100 block's 232,448
-    worst = {"factor": 0.0, "subst": 0.0}
+    n_max = 240          # [A | b] at stride 241: 232,320 B of 232,448
     abs_err = {"factor": 0.0, "subst": 0.0}
-    for B, n in [(1, 25), (8, 25), (37, 25), (128, 25), (8, 32), (8, 33),
-                 (8, 64), (8, 96), (8, 122), (4, n_max)]:
+    checked = []
+    for B, n in [(1, 25), (8, 8), (8, 25), (37, 25), (128, 25), (8, 32),
+                 (8, 33), (8, 64), (8, 96), (8, 122), (4, n_max)]:
         A, b = kt.dominant_systems(rng, B, n)
         A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
         b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
         LU_k = gesp_lu.lu_factor_gesp_f32(A32)
+        LU_k2 = gesp_lu.lu_factor_gesp_f32(A32)
         LU_p = gesp_lu.lu_factor_gesp_f32_plain(A32)
         x_k = gesp_lu.lu_subst_gesp_f32(LU_p, b32)
         x_k2 = gesp_lu.lu_subst_gesp_f32(LU_p, b32)
         x_p = gesp_lu.lu_subst_gesp_f32_plain(LU_p, b32)
         torch.cuda.synchronize()
-        if not torch.equal(x_k.view(torch.int32), x_k2.view(torch.int32)):
-            raise AssertionError(f"subst B={B} n={n}: two launches differ")
-        for name, k, p in (("factor", LU_k, LU_p), ("subst", x_k, x_p)):
+        for name, k, k2, p in (("factor", LU_k, LU_k2, LU_p),
+                               ("subst", x_k, x_k2, x_p)):
+            if not bitwise(torch, k, k2):
+                raise AssertionError(f"{name} B={B} n={n}: two launches "
+                                     "differ")
             if not bool(torch.isfinite(k).all()):
                 raise AssertionError(f"{name} B={B} n={n}: non-finite")
-            err = float((k - p).abs().max())
-            rel = err / float(p.abs().max())
-            if rel > KERNEL_RTOL:
-                raise AssertionError(f"{name} B={B} n={n}: relative error "
-                                     f"{rel:.3g} > {KERNEL_RTOL}")
-            worst[name] = max(worst[name], rel)
+            if not bitwise(torch, k, p):
+                err = float((k - p).abs().max())
+                raise AssertionError(f"{name} B={B} n={n}: not bitwise its "
+                                     f"plain version (largest difference "
+                                     f"{err:.3g})")
             if n == 25 and B == N_LANES:
-                abs_err[name] = err
+                abs_err[name] = float((k - p).abs().max())
+        checked.append([B, n])
         # the mixed chord solve on float64 systems vs torch.linalg.solve
         J = torch.as_tensor(A, dtype=torch.float64, device=dev)
         b64 = torch.as_tensor(b, dtype=torch.float64, device=dev)
@@ -211,7 +228,8 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
                               "float32"),
               "subst": bound(4 * B * n * (n + 2), lu_ops(n, B, "subst"),
                              "float32")}
-    log("kernels", worst_rel_err=worst, max_abs_err_dff_shape=abs_err,
+    log("kernels", bitwise_equal_to_plain=checked,
+        max_abs_err_dff_shape=abs_err,
         ms_device_call_plain_library_call_device_by={
             k: list(v) for k, v in times.items()},
         bound_ms=bounds, shape=[B, n, n])
@@ -295,6 +313,16 @@ def counts(sols):
                 newton=sum(s.n_newton for s in sols))
 
 
+def check_counts(cell, sols, want):
+    """A cell's (accepted, rejected, Newton, attempts) over all lanes must
+    be the recorded ones."""
+    c = counts(sols)
+    got = (c["accepted"], c["rejected"], c["newton"], sols[0].n_attempts)
+    if got != tuple(want):
+        raise AssertionError(f"cell {cell}: counts (accepted, rejected, "
+                             f"Newton, attempts) {got}, recorded {want}")
+
+
 #: the mixed chord path of phase 5 and the fused configuration of phase 7
 #: (kernel_times.py says where each comes from)
 XLA_OPTS = kt.XLA_OPTS
@@ -366,6 +394,7 @@ def phase_slice(torch, T, gesp_lu, linalg, dev, dff):
     if min(launches.values()) <= 0:
         raise AssertionError(f"kernels not on the main path: {launches}")
     worst = gate_golden(sols, golden, comp.n_x)
+    check_counts("A", sols, CELL_A)
     log("slice", lanes=N_LANES, setup_s=t_setup, wall_s=wall,
         transients_per_s=N_LANES / wall, worst_golden_err=worst,
         **counts(sols), attempts=sols[0].n_attempts, launches=launches,
@@ -566,6 +595,7 @@ def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
         raise AssertionError(f"fused launches {launches['fused']} != "
                              f"{sols[0].n_attempts} step attempts")
     worst = gate_golden(sols, golden, comp.n_x)
+    check_counts("B", sols, CELL_B)
     log("fused_slice", lanes=N_LANES,
         setup_s=t_setup + fused_setup["plan_s"] + fused_setup["nvcc_s"],
         fused_setup_s=fused_setup, wall_s=wall,
@@ -585,26 +615,23 @@ LU_CHECK_SHAPES = [(1, 25), (37, 11), (512, 25), (8, 32), (8, 33),
 
 def check_solve(torch, name, fn, plain, A32, b32):
     """A dense solve kernel against its plain version on the same card
-    tensors: two launches bitwise equal, non-finite exactly where the plain
-    version is, the finite entries within KERNEL_RTOL of the plain
-    version's largest.  Returns (relative, absolute) error."""
+    tensors: two launches bitwise equal, and bitwise the plain version.
+    Returns the largest absolute difference from the plain version (0.0,
+    or it raises)."""
     x1 = fn(A32, b32)
     x2 = fn(A32, b32)
     xp = plain(A32, b32)
     torch.cuda.synchronize()
-    if not torch.equal(x1.view(torch.int32), x2.view(torch.int32)):
+    if not bitwise(torch, x1, x2):
         raise AssertionError(f"{name}: two launches differ")
+    if not bitwise(torch, x1, xp):
+        fin = torch.isfinite(xp) & torch.isfinite(x1)
+        err = float((x1[fin] - xp[fin]).abs().max()) if bool(fin.any()) \
+            else float("nan")
+        raise AssertionError(f"{name}: not bitwise its plain version "
+                             f"(largest finite difference {err:.3g})")
     fin = torch.isfinite(xp)
-    if not torch.equal(torch.isfinite(x1), fin):
-        raise AssertionError(f"{name}: non-finite entries differ from the "
-                             "plain version's")
-    err = float((x1[fin] - xp[fin]).abs().max()) if bool(fin.any()) else 0.0
-    rel = err / max(float(xp[fin].abs().max()) if bool(fin.any()) else 0.0,
-                    1e-300)
-    if not rel <= KERNEL_RTOL:
-        raise AssertionError(f"{name}: relative error {rel:.3g} > "
-                             f"{KERNEL_RTOL}")
-    return rel, err
+    return float((x1[fin] - xp[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
 def phase_lu(torch, gesp_lu, pivot_lu, dev):
@@ -617,7 +644,6 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
               "pivot": (pivot_lu.lu_solve_pivot_f32,
                         pivot_lu.lu_solve_pivot_f32_plain)}
     rng = np.random.default_rng(0)
-    worst = {k: 0.0 for k in solves}
     checked = []
     for B, n in LU_CHECK_SHAPES + [(16, 25)]:
         A, b = kt.dominant_systems(rng, B, n)
@@ -636,9 +662,7 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
                 continue        # GESP does not pivot: no such case
             A32 = torch.as_tensor(Ak, dtype=torch.float32, device=dev)
             b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
-            rel, _ = check_solve(torch, f"{key} B={B} n={n}", fn, plain,
-                                 A32, b32)
-            worst[key] = max(worst[key], rel)
+            check_solve(torch, f"{key} B={B} n={n}", fn, plain, A32, b32)
             checked.append([key, B, n])
     # the bench, at full width, through its entry point
     gesp_lu.lu_solve_gesp_f32.launches = 0
@@ -663,8 +687,8 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
         b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
         ent = {}
         for key, (fn, plain) in solves.items():
-            _, err = check_solve(torch, f"{key} bench B={B} n={n}", fn,
-                                 plain, A32, b32)
+            err = check_solve(torch, f"{key} bench B={B} n={n}", fn,
+                              plain, A32, b32)
             lib = library_ms(lambda: torch.linalg.solve_ex(A32, b32), 200)
             bnd = bound(4 * B * n * (n + 2), lu_ops(n, B, f"{key}_solve"),
                         "float32")
@@ -682,7 +706,7 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
             lambda: gesp_lu.lu_subst_gesp_f32(
                 gesp_lu.lu_factor_gesp_f32(A32), b32), 200)
         per_shape[(B, n)] = ent
-    log("lu_bench", worst_rel_err=worst, checked=checked,
+    log("lu_bench", bitwise_equal_to_plain=checked,
         bench_wall_s=wall, launches=launches,
         bench_us_per_solve={f"{r['variant']} {r['B']}x{r['n']}":
                             r["us_per_solve"] for r in rows},
@@ -789,11 +813,18 @@ def main():
                                "bound_ms": fbounds["B1'"][0],
                                "bound_by": fbounds["B1'"][1]}),
     ]
+    design = {
+        "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
+                  "system, rows in registers, steps in panels of 4 "
+                  "(factor_panels), at n <= 32; one block per system, "
+                  "steps in pairs, above",
+        "subst": "one warp per system, column order, system staged in "
+                 "shared memory"}
     for key, line in (("factor", 313), ("subst", 354)):
         kernels.append(kernel_entry(
             f"gesp_{key}_f32", src, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
             launches[key], *times[key], bounds[key], abs_err[key],
-            shape=[N_LANES, 25]))
+            shape=[N_LANES, 25], design=design[key]))
     for key, name, source, line in (
             ("gesp", "gesp_solve_f32", src, 164),
             ("pivot", "pivot_solve_f32",

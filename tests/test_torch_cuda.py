@@ -5,12 +5,17 @@ which sets JAX up for the other files):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-- Each kernel against its plain PyTorch version on the same CUDA tensors
-  (1e-5 relative: float32 with FMA contraction and another summation order),
-  with one launch counted per call; the substitution (B3) also at n from 1
-  to 240 (1, 2, 4 and 8 rows per lane) and B in {1, 8, 37}, its two
-  launches bitwise equal.
-- The wrappers refuse what the kernels do not take.
+- Each GESP kernel bitwise equal to its plain PyTorch version on the same
+  CUDA tensors (both round each multiply-add of the factor once, each term
+  of the substitution twice), with one launch counted per call; the
+  factor (B2) at n in {1, 8, 25, 31, 32, 33, 64, 122, 240} (both regimes
+  and their edge) and B in {1, 8, 37}, the substitution (B3) at n from 1
+  to 240 (1, 2, 4 and 8 rows per lane) and B in {1, 8, 37}, each with its
+  two launches bitwise equal; the factor's zero and tiny negative pivots
+  boosted to +-1e-20 on the diagonal, as on the CPU.
+- ``rounding.fma_f32`` on CUDA tensors bitwise C's ``fmaf``.
+- The wrappers refuse what the kernels do not take, n = 241 before any
+  launch.
 - The mixed chord solve (kernels + two float64 refinement passes) against
   float64 ``torch.linalg.solve`` (1e-10 relative, well-conditioned systems).
 - The RC step on the card through the mixed chord path: the closed form one
@@ -26,9 +31,9 @@ which sets JAX up for the other files):
   ``tran(newton_impl="fused")`` launches once per step attempt.
 - The dense solves B4 (fused GESP, ``gesp_lu.lu_solve_gesp_f32``) and B5
   (partial pivoting, ``pivot_lu.lu_solve_pivot_f32``, rows shuffled per
-  system) against their plain versions in both regimes and at their edges,
-  n in {1, 2, 11, 25, 31, 32, 33, 64, 122, 240} and B in {1, 4, 37, 512}
-  (1e-5 relative), two launches bitwise equal; non-finite where the plain
+  system) bitwise equal to their plain versions in both regimes and at
+  their edges, n in {1, 2, 11, 25, 31, 32, 33, 64, 122, 240} and B in
+  {1, 4, 37, 512}, two launches bitwise equal; non-finite where the plain
   version is on a zero pivot and on a column of NaNs; n = 241 is refused
   with the card's shared memory per block named; on a tie of magnitudes
   the pivoting kernel takes the first row, so it is bitwise the GESP
@@ -75,6 +80,10 @@ def _rel(a, b):
                  / b.double().abs().max())
 
 
+def _bitwise(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.parametrize("B, n", [(1, 25), (8, 25), (37, 25), (8, 64)])
 def test_kernels_match_plain(cuda_device, B, n):
     A, b = _systems(B * n, B, n)
@@ -89,8 +98,66 @@ def test_kernels_match_plain(cuda_device, B, n):
     torch.cuda.synchronize()
     assert gesp_lu.lu_factor_gesp_f32.launches == f0 + 1
     assert gesp_lu.lu_subst_gesp_f32.launches == s0 + 1
-    assert _rel(lu_k, lu_p) <= 1e-5
-    assert _rel(x_k, x_p) <= 1e-5
+    assert _bitwise(lu_k, lu_p)
+    assert _bitwise(x_k, x_p)
+
+
+@pytest.mark.parametrize("n", [1, 8, 25, 31, 32, 33, 64, 122, 240])
+@pytest.mark.parametrize("B", [1, 8, 37])
+def test_factor_kernel_matches_plain(cuda_device, B, n):
+    """B2 in both regimes (one warp per system at n <= 32, one block
+    above) and at their edge: bitwise its plain version, two launches
+    bitwise equal."""
+    A, _ = _systems(5 * n + B, B, n)
+    A32 = torch.as_tensor(A, dtype=torch.float32, device=cuda_device)
+    f0 = gesp_lu.lu_factor_gesp_f32.launches
+    lu1 = gesp_lu.lu_factor_gesp_f32(A32)
+    lu2 = gesp_lu.lu_factor_gesp_f32(A32)
+    lup = gesp_lu.lu_factor_gesp_f32_plain(A32)
+    torch.cuda.synchronize()
+    assert gesp_lu.lu_factor_gesp_f32.launches == f0 + 2
+    assert bool(torch.isfinite(lu1).all())
+    assert _bitwise(lu1, lu2)
+    assert _bitwise(lu1, lup)
+
+
+@pytest.mark.parametrize("n", [6, 40])
+@pytest.mark.parametrize("pivot, boosted", [(0.0, 1e-20), (-1e-25, -1e-20)])
+def test_factor_kernel_boosts_the_pivot(cuda_device, n, pivot, boosted):
+    """A zero pivot is stored as +1e-20 and a tiny negative one as -1e-20,
+    in each regime, as ``tests/test_torch_gesp_lu.py::
+    test_gesp_pivot_boost_sign`` checks the plain factor; the rest of the
+    factor is its plain version's, bitwise."""
+    A, _ = _systems(7, 3, n)
+    A[:, 2, :] = 0.0
+    A[:, 2, 2] = pivot
+    A[:, 2, 4] = 1.0          # keep the row nonzero off the diagonal
+    A[:, :2, 2] = 0.0         # so that the pivot reaches step 2 unchanged
+    A32 = torch.as_tensor(A, dtype=torch.float32, device=cuda_device)
+    lu = gesp_lu.lu_factor_gesp_f32(A32)
+    lup = gesp_lu.lu_factor_gesp_f32_plain(A32)
+    torch.cuda.synchronize()
+    want = torch.full((3,), boosted, dtype=torch.float32)
+    assert torch.equal(lu[:, 2, 2].cpu(), want)
+    fin = torch.isfinite(lup)
+    assert torch.equal(torch.isfinite(lu), fin)
+    assert _bitwise(torch.where(fin, lu, 0.0), torch.where(fin, lup, 0.0))
+
+
+def test_fma_f32_on_the_card_is_libm_fmaf(cuda_device):
+    """``rounding.fma_f32`` on CUDA tensors (float64 products and TwoSum
+    on the card) against C's ``fmaf`` on the host, on every kind of triple
+    of ``tests/test_torch_rounding.py``."""
+    from cedarsim_tpu_torch.ops.rounding import fma_f32
+    from test_torch_rounding import KINDS, libm_fmaf, triples
+    for seed, kind in enumerate(KINDS):
+        a, b, c = triples(kind, 4000, seed)
+        got = fma_f32(*(torch.as_tensor(v, device=cuda_device)
+                        for v in (a, b, c))).cpu().numpy()
+        ref = libm_fmaf(a, b, c)
+        same = (got.view(np.uint32) == ref.view(np.uint32)) | (
+            np.isnan(got) & np.isnan(ref))
+        assert same.all(), (kind, int((~same).sum()))
 
 
 @pytest.mark.parametrize("n", [1, 25, 31, 32, 33, 64, 96, 122, 240])
@@ -106,9 +173,9 @@ def test_subst_kernel_matches_plain(cuda_device, B, n):
     xp = gesp_lu.lu_subst_gesp_f32_plain(lu, b32)
     torch.cuda.synchronize()
     assert gesp_lu.lu_subst_gesp_f32.launches == s0 + 2
-    assert torch.equal(x1.view(torch.int32), x2.view(torch.int32))
+    assert _bitwise(x1, x2)
     assert bool(torch.isfinite(x1).all())
-    assert _rel(x1, xp) <= 1e-5
+    assert _bitwise(x1, xp)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -123,6 +190,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         gesp_lu.lu_subst_gesp_f32(A32, b32.cpu())
     with pytest.raises(ValueError):
         gesp_lu.lu_subst_gesp_f32(A32, b32[:, :24])
+    # beyond a block's shared memory: refused before any launch
+    A241 = torch.zeros(2, 241, 241, device=cuda_device)
+    f0 = gesp_lu.lu_factor_gesp_f32.launches
+    with pytest.raises(ValueError, match="shared memory per block"):
+        gesp_lu.lu_factor_gesp_f32(A241)
+    assert gesp_lu.lu_factor_gesp_f32.launches == f0
 
 
 def test_mixed_chord_solve_matches_linalg(cuda_device):
@@ -334,9 +407,9 @@ def test_dense_solve_matches_plain(cuda_device, kernel, B, n):
     xp = plain(A, b)
     torch.cuda.synchronize()
     assert fn.launches == n0 + 2
-    assert torch.equal(x1.view(torch.int32), x2.view(torch.int32))
+    assert _bitwise(x1, x2)
     assert bool(torch.isfinite(x1).all())
-    assert _rel(x1, xp) <= 1e-5
+    assert _bitwise(x1, xp)
 
 
 @pytest.mark.parametrize("n", [9, 64])

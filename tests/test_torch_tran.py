@@ -9,10 +9,14 @@ forms and against the JAX package's ``tran``.
   one-lane runs of the same W with the exact solver: every node within
   1e-3 V at ten times, accepted steps within 10 %; the nominal lane equals
   a solo run of the port to 1e-12 V (lane independence).
-- gf180 DFF, 0-1 ns from the smoke's per-lane warm DC at W·0.99: the
-  mixed path's float32 margin (ROADMAP Queue C), the exact chord beside it,
-  and the JAX package's own mixed path (its Pallas kernels in interpret
-  mode) on the same input, which finishes both lanes.
+- gf180 DFF, 0-1 ns from the smoke's per-lane warm DC at W·0.99 and
+  nominal (ROADMAP Queue C, C1): the port's mixed path finishes both lanes
+  with the reference's accepted and rejected steps, with no boosted pivot
+  and no non-finite solve; every float32 factor of that run is bitwise the
+  Pallas factor in interpret mode; the exact chord beside it; and the JAX
+  package's own mixed path (its Pallas kernels in interpret mode) on the
+  same input, with its counts (``tests/mixed_path_counts.py`` prints all
+  of them, over any window).
 - The package never imports JAX (a fresh interpreter), on the RC step, on
   a VA diode through the fused chord path, and in the dense-LU bench's
   module.
@@ -124,47 +128,37 @@ def test_dff_lanes_mixed_vs_jax():
                                solo.xs[:, :ct.n_nodes], rtol=0, atol=1e-12)
 
 
-def _row_order_subst(LU, b):
-    """The GESP substitution in row order (each y_i one row sum), the order
-    of the Pallas kernel and of the port before the column-order kernel."""
-    n = LU.shape[-1]
-    y = torch.zeros_like(b)
-    for i in range(n):
-        y[:, i] = b[:, i] - (LU[:, i, :i] * y[:, :i]).sum(-1)
-    x = torch.zeros_like(b)
-    for i in range(n - 1, -1, -1):
-        x[:, i] = ((y[:, i] - (LU[:, i, i + 1:] * x[:, i + 1:]).sum(-1))
-                   / LU[:, i, i])
-    return x
+#: per lane (W·0.99, nominal): accepted, rejected, Newton iterations over
+#: 0-1 ns of the port's mixed path (plain kernels on the CPU: the factor
+#: rounding each update once, the substitution each term twice) and of the
+#: JAX package's mixed path (Pallas in interpret mode).  The accepted and
+#: rejected steps agree; the Newton count of the W·0.99 lane does not (the
+#: substitution's order of sums, PERF.md).  Over 0-20 ns both give 36 / 0 /
+#: 35 on both lanes.
+PORT_1NS = [(38, 1, 82), (36, 0, 35)]
+REFERENCE_1NS = [(38, 1, 55), (36, 0, 35)]
 
 
-def test_dff_mixed_path_float32_margin(monkeypatch):
-    """The open fault of ROADMAP Queue C: the DFF's first nanosecond from
-    the per-lane warm DC of the smoke's W scatter at two lanes (W·0.99 and
-    nominal), cell A's options.  The exact float64 chord finishes both
-    lanes with no rejected step.  The mixed path's float32 GESP factors
-    carry pivots boosted to 1e-20, and in either substitution order over 1 %
-    of its chord solves are non-finite, so whether the W·0.99 lane survives
-    depends on the order of rounding (Queue C has each order's outcome).
-    The nominal lane finishes in both orders."""
+@pytest.fixture(scope="module")
+def dff_mixed_1ns():
+    """The port's mixed path on the 2-lane DFF over 0-1 ns (cell A's
+    options, from the per-lane warm DC), recording every float32 factor
+    (input and packed LU) and counting boosted pivots, chord solves and
+    non-finite solves.  Returns (solutions, factors, counts, inputs)."""
     from cedarsim_tpu_torch.benchmarks import kernel_times as kt
     from cedarsim_tpu_torch.ops import gesp_lu, linalg
-    comp, ctx, pb, x0 = kt.dff_lanes(torch, T, "cpu", lanes=2)
-
-    def run(**kw):
-        return T.tran(comp, (0.0, 1e-9), params=pb, ctx=ctx, x0=x0,
-                      opts=T.TranOptions(**dict(kt.XLA_OPTS, **kw)))
-
-    exact = run(dense_lu="auto")        # the CPU's exact float64 chord
-    assert all(s.converged and s.n_rejected == 0 for s in exact)
-    factor, backsolve = linalg.chord_factor, linalg.chord_backsolve
+    dff = kt.dff_lanes(torch, T, "cpu", lanes=2)
+    comp, ctx, pb, x0 = dff
+    factor, backsolve = gesp_lu.lu_factor_gesp_f32, linalg.chord_backsolve
+    factors = []
     seen = dict(boosted=0, solves=0, nonfinite=0)
 
-    def chord_factor(J):
-        LU, perm, r = factor(J)
+    def lu_factor_gesp_f32(A):
+        LU = factor(A)
+        factors.append((A.clone(), LU))
         seen["boosted"] += int((LU.diagonal(dim1=-2, dim2=-1).abs()
                                 <= 1e-20).any(-1).sum())
-        return LU, perm, r
+        return LU
 
     def chord_backsolve(*args):
         x = backsolve(*args)
@@ -172,15 +166,52 @@ def test_dff_mixed_path_float32_margin(monkeypatch):
         seen["nonfinite"] += int((~torch.isfinite(x)).any(-1).sum())
         return x
 
-    monkeypatch.setattr(linalg, "chord_factor", chord_factor)
-    monkeypatch.setattr(linalg, "chord_backsolve", chord_backsolve)
-    for subst in (gesp_lu.lu_subst_gesp_f32_plain, _row_order_subst):
-        monkeypatch.setattr(gesp_lu, "lu_subst_gesp_f32_plain", subst)
-        seen.update(boosted=0, solves=0, nonfinite=0)
-        sols = run()
-        assert sols[1].converged
-        assert seen["boosted"] > 0
-        assert seen["nonfinite"] > 0.01 * seen["solves"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gesp_lu, "lu_factor_gesp_f32", lu_factor_gesp_f32)
+        mp.setattr(linalg, "chord_backsolve", chord_backsolve)
+        sols = T.tran(comp, (0.0, 1e-9), params=pb, ctx=ctx, x0=x0,
+                      opts=T.TranOptions(**kt.XLA_OPTS))
+    return sols, factors, seen, dff
+
+
+def test_dff_mixed_path_float32_margin(dff_mixed_1ns):
+    """ROADMAP Queue C, C1, closed: the DFF's first nanosecond from the
+    per-lane warm DC of the smoke's W scatter at two lanes (W·0.99 and
+    nominal), cell A's options.  With the factor rounding each update once
+    (as the Pallas factor does under XLA), the port's mixed path finishes
+    both lanes with the reference's accepted and rejected steps, no factor
+    boosts a pivot and no chord solve is non-finite; the exact float64
+    chord finishes both lanes with no rejected step."""
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    sols, _, seen, (comp, ctx, pb, x0) = dff_mixed_1ns
+    assert [(s.converged, s.n_accepted, s.n_rejected, s.n_newton)
+            for s in sols] == [(True, *c) for c in PORT_1NS]
+    assert [c[:2] for c in PORT_1NS] == [c[:2] for c in REFERENCE_1NS]
+    assert seen["boosted"] == 0
+    assert seen["solves"] > 100 and seen["nonfinite"] == 0
+    exact = T.tran(comp, (0.0, 1e-9), params=pb, ctx=ctx, x0=x0,
+                   opts=T.TranOptions(**dict(kt.XLA_OPTS, dense_lu="auto")))
+    assert all(s.converged and s.n_rejected == 0 for s in exact)
+
+
+def test_dff_chord_factors_are_bitwise_pallas(dff_mixed_1ns):
+    """Every float32 GESP factor of the port's 2-lane DFF run over 0-1 ns
+    (the plain factor on the CPU) is bitwise the JAX package's Pallas
+    factor (``lu_factor_batched_sublane_f32``, interpret mode) on the same
+    input, but for the sign of some zeros: the Pallas kernel applies each
+    step's update to the whole matrix with masked zeros (``A - 0 * u``),
+    which turns a -0.0 outside the trailing block into +0.0 where the
+    product is +0.0; the port updates the trailing block only."""
+    import jax.numpy as jnp
+    from cedarsim_tpu.ops.pallas_lu import lu_factor_batched_sublane_f32
+    _, factors, _, _ = dff_mixed_1ns
+    assert len(factors) >= 30
+    for A, LU in factors:
+        lu_t = LU.numpy()
+        lu_j = np.asarray(lu_factor_batched_sublane_f32(
+            jnp.asarray(A.numpy()), interpret=True))
+        differ = lu_t.view(np.int32) != lu_j.view(np.int32)
+        assert ((lu_t == 0) & (lu_j == 0))[differ].all()
 
 
 def test_dff_mixed_path_reference_finishes_both_lanes(monkeypatch):
@@ -190,8 +221,8 @@ def test_dff_mixed_path_reference_finishes_both_lanes(monkeypatch):
     margin test's input: the DFF from the port's per-lane warm DC at W·0.99
     and nominal, cell A's options, 0-1 ns, the two lanes vmapped through
     ``tran_core`` as ``bench.py`` runs them.  The reference finishes both
-    lanes with at most a few rejected steps, where the port's mixed path
-    stops the W·0.99 lane (the test above): a fault of the port."""
+    lanes with the counts ``REFERENCE_1NS``, whose accepted and rejected
+    steps the port's mixed path gives too (the margin test)."""
     import jax
     import jax.numpy as jnp
     from cedarsim_tpu.analysis.tran import (_consistent_xdot,
@@ -225,13 +256,12 @@ def test_dff_mixed_path_reference_finishes_both_lanes(monkeypatch):
     run = jax.jit(jax.vmap(lambda p, x, xd, m: tran_core(
         cj, p, ctx, x, xd, jnp.asarray(0.0, d), jnp.asarray(tstop, d),
         jnp.asarray(bps, d), jnp.asarray(h0, d), opts, m)))
-    _, _, _, k, fin, nrej, _, final = run(pb, x0, xd0, mask)
-    # accepted and rejected steps per lane (W·0.99, nominal), shown by -s
-    print("reference mixed path: accepted", np.asarray(k).tolist(),
-          "rejected", np.asarray(nrej).tolist())
-    assert np.asarray(fin).all(), (np.asarray(k), np.asarray(nrej))
+    _, _, _, k, fin, nrej, nnwt, final = run(pb, x0, xd0, mask)
+    counts = list(zip(np.asarray(k).tolist(), np.asarray(nrej).tolist(),
+                      np.asarray(nnwt).tolist()))
+    assert np.asarray(fin).all(), counts
     np.testing.assert_allclose(np.asarray(final["t"]), tstop, rtol=1e-12)
-    assert int(np.asarray(nrej).max()) <= 5
+    assert counts == REFERENCE_1NS
 
 
 def test_port_never_imports_jax():
