@@ -2,9 +2,12 @@
 
 The JAX package ``cedarsim_tpu`` is the reference this package is held
 against; the port imports ``torch`` and never ``jax``.  It covers the main
-path of the gf180 DFF benchmark so far: SPICE netlist → elaborated circuit →
-compiled batched residuals and Jacobians (through the Verilog-A BSIM4-class
-model) → DC operating point → transient over an explicit lane axis, with
+path of the gf180 DFF benchmark and the built-in device library so far:
+SPICE netlist → elaborated circuit (R, C, L, K, V/I sources with every
+waveform, E/F/G/H, S/W, D, MOS level 1, Gummel-Poon Q, J, Z, B, or
+Verilog-A) → compiled batched residuals and Jacobians → DC operating point
+→ transient over an explicit lane axis (``simulate`` runs a netlist's own
+``.op``/``.tran``), with
 the mixed-precision chord solves on the hand-written CUDA GESP LU kernels
 (``ops/gesp_lu.py``), or with every chord iteration of a step attempt in one
 launch of the fused chord kernel (``ops/fused_chord.py``, the BSIM4 walk
@@ -17,7 +20,12 @@ from cedarsim_tpu_torch.core.context import SimSpec, Modes
 from cedarsim_tpu_torch.core.compile import (CompiledCircuit,
                                              compile_circuit)
 from cedarsim_tpu_torch.devices import (
-    Resistor, Capacitor, VSource, VSourcePWL, VSourcePULSE,
+    Resistor, Capacitor, Inductor, CoupledInductors,
+    VSource, VSourcePWL, VSourcePULSE, VSourceSIN, VSourceEXP,
+    ISource, ISourcePWL, ISourcePULSE, ISourceSIN, ISourceEXP,
+    VCVS, VCCS, CCVS, CCCS, VSwitch, ISwitch, Diode,
+    OpenCircuit, ShortCircuit, nonlinear_resistor, nonlinear_capacitor,
+    Mos1, Bjt, Jfet, Mesfet,
 )
 from cedarsim_tpu_torch.frontend.parser import parse_spice
 from cedarsim_tpu_torch.frontend.elaborate import elaborate, load_spice
@@ -27,11 +35,18 @@ from cedarsim_tpu_torch.analysis.tran import (TranOptions, TranSolution,
                                               tran)
 from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan)
+from cedarsim_tpu_torch.api import simulate, find_tran_directive
 
 __all__ = [
     "Circuit", "SimSpec", "Modes", "CompiledCircuit", "compile_circuit",
-    "Resistor", "Capacitor", "VSource", "VSourcePWL", "VSourcePULSE",
+    "Resistor", "Capacitor", "Inductor", "CoupledInductors", "VSource",
+    "VSourcePWL", "VSourcePULSE", "VSourceSIN", "VSourceEXP", "ISource",
+    "ISourcePWL", "ISourcePULSE", "ISourceSIN", "ISourceEXP", "VCVS", "VCCS",
+    "CCVS", "CCCS", "VSwitch", "ISwitch", "Diode", "OpenCircuit",
+    "ShortCircuit", "nonlinear_resistor", "nonlinear_capacitor", "Mos1",
+    "Bjt", "Jfet", "Mesfet",
     "parse_spice", "elaborate", "load_spice", "NewtonOptions", "solve_dc",
     "dc_core", "default_newton_options", "TranOptions", "TranSolution",
-    "tran", "FusedEnvelopeError", "get_fused_plan",
+    "tran", "FusedEnvelopeError", "get_fused_plan", "simulate",
+    "find_tran_directive",
 ]

@@ -36,7 +36,7 @@ from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan, split_lanes)
 from cedarsim_tpu_torch.analysis.dc import NewtonOptions, solve_dc
 
-_A14 = "ROADMAP A14"
+_A14 = "ROADMAP A14b"
 
 #: step attempts between two host checks of "every lane done"; attempts on
 #: finished lanes are masked no-ops, so this trades at most this many wasted
@@ -51,7 +51,7 @@ class TranOptions:
     trtol: float = 7.0
     #: "trap" (trapezoidal with BE starts), "be", "bdf2" (variable-step,
     #: order 1-2) or "auto": trap for the charge formulation, bdf2 for the
-    #: cap formulation.  bdf3/bdf5 are ROADMAP A14.
+    #: cap formulation.  bdf3/bdf5 are ROADMAP A14b.
     method: str = "auto"
     max_steps: int = 8192          # output buffer size
     max_newton: int = 12

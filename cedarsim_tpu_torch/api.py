@@ -1,0 +1,128 @@
+"""Netlist in, results out — counterpart of ``cedarsim_tpu/api.py`` for the
+operating point (``.op``) and the transient (``.tran``).
+
+:func:`simulate` parses and elaborates a SPICE netlist, compiles it on the
+card (or on ``device``), and runs the analyses its directives ask for, in
+their order, as the JAX package's ``simulate`` does: ``.tran`` with its
+``tstop`` and ``tmax`` (the step cap), ``uic``, and ``.options
+method=trap|gear maxord=``.  A netlist without an analysis gets its
+operating point.  The analyses and front ends that are not ported raise
+``NotImplementedError`` naming their ROADMAP item; none is skipped:
+``.dc`` (A11), ``.ac``, ``.noise`` and ``.four`` (A15), Spectre text and
+``alter`` (A19), gear orders above 2 (BDF3/BDF5, A14b).  ``.measure`` and
+``.save`` already raise in the elaborator (A19).
+"""
+
+from __future__ import annotations
+
+from cedarsim_tpu_torch.analysis.dc import solve_dc
+from cedarsim_tpu_torch.analysis.tran import TranOptions, tran
+from cedarsim_tpu_torch.core.compile import compile_circuit, default_ctx
+from cedarsim_tpu_torch.frontend.elaborate import elaborate
+from cedarsim_tpu_torch.frontend.parser import parse_spice
+
+_UNPORTED = {
+    "dc": "ROADMAP A11 (sweeps)",
+    "ac": "ROADMAP A15 (AC and noise)",
+    "noise": "ROADMAP A15 (AC and noise)",
+    "four": "ROADMAP A15 (.four, .measure)",
+}
+_A19 = "ROADMAP A19 (front-end breadth: Spectre, alter)"
+_A14B = "ROADMAP A14b (BDF3/BDF5)"
+
+
+def find_tran_directive(circuit):
+    """(tstep, tstop, tstart, hmax, uic) from the netlist ``.tran``, or
+    None."""
+    for cmd, args, kw in circuit.directives:
+        if cmd == "tran":
+            nums = [a for a in args if isinstance(a, (int, float))]
+            uic = any(isinstance(a, str) and a.lower() == "uic" for a in args)
+            tstep = nums[0] if len(nums) > 0 else None
+            tstop = nums[1] if len(nums) > 1 else (nums[0] if nums else None)
+            tstart = nums[2] if len(nums) > 2 else 0.0
+            hmax = nums[3] if len(nums) > 3 else None
+            return dict(tstep=tstep, tstop=tstop, tstart=tstart, hmax=hmax,
+                        uic=uic)
+    return None
+
+
+def tran_options(circuit):
+    """The :class:`TranOptions` a netlist's ``.tran`` and ``.options``
+    ask for (the JAX package's rules): the step cap from ``tmax``, or
+    near ``tstep`` (at most 5·tstep, at most span/25) without it; ``uic``;
+    ``method=trap``, or ``method=gear`` with ``maxord`` at most 2 (BDF2)."""
+    d = find_tran_directive(circuit)
+    okw = {}
+    span = max(d["tstop"] - (d["tstart"] or 0.0), 1e-30)
+    if d["hmax"]:
+        okw["hmax_frac"] = d["hmax"] / span
+    elif d.get("tstep"):
+        okw["hmax_frac"] = min(0.04, 5.0 * d["tstep"] / span)
+    if d["uic"]:
+        okw["uic"] = True
+    o = getattr(circuit, "options", {}) or {}
+    m = str(o.get("method", "")).lower()
+    if m in ("trap", "trapezoidal"):
+        okw["method"] = "trap"
+    elif m == "gear":
+        mo = int(o.get("maxord", 2))
+        if mo > 2:
+            raise NotImplementedError(
+                f".options method=gear maxord={mo} maps to "
+                f"{'bdf3' if mo == 3 else 'bdf5'}, which is {_A14B}")
+        okw["method"] = "bdf2"
+    return TranOptions(**okw)
+
+
+def simulate(text_or_circuit, include_paths=(), params=None, temp=None,
+             tran_opts: TranOptions = None, file="<netlist>", dialect=None,
+             device=None):
+    """Run the analyses requested by the netlist's directives.
+
+    ``text_or_circuit``: SPICE netlist text or an elaborated ``Circuit``.
+    ``device``: where the circuit is compiled and solved (by default the
+    CUDA card; ``"cpu"`` runs the kernels' plain versions).  Returns a dict
+    with the ``circuit``, the ``compiled`` circuit and, as the directives
+    ask, ``"op"`` (a DC result) and ``"tran"`` (a ``TranSolution``)."""
+    if isinstance(text_or_circuit, str):
+        text = text_or_circuit
+        if dialect == "spectre" or "simulator lang" in text.lower() \
+                or str(file).endswith(".scs"):
+            raise NotImplementedError(
+                f"Spectre netlists are not ported yet — {_A19}")
+        if dialect not in (None, "spice"):
+            raise ValueError(f"unknown dialect {dialect!r}")
+        nl = parse_spice(text, file=file)
+        if any(getattr(st, "cmd", None) in ("altergroup", "alterstmt")
+               for st in nl.statements):
+            raise NotImplementedError(f"alter statements — {_A19}")
+        circuit = elaborate(nl, include_paths=include_paths, params=params)
+    else:
+        circuit = text_or_circuit
+    return _run_circuit(circuit, temp, tran_opts, device)
+
+
+def _run_circuit(circuit, temp=None, tran_opts=None, device=None):
+    for cmd, _, _ in circuit.directives:
+        if cmd in _UNPORTED:
+            raise NotImplementedError(
+                f".{cmd} is not ported yet — {_UNPORTED[cmd]}")
+    compiled = compile_circuit(circuit, device=device)
+    ctx = default_ctx(compiled, temp_c=temp)
+    out = {"circuit": circuit, "compiled": compiled}
+    ran_any = False
+    for cmd, args, kw in circuit.directives:
+        if cmd == "op" and "op" not in out:
+            out["op"] = solve_dc(compiled, ctx=ctx)
+            ran_any = True
+        elif cmd == "tran" and "tran" not in out:
+            d = find_tran_directive(circuit)
+            opts = tran_opts if tran_opts is not None else \
+                tran_options(circuit)
+            out["tran"] = tran(compiled, (0.0, d["tstop"]), ctx=ctx,
+                               opts=opts)
+            ran_any = True
+    if not ran_any:
+        out["op"] = solve_dc(compiled, ctx=ctx)
+    return out

@@ -19,7 +19,10 @@ Two times per kernel, both from CUDA events on the card:
 
 The shapes: B1 (``fused_chord``) on the gf180 DFF at 8 lanes and B1' at one
 lane (the nominal one), both on the smoke's phase-6 inputs (the per-lane
-warm DC, nodes perturbed by a seeded 0.05 V, a BE start at h = 1e-12); B2
+warm DC, nodes perturbed by a seeded 0.05 V, a BE start at h = 1e-12); B1
+on the level-1 DFF's plan (``Mos1`` emitted, ``lv1_lanes``) at 256 lanes
+and at 8, on the same kind of inputs from the per-lane operating points of
+its vto scatter (``--lv1`` times only these two); B2
 and B3 at [8, 25, 25] on seeded dominant systems; B4 and B5 at the
 dense-LU bench's [512, 25] and [64, 122], beside ``torch.linalg.solve_ex``
 in float32 on the same systems (the same x within the bench's gates), and
@@ -41,7 +44,8 @@ these inputs (numpy ``.npz``); ``--compare FILE`` reports, per kernel,
 whether its outputs are bitwise equal to those saved there and their
 largest difference relative to the saved outputs' largest magnitude.
 ``--dense`` times B4 and B5 alone (bench shapes and sweep), ``--factor``
-B2's sweep alone (with B4 beside it).  ``--sass`` adds, for each kernel of
+B2's sweep alone (with B4 beside it), ``--lv1`` B1 on the level-1 plan
+alone.  ``--sass`` adds, for each kernel of
 the GESP and pivoting libraries, the count of its floating-point SASS
 instructions by opcode (``cuobjdump -sass``): whether an update compiled
 to a fused multiply-add (``FFMA``) or to a product and a sum.  One JSON
@@ -90,6 +94,20 @@ FUSED_OPTS = dict(max_steps=8192, jac_reuse=1, formulation="cap",
                   newton_impl="fused", dense_lu="mixed", newton_reltol=1e-4,
                   newton_abstol=5e-7, res_tol=1e-3, jac_shunt=1e-7,
                   res_rel=3e-5, rtol=1e-2, atol=1e-4)
+
+
+#: the level-1 DFF leg (bench.py:541-617): the JAX package's lane count on
+#: its chip, and the per-lane vto scatter ``linspace(0.99, 1.01)``
+LV1_LANES = 256
+#: cell D, the mixed chord path on the level-1 DFF: cell A's chord
+#: configuration (charge-form trap, ``jac_reuse=1``) with the leg's
+#: ``max_steps``; the no-pivot float32 factor needs the Jacobian-only shunt
+#: here too (without it the 2-lane CPU run over 0-150 ns takes 429
+#: rejected steps for the exact solve's 68, PERF.md)
+LV1_XLA_OPTS = dict(max_steps=16384, jac_reuse=1, dense_lu="mixed",
+                    newton_impl="xla", jac_shunt=1e-9)
+#: cell E, the fused configuration (cell B's options) on the level-1 DFF
+LV1_FUSED_OPTS = dict(FUSED_OPTS, max_steps=16384)
 
 
 def call_ms(fn, reps, rounds=CALL_ROUNDS):
@@ -227,6 +245,30 @@ def dff_lanes(torch, T, dev, lanes=N_LANES):
     return comp, ctx, pb, warm.x
 
 
+def lv1_lanes(torch, T, dev, lanes=LV1_LANES):
+    """The level-1 DFF testbench (``dff_tb.cir``, ``models_lv1.spice``)
+    compiled on ``dev`` with ``vto`` dynamic, its lanes' vto scaled by
+    ``linspace(0.99, 1.01)``, and each lane's transient operating point.
+    Returns (compiled, ctx, per-lane params, per-lane initial states)."""
+    dff_dir = os.path.join(_repo(T), "benchmarks", "gf180_dff")
+    with open(os.path.join(dff_dir, "dff_tb.cir")) as f:
+        nl = T.parse_spice(f.read(), file="dff_tb.cir")
+    comp = T.compile_circuit(T.elaborate(nl, include_paths=[dff_dir]),
+                             device=dev, dynamic_params=("vto",))
+    ctx = T.SimSpec.make(gmin=1e-15)
+    sc = torch.linspace(0.99, 1.01, lanes, dtype=comp.dtype, device=dev)
+    pb = {k: {pn: v.expand((lanes,) + tuple(v.shape))
+              for pn, v in grp.items()} for k, grp in comp.params0.items()}
+    pb["Mos1"] = dict(pb["Mos1"])
+    pb["Mos1"]["vto"] = comp.params0["Mos1"]["vto"][None, :] * sc[:, None]
+    op = T.solve_dc(comp, pb, ctx, mode="tranop",
+                    x0=torch.zeros(lanes, comp.n_x, dtype=comp.dtype,
+                                   device=dev))
+    if not bool(op.converged.all()):
+        raise AssertionError("level-1 DFF operating points did not converge")
+    return comp, ctx, pb, op.x
+
+
 def _repo(T):
     return os.path.dirname(os.path.dirname(os.path.abspath(T.__file__)))
 
@@ -262,10 +304,11 @@ def fused_args(torch, T, plan, dff, h, lanes=None):
 
 def measure(torch, T, dev, which="all"):
     """({kernel: {shape, device_ms, call_ms}} for B1, B1', B2-B5 at their
-    paths' shapes, B2 (and B4 beside it) over ``FACTOR_SWEEP``, B4 and B5
-    over ``SWEEP`` and ``solve_ex`` at the bench's shapes; nvcc's register
-    and spill lines per library; each kernel's outputs).  ``which``:
-    "all", "dense" (B4 and B5 alone) or "factor" (B2's sweep alone)."""
+    paths' shapes, B1 on the level-1 plan, B2 (and B4 beside it) over
+    ``FACTOR_SWEEP``, B4 and B5 over ``SWEEP`` and ``solve_ex`` at the
+    bench's shapes; nvcc's register and spill lines per library; each
+    kernel's outputs).  ``which``: "all", "dense" (B4 and B5 alone),
+    "factor" (B2's sweep alone) or "lv1" (B1 on the level-1 plan alone)."""
     from cedarsim_tpu_torch.benchmarks import lu_bench
     from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu
     out, results = {}, {}
@@ -293,6 +336,18 @@ def measure(torch, T, dev, which="all"):
                 put(name, (B, nf), fn, 50)
                 out[name]["device_us_per_step"] = \
                     out[name]["device_ms"] * 1e3 / nf
+    if which in ("all", "lv1"):
+        from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+        from cedarsim_tpu_torch.ops import fused_chord as fc
+        lv1 = lv1_lanes(torch, T, dev)
+        plan = fused_plan_for(*lv1[:3])
+        logs["fused_chord_lv1"] = plan.build()["log"]
+        for B in (LV1_LANES, N_LANES):
+            args, opts = fused_args(torch, T, plan, lv1, 1e-12,
+                                    lanes=slice(0, B))
+            put(f"B1 fused_chord_f64 lv1 {B}x{lv1[0].n_x}",
+                (B, lv1[0].n_x),
+                lambda a=args, o=opts: fc.fused_chord(plan, *a, o), 50)
     if which == "all":
         from cedarsim_tpu_torch.analysis.tran import fused_plan_for
         from cedarsim_tpu_torch.ops import fused_chord as fc
@@ -316,7 +371,7 @@ def measure(torch, T, dev, which="all"):
         put("B3 gesp_subst_f32", A32.shape,
             lambda: gesp_lu.lu_subst_gesp_f32(LU, b32), 200)
     library = {}
-    dense = () if which == "factor" else lu_bench.SHAPES + tuple(
+    dense = () if which in ("factor", "lv1") else lu_bench.SHAPES + tuple(
         s for s in SWEEP if s not in lu_bench.SHAPES)
     for B, nb in dense:
         A, b = lu_bench.make_systems(B, nb)
@@ -410,6 +465,8 @@ def main(argv=None):
     ap.add_argument("--factor", action="store_true",
                     help="time only the GESP factor B2 over its n-sweep, "
                     "with B4 beside it")
+    ap.add_argument("--lv1", action="store_true",
+                    help="time only B1 on the level-1 DFF's plan")
     args = ap.parse_args(argv)
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                         "..")
@@ -419,7 +476,8 @@ def main(argv=None):
         raise SystemExit("kernel_times: no CUDA device")
     import cedarsim_tpu_torch as T
     dev = torch.device("cuda", 0)
-    which = "dense" if args.dense else "factor" if args.factor else "all"
+    which = ("dense" if args.dense else "factor" if args.factor
+             else "lv1" if args.lv1 else "all")
     times, library, ptxas, results = measure(torch, T, dev, which)
     flat = {f"{k}#{i}": a for k, v in results.items()
             for i, a in enumerate(v)}

@@ -1,0 +1,70 @@
+"""Netlists that ``chip_smoke.py`` drives through ``simulate`` on the card
+and that ``tests/test_torch_api.py`` holds against the JAX package, with
+the times at which their waveforms are compared.
+
+- ``README_INVERTER``: the README's first example, a level-1 CMOS
+  inverter driven by a pulse.
+- ``ALL_CARDS``: one netlist with every card the port binds beyond R, C,
+  V and BSIM4: L with K coupling, a pulsed I source, E, F, G, H, S, W, D,
+  Q, J, Z, two B sources, and SIN and EXP sources.
+"""
+
+README_INVERTER = """* cmos inverter
+.model n1 nmos (level=1 vto=0.7 kp=100u cgso=1n cgdo=1n)
+.model p1 pmos (level=1 vto=-0.7 kp=40u cgso=1n cgdo=1n)
+vdd vdd 0 3.3
+vin in 0 PULSE(0 3.3 2n 0.2n 0.2n 4n 10n)
+mp out in vdd vdd p1 w=2u l=0.35u
+mn out in 0 0 n1 w=1u l=0.35u
+cl out 0 10f
+.tran 0.1n 20n
+"""
+README_TIMES = (1e-9, 3e-9, 5e-9, 7e-9, 9e-9)
+
+ALL_CARDS = """* every built-in card of the port
+.model dmod d (is=1e-14 cjo=1p tt=1n)
+.model qmod npn (is=1e-16 bf=100 vaf=50 cje=1p cjc=0.5p tf=0.1n)
+.model jmod njf (vto=-2 beta=1e-3 lambda=0.02 cgs=1p cgd=0.5p)
+.model zmod nmf (vto=-2 beta=2.5e-3 b=0.3 alpha=2 cgs=1p)
+.model swm sw (ron=10 roff=1e6 vt=0.5 vh=0.1)
+.model wm csw (ron=10 roff=1e6 it=0.5m ih=0.1m)
+.param gain=2
+vdd vdd 0 5
+vsin in 0 SIN(0.5 0.5 20meg)
+vexp ex 0 EXP(0 1 5n 5n 40n 10n)
+r1 in p 50
+l1 p 0 1u
+l2 s 0 4u
+k1 l1 l2 0.99
+rl s 0 1k
+i1 0 dn PULSE(0 1m 10n 1n 1n 20n 50n)
+d1 dn 0 dmod
+e1 eo 0 in 0 2
+re eo 0 1k
+g1 0 go in 0 1m
+rg go 0 1k
+vsense vdd fs 0
+rf fs 0 1k
+f1 0 fo vsense 0.5
+rfo fo 0 100
+h1 ho 0 vsense 100
+rho ho 0 1k
+rsw vdd sa 1k
+s1 sa 0 ex 0 swm
+rw vdd wa 1k
+w1 wa 0 vsense wm
+rb vdd qb 100k
+rc vdd qc 1k
+q1 qc qb 0 qmod
+rj vdd jd 1k
+j1 jd in 0 jmod
+rz vdd zd 1k
+z1 zd in 0 zmod
+b1 bo 0 V='gain*V(in) + 0.1*sin(0)'
+rbo bo 0 1k
+b2 0 bi I='V(ex)*1m'
+rbi bi 0 1k
+.tran 1n 50n
+.end
+"""
+ALL_CARDS_TIMES = (5e-9, 15e-9, 25e-9, 35e-9, 45e-9)

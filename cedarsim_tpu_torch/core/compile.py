@@ -144,10 +144,18 @@ class CompiledCircuit:
                     for k in range(nb):
                         var_idx[j, nt + ni + k] = b + k
                         row_idx[j, nt + ni + k] = b + k
-                if nc:
-                    raise NotImplementedError(
-                        f"{inst.name}: devices with control unknowns are "
-                        "not ported yet — ROADMAP A14")
+                # control unknowns (F, H, W, B probes): a gathered branch
+                # current or net voltage, read but never stamped into
+                for k, (kind, ref) in enumerate(inst.extras):
+                    if kind == "branch":
+                        if ref not in self._inst_branch:
+                            raise ValueError(
+                                f"{inst.name}: control source {ref!r} "
+                                "not found or has no branch current")
+                        var_idx[j, nt + ni + nb + k] = \
+                            self._inst_branch[ref]
+                    elif not ref.is_ground:
+                        var_idx[j, nt + ni + nb + k] = ref.index
             kcl_mask = np.zeros(model.n_lrow(), bool)
             kcl_mask[: nt + ni] = True
             grp = Group(key, model, insts, var_idx, row_idx, kcl_mask)

@@ -16,13 +16,25 @@ where the textbook derivative is infinite (``cedarsim_tpu/va/codegen.py``'s
 the same path, down to rounding.
 
 Plain Python floats and tensors pass through every function here; only a
-:class:`Dual` argument makes a :class:`Dual` result.
+:class:`Dual` argument makes a :class:`Dual` result.  Where every argument
+is a Python float (a built-in device's static params) the result is a
+Python float, computed in float64 with NaN and infinity as numpy gives them.
+
+Two sets of rules live here.  ``safe_sqrt``, ``safe_log``, ``safe_pow`` and
+``absolute`` are the Verilog-A math set of the interpreter.  ``sqrt``,
+``log``, ``power``, ``fabs`` and the rounding functions follow
+``jax.numpy``'s own (``lax``) rules, which the JAX package's built-in
+devices (``cedarsim_tpu/devices/``) and behavioral sources differentiate
+with: √x's tangent is 0.5/√x, log's 1/x, xʸ's y·xʸ⁻¹ and log(x)·xʸ (x = 0
+read as 1 in the log), |x|'s ±1 with +1 at 0, and the rounding functions'
+and sign's 0.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -90,9 +102,25 @@ def _chain(y, x, g):
     return y
 
 
+def is_scalar(x):
+    """True for a Python number (no tensor, no Dual)."""
+    return not isinstance(x, (torch.Tensor, Dual))
+
+
+def scalar_op(f, *a):
+    """``f`` of Python floats in float64 (numpy's NaN and infinity, no
+    exception), as a Python float."""
+    with np.errstate(all="ignore"):
+        return float(f(*(np.float64(v) for v in a)))
+
+
 def where(cond, a, b):
     """``torch.where`` over values and tangents (tangents are selected, not
-    blended, so a NaN in the branch not taken never leaks)."""
+    blended, so a NaN in the branch not taken never leaks).  A condition
+    that is no tensor (a test on static params) picks its side on the
+    host."""
+    if not isinstance(cond, torch.Tensor):
+        return a if cond else b
     if isinstance(a, Dual) or isinstance(b, Dual):
         return Dual(torch.where(cond, val(a), val(b)),
                     torch.where(cond, _tan(a), _tan(b)))
@@ -101,6 +129,8 @@ def where(cond, a, b):
 
 def maximum(a, b):
     av, bv = val(a), val(b)
+    if is_scalar(av) and is_scalar(bv):
+        return scalar_op(np.maximum, av, bv)
     if not isinstance(av, torch.Tensor):
         av, a, b, bv = bv, b, a, av           # tensor first
     y = torch.maximum(av, bv) if isinstance(bv, torch.Tensor) \
@@ -118,6 +148,8 @@ def maximum(a, b):
 
 def minimum(a, b):
     av, bv = val(a), val(b)
+    if is_scalar(av) and is_scalar(bv):
+        return scalar_op(np.minimum, av, bv)
     if not isinstance(av, torch.Tensor):
         av, a, b, bv = bv, b, a, av
     y = torch.minimum(av, bv) if isinstance(bv, torch.Tensor) \
@@ -134,6 +166,8 @@ def minimum(a, b):
 
 
 def exp(x):
+    if is_scalar(x):
+        return scalar_op(np.exp, x)
     y = torch.exp(val(x))
     return _chain(y, x, y)
 
@@ -186,21 +220,81 @@ def absolute(x):
 
 
 def limexp(x, lim=80.0):
-    """exp with a linear tail beyond ``lim`` (the f64 cap of the JAX
-    package's ``_limexp``), written from the same primitives so its
-    derivative follows theirs."""
+    """exp with a linear tail beyond ``lim``, written from the same
+    primitives as the JAX package's so its derivative follows theirs.  The
+    default is the Verilog-A ``limexp``'s float64 cap; the built-in
+    devices' ``_limexp`` passes its own 40."""
     xe = exp(minimum(x, lim))
     return where(val(x) <= lim, xe, math.exp(lim) * (1.0 + (x - lim)))
 
 
-def floor(x):
-    return torch.floor(val(x)) if not isinstance(x, Dual) else \
-        Dual(torch.floor(x.v), x.d * 0.0)
+def _flat(f, npf):
+    """A piecewise-constant function: the value, and a zero tangent."""
+    def g(x):
+        if is_scalar(x):
+            return scalar_op(npf, x)
+        if not isinstance(x, Dual):
+            return f(x)
+        return Dual(f(x.v), x.d * 0.0)
+    return g
 
 
-def ceil(x):
-    return torch.ceil(val(x)) if not isinstance(x, Dual) else \
-        Dual(torch.ceil(x.v), x.d * 0.0)
+floor = _flat(torch.floor, np.floor)
+ceil = _flat(torch.ceil, np.ceil)
+trunc = _flat(torch.trunc, np.trunc)
+rint = _flat(torch.round, np.rint)       # ties to even, as jnp.round
+sign = _flat(torch.sign, np.sign)
+
+
+# ------------------------------------------------ jax.numpy's (lax) rules
+
+def sqrt(x):
+    """√x with lax's tangent 0.5/√x (infinite at 0, NaN below)."""
+    if is_scalar(x):
+        return scalar_op(np.sqrt, x)
+    y = torch.sqrt(val(x))
+    return _chain(y, x, 0.5 / y) if isinstance(x, Dual) else y
+
+
+def log(x):
+    """log x with lax's tangent dx/x."""
+    if is_scalar(x):
+        return scalar_op(np.log, x)
+    v = val(x)
+    y = torch.log(v)
+    return Dual(y, x.d / v) if isinstance(x, Dual) else y
+
+
+def power(a, b):
+    """aᵇ (``lax.pow``) with its tangents: b·aᵇ⁻¹ for a, and log(a)·aᵇ
+    for b with a = 0 read as 1 in the log."""
+    av, bv = val(a), val(b)
+    if is_scalar(av) and is_scalar(bv):
+        return scalar_op(np.power, av, bv)
+    y = torch.pow(av, bv)
+    if not (isinstance(a, Dual) or isinstance(b, Dual)):
+        return y
+    d = 0.0
+    if isinstance(a, Dual):
+        d = a.d * (bv * torch.pow(av, bv - 1.0))
+    if isinstance(b, Dual):
+        az = torch.where(av == 0, 1.0, av) if isinstance(av, torch.Tensor) \
+            else (1.0 if av == 0 else av)
+        lg = torch.log(az) if isinstance(az, torch.Tensor) else \
+            scalar_op(np.log, az)
+        d = d + b.d * (lg * y)
+    return Dual(y, d)
+
+
+def fabs(x):
+    """|x| with lax's tangent: +dx where x >= 0, else -dx."""
+    if is_scalar(x):
+        return abs(float(x))
+    v = val(x)
+    y = torch.abs(v)
+    if not isinstance(x, Dual):
+        return y
+    return Dual(y, torch.where(v >= 0, x.d, -x.d))
 
 
 def _unary(f, df):

@@ -1,11 +1,16 @@
-"""Built-in SPICE devices of the slice — counterpart of
-``cedarsim_tpu/devices/simple.py`` for ``Resistor``, ``Capacitor``,
-``VSource``, ``VSourcePWL`` and ``VSourcePULSE``.  The other built-in devices
-are still to be ported (ROADMAP A14); the elaborator raises for them.
+"""Built-in SPICE devices — counterpart of ``cedarsim_tpu/devices/simple.py``:
+R, C, L, coupled L (K), the V and I sources (DC, PWL, PULSE, SIN, EXP), the
+controlled sources (E, G, H, F), the switches (S, W), the junction diode,
+the open and short circuits and the nonlinear R and C factories.  The
+transmission lines (``TLine``, ``LTRALine``) need the integrator's delay
+channel and are ROADMAP A14b.
 
 Each ``eval`` is the JAX package's stamp over a batch of instances: ``lv``
 entries are ``[B]`` tensors or Duals, parameters are floats or ``[B]``
-tensors (``[B, P]`` / ``[P]`` for a PWL point list).
+tensors (``[B, P]`` / ``[P]`` for a PWL point list).  Every operation that
+the JAX package differentiates takes the same rule here (``core/dual.py``:
+``jax.numpy``'s rules for the built-ins), so the local Jacobians agree to
+round-off.  Noise inputs (``eps``) are not ported: the evals read none.
 """
 
 from __future__ import annotations
@@ -17,15 +22,17 @@ import torch
 
 from cedarsim_tpu_torch import config
 from cedarsim_tpu_torch.core.context import Modes
+from cedarsim_tpu_torch.core import dual as D
 from cedarsim_tpu_torch.core.dual import val
 from cedarsim_tpu_torch.devices.base import DeviceModel
 from cedarsim_tpu_torch.devices import waveforms as wf
 
 
-def _where(c, a, b):
-    if isinstance(c, torch.Tensor):
-        return torch.where(c, a, b)
-    return a if c else b
+def _limexp(x, lim=40.0):
+    """exp with a linear continuation beyond ``lim`` (the built-ins' own
+    40, not the Verilog-A ``limexp``'s 80): keeps Newton finite for large
+    junction voltages."""
+    return D.limexp(x, lim)
 
 
 class Resistor(DeviceModel):
@@ -38,14 +45,14 @@ class Resistor(DeviceModel):
     @staticmethod
     def resistance(p, ctx=None):
         den = p["w"] - p["narrow"]
-        den = _where(abs(den) < 1e-15, 1e-15, den)
+        den = D.where(abs(den) < 1e-15, 1e-15, den)
         r_sheet = p["rsh"] * (p["l"] - p["short"]) / den
-        r = _where(p["r$given"] > 0, p["r"], r_sheet)
+        r = D.where(p["r$given"] > 0, p["r"], r_sheet)
         if ctx is not None:
             dt = (ctx.temp - config.T_ZERO_C) - p["tnom"]
             r = r * (1.0 + p["tc1"] * dt + p["tc2"] * dt * dt)
-        floor = _where(r < 0, -1e-12, 1e-12)
-        return _where(abs(r) < 1e-12, floor, r)
+        floor = D.where(r < 0, -1e-12, 1e-12)
+        return D.where(abs(r) < 1e-12, floor, r)
 
     @staticmethod
     def eval(lv, p, ctx, eps):
@@ -77,6 +84,35 @@ class Capacitor(DeviceModel):
         return [0.0, 0.0], [q, -q]
 
 
+class Inductor(DeviceModel):
+    terminals = ("p", "n")
+    n_branch = 1
+    params = dict(l=0.0)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        vp, vn, il = lv[0], lv[1], lv[2]
+        # branch eq: (vp - vn) - d/dt (L·i) = 0
+        return [il, -il, vp - vn], [0.0, 0.0, -p["l"] * il]
+
+
+class CoupledInductors(DeviceModel):
+    """Two magnetically coupled inductors (SPICE K element): the elaborator
+    replaces the two L instances with one 4-terminal device.
+    v1 = d/dt(L1·i1 + M·i2), v2 = d/dt(M·i1 + L2·i2), M = k·sqrt(L1·L2)."""
+    terminals = ("p1", "n1", "p2", "n2")
+    n_branch = 2
+    params = dict(l1=0.0, l2=0.0, k=0.0)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        vp1, vn1, vp2, vn2, i1, i2 = lv[0], lv[1], lv[2], lv[3], lv[4], lv[5]
+        m = p["k"] * D.sqrt(p["l1"] * p["l2"])
+        return ([i1, -i1, i2, -i2, vp1 - vn1, vp2 - vn2],
+                [0.0, 0.0, 0.0, 0.0, -(p["l1"] * i1 + m * i2),
+                 -(m * i1 + p["l2"] * i2)])
+
+
 def _source_value(p, ctx, wave, like):
     """Mode-dependent source value (DC in DCOP/AC unless only a waveform
     was given, the waveform at t=0 in TRANOP, at ctx.time in TRAN), times
@@ -87,7 +123,7 @@ def _source_value(p, ctx, wave, like):
     else:
         zero = torch.zeros_like(like)
         if ctx.mode in (Modes.DCOP, Modes.AC):
-            v = _where(p["dc$given"] > 0, dc, wave(zero))
+            v = D.where(p["dc$given"] > 0, dc, wave(zero))
         elif ctx.mode == Modes.TRANOP:
             v = wave(zero)
         else:
@@ -164,3 +200,338 @@ class VSourcePULSE(_VSourceBase):
             float(p["tf"]), float(np.minimum(p["pw"], 1e30)),
             float(np.minimum(p["per"], 1e30)) if np.isfinite(p["per"])
             else np.inf, tstop)
+
+
+class VSourceSIN(_VSourceBase):
+    params = dict(dc=0.0, ac=0.0, acphase=0.0, vo=0.0, va=0.0, freq=0.0,
+                  td=0.0, theta=0.0, phase=0.0)
+    given_params = ("dc",)
+
+    @classmethod
+    def _wave(cls, p):
+        return lambda t: wf.sin_value(
+            p["vo"], p["va"], p["freq"], p["td"], p["theta"], p["phase"], t)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        return VSourceSIN.eval_with_wave(lv, p, ctx, eps)
+
+    @classmethod
+    def breakpoints(cls, p, tstop):
+        return wf.sin_breakpoints(float(p["td"]), tstop)
+
+
+class VSourceEXP(_VSourceBase):
+    params = dict(dc=0.0, ac=0.0, acphase=0.0, v1=0.0, v2=0.0, td1=0.0,
+                  tau1=1e-9, td2=1e30, tau2=1e-9)
+    given_params = ("dc",)
+
+    @classmethod
+    def _wave(cls, p):
+        return lambda t: wf.exp_value(p["v1"], p["v2"], p["td1"], p["tau1"],
+                                      p["td2"], p["tau2"], t)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        return VSourceEXP.eval_with_wave(lv, p, ctx, eps)
+
+    @classmethod
+    def breakpoints(cls, p, tstop):
+        return wf.exp_breakpoints(float(p["td1"]), float(p["td2"]), tstop)
+
+
+class _ISourceBase(DeviceModel):
+    terminals = ("p", "n")
+
+    @classmethod
+    def _wave(cls, p):
+        return None
+
+    @classmethod
+    def eval_with_wave(cls, lv, p, ctx, eps):
+        i = _source_value(p, ctx, cls._wave(p), val(lv[0]))
+        return [i, -i], [0.0, 0.0]
+
+
+class ISource(_ISourceBase):
+    params = dict(dc=0.0, ac=0.0, acphase=0.0)
+    given_params = ("dc",)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        return ISource.eval_with_wave(lv, p, ctx, eps)
+
+
+class ISourcePWL(_ISourceBase):
+    params = VSourcePWL.params
+    given_params = ("dc",)
+
+    @classmethod
+    def group_key(cls, inst_params):
+        return f"{cls.__name__}[{len(inst_params['ts'])}]"
+
+    @classmethod
+    def _wave(cls, p):
+        return VSourcePWL._wave(p)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        return ISourcePWL.eval_with_wave(lv, p, ctx, eps)
+
+    @classmethod
+    def breakpoints(cls, p, tstop):
+        return VSourcePWL.breakpoints(p, tstop)
+
+
+class ISourcePULSE(_ISourceBase):
+    params = VSourcePULSE.params
+    given_params = ("dc",)
+
+    @classmethod
+    def _wave(cls, p):
+        return VSourcePULSE._wave(p)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        return ISourcePULSE.eval_with_wave(lv, p, ctx, eps)
+
+    @classmethod
+    def breakpoints(cls, p, tstop):
+        return VSourcePULSE.breakpoints(p, tstop)
+
+
+class ISourceEXP(_ISourceBase):
+    params = VSourceEXP.params
+    given_params = ("dc",)
+
+    @classmethod
+    def _wave(cls, p):
+        return VSourceEXP._wave(p)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        return ISourceEXP.eval_with_wave(lv, p, ctx, eps)
+
+    @classmethod
+    def breakpoints(cls, p, tstop):
+        return VSourceEXP.breakpoints(p, tstop)
+
+
+class ISourceSIN(_ISourceBase):
+    params = VSourceSIN.params
+    given_params = ("dc",)
+
+    @classmethod
+    def _wave(cls, p):
+        return VSourceSIN._wave(p)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        return ISourceSIN.eval_with_wave(lv, p, ctx, eps)
+
+    @classmethod
+    def breakpoints(cls, p, tstop):
+        return VSourceSIN.breakpoints(p, tstop)
+
+
+# --------------------------------------------------------- controlled sources
+
+class VCVS(DeviceModel):
+    """E element: V(p,n) = gain·V(cp,cn)."""
+    terminals = ("p", "n", "cp", "cn")
+    n_branch = 1
+    params = dict(gain=1.0)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        vp, vn, vcp, vcn, ib = lv[0], lv[1], lv[2], lv[3], lv[4]
+        return ([ib, -ib, 0.0, 0.0, vp - vn - p["gain"] * (vcp - vcn)],
+                [0.0] * 5)
+
+
+class VCCS(DeviceModel):
+    """G element: I(p→n) = gm·V(cp,cn)."""
+    terminals = ("p", "n", "cp", "cn")
+    params = dict(gm=1.0)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        i = p["gm"] * (lv[2] - lv[3])
+        return [i, -i, 0.0, 0.0], [0.0] * 4
+
+
+class CCVS(DeviceModel):
+    """H element: V(p,n) = r·I(ctrl_vsource).  The control is a gathered
+    branch-current unknown (n_control=1, resolved by the compiler)."""
+    terminals = ("p", "n")
+    n_branch = 1
+    n_control = 1
+    params = dict(r=1.0)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        vp, vn, ib, ictrl = lv[0], lv[1], lv[2], lv[3]
+        return [ib, -ib, vp - vn - p["r"] * ictrl], [0.0] * 3
+
+
+class CCCS(DeviceModel):
+    """F element: I(p→n) = f·I(ctrl_vsource)."""
+    terminals = ("p", "n")
+    n_control = 1
+    params = dict(f=1.0)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        i = p["f"] * lv[2]
+        return [i, -i], [0.0, 0.0]
+
+
+class VSwitch(DeviceModel):
+    """S element: voltage-controlled switch (.model sw ron/roff/vt/vh) with
+    a smoothstep interpolation of the log-conductance between states."""
+    terminals = ("p", "n", "cp", "cn")
+    params = dict(ron=1.0, roff=1e12, vt=0.0, vh=0.0)
+
+    @staticmethod
+    def _g(ctrl, p):
+        vh = D.maximum(p["vh"], 1e-6)
+        x = D.minimum(D.maximum((ctrl - p["vt"]) / (2.0 * vh) + 0.5, 0.0),
+                      1.0)                       # jnp.clip
+        t = x * x * (3.0 - 2.0 * x)
+        ln_g = D.log(1.0 / p["roff"]) + t * (
+            D.log(1.0 / p["ron"]) - D.log(1.0 / p["roff"]))
+        return D.exp(ln_g)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        i = VSwitch._g(lv[2] - lv[3], p) * (lv[0] - lv[1])
+        return [i, -i, 0.0, 0.0], [0.0] * 4
+
+
+class ISwitch(DeviceModel):
+    """W element: current-controlled switch (control = a V-source branch
+    current)."""
+    terminals = ("p", "n")
+    n_control = 1
+    params = dict(ron=1.0, roff=1e12, it=0.0, ih=0.0)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        g = VSwitch._g(lv[2], dict(ron=p["ron"], roff=p["roff"],
+                                   vt=p["it"], vh=p["ih"]))
+        i = g * (lv[0] - lv[1])
+        return [i, -i], [0.0, 0.0]
+
+
+# --------------------------------------------------------------------- diode
+
+def qdep(v, cj, vj, mj, fc):
+    """Depletion charge for C(v) = cj/(1-v/vj)^mj, linearized past fc·vj
+    (standard SPICE; the diode's, the MOSFET's junctions' and the BJT's)."""
+    below = cj * vj / (1 - mj) * (
+        1.0 - D.power(D.maximum(1.0 - v / vj, 1e-6), 1 - mj))
+    f1 = vj / (1 - mj) * (1.0 - D.power(1 - fc, 1 - mj))
+    f2 = D.power(1 - fc, -(1 + mj))
+    above = cj * (f1 + f2 * ((1 - fc * (1 + mj)) * (v - fc * vj)
+                             + 0.5 * mj / vj * (v * v - fc * fc * vj * vj)))
+    return D.where(val(v) < val(fc * vj), below, above)
+
+
+class Diode(DeviceModel):
+    """Berkeley-style junction diode: exponential forward region,
+    saturation reverse region, exponential breakdown beyond -bv; depletion
+    (cj0/vj/m/fc) and diffusion (tt) charge."""
+    terminals = ("p", "n")
+    n_noise = 1
+    params = dict(**{"is": 1e-14}, n=1.0, cj0=0.0, vj=1.0, m=0.5, fc=0.5,
+                  tt=0.0, bv=math.inf, ibv=1e-3, area=1.0,
+                  eg=1.11, xti=3.0, tnom=27.0)
+    given_params = ("bv",)
+
+    @staticmethod
+    def isat_t(p, ctx):
+        """IS(T) = IS·(T/Tnom)^(XTI/N)·exp(EG/(N·Vt)·(T/Tnom − 1))."""
+        tnom = p["tnom"] + config.T_ZERO_C
+        tr = ctx.temp / tnom
+        return (p["is"] * p["area"] * D.power(tr, p["xti"] / p["n"])
+                * D.exp(p["eg"] / (p["n"] * ctx.vt) * (tr - 1.0)))
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        v = lv[0] - lv[1]
+        vte = p["n"] * ctx.vt
+        isat = Diode.isat_t(p, ctx)
+        i_fwd = isat * (_limexp(v / vte) - 1.0)
+        # breakdown (only if bv given): current pulls v back above -bv
+        i_brk = -isat * _limexp(-(p["bv"] + v) / vte)
+        use_brk = _and(p["bv$given"] > 0, val(v) < val(-p["bv"]))
+        i = D.where(use_brk, i_brk, i_fwd) + ctx.gmin * v
+        cj0 = p["cj0"] * p["area"]
+        q = qdep(v, cj0, p["vj"], p["m"], p["fc"]) + p["tt"] * i_fwd
+        return [i, -i], [q, -q]
+
+
+def _and(a, b):
+    """Logical and of two tests, each a Python bool or a bool tensor."""
+    if not isinstance(a, torch.Tensor):
+        return b if a else False
+    if not isinstance(b, torch.Tensor):
+        return a if b else False
+    return a & b
+
+
+# ------------------------------------------------------- functional devices
+
+class OpenCircuit(DeviceModel):
+    """Two terminals, no contribution."""
+    terminals = ("p", "n")
+    params = {}
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        return [0.0, 0.0], [0.0, 0.0]
+
+
+class ShortCircuit(DeviceModel):
+    """Ideal short: V(p) − V(n) = 0 through a branch-current unknown."""
+    terminals = ("p", "n")
+    n_branch = 1
+    params = {}
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        vp, vn, i = lv[0], lv[1], lv[2]
+        return [i, -i, vp - vn], [0.0] * 3
+
+
+def nonlinear_resistor(f, name="NonlinearResistor"):
+    """Device-class factory: two-terminal element with I = f(V(p,n)); ``f``
+    takes a tensor or a Dual (write it with ``core/dual.py``'s functions
+    where it needs more than arithmetic)."""
+    class _NLR(DeviceModel):
+        terminals = ("p", "n")
+        params = {}
+
+        @staticmethod
+        def eval(lv, p, ctx, eps):
+            i = f(lv[0] - lv[1])
+            return [i, -i], [0.0, 0.0]
+
+    _NLR.__name__ = _NLR.__qualname__ = name
+    return _NLR
+
+
+def nonlinear_capacitor(f, name="NonlinearCapacitor"):
+    """Device-class factory: two-terminal element with charge Q =
+    f(V(p,n))."""
+    class _NLC(DeviceModel):
+        terminals = ("p", "n")
+        params = {}
+
+        @staticmethod
+        def eval(lv, p, ctx, eps):
+            q = f(lv[0] - lv[1])
+            return [0.0, 0.0], [q, -q]
+
+    _NLC.__name__ = _NLC.__qualname__ = name
+    return _NLC

@@ -1,5 +1,5 @@
-"""Source waveforms (PWL / PULSE) and their breakpoints — counterpart of
-``cedarsim_tpu/devices/waveforms.py``.
+"""Source waveforms (PWL / PULSE / SIN / EXP) and their breakpoints —
+counterpart of ``cedarsim_tpu/devices/waveforms.py``.
 
 Evaluations are branchless torch over a batch of instances; breakpoint
 enumeration stays on the host in numpy, as in the JAX package.
@@ -67,6 +67,23 @@ def pulse_value(v1, v2, td, tr, tf, pw, per, t):
     return torch.where(t < td, v1, val)
 
 
+def sin_value(vo, va, freq, td, theta, phase_deg, t):
+    """SPICE SIN(vo va freq td theta phase): damped sine after delay td."""
+    ph = phase_deg * (np.pi / 180.0)
+    active = vo + va * torch.exp(-(t - td) * theta) * torch.sin(
+        2.0 * np.pi * freq * (t - td) + ph)
+    quiescent = vo + va * (torch.sin(ph) if isinstance(ph, torch.Tensor)
+                           else np.sin(ph))
+    return torch.where(t < td, quiescent, active)
+
+
+def exp_value(v1, v2, td1, tau1, td2, tau2, t):
+    """SPICE EXP(v1 v2 td1 tau1 td2 tau2)."""
+    rise = v1 + (v2 - v1) * (1.0 - torch.exp(-(t - td1) / tau1))
+    fall = rise + (v1 - v2) * (1.0 - torch.exp(-(t - td2) / tau2))
+    return torch.where(t < td1, v1, torch.where(t < td2, rise, fall))
+
+
 # ---------------------------------------------------------------- breakpoints
 
 def pwl_breakpoints(ts, tstop):
@@ -82,4 +99,13 @@ def pulse_breakpoints(v1, v2, td, tr, tf, pw, per, tstop):
         n = int(np.floor((tstop - td) / per)) + 1 if tstop > td else 0
         pts = (td + np.arange(max(n, 0) + 1)[:, None] * per
                + edges[None, :]).ravel()
+    return pts[(pts > 0) & (pts < tstop)]
+
+
+def sin_breakpoints(td, tstop):
+    return np.array([td]) if 0 < td < tstop else np.empty(0)
+
+
+def exp_breakpoints(td1, td2, tstop):
+    pts = np.array([td1, td2])
     return pts[(pts > 0) & (pts < tstop)]

@@ -4,10 +4,11 @@
 The walk is the JAX package's: subcircuits flatten with dotted prefixes,
 parameters resolve through lexically scoped lazy environments, models merge
 into device parameter dicts and ``m=`` multipliers compose down the
-hierarchy.  What differs is the binding: every card binds a device class of
-the port.  A card whose device has no PyTorch counterpart yet raises
-``NotImplementedError`` naming its ROADMAP item; nothing is bound in its
-place.
+hierarchy.  Every card binds a device class of the port, as the JAX
+elaborator binds it (``cedarsim_tpu/frontend/elaborate.py``).  A card whose
+device has no PyTorch counterpart yet (T/O/U lines, VBIC, S-parameter
+blocks, BSIM-CMG) raises ``NotImplementedError`` naming its ROADMAP item;
+nothing is bound in its place.
 """
 
 from __future__ import annotations
@@ -18,14 +19,18 @@ import warnings
 
 from cedarsim_tpu_torch.core.circuit import Circuit, GROUND
 from cedarsim_tpu_torch.devices import (
-    Resistor, Capacitor, VSource, VSourcePWL, VSourcePULSE,
+    Resistor, Capacitor, Inductor, CoupledInductors, VSource, VSourcePWL,
+    VSourcePULSE, VSourceSIN, VSourceEXP, ISource, ISourcePWL,
+    ISourcePULSE, ISourceSIN, ISourceEXP, VCVS, VCCS, CCVS, CCCS, VSwitch,
+    ISwitch, Diode, Mos1, Bjt, Jfet, Mesfet,
 )
 from cedarsim_tpu_torch.frontend import parser as P
 from cedarsim_tpu_torch.frontend.expr import eval_expr, ExprError
 
 _A11 = "ROADMAP A11 (PVT and Monte-Carlo sweeps)"
 _A12 = "ROADMAP A12 (BSIM-CMG)"
-_A14 = "ROADMAP A14 (other devices and VA channels)"
+_A14B = ("ROADMAP A14b (transmission lines, VBIC, the VA delay, latch "
+        "and noise channels)")
 _A15 = "ROADMAP A15 (AC and noise)"
 _A19 = "ROADMAP A19 (utilities and API)"
 
@@ -149,10 +154,14 @@ class Elaborator:
         # user overrides win over netlist .param values
         for k, v in self.param_overrides.items():
             env.define(k, float(v))
+        kcards = []
         for el, sc in elements:
             if el.letter == "k":
-                raise _unported("K (mutual inductance) card", _A14)
+                kcards.append((el, sc))
+                continue
             self._instantiate(el, sc, prefix="", nodemap={}, mfac=1.0)
+        for el, sc in kcards:
+            self._apply_coupling(el, sc)
         return self.ckt
 
     def _collect(self, stmts, scope, elements):
@@ -337,7 +346,11 @@ class Elaborator:
         nets = [self._net(n, prefix, nodemap) for n in el.nodes]
         letter = el.letter
         if letter == "b":
-            raise _unported(f"{el.name}: behavioral source", _A14)
+            mv = el.params.get("m", 1.0)
+            m = mfac * (self.vres(mv, env, el.loc)
+                        if not isinstance(mv, (int, float)) else float(mv))
+            self._instantiate_bsource(el, name, nets, env, m, prefix, nodemap)
+            return
         if letter == "sparam":
             raise _unported(f"{el.name}: S-parameter element", _A15)
         kw = {k: self.vres(v, env, el.loc) for k, v in el.params.items()}
@@ -383,8 +396,22 @@ class Elaborator:
             if "ic" in kw:
                 self.ckt.ic(nets[0].name, kw["ic"])
             return
-        if letter == "v":
+        if letter == "l":
+            self.ckt.add(Inductor, name, nets,
+                         dict(l=kw.get("l", val(0, 0.0))), m=m)
+            return
+        if letter in ("v", "i"):
             self._instantiate_source(el, name, nets, kw, env, m)
+            return
+        if letter == "d":
+            mdl = self._model(el.model, scope, el.loc)
+            p = self._map_params(Diode, mdl.params, env, el.loc,
+                                 rename={"cjo": "cj0", "mj": "m",
+                                         "nj": "n", "af": None, "kf": None,
+                                         "rs": None})
+            area = kw.get("area", val(0, 1.0))
+            p["area"] = area if area is not None else 1.0
+            self.ckt.add(Diode, name, nets, p, m=m)
             return
         if letter == "m":
             mdl = self._model(el.model, scope, el.loc,
@@ -397,17 +424,198 @@ class Elaborator:
             if level in (17.0, 72.0):
                 raise _unported(f"{el.name}: BSIM-CMG (level {level:g})",
                                 _A12)
-            raise _unported(f"{el.name}: MOS level {level:g}", _A14)
+            if level not in (1.0,):
+                self.warn(f"MOS level {level:g} not built in yet; using "
+                          "level 1", el.loc)
+            p = self._map_params(Mos1, mdl.params, env, el.loc,
+                                 rename={"lambda": "lam", "tnom": None,
+                                         "lmin": None, "lmax": None,
+                                         "wmin": None, "wmax": None,
+                                         "level": None, "cj": None,
+                                         "cjsw": None, "js": None,
+                                         "mjsw": None, "kf": None,
+                                         "af": None, "tpg": None,
+                                         "nss": None, "nfs": None,
+                                         "xj": None, "uexp": None,
+                                         "ucrit": None, "utra": None,
+                                         "neff": None, "delta": None,
+                                         "vmax": None, "theta": None,
+                                         "eta": None, "kappa": None})
+            p["ptype"] = 1.0 if polarity == "nmos" else -1.0
+            for k in ("w", "l"):
+                if k in kw:
+                    p[k] = kw[k]
+            self.ckt.add(Mos1, name, nets, p, m=m)
+            return
+        if letter == "q":
+            mdl = self._model(el.model, scope, el.loc)
+            lvl = self.vres(mdl.params.get("level", 1.0), env, el.loc)
+            if mdl.mtype == "vbic" or lvl in (4.0, 9.0):
+                raise _unported(f"{el.name}: VBIC (Q level {lvl:g})", _A14B)
+            p = self._map_params(Bjt, mdl.params, env, el.loc,
+                                 rename={"tnom": None, "xtb": None,
+                                         "xti": None, "eg": None,
+                                         "rb": None, "rc": None, "re": None,
+                                         "irb": None, "rbm": None,
+                                         "xtf": None, "vtf": None,
+                                         "itf": None, "ptf": None,
+                                         "kf": None, "af": None,
+                                         "xcjc": None})
+            p["ptype"] = 1.0 if mdl.mtype == "npn" else -1.0
+            p["area"] = kw.get("area", val(0, 1.0)) or 1.0
+            while len(nets) < 4:
+                nets.append(GROUND)
+            self.ckt.add(Bjt, name, nets, p, m=m)
+            return
+        if letter in ("j", "z"):
+            mdl = self._model(el.model, scope, el.loc)
+            dev = Jfet if letter == "j" else Mesfet
+            want = ("njf", "pjf") if letter == "j" else ("nmf", "pmf")
+            if mdl.mtype not in want:
+                raise ElabError(
+                    f"{el.name}: expected a {'/'.join(want)} model, got "
+                    f"{mdl.mtype!r}", el.loc)
+            p = self._map_params(dev, mdl.params, env, el.loc,
+                                 rename={"lambda": "lam", "kf": None,
+                                         "af": None, "tnom": None,
+                                         "vtotc": None, "betatce": None,
+                                         "vk": None, "tau": None})
+            area = kw.get("area", val(0, 1.0)) or 1.0
+            for k in ("beta", "is", "cgs", "cgd"):
+                p[k] = p.get(k, dev.params[k]) * area
+            p["ptype"] = 1.0 if mdl.mtype in ("njf", "nmf") else -1.0
+            self.ckt.add(dev, name, nets, p, m=m)
+            return
+        if letter == "e":
+            self.ckt.add(VCVS, name, nets, dict(gain=kw.get("gain", val(0))),
+                         m=m)
+            return
+        if letter == "g":
+            self.ckt.add(VCCS, name, nets, dict(gm=kw.get("gm", val(0))), m=m)
+            return
+        if letter in ("t", "o", "u"):
+            raise _unported(f"{el.name}: {letter.upper()} transmission line",
+                            _A14B)
+        if letter == "s":
+            mdl = self._model(el.model, scope, el.loc)
+            pr = self._map_params(VSwitch, mdl.params, env, el.loc)
+            self.ckt.add(VSwitch, name, nets, pr, m=m)
+            return
+        if letter == "w":
+            # card: Wname n+ n- Vctrl model — the parser's model slot holds
+            # Vctrl; the model name is the following bare word
+            ctrl = prefix + el.model.lower() if el.model else None
+            mname = None
+            for v in el.values:
+                if isinstance(v, tuple) and v[0] == "ref":
+                    mname = v[1]
+            if ctrl is None or mname is None:
+                raise ElabError(f"{el.name}: W needs a control V-source and "
+                                "a model", el.loc)
+            mdl = self._model(mname, scope, el.loc)
+            pr = self._map_params(ISwitch, mdl.params, env, el.loc)
+            self.ckt.add(ISwitch, name, nets, pr, m=m, ctrl=ctrl)
+            return
+        if letter in ("f", "h"):
+            ctrl = prefix + el.model.lower() if el.model else None
+            if ctrl is None:
+                raise ElabError(f"{el.name}: missing control source", el.loc)
+            if letter == "f":
+                self.ckt.add(CCCS, name, nets, dict(f=val(0, 1.0)), m=m,
+                             ctrl=ctrl)
+            else:
+                self.ckt.add(CCVS, name, nets, dict(r=val(0, 1.0)), m=m,
+                             ctrl=ctrl)
+            return
         if letter == "osdi":
             raise ElabError(
                 f"{el.name}: OSDI compiled-binary models are not supported — "
                 "load the model's Verilog-A source instead", el.loc)
-        if letter in ("i", "l", "d", "q", "j", "z", "e", "g", "f", "h", "t",
-                      "o", "u", "s", "w"):
-            raise _unported(f"{el.name}: {letter.upper()} card", _A14)
         raise ElabError(
             f"device type {el.letter.upper()!r} not implemented yet "
             f"({el.name})", el.loc)
+
+    def _instantiate_bsource(self, el, name, nets, env, m, prefix,
+                             nodemap):
+        from cedarsim_tpu_torch.frontend.behavioral import (
+            collect_probes, make_bsource, probe_extras)
+        from cedarsim_tpu_torch.frontend.expr import expr_refs
+        kind, ast = None, None
+        for k2, v in el.params.items():
+            if k2 in ("v", "i"):
+                kind, ast = k2, v
+        if kind is None:
+            raise ElabError(f"{el.name}: behavioral source needs V= or I=",
+                            el.loc)
+        if isinstance(ast, (int, float)):
+            ast = ("num", float(ast))
+        probes = collect_probes(ast)
+        # every identifier that is not a probe resolves to a value now
+        const_env = {}
+        probe_nodes = set()
+        for pr in probes:
+            probe_nodes.update(n for n in pr[1:] if n)
+        for ref in expr_refs(ast):
+            if ref in ("time", "temper", "temp", "pi", "m_pi", "v", "i"):
+                continue
+            if ref in probe_nodes:
+                continue
+            if ref in env:
+                const_env[ref] = env[ref]
+        cls = make_bsource(kind, ast, probes, const_env, name)
+        extras = probe_extras(
+            probes, lambda n2: self._net(n2, prefix, nodemap), prefix)
+        self.ckt.add(cls, name, nets, {}, m=m, kw_extras=extras)
+
+    def _apply_coupling(self, el, scope):
+        """K card: replace the two named inductors with one
+        CoupledInductors device (mutual inductance)."""
+        env = scope["env"]
+        # card shape: Kxx L1 L2 value — inductor names parse as bare refs
+        names = [n.lower() for n in el.nodes]
+        if el.model:
+            names.append(el.model.lower())
+        kval = None
+        for v in el.values:
+            if isinstance(v, tuple) and v[0] == "ref":
+                names.append(v[1].lower())
+            elif kval is None:
+                kval = self.vres(v, env, el.loc)
+        names = names[:2]
+        if len(names) < 2:
+            raise ElabError(f"{el.name}: needs two inductor names", el.loc)
+        if kval is None:
+            kval = self.vres(el.params.get("k", 1.0), env, el.loc)
+        insts = {i.name: i for i in self.ckt.instances}
+        l_insts = []
+        for nm in names:
+            inst = insts.get(nm)
+            if inst is None or inst.model is not Inductor:
+                raise ElabError(f"{el.name}: {nm!r} is not an inductor",
+                                el.loc)
+            l_insts.append(inst)
+        la, lb = l_insts
+        nets = (*la.nets, *lb.nets)
+        self.ckt.instances = [i for i in self.ckt.instances
+                              if i.name not in (la.name, lb.name)]
+        self.ckt._names.discard(la.name)
+        self.ckt._names.discard(lb.name)
+        self.ckt.add(CoupledInductors, f"{el.name.lower()}", nets,
+                     dict(l1=la.params["l"], l2=lb.params["l"], k=kval))
+
+    def _map_params(self, device, mparams, env, loc, rename=None):
+        rename = rename or {}
+        out = {}
+        for k, v in mparams.items():
+            k2 = rename.get(k, k)
+            if k2 is None:
+                continue
+            if k2 in device.params:
+                out[k2] = self.vres(v, env, loc)
+            else:
+                self.warn(f"{device.__name__}: ignoring model param {k!r}",
+                          loc)
+        return out
 
     #: Spectre MOS master name -> equivalent SPICE level
     _SPECTRE_MOS_LEVEL = {"bsim4": 54.0, "bsim3v3": 49.0, "bsim3": 49.0,
@@ -504,6 +712,7 @@ class Elaborator:
                        + c.get("p", 0.0) / (Lb * Wb))
 
     def _instantiate_source(self, el, name, nets, kw, env, m):
+        vsrc = el.letter == "v"
         p = {}
         vals = list(el.values)
         pending = []
@@ -544,7 +753,7 @@ class Elaborator:
             p["ac"] = kw["ac"]
 
         if not el.waves:
-            self.ckt.add(VSource, name, nets, p, m=m)
+            self.ckt.add(VSource if vsrc else ISource, name, nets, p, m=m)
             return
         kind, args = el.waves[0]
         args = [self.vres(a, env, el.loc) for a in args]
@@ -553,20 +762,27 @@ class Elaborator:
             return args[i] if i < len(args) else d
 
         if kind == "pulse":
-            cls = VSourcePULSE
+            cls = VSourcePULSE if vsrc else ISourcePULSE
             p.update(v1=a(0, 0.0), v2=a(1, 0.0), td=a(2, 0.0),
                      tr=_tiny_default(a(3), 1e-12),
                      tf=_tiny_default(a(4), 1e-12),
                      pw=_tiny_default(a(5), math.inf),
                      per=_tiny_default(a(6), math.inf))
         elif kind == "pwl":
-            cls = VSourcePWL
+            cls = VSourcePWL if vsrc else ISourcePWL
             ts, ys = args[0::2], args[1::2]
             if len(ts) != len(ys) or not ts:
                 raise ElabError(f"{el.name}: malformed PWL points", el.loc)
             p.update(ts=tuple(ts), ys=tuple(ys))
-        elif kind in ("sin", "sine", "exp"):
-            raise _unported(f"{el.name}: {kind.upper()} source", _A14)
+        elif kind in ("sin", "sine"):
+            cls = VSourceSIN if vsrc else ISourceSIN
+            p.update(vo=a(0, 0.0), va=a(1, 0.0), freq=a(2, 0.0), td=a(3, 0.0),
+                     theta=a(4, 0.0), phase=a(5, 0.0))
+        elif kind == "exp":
+            cls = VSourceEXP if vsrc else ISourceEXP
+            p.update(v1=a(0, 0.0), v2=a(1, 0.0), td1=a(2, 0.0),
+                     tau1=_tiny_default(a(3), 1e-9), td2=a(4, 1e30),
+                     tau2=_tiny_default(a(5), 1e-9))
         else:
             raise ElabError(f"{el.name}: waveform {kind!r} not implemented",
                             el.loc)

@@ -52,15 +52,19 @@ def build_library(prefix, source, flags=NVCC_FLAGS, header=None):
     given, is ``(macro, text)``: the text is written beside the library and
     its path passed to nvcc as ``-D<macro>="<path>"``.  Returns a dict with
     the loaded ``lib``, the shared object's ``path``, nvcc's ``seconds``
-    (0.0 when it was already built) and its ``log``."""
+    (0.0 when it was already built) and its ``log`` (kept beside the
+    library, so a library built earlier still reports ptxas's lines)."""
     src = _source_bytes(source)
     hdr = header[1].encode() if header else b""
     tag = hashlib.sha256(src + b"\0" + hdr + b"\0"
                          + " ".join(flags).encode()).hexdigest()
     stem = os.path.join(BUILD_DIR, f"{prefix}_{tag[:16]}")
-    path = stem + ".so"
-    seconds, log = 0.0, ""
-    if not os.path.isfile(path):
+    path, log_path = stem + ".so", stem + ".log"
+    seconds = 0.0
+    if os.path.isfile(path):
+        with open(log_path) as f:
+            log = f.read()
+    else:
         os.makedirs(BUILD_DIR, exist_ok=True)
         defines = []
         if header:
@@ -76,6 +80,9 @@ def build_library(prefix, source, flags=NVCC_FLAGS, header=None):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
                                f"{os.path.basename(source)}:\n{log[-20000:]}")
+        with open(f"{log_path}.{os.getpid()}.tmp", "w") as f:
+            f.write(log)
+        os.replace(f"{log_path}.{os.getpid()}.tmp", log_path)
         os.replace(tmp, path)
     return dict(lib=ctypes.CDLL(path), path=path, seconds=seconds, log=log)
 

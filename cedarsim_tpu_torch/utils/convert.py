@@ -13,8 +13,10 @@ def params_from_numpy(tree, device=None, dtype=torch.float64):
     ``{group_key: {param: numpy array}}``, as the port's params: the same
     keys, each leaf a tensor of ``dtype`` on ``device`` (by default the
     CUDA card; without one, pass ``device="cpu"``).  The port compiles the
-    same group keys and dynamic leaves for the same netlist, so the result
-    feeds the port's solvers index by index."""
+    same group keys and dynamic leaves for the same netlist (the built-in
+    groups' ``$given`` flags, as ``Mos1``'s ``kp$given``, and the
+    behavioral sources' ``BSource[...]`` keys included), so the result feeds
+    the port's solvers index by index."""
     device = resolve_device(device)
     return {key: {pn: torch.tensor(np.asarray(v, np.float64), dtype=dtype,
                                    device=device)

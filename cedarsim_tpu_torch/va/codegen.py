@@ -28,7 +28,7 @@ Semantics kept from the JAX interpreter:
 Constructs that ``bsim4.va`` does not use — ``ddx``, ``idt``, the analog
 filters and event operators (laplace, absdelay, transition, slew, idtmod,
 zi), runtime-switched V/I branches, and noise collection — raise
-``NotImplementedError`` naming ROADMAP item A14.
+``NotImplementedError`` naming ROADMAP item A14b.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ class VACodegenError(ValueError):
     pass
 
 
-_A14 = "ROADMAP A14 (VA analog operators, noise and delay channels)"
+_A14 = "ROADMAP A14b (VA analog operators, noise and delay channels)"
 
 #: VA calls the port does not interpret yet
 _UNPORTED_CALLS = frozenset((

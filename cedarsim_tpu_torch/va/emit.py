@@ -52,7 +52,7 @@ import torch
 
 from cedarsim_tpu_torch.core.dual import Dual
 
-_A14 = "ROADMAP A14"
+_A14 = "ROADMAP A14b"
 
 #: C preamble of every emitted header: ``__host__ __device__`` compile away
 #: off nvcc (the host build of the tests), and NaN-propagating min/max

@@ -15,9 +15,9 @@ Phases, each printing one line (any failure raises, so the exit code is not
 3. kernels — the GESP factor (B2) and substitution (B3) bitwise equal to
    their plain PyTorch versions on the card (random, equilibrated,
    diagonally dominant inputs from a fixed numpy seed; n from 8 to 240,
-   with n = 32 and 33 on both sides of the factor's one-warp regime and n
-   = 32, 33, 64, 96 and 122 reaching each of the substitution's
-   rows-per-lane paths; each kernel's two launches bitwise equal); the
+   with B = 8 and 256 at n = 25 (the DFF cells' shapes), n = 32 and 33
+   on both sides of the factor's one-warp regime and n = 32, 33, 64, 96
+   and 122 reaching each of the substitution's rows-per-lane paths; each kernel's two launches bitwise equal); the
    mixed chord solve against float64 ``torch.linalg.solve``; kernel, plain
    and library-call times at the DFF transient's shape.
 4. rc      — the RC step circuit against its closed form.
@@ -52,10 +52,37 @@ Phases, each printing one line (any failure raises, so the exit code is not
    call's (``torch.linalg.solve_ex`` in float32 for both) and B2+B3's time
    per launch at the bench's two shapes.
 
+9. lv1_single — ``bench.py``'s level-1 DFF leg (``dff_tb.cir``, the
+   level-1 MOSFETs of ``models_lv1.spice``) as one stream through the
+   public ``tran`` over 0-700 ns with ``SimSpec.make(gmin=1e-15)`` and
+   ``max_steps=16384``, gated at ``bench.py:554-557`` (q within 0.05 V of
+   0 at 150 and 250 ns and of 5 V at 700 ns).  One lane runs the exact
+   float64 solve, as the JAX package's unbatched "mixed" path does
+   (``cedarsim_tpu/ops/linalg.py:155``).
+10. lv1_mixed (cell D) — the leg at the JAX package's 256 lanes, vto
+   scaled per lane by ``linspace(0.99, 1.01)``, each lane from its own
+   operating point, through the mixed chord path (``newton_impl="xla"``,
+   ``kernel_times.LV1_XLA_OPTS``): every lane passes the gate, both GESP
+   kernels launch and the fused kernel does not; the counts must be cell
+   D's (``CELL_D``).
+11. lv1_fused_kernel — the fused chord kernel on the level-1 plan (``Mos1``
+   emitted) against its plain version on the 256 lanes, as phase 6;
+   kernel, plain and bound times at 256 and 8 lanes; ptxas registers and
+   spills of the ``Mos1`` build.
+12. lv1_fused (cell E) — the 256 lanes through the fused configuration
+   (``kernel_times.LV1_FUSED_OPTS``): the gate on every lane, one fused
+   launch per step attempt, and cell E's counts (``CELL_E``).
+   lv1_repeat — cells D and E over 0-60 ns twice each: bitwise equal.
+13. simulate — ``simulate()`` on the card: the README's inverter and a
+   netlist with every newly bound card (``benchmarks/netlists.py``), each
+   against the same call with ``device="cpu"``: the operating point within
+   1e-9 V and every node's waveform at five times within 1e-6 V.
+
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
-the TPU kernel it replaces, launches on its path (B1 in phase 7, B2/B3 in
-phase 5, B4/B5 in phase 8), error, times and its bound: the larger of the
+the TPU kernel it replaces, launches on its path (B1 in phase 7 and, on
+the level-1 plan, in phase 12; B2/B3 in phase 5 and in phase 10; B4/B5 in
+phase 8), error, times and its bound: the larger of the
 bytes it must move over 3.35 TB/s and its operations over the card's peak
 for their type, both counted from this run's inputs.  The times
 (``benchmarks/kernel_times.py``): ``call_ms`` (= ``ms``), a Python loop of
@@ -96,6 +123,21 @@ N_LANES = kt.N_LANES
 #: substitution rounds each product and difference on its own, PERF.md)
 CELL_A = (11478, 1107, 28560, 1580)
 CELL_B = (4832, 1291, 16754, 776)
+#: cells D and E, the level-1 DFF at 256 lanes through the mixed chord path
+#: and the fused engine (accepted, rejected, Newton, attempts over all
+#: lanes)
+CELL_D = (384556, 57104, 1024766, 1740)
+CELL_E = (161553, 30938, 505888, 756)
+#: the level-1 leg's gate (bench.py:554-557): (ns, level) of q
+LV1_GATE = ((150.0, 0.0), (250.0, 0.0), (700.0, 5.0))
+LV1_TSTOP = 7e-7
+LV1_LANES = kt.LV1_LANES
+#: the repeat window of cells D and E (past the first clock edge, where q
+#: first switches)
+LV1_REPEAT_TSTOP = 6e-8
+#: simulate() on the card against the same call on the CPU
+SIM_DC_TOL = 1e-9
+SIM_WAVE_TOL = 1e-6
 #: the mixed chord solve (float32 GESP + two float64 refinement passes)
 #: against float64 torch.linalg.solve on well-conditioned systems
 CHORD_RTOL = 1e-10
@@ -133,8 +175,13 @@ def lu_ops(n, B, kind):
     return B * per
 
 
+#: the script's start, for each line's seconds since it (``t_s``)
+T_START = time.perf_counter()
+
+
 def log(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def smi():
@@ -157,8 +204,9 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
     n_max = 240          # [A | b] at stride 241: 232,320 B of 232,448
     abs_err = {"factor": 0.0, "subst": 0.0}
     checked = []
-    for B, n in [(1, 25), (8, 8), (8, 25), (37, 25), (128, 25), (8, 32),
-                 (8, 33), (8, 64), (8, 96), (8, 122), (4, n_max)]:
+    for B, n in [(1, 25), (8, 8), (8, 25), (37, 25), (128, 25),
+                 (LV1_LANES, 25), (8, 32), (8, 33), (8, 64), (8, 96),
+                 (8, 122), (4, n_max)]:
         A, b = kt.dominant_systems(rng, B, n)
         A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
         b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
@@ -491,33 +539,10 @@ def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
     times = None
     for h in (1e-12, 1e-10):
         args, opts = kt.fused_args(torch, T, plan, dff[:4], h)
-        k1 = fc.fused_chord(plan, *args, opts)
-        k2 = fc.fused_chord(plan, *args, opts)
-        p = fc.fused_chord_plain(plan, *args, opts)
-        # S at the predictor: the scale of the device currents that the
-        # converged S (a residual of ~1e-11 A) cancels from
-        s_scale = float(fc.fused_chord_plain(
-            plan, *args, dataclasses.replace(opts, max_newton=0))[1]
-            .abs().max())
-        torch.cuda.synchronize()
-        if not all(torch.equal(u, w) for u, w in zip(k1, k2)):
-            raise AssertionError(f"h={h}: two kernel runs differ")
-        if not torch.equal(k1[3], p[3]):
-            raise AssertionError(f"h={h}: (ok, nnwt) kernel "
-                                 f"{k1[3].tolist()} vs plain {p[3].tolist()}")
-        for name, u, w in zip(("xn", "S", "Q"), k1[:3], p[:3]):
-            err = float((u - w).abs().max())
-            scale = float(w.abs().max())
-            if name == "S":
-                s_final_rel = max(s_final_rel, err / max(scale, 1e-300))
-                scale = max(scale, s_scale)
-            rel = err / max(scale, 1e-300)
-            if not (rel <= FUSED_RTOL):
-                raise AssertionError(f"h={h} {name}: relative error {rel:.3g}"
-                                     f" > {FUSED_RTOL}")
-            worst[name] = max(worst[name], rel)
-            if name == "xn":
-                abs_err = max(abs_err, err)
+        k1, err = fused_vs_plain(torch, fc, plan, args, opts, f"h={h}",
+                                 worst)
+        s_final_rel = max(s_final_rel, err["s_final_rel"])
+        abs_err = max(abs_err, err["xn_abs"])
         nnwt.append(k1[3].tolist())
         if times is None:
             # (device ms, call ms, plain ms) at 8 lanes and, B1', at one
@@ -544,6 +569,43 @@ def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
         emit_s=info["emit_seconds"], nvcc_s=info["nvcc_seconds"],
         ptxas=ptxas, header=os.path.relpath(info["path"], REPO))
     return abs_err, times, info, bounds
+
+
+def fused_vs_plain(torch, fc, plan, args, opts, what, worst):
+    """The fused chord kernel against its plain version on ``args``: two
+    launches bitwise equal, equal (ok, nnwt), xn, S and Q within
+    FUSED_RTOL (S against the scale of the currents it is summed from: S
+    at the predictor).  Updates ``worst`` ({xn, S, Q} relative errors);
+    returns the kernel's outputs and {xn_abs, s_final_rel}."""
+    k1 = fc.fused_chord(plan, *args, opts)
+    k2 = fc.fused_chord(plan, *args, opts)
+    p = fc.fused_chord_plain(plan, *args, opts)
+    # S at the predictor: the scale of the device currents that the
+    # converged S (a residual of ~1e-11 A) cancels from
+    s_scale = float(fc.fused_chord_plain(
+        plan, *args, dataclasses.replace(opts, max_newton=0))[1]
+        .abs().max())
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, w) for u, w in zip(k1, k2)):
+        raise AssertionError(f"{what}: two kernel runs differ")
+    if not torch.equal(k1[3], p[3]):
+        raise AssertionError(f"{what}: (ok, nnwt) kernel "
+                             f"{k1[3].tolist()} vs plain {p[3].tolist()}")
+    out = dict(xn_abs=0.0, s_final_rel=0.0)
+    for name, u, w in zip(("xn", "S", "Q"), k1[:3], p[:3]):
+        err = float((u - w).abs().max())
+        scale = float(w.abs().max())
+        if name == "S":
+            out["s_final_rel"] = err / max(scale, 1e-300)
+            scale = max(scale, s_scale)
+        rel = err / max(scale, 1e-300)
+        if not (rel <= FUSED_RTOL):
+            raise AssertionError(f"{what} {name}: relative error {rel:.3g}"
+                                 f" > {FUSED_RTOL}")
+        worst[name] = max(worst[name], rel)
+        if name == "xn":
+            out["xn_abs"] = err
+    return k1, out
 
 
 def fused_bound(plan, args, out):
@@ -603,6 +665,178 @@ def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
         **counts(sols), attempts=sols[0].n_attempts, launches=launches,
         card=smi())
     return launches
+
+
+def gate_lv1(sols):
+    """The level-1 leg's gate on every lane (bench.py:554-557): finished,
+    finite, q within GOLDEN_TOL of each level of ``LV1_GATE``.  Returns
+    the worst error."""
+    worst, errs = 0.0, []
+    for lane, sol in enumerate(sols):
+        if not sol.converged:
+            raise AssertionError(f"lv1 lane {lane} did not finish")
+        if not np.isfinite(sol.xs).all():
+            raise AssertionError(f"lv1 lane {lane}: non-finite waveform")
+        for t_ns, want in LV1_GATE:
+            err = abs(float(sol.interp("q", t_ns * 1e-9)) - want)
+            worst = max(worst, err)
+            if not err < GOLDEN_TOL:
+                errs.append((lane, t_ns, err))
+    if errs:
+        raise AssertionError(f"lv1 gate failed (lane, ns, err): {errs[:8]}")
+    return worst
+
+
+def phase_lv1_single(torch, T, dev):
+    """Phase 9: one stream of the level-1 leg through the public tran,
+    alone on the card."""
+    with open(os.path.join(DFF_DIR, "dff_tb.cir")) as f:
+        nl = T.parse_spice(f.read(), file="dff_tb.cir")
+    t0 = time.perf_counter()
+    comp = T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]),
+                             device=dev)
+    t_setup = time.perf_counter() - t0
+    opts = T.TranOptions(max_steps=16384, dense_lu="jax")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sol = T.tran(comp, (0.0, LV1_TSTOP), ctx=T.SimSpec.make(gmin=1e-15),
+                 opts=opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    worst = gate_lv1([sol])
+    log("lv1_single", setup_s=t_setup, wall_s=wall,
+        newton_per_s=sol.n_newton / wall, worst_gate_err=worst,
+        **counts([sol]), attempts=sol.n_attempts, card=smi())
+
+
+def lv1_run(torch, T, gesp_lu, fc, lv1, cell, tstop):
+    """Cell D or E over 0-tstop through the public tran, with the kernels'
+    launches counted from 0.  Returns (solutions, launches, wall s)."""
+    comp, ctx, pb, x0 = lv1[:4]
+    opts = T.TranOptions(**(kt.LV1_XLA_OPTS if cell == "D"
+                            else kt.LV1_FUSED_OPTS))
+    fc.fused_chord.launches = 0
+    gesp_lu.lu_factor_gesp_f32.launches = 0
+    gesp_lu.lu_subst_gesp_f32.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sols = T.tran(comp, (0.0, tstop), params=pb, ctx=ctx, opts=opts, x0=x0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {"fused": fc.fused_chord.launches,
+                "factor": gesp_lu.lu_factor_gesp_f32.launches,
+                "subst": gesp_lu.lu_subst_gesp_f32.launches}
+    if cell == "D" and (min(launches["factor"], launches["subst"]) <= 0
+                        or launches["fused"]):
+        raise AssertionError(f"cell D: kernels {launches}")
+    if cell == "E" and not (0 < launches["fused"] == sols[0].n_attempts):
+        raise AssertionError(f"cell E: fused launches {launches['fused']} "
+                             f"!= {sols[0].n_attempts} step attempts")
+    return sols, launches, wall
+
+
+def phase_lv1(torch, T, gesp_lu, fc, lv1, cell, want, extra=None):
+    """Phases 10 and 12: cell D or E over the leg's window at 256 lanes,
+    gated on every lane, its counts held to ``want``."""
+    sols, launches, wall = lv1_run(torch, T, gesp_lu, fc, lv1, cell,
+                                   LV1_TSTOP)
+    worst = gate_lv1(sols)
+    if want is not None:
+        check_counts(cell, sols, want)
+    log(f"lv1_{'mixed' if cell == 'D' else 'fused'}", cell=cell,
+        lanes=len(sols), setup_s=lv1[4], wall_s=wall,
+        transients_per_s=len(sols) / wall, worst_gate_err=worst,
+        **counts(sols), attempts=sols[0].n_attempts, launches=launches,
+        **(extra or {}), card=smi())
+    return launches
+
+
+def phase_lv1_repeat(torch, T, gesp_lu, fc, lv1):
+    """Cells D and E over 0-LV1_REPEAT_TSTOP twice each in this process:
+    the same step counts and bitwise the same waveforms."""
+    equal = {}
+    for cell in ("D", "E"):
+        runs = [lv1_run(torch, T, gesp_lu, fc, lv1, cell,
+                        LV1_REPEAT_TSTOP)[0] for _ in range(2)]
+        equal[cell] = all(
+            (a.n_accepted, a.n_rejected, a.n_newton)
+            == (b.n_accepted, b.n_rejected, b.n_newton)
+            and np.array_equal(a.ts, b.ts) and np.array_equal(a.xs, b.xs)
+            for a, b in zip(*runs))
+    log("lv1_repeat", bitwise_equal=equal, tstop=LV1_REPEAT_TSTOP)
+    if not all(equal.values()):
+        raise AssertionError(f"the level-1 leg is not reproducible: {equal}")
+    return equal
+
+
+def phase_lv1_fused_kernel(torch, T, fc, lv1, plan):
+    """Phase 11: the fused chord kernel on the level-1 plan against its
+    plain version at 256 lanes (h = 1e-12 and 1e-10), and its times and
+    bound at 256 and 8 lanes."""
+    info = plan.build()
+    worst = dict(xn=0.0, S=0.0, Q=0.0)
+    abs_err, nnwt = 0.0, []
+    for h in (1e-12, 1e-10):
+        args, opts = kt.fused_args(torch, T, plan, lv1[:4], h)
+        k1, err = fused_vs_plain(torch, fc, plan, args, opts,
+                                 f"lv1 h={h}", worst)
+        abs_err = max(abs_err, err["xn_abs"])
+        nnwt.append([int(k1[3][:, 1].min()), int(k1[3][:, 1].max())])
+    times, bounds = {}, {}
+    n = lv1[0].n_x
+    for B in (LV1_LANES, N_LANES):
+        args, opts = kt.fused_args(torch, T, plan, lv1[:4], 1e-12,
+                                   lanes=slice(0, B))
+
+        def run(a=args):
+            return fc.fused_chord(plan, *a, opts)
+        times[B] = (kt.device_ms(run), kt.call_ms(run, 50),
+                    kt.call_ms(lambda a=args: fc.fused_chord_plain(
+                        plan, *a, opts), 5))
+        bounds[B], counted = fused_bound(plan, args, run())
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if any(w in ln for w in ("Function properties", "registers",
+                                      "spill"))]
+    log("lv1_fused_kernel", worst_rel_err=worst, nnwt_min_max=nnwt,
+        ms_device_call_plain={f"{B}x{n}": list(v) for B, v in times.items()},
+        bound_ms={f"{B}x{n}": v for B, v in bounds.items()}, nodes=counted,
+        n_inst=plan.n_inst, threads=plan.threads, smem_bytes=plan.smem_bytes,
+        emit_s=info["emit_seconds"], nvcc_s=info["nvcc_seconds"],
+        ptxas=ptxas, header=os.path.relpath(info["path"], REPO))
+    return abs_err, times, bounds
+
+
+def phase_simulate(torch, T, dev):
+    """Phase 13: simulate() on the card against the same call on the
+    CPU."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    out = {}
+    for name, text, times in (
+            ("readme_inverter", netlists.README_INVERTER,
+             netlists.README_TIMES),
+            ("all_cards", netlists.ALL_CARDS, netlists.ALL_CARDS_TIMES)):
+        t0 = time.perf_counter()
+        rc = T.simulate(text, device=dev)
+        wall = time.perf_counter() - t0
+        rp = T.simulate(text, device="cpu")
+        comp = rc["compiled"]
+        if comp.device.type != "cuda":
+            raise AssertionError(f"{name}: compiled on {comp.device}")
+        sc, sp = rc["tran"], rp["tran"]
+        if not (sc.converged and sp.converged):
+            raise AssertionError(f"{name}: converged card {sc.converged}, "
+                                 f"cpu {sp.converged}")
+        nodes = comp.n_nodes
+        dc_err = float(np.abs(sc.xs[0, :nodes] - sp.xs[0, :nodes]).max())
+        wave_err = max(abs(float(sc.interp(nn, t)) - float(sp.interp(nn, t)))
+                       for nn in comp.node_names for t in times)
+        if not (dc_err <= SIM_DC_TOL and wave_err <= SIM_WAVE_TOL):
+            raise AssertionError(f"{name}: card vs cpu operating point "
+                                 f"{dc_err:.3g} V, waveform {wave_err:.3g} V")
+        out[name] = dict(dc_err=dc_err, wave_err=wave_err, wall_s=wall,
+                         card=[sc.n_accepted, sc.n_rejected, sc.n_newton],
+                         cpu=[sp.n_accepted, sp.n_rejected, sp.n_newton])
+    log("simulate", **out)
 
 
 #: phase 8's kernel checks: the bench's two shapes, one system alone, an
@@ -750,12 +984,17 @@ def main():
     log("device", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, count=torch.cuda.device_count())
     dff = dff_setup(torch, T, dev)
+    t_lv1 = time.perf_counter()
+    lv1 = kt.lv1_lanes(torch, T, dev)
+    lv1 = (*lv1, time.perf_counter() - t_lv1)
     # every kernel source compiles at once, one nvcc process each: the
-    # fused kernel with the BSIM4 model emitted from the DFF's plan and the
-    # pivoting LU in threads beside the GESP build
+    # fused kernel with the BSIM4 model emitted from the DFF's plan, the
+    # fused kernel with the level-1 plan's Mos1 and the pivoting LU in
+    # threads beside the GESP build
     t_plan = time.perf_counter()
     plan = fused_plan_for(dff[0], dff[1], dff[2])
     t_plan = time.perf_counter() - t_plan
+    plan_lv1 = fused_plan_for(*lv1[:3])
     built = {}
 
     def build_in_thread(name, fn):
@@ -769,6 +1008,7 @@ def main():
         return th
 
     th_fused = build_in_thread("fused", plan.build)
+    th_lv1 = build_in_thread("fused_lv1", plan_lv1.build)
     th_pivot = build_in_thread("pivot", pivot_lu.build)
     b = gesp_lu.build()
     th_pivot.join()
@@ -796,8 +1036,25 @@ def main():
         dict(plan_s=t_plan, emit_s=info["emit_seconds"],
              nvcc_s=info["nvcc_seconds"]))
     lu_launches, per_shape = phase_lu(torch, gesp_lu, pivot_lu, dev)
+    phase_lv1_single(torch, T, dev)
+    dl = phase_lv1(torch, T, gesp_lu, fc, lv1, "D", CELL_D,
+                   extra=dict(jac_shunt=kt.LV1_XLA_OPTS["jac_shunt"]))
+    th_lv1.join()
+    if isinstance(built["fused_lv1"], BaseException):
+        raise built["fused_lv1"]
+    labs_err, ltimes, lbounds = phase_lv1_fused_kernel(torch, T, fc, lv1,
+                                                       plan_lv1)
+    el = phase_lv1(torch, T, gesp_lu, fc, lv1, "E", CELL_E)
+    phase_lv1_repeat(torch, T, gesp_lu, fc, lv1)
+    phase_simulate(torch, T, dev)
     src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
     b1p = ftimes["B1'"]
+    n1 = lv1[0].n_x
+
+    def lv1_entry(B):
+        return {"shape": [B, n1], "device_ms": ltimes[B][0],
+                "call_ms": ltimes[B][1], "plain_ms": ltimes[B][2],
+                "bound_ms": lbounds[B][0], "bound_by": lbounds[B][1]}
     kernels = [
         kernel_entry("fused_chord_f64",
                      "cedarsim_tpu_torch/csrc/fused_chord.cu",
@@ -811,7 +1068,10 @@ def main():
                                "device_ms": b1p[0], "call_ms": b1p[1],
                                "plain_ms": b1p[2],
                                "bound_ms": fbounds["B1'"][0],
-                               "bound_by": fbounds["B1'"][1]}),
+                               "bound_by": fbounds["B1'"][1]},
+                     lv1={"model": "Mos1", "launches": el["fused"],
+                          "max_abs_err": labs_err, **lv1_entry(LV1_LANES),
+                          "eight_lanes": lv1_entry(N_LANES)}),
     ]
     design = {
         "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
@@ -824,7 +1084,8 @@ def main():
         kernels.append(kernel_entry(
             f"gesp_{key}_f32", src, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
             launches[key], *times[key], bounds[key], abs_err[key],
-            shape=[N_LANES, 25], design=design[key]))
+            shape=[N_LANES, 25], design=design[key],
+            lv1_launches=dl[key]))
     for key, name, source, line in (
             ("gesp", "gesp_solve_f32", src, 164),
             ("pivot", "pivot_solve_f32",

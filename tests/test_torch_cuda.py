@@ -9,8 +9,9 @@ which sets JAX up for the other files):
   CUDA tensors (both round each multiply-add of the factor once, each term
   of the substitution twice), with one launch counted per call; the
   factor (B2) at n in {1, 8, 25, 31, 32, 33, 64, 122, 240} (both regimes
-  and their edge) and B in {1, 8, 37}, the substitution (B3) at n from 1
-  to 240 (1, 2, 4 and 8 rows per lane) and B in {1, 8, 37}, each with its
+  and their edge) and B in {1, 8, 37, 256} (256: the level-1 cell D's
+  lanes), the substitution (B3) at n from 1 to 240 (1, 2, 4 and 8 rows per
+  lane) and the same B, each with its
   two launches bitwise equal; the factor's zero and tiny negative pivots
   boosted to +-1e-20 on the diagonal, as on the CPU.
 - ``rounding.fma_f32`` on CUDA tensors bitwise C's ``fmaf``.
@@ -29,6 +30,9 @@ which sets JAX up for the other files):
   tensor; the scratch of hoisted model values is written before it is
   read (the same bits from a scratch of zeros and one of NaNs);
   ``tran(newton_impl="fused")`` launches once per step attempt.
+- The fused chord kernel on the level-1 DFF's plan (the built-in ``Mos1``
+  emitted, vto scattered per lane) against its plain version at B in {1,
+  8, 37} lanes, as above.
 - The dense solves B4 (fused GESP, ``gesp_lu.lu_solve_gesp_f32``) and B5
   (partial pivoting, ``pivot_lu.lu_solve_pivot_f32``, rows shuffled per
   system) bitwise equal to their plain versions in both regimes and at
@@ -103,7 +107,7 @@ def test_kernels_match_plain(cuda_device, B, n):
 
 
 @pytest.mark.parametrize("n", [1, 8, 25, 31, 32, 33, 64, 122, 240])
-@pytest.mark.parametrize("B", [1, 8, 37])
+@pytest.mark.parametrize("B", [1, 8, 37, 256])
 def test_factor_kernel_matches_plain(cuda_device, B, n):
     """B2 in both regimes (one warp per system at n <= 32, one block
     above) and at their edge: bitwise its plain version, two launches
@@ -161,7 +165,7 @@ def test_fma_f32_on_the_card_is_libm_fmaf(cuda_device):
 
 
 @pytest.mark.parametrize("n", [1, 25, 31, 32, 33, 64, 96, 122, 240])
-@pytest.mark.parametrize("B", [1, 8, 37])
+@pytest.mark.parametrize("B", [1, 8, 37, 256])
 def test_subst_kernel_matches_plain(cuda_device, B, n):
     A, b = _systems(3 * n + B, B, n)
     A32 = torch.as_tensor(A, dtype=torch.float32, device=cuda_device)
@@ -309,10 +313,10 @@ def _fused_case(which, B, dev):
     return plan, args, opts
 
 
-@pytest.mark.parametrize("which", ["diode", "inverter"])
-@pytest.mark.parametrize("B", [1, 3, 8])
-def test_fused_kernel_matches_plain(cuda_device, which, B):
-    plan, args, opts = _fused_case(which, B, cuda_device)
+def _check_fused_kernel(plan, args, opts):
+    """The kernel against its plain version: one launch counted, equal (ok,
+    nnwt), xn and Q within 1e-9 relative, S within 1e-9 of the currents'
+    scale, two launches bitwise equal."""
     n0 = fc.fused_chord.launches
     k = fc.fused_chord(plan, *args, opts)
     p = fc.fused_chord_plain(plan, *args, opts)
@@ -326,6 +330,24 @@ def test_fused_kernel_matches_plain(cuda_device, which, B):
     assert _rel(k[2], p[2]) <= 1e-9
     assert float((k[1] - p[1]).abs().max()) <= 1e-9 * float(
         torch.maximum(p[1].abs().max(), s_scale.abs().max()))
+    k2 = fc.fused_chord(plan, *args, opts)
+    assert all(torch.equal(u, w) for u, w in zip(k, k2))
+
+
+@pytest.mark.parametrize("B", [1, 8, 37])
+def test_fused_kernel_matches_plain_mos1(cuda_device, B):
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    lv1 = kt.lv1_lanes(torch, T, cuda_device, lanes=B)
+    plan = fused_plan_for(*lv1[:3])
+    assert plan.nl_keys == ["Mos1"]
+    args, opts = kt.fused_args(torch, T, plan, lv1, 1e-12)
+    _check_fused_kernel(plan, args, opts)
+
+
+@pytest.mark.parametrize("which", ["diode", "inverter"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_fused_kernel_matches_plain(cuda_device, which, B):
+    _check_fused_kernel(*_fused_case(which, B, cuda_device))
 
 
 def test_fused_kernel_is_deterministic(cuda_device):

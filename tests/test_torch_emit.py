@@ -14,7 +14,15 @@ port's eager model walk.
 - The text and its hash do not depend on the walk's order: emitting twice
   gives the same hash, in this process and under another hash seed.
 - A construct bsim4.va does not use (integer bitwise arithmetic) raises
-  ``NotImplementedError`` naming ROADMAP A14.
+  ``NotImplementedError`` naming ROADMAP A14b.
+- The built-in models' walks (``Mos1`` of the level-1 DFF with vto per
+  instance, ``Diode`` and ``Bjt``) emit, build on the host and match the
+  eager walk per instance (no scatter) within 1e-12 of each entry, at
+  biases rail to rail, past the built-ins' ``_limexp`` limit and at
+  drain-source ties.  Not bitwise on the host: PyTorch's CPU ``sqrt``,
+  ``exp`` and ``pow`` round some results differently from the C library's
+  (``torch.sqrt`` is not correctly rounded on an AVX-512 build), so about
+  1 % of the entries differ in their last bits.
 
 Skips without ``g++``.
 """
@@ -284,5 +292,89 @@ endmodule
     ckt.add(dev, "B1", (a, ckt.gnd), {})
     comp = T.compile_circuit(ckt, device="cpu")
     key = [k for k in comp.group_order if "bits" in k][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
         emit.emit_group(comp, key, T.SimSpec.make().with_mode("tran"))
+
+
+# ------------------------------------------------- built-in models emitted
+
+_BUILTIN = """* diodes and bipolars
+.model dmod d (is=1e-14 cjo=1p tt=1n bv=5)
+.model dmod2 d (is=3e-15 cjo=2p m=0.33 n=1.5)
+.model qn npn (is=1e-16 bf=100 vaf=50 ikf=0.1 ise=1e-15 cje=1p cjc=0.5p
++ cjs=0.1p tf=0.1n tr=10n)
+.model qp pnp (is=2e-16 bf=50 var=20 ikr=0.05)
+v1 a 0 1
+d1 a b dmod
+d2 b c dmod2 2
+q1 a b c d qn
+q2 d c b a qp
+r1 c 0 1k
+"""
+
+
+def _builtin_group(which):
+    if which == "Mos1":
+        with open(os.path.join(DFF_DIR, "dff_tb.cir")) as f:
+            nl = T.parse_spice(f.read(), file="dff_tb.cir")
+        comp = T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]),
+                                 device="cpu", dynamic_params=("vto",))
+        return comp, T.SimSpec.make(gmin=1e-15).with_mode("tran")
+    comp = T.compile_circuit(T.elaborate(T.parse_spice(_BUILTIN)),
+                             device="cpu")
+    return comp, T.SimSpec.make().with_mode("tran")
+
+
+def _per_instance(lib, comp, key, ctx, lv, lvd):
+    """The emitted walk and the eager one on the same per-instance inputs
+    (instance k's params for row k modulo the instances): [(s, q, qd)]
+    of each, numpy [N, n_lrow]."""
+    from cedarsim_tpu_torch.core.dual import Dual
+    g = comp.groups[key]
+    names = emit.dyn_names(comp, key)
+    N, nlv = lv.shape
+    nlr = g.model.n_lrow()
+    dyn = np.zeros((N, max(len(names), 1)))
+    for k, pn in enumerate(names):
+        dyn[:, k] = np.resize(torch.as_tensor(comp.params0[key][pn]).numpy(),
+                              N)
+    t = np.zeros(N)
+    s, q, qd = (np.zeros((N, nlr)) for _ in range(3))
+    lib.cs_run(N, lv.ctypes.data, lvd.ctypes.data, dyn.ctypes.data,
+               t.ctypes.data, s.ctypes.data, q.ctypes.data, qd.ctypes.data)
+    p = dict(g.static_params)
+    for k, pn in enumerate(names):
+        p[pn] = torch.as_tensor(dyn[:, k])
+    x = [Dual(torch.as_tensor(lv[:, k]), torch.as_tensor(lvd[None, :, k]))
+         for k in range(nlv)]
+    s_rows, q_rows = g.model.eval(x, p, ctx.at_time(torch.as_tensor(t)),
+                                  None)
+
+    def rows(rs, tangent=False):
+        out = []
+        for r in rs:
+            if isinstance(r, Dual):
+                r = r.d[0] if tangent else r.v
+            elif tangent:
+                r = 0.0
+            out.append(np.broadcast_to(torch.as_tensor(r).numpy(), (N,)))
+        return np.stack(out, 1)
+    return (s, q, qd), (rows(s_rows), rows(q_rows), rows(q_rows, True))
+
+
+@pytest.mark.parametrize("which", ["Mos1", "Diode", "Bjt"])
+def test_builtin_emitted_matches_eager(tmp_path, which):
+    comp, ctx = _builtin_group(which)
+    lib = _host_build(tmp_path, comp, which, ctx)
+    nlv = comp.groups[which].model.n_lvar()
+    rng = np.random.default_rng(17)
+    N = 1024
+    lv = rng.uniform(-1.0, 6.0, (N, nlv))
+    lv[:256, 2 % nlv] = lv[:256, 0]                   # ties
+    lv[256:512] = rng.uniform(-3.0, 9.0, (256, nlv))  # past _limexp's 40
+    lvd = rng.normal(size=(N, nlv)) * 1e9
+    lv, lvd = np.ascontiguousarray(lv), np.ascontiguousarray(lvd)
+    got, want = _per_instance(lib, comp, which, ctx, lv, lvd)
+    for name, a, b in zip(("s", "q", "qd"), got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-30,
+                                   err_msg=name)

@@ -3,16 +3,20 @@ plain PyTorch version on the CPU) against the JAX package's
 ``FusedChordPlan``, whose Pallas kernel runs here in interpret mode.
 
 Circuits: the VA diode of tests/test_fused_chord.py (``is_`` kept dynamic
-so that lanes can scatter it) and a 2-MOSFET BSIM4 inverter on the DFF's own
-nch_5p0 / pch_5p0 cards.
+so that lanes can scatter it), a 2-MOSFET BSIM4 inverter on the DFF's own
+nch_5p0 / pch_5p0 cards, and the JAX package's own fused test circuit
+(tests/test_fused_chord.py's ``INV_RC``: a level-1 inverter driving an RC,
+whose one nonlinear group is the built-in ``Mos1``, emitted for the
+kernel).
 
 - Plan: the same linear / nonlinear split as the JAX plan; G_lin, C_lin,
   q_off within rtol 1e-12, atol 1e-18; G_lin·x + s_off(t) + S_nl equals the
   full residual at three times (atol 1e-9 A, Q 1e-18 C).
 - One chord solve against the Pallas kernel, alone (B1′) and under
-  ``jax.vmap`` over 3 lanes with a per-lane ``is_`` (B1, the custom_vmap
-  rule): equal ``ok`` per lane, xn within 1e-4·max|x| + 1e-6 V (the JAX
-  kernel is float32, the port float64).
+  ``jax.vmap`` over 3 lanes with a per-lane ``is_`` (diode) or ``vto``
+  (``INV_RC``) (B1, the custom_vmap rule): equal ``ok`` per lane, xn
+  within 1e-4·max|x| + 1e-6 V (the JAX kernel is float32, the port
+  float64).
 - Transient: ``tran(newton_impl="fused")`` against the port's "xla" engine
   over 4 lanes with a scatter (is_ / W): rails within 5e-3 V, mid-edge
   within 8e-2 V, lanes strictly ordered.
@@ -100,19 +104,40 @@ def _inverter(P):
                              **_cpu(P))
 
 
+#: tests/test_fused_chord.py's INV_RC
+INV_RC = """* mos inverter driving an RC, plus PWL supply ripple path
+.model n1 nmos (level=1 vto=0.7 kp=100u cgso=1n cgdo=1n)
+.model p1 pmos (level=1 vto=-0.7 kp=40u cgso=1n cgdo=1n)
+vdd vdd 0 3.3
+vin in 0 PULSE(0 3.3 2n 0.2n 0.2n 4n 10n)
+mp out in vdd vdd p1 w=2u l=0.35u
+mn out in 0 0 n1 w=1u l=0.35u
+r1 out mid 1k
+cl mid 0 10f
+.tran 0.1n 20n
+"""
+
+
+def _inv_rc(P):
+    return P.compile_circuit(P.elaborate(P.parse_spice(
+        INV_RC, file="inv_rc.cir")), **_cpu(P))
+
+
 @pytest.fixture(scope="module")
 def circuits():
     return {"diode": (_diode(J, jload_va), _diode(T, tload_va)),
-            "inverter": (_inverter(J), _inverter(T))}
+            "inverter": (_inverter(J), _inverter(T)),
+            "inv_rc": (_inv_rc(J), _inv_rc(T))}
 
 
 def _nl_key(comp):
-    return [k for k in comp.group_order if k.startswith("VA_")][0]
+    return [k for k in comp.group_order
+            if k.startswith("VA_") or k == "Mos1"][0]
 
 
 # ------------------------------------------------------------------- plan
 
-@pytest.mark.parametrize("name", ["diode", "inverter"])
+@pytest.mark.parametrize("name", ["diode", "inverter", "inv_rc"])
 def test_plan_matches_jax(circuits, name):
     cj, ct = circuits[name]
     jp = JPlan(cj, J.SimSpec.make().with_mode("tran"))
@@ -124,7 +149,7 @@ def test_plan_matches_jax(circuits, name):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-12, atol=1e-18)
 
 
-@pytest.mark.parametrize("name", ["diode", "inverter"])
+@pytest.mark.parametrize("name", ["diode", "inverter", "inv_rc"])
 def test_linear_split_exact(circuits, name):
     """G_lin·x + s_off(t) + S_nl reproduces the full residual: the linear
     fold outside the kernel does not change the physics."""
@@ -159,23 +184,32 @@ def test_plan_cache_keys_on_values(circuits):
 
 # ------------------------------------------------ one chord solve vs Pallas
 
-def _chord_inputs(ct, lanes_is):
-    """A BE-start chord solve of the diode circuit with the pulse high:
-    predictor = operating point + a seeded 0.05 V on the nodes; J from the
-    port at the predictor with the 1e-7 shunt, per lane."""
+#: per circuit: the per-lane param, the time and step of the BE start, and
+#: the node whose source has stepped there (its jump in volts)
+_CHORD = {"diode": ("is_", 2e-9, 1e-11, (0, 3.0)),
+          "inv_rc": ("vto", 2.1e-9, 1e-11, None)}
+
+
+def _chord_inputs(ct, name, lanes):
+    """A BE-start chord solve: predictor = operating point + a seeded 0.05
+    V on the nodes (+ the stepped source); J from the port at the
+    predictor with the 1e-7 shunt, per lane; the lanes' ``pn`` scaled by
+    ``lanes``."""
+    pn, t, h, jump = _CHORD[name]
     ctx = T.SimSpec.make()
     op = T.solve_dc(ct, ctx=ctx, mode="tranop")
-    L = len(lanes_is)
+    L = len(lanes)
     rng = np.random.default_rng(21)
     x_op = op.x.numpy()
     x_pred = x_op[None] + np.concatenate(
         [rng.uniform(-0.05, 0.05, (L, ct.n_nodes)),
          np.zeros((L, ct.n_x - ct.n_nodes))], 1)
-    x_pred[:, 0] += 3.0                  # the source has stepped to 3 V
-    h, t = 1e-11, 2e-9
+    if jump is not None:
+        x_pred[:, jump[0]] += jump[1]
     key = _nl_key(ct)
     pb = {k: dict(g) for k, g in ct.params0.items()}
-    pb[key]["is_"] = torch.as_tensor(lanes_is)[:, None]
+    base = 1.0 if name == "diode" else ct.params0[key][pn]
+    pb[key][pn] = base * torch.as_tensor(lanes)[:, None]
     _, _, G, C = ct.res_jacs_fwd(torch.as_tensor(x_pred),
                                  ctx.with_mode("tran").at_time(t), pb)
     nv = ct.n_nodes + ct.n_internal
@@ -183,12 +217,14 @@ def _chord_inputs(ct, lanes_is):
     return x_pred, J_, -np.repeat(x_op[None], L, 0), h, t, pb
 
 
-@pytest.mark.parametrize("lanes_is", [[1e-14], [1e-14, 3e-14, 1e-13]],
-                         ids=["solo", "vmap3"])
-def test_chord_solve_matches_pallas(circuits, lanes_is):
-    cj, ct = circuits["diode"]
-    L = len(lanes_is)
-    x_pred, Jm, xdh, h, t, pb = _chord_inputs(ct, lanes_is)
+@pytest.mark.parametrize("name, lanes", [
+    ("diode", [1e-14]), ("diode", [1e-14, 3e-14, 1e-13]),
+    ("inv_rc", [1.0]), ("inv_rc", [0.97, 1.0, 1.05])],
+    ids=["solo", "vmap3", "mos1_solo", "mos1_vmap3"])
+def test_chord_solve_matches_pallas(circuits, name, lanes):
+    cj, ct = circuits[name]
+    L = len(lanes)
+    x_pred, Jm, xdh, h, t, pb = _chord_inputs(ct, name, lanes)
     ctx = T.SimSpec.make().with_mode("tran")
     tp = fc.get_fused_plan(ct, ctx)
     jp = JPlan(cj, J.SimSpec.make().with_mode("tran"))
@@ -201,7 +237,8 @@ def test_chord_solve_matches_pallas(circuits, lanes_is):
     key = _nl_key(ct)
     pj = {k: {pn: jnp.asarray(np.repeat(np.asarray(v)[None], L, 0))
               for pn, v in g.items()} for k, g in cj.params0.items()}
-    pj[key]["is_"] = jnp.asarray(np.asarray(lanes_is)[:, None])
+    pn = _CHORD[name][0]
+    pj[key][pn] = jnp.asarray(pb[key][pn].numpy())
 
     def one(x, Jl, xd, p):
         return jp(jnp.asarray(x), jnp.asarray(Jl), jnp.asarray(so_j), 1.0,

@@ -1,13 +1,17 @@
 """The port as a package: the card is its default device, and it reads its
 own model files, never the JAX package's.
 
-- ``compile_circuit`` and ``params_from_numpy`` without a device raise
+- ``compile_circuit``, ``params_from_numpy`` and ``simulate`` without a
+  device raise
   where no CUDA card is present (the message names ``device="cpu"``); with
   ``device="cpu"`` they run on the CPU; ``device="cuda"`` becomes the
   indexed current card.
 - ``cedarsim_tpu_torch.models.MODELS_DIR`` and every entry of
   ``MODEL_SEARCH_PATHS`` lie inside ``cedarsim_tpu_torch/``, and its
   ``bsim4.va`` is byte for byte the JAX package's (a fix goes into both).
+- ``cuda_lib.build_library`` keeps the compiler's log beside a library it
+  builds, so a library loaded without a compile still reports ptxas's
+  registers and spills.
 """
 
 import os
@@ -39,11 +43,13 @@ def no_card(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["compile_circuit", "CompiledCircuit",
-                                   "params_from_numpy"])
+                                   "params_from_numpy", "simulate"])
 def test_no_device_and_no_card_raises(no_card, entry):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         if entry == "params_from_numpy":
             params_from_numpy({"g": {"r": np.ones(2)}})
+        elif entry == "simulate":
+            T.simulate("* rc\nV1 a 0 1\nR1 a 0 1k\n.op\n")
         else:
             getattr(T, entry)(_rc())
 
@@ -87,3 +93,32 @@ def test_bsim4_copy_equals_the_jax_packages():
               "rb") as f:
         ref = f.read()
     assert mine == ref
+
+
+def test_build_library_keeps_the_compiler_log(tmp_path, monkeypatch):
+    """A library built earlier loads without a compile and still reports
+    the log its build printed (ptxas's registers and spills): the log is
+    kept beside the shared object.  The compiler here is ``g++`` behind a
+    stand-in ``nvcc`` that prints a ptxas-like line."""
+    import shutil
+    from cedarsim_tpu_torch.ops import cuda_lib
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to stand in for nvcc")
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    fake = bindir / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    "echo 'ptxas info    : Used 7 registers' >&2\n"
+                    "exec g++ \"$@\"\n")
+    fake.chmod(0o755)
+    src = tmp_path / "k.cpp"
+    src.write_text('extern "C" int answer(void) { return 42; }\n')
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", str(tmp_path / "build"))
+    flags = ("-shared", "-fPIC")
+    first = cuda_lib.build_library("k", str(src), flags)
+    again = cuda_lib.build_library("k", str(src), flags)
+    assert first["seconds"] > 0.0 and again["seconds"] == 0.0
+    assert "Used 7 registers" in first["log"]
+    assert again["log"] == first["log"]
+    assert again["lib"].answer() == 42

@@ -290,6 +290,15 @@ def test_port_never_imports_jax():
         "assert sol.converged and 0.0 < sol.interp('b', 4e-6) < 0.9\n"
         # the dense-LU bench and its kernels' modules
         "import cedarsim_tpu_torch.benchmarks.lu_bench\n"
+        # the built-in device library, the behavioral sources and the
+        # netlist front door, each card through simulate() on the CPU
+        "import cedarsim_tpu_torch.devices.mos, cedarsim_tpu_torch.devices."
+        "bjt, cedarsim_tpu_torch.devices.jfet\n"
+        "import cedarsim_tpu_torch.frontend.behavioral\n"
+        "from cedarsim_tpu_torch.benchmarks import netlists\n"
+        "r = T.simulate(netlists.ALL_CARDS.replace('.tran 1n 50n', '.op'), "
+        "device='cpu')\n"
+        "assert bool(r['op'].converged)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m.startswith('cedarsim_tpu.') or m == "
         "'cedarsim_tpu' for m in sys.modules)\n"
