@@ -7,7 +7,9 @@ SPICE netlist → elaborated circuit (R, C, L, K, V/I sources with every
 waveform, E/F/G/H, S/W, D, MOS level 1, Gummel-Poon Q, J, Z, B, or
 Verilog-A) → compiled batched residuals and Jacobians → DC operating point
 → transient over an explicit lane axis (``simulate`` runs a netlist's own
-``.op``/``.tran``), with
+``.op``/``.tran``/``.dc``), batched DC sweeps over parameters and
+temperature and Monte-Carlo DC (``dc_sweep``, ``mc_dc``,
+``mc_statistics``), with
 the mixed-precision chord solves on the hand-written CUDA GESP LU kernels
 (``ops/gesp_lu.py``), or with every chord iteration of a step attempt in one
 launch of the fused chord kernel (``ops/fused_chord.py``, the BSIM4 walk
@@ -33,6 +35,9 @@ from cedarsim_tpu_torch.analysis.dc import (NewtonOptions, solve_dc,
                                             dc_core, default_newton_options)
 from cedarsim_tpu_torch.analysis.tran import (TranOptions, TranSolution,
                                               tran)
+from cedarsim_tpu_torch.analysis.sweeps import (
+    Sweep, ProductSweep, TandemSweep, SerialSweep, sweepify, dc_sweep)
+from cedarsim_tpu_torch.analysis.montecarlo import mc_dc, mc_statistics
 from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan)
 from cedarsim_tpu_torch.api import simulate, find_tran_directive
@@ -47,6 +52,8 @@ __all__ = [
     "Bjt", "Jfet", "Mesfet",
     "parse_spice", "elaborate", "load_spice", "NewtonOptions", "solve_dc",
     "dc_core", "default_newton_options", "TranOptions", "TranSolution",
-    "tran", "FusedEnvelopeError", "get_fused_plan", "simulate",
+    "tran", "Sweep", "ProductSweep",
+    "TandemSweep", "SerialSweep", "sweepify", "dc_sweep", "mc_dc",
+    "mc_statistics", "FusedEnvelopeError", "get_fused_plan", "simulate",
     "find_tran_directive",
 ]

@@ -69,6 +69,20 @@ def default_newton_options(compiled) -> NewtonOptions:
     return NewtonOptions()
 
 
+def dc_from_nominal(compiled, params, ctx: SimSpec, x_nominal,
+                    opts: NewtonOptions) -> DCResult:
+    """Every lane of ``params`` (leading lane axis) from the nominal
+    operating point ``x_nominal`` [n_x] through the light continuation
+    ladder (two gmin rungs from 1e-6, two source steps, no restarts) on
+    top of ``opts``: the warm start of Monte-Carlo and of the PVT lanes.
+    What a lane that fails gets next is the caller's policy."""
+    L = next(iter(next(iter(params.values())).values())).shape[0]
+    light = dataclasses.replace(opts, gmin_steps=2, src_steps=2, restarts=0,
+                                gmin_start=1e-6)
+    return dc_core(compiled, params, ctx, x_nominal.expand(L, compiled.n_x),
+                   light)
+
+
 # reset kinds in the continuation schedule
 _KEEP, _FROM_X0, _FROM_ZERO, _FROM_RANDOM = 0, 1, 2, 3
 

@@ -16,10 +16,17 @@ predictor; LTE from the predictor-corrector difference on the differential
 unknowns; breakpoints clamp steps and restart the order; a Newton failure
 shrinks h by 4.  ``jac_reuse=1`` is the per-step chord Newton (factor once
 per step attempt, exact residuals after) with the full-Newton
-``chord_fallback`` rescue behind its ``rescue_after`` gate.  The chord
+``chord_fallback`` rescue behind its ``rescue_after`` gate; ``jac_reuse >=
+2`` keeps each lane's (G, C) across step attempts and retries a Newton
+failure with a stale Jacobian at the same h with a fresh one.  The chord
 iterations run either in the loop below (``newton_impl="xla"``) or in one
 launch of the fused chord kernel per step attempt (``"fused"``,
 ``ops/fused_chord.py``).
+
+A run stops with its integrator state in a checkpoint (``CHECKPOINT_FIELDS``)
+that a later run resumes (``tran(resume=)``, ``tran_core(init_state=)``),
+so that windows chain; ``TranOptions.store_vars`` keeps only some columns
+of the stored waveforms (the checkpoint keeps the whole state).
 """
 
 from __future__ import annotations
@@ -67,7 +74,12 @@ class TranOptions:
     #: LTE acceptance deadband: accept steps with err ≤ accept_slack
     accept_slack: float = 1.0
     #: 0 = full Newton every iteration; 1 = per-step chord (assemble and
-    #: factor once per step attempt).  Cross-step reuse (≥ 2) is not ported.
+    #: factor once per step attempt); N >= 2 = cross-step reuse: each lane
+    #: keeps its (G, C) for up to N step attempts, refreshing on age, after
+    #: a Newton failure with a stale Jacobian (retried at the same h) and
+    #: after a breakpoint crossing.  The model walk runs only when some
+    #: lane refreshes, which pays on one stream; the full-Newton rescue
+    #: (``chord_fallback``) is not used there.
     jac_reuse: int = 0
     #: full-Newton rescue after a failed per-step chord certify
     chord_fallback: bool = True
@@ -95,18 +107,30 @@ class TranOptions:
     newton_impl: str = "auto"
     #: output buffers grow by whole chunks of this many rows
     chunk_size: int = 64
+    #: the stored waveform columns (``.save`` at the engine level): state
+    #: indices, or net names on the public ``tran``; None stores all.  The
+    #: final state and the checkpoint always carry the whole x.
+    store_vars: tuple = None
 
 
 def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
-                 params=None):
-    """Resolve ``dense_lu``/``newton_impl`` "auto" per device, as the JAX
-    package's ``auto_tpu_impl`` does per backend, with "on TPU" read as "on
-    CUDA": ``dense_lu`` is "mixed" on CUDA and "jax" on the CPU;
-    ``newton_impl`` is "fused" on CUDA when :func:`auto_newton_impl` says
-    so (``ctx`` given), else "xla"."""
+                 params=None, batched=True):
+    """Resolve ``dense_lu``/``newton_impl`` per device, as the JAX package's
+    ``auto_tpu_impl`` and its chord pair do, with "on TPU" read as "on
+    CUDA".  ``dense_lu``: an unbatched call (one stream, ``batched=False``)
+    takes the exact float64 solve under "auto" and under "mixed", since the
+    JAX package's chord pair reaches the float32 GESP kernels only inside
+    its ``custom_vmap`` rule (``cedarsim_tpu/ops/linalg.py:155-216``); a
+    call with a lane axis takes "mixed" under "auto" on CUDA ("jax" on the
+    CPU), and the GESP kernels under "mixed" at any lane count.
+    ``newton_impl`` "auto" is "fused" on CUDA when :func:`auto_newton_impl`
+    says so (``ctx`` given), else "xla"."""
     dl, ni = opts.dense_lu, opts.newton_impl
     if dl == "auto":
-        dl = "mixed" if compiled.device.type == "cuda" else "jax"
+        dl = "mixed" if (batched and compiled.device.type == "cuda") \
+            else "jax"
+    elif dl == "mixed" and not batched:
+        dl = "jax"
     if ni == "auto":
         ni = "xla"
         if compiled.device.type == "cuda" and ctx is not None:
@@ -119,8 +143,9 @@ def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
 def auto_newton_impl(compiled: CompiledCircuit, opts: TranOptions, ctx,
                      params=None):
     """"fused" when the corrector is the cap form, ``jac_reuse == 1``, the
-    fused plan builds and every per-lane leaf of ``params`` reaches the
-    kernel (``dyn_leaf_safe``); else "xla".  Only
+    fused plan builds, the temperature is one value (the plan bakes it)
+    and every per-lane leaf of ``params`` reaches the kernel
+    (``dyn_leaf_safe``); else "xla".  Only
     :class:`~cedarsim_tpu_torch.ops.fused_chord.FusedEnvelopeError` counts
     as "outside the envelope": any other failure (an emit, a build)
     propagates."""
@@ -136,7 +161,12 @@ def auto_newton_impl(compiled: CompiledCircuit, opts: TranOptions, ctx,
 def fused_plan_for(compiled: CompiledCircuit, ctx, params=None):
     """The fused chord plan of a (possibly lane-batched) params tree: built
     from lane 0; raises ``FusedEnvelopeError`` when a leaf that differs
-    between lanes would be read by the kernel as a constant."""
+    between lanes would be read by the kernel as a constant, or when the
+    temperature is per lane (the emitted walk folds it as a constant)."""
+    if isinstance(ctx.temp, torch.Tensor) and ctx.temp.dim() > 0:
+        raise FusedEnvelopeError(
+            "fused chord: a per-lane temperature would be read by the "
+            "kernel as one constant; use newton_impl='xla'")
     base, varying = split_lanes(compiled, params)
     plan = get_fused_plan(compiled, ctx.with_mode(Modes.TRAN), base)
     for key, pn in varying:
@@ -162,12 +192,26 @@ class TranSolution:
     #: step attempts of the lane-batched loop this lane ran in (the same
     #: for every lane of one call; finished lanes sit the last ones out)
     n_attempts: int = 0
+    #: the lane's final integrator state (``CHECKPOINT_FIELDS``, numpy);
+    #: ``tran(..., resume=sol.checkpoint)`` continues from it
+    checkpoint: dict = None
+    #: with ``TranOptions.store_vars``: stored name -> column of ``xs``;
+    #: None when ``xs`` holds the whole state
+    store_map: dict = None
 
     @property
     def t(self):
         return self.ts
 
     def __getitem__(self, name):
+        if self.store_map is not None:
+            key = name.lower()
+            if key not in self.store_map:
+                raise KeyError(
+                    f"observable {name!r} was not stored: this run kept "
+                    f"store_vars={sorted(self.store_map)}; run without "
+                    "store_vars for the whole state")
+            return np.asarray(self.xs[:, self.store_map[key]])
         fn = self.compiled.observe(name)
         dev, dt = self.compiled.device, self.compiled.dtype
         x = torch.as_tensor(self.xs, dtype=dt, device=dev)
@@ -208,6 +252,43 @@ def _differential_mask(compiled, x, ctx, params):
     return xdot0_and_mask(compiled, x, ctx, params)[1]
 
 
+#: integrator state that makes a transient resumable: the point, the step
+#: size and the three-point history behind the predictor and the BDF2
+#: corrector (``x3``/``t3`` are carried for the JAX package's checkpoint
+#: layout, whose BDF3 reads them); per lane, with a leading lane axis
+CHECKPOINT_FIELDS = ("t", "h", "x", "xdot", "x1", "x2", "x3", "t1", "t2",
+                     "t3", "nhist", "errp")
+
+
+def blank_checkpoint(x, xdot, h0):
+    """A fresh checkpoint at an operating point (no predictor history, step
+    ``h0``) to start a chain of windows with ``tran_core(init_state=)``;
+    ``x``/``xdot`` may carry a leading lane axis, which the scalar fields
+    take."""
+    bshape = tuple(x.shape[:-1])
+    z = torch.zeros(bshape, dtype=x.dtype, device=x.device)
+    return dict(t=z, h=torch.full(bshape, float(h0), dtype=x.dtype,
+                                  device=x.device),
+                x=x, xdot=xdot, x1=x, x2=x, x3=x, t1=z, t2=z, t3=z,
+                nhist=torch.zeros(bshape, dtype=torch.int32,
+                                  device=x.device),
+                errp=torch.ones(bshape, dtype=x.dtype, device=x.device))
+
+
+def window_schedules(bps_all, edges):
+    """Breakpoint schedules of the windows (edges[k], edges[k+1]], padded
+    with inf to one length: each window's interior breakpoints, its end and
+    inf (a copy of ``cedarsim_tpu/analysis/tran.py::window_schedules``)."""
+    bps_all = np.asarray(bps_all, np.float64)
+    win = []
+    for a, b in zip(edges[:-1], edges[1:]):
+        wb = bps_all[(bps_all > a) & (bps_all < b)]
+        win.append(np.concatenate([wb, [b], [np.inf]]))
+    L = max(len(w) for w in win)
+    return np.stack([np.concatenate([w, np.full(L - len(w), np.inf)])
+                     for w in win])
+
+
 def _sel(m, a, b):
     """Per-lane select: ``m`` [L] bool over [L, ...] values."""
     if not isinstance(a, torch.Tensor):
@@ -217,20 +298,26 @@ def _sel(m, a, b):
 
 
 def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
-              t0, tstop, bps, h0, opts: TranOptions, lte_mask=None):
+              t0, tstop, bps, h0, opts: TranOptions, lte_mask=None,
+              init_state=None):
     """Adaptive transient over the lanes of ``x0`` [L, n_x] (or [n_x]).
 
     ``params`` leaves may carry the lane axis; ``bps`` is the breakpoint
     schedule shared by every lane (sorted, padded with tstop and inf);
-    ``lte_mask`` [n_x] or [L, n_x].  Returns ``(ts [L, 1+R], xs [L, 1+R,
-    n_x], xdots, k [L], finished [L], n_rejected [L], n_newton [L],
-    n_attempts)``: row 0 is the initial point, rows 1..k-1 the accepted
-    points of each lane, the rows after them hold tstop and the lane's
-    final state, and ``n_attempts`` counts the batched step attempts."""
-    opts = resolve_impl(compiled, opts, ctx, params)
+    ``lte_mask`` [n_x] or [L, n_x].  ``init_state``: a checkpoint (a
+    previous run's ``final``, or :func:`blank_checkpoint`) whose step size
+    and predictor history the run resumes with; ``t0``, ``x0`` and
+    ``xdot0`` must be the checkpoint's, and ``bps`` hold only breakpoints
+    after ``t0``.  Returns ``(ts [L, 1+R], xs [L, 1+R, n_store], xdots, k
+    [L], finished [L], n_rejected [L], n_newton [L], n_attempts, final)``:
+    row 0 is the initial point, rows 1..k-1 the accepted points of each
+    lane, the rows after them hold tstop and the lane's final state,
+    ``n_attempts`` counts the batched step attempts and ``final`` is the
+    checkpoint (``CHECKPOINT_FIELDS``, [L, ...] tensors) at the end."""
     dt, dev = compiled.dtype, compiled.device
     x0 = torch.as_tensor(x0, dtype=dt, device=dev)
     xdot0 = torch.as_tensor(xdot0, dtype=dt, device=dev)
+    opts = resolve_impl(compiled, opts, ctx, params, batched=x0.dim() == 2)
     if x0.dim() == 1:
         x0, xdot0 = x0[None], xdot0[None]
     L, n = x0.shape
@@ -258,10 +345,6 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         raise NotImplementedError(f"method={method!r} is {_A14}")
     if method not in ("trap", "be", "bdf2"):
         raise ValueError(f"unknown integration method {method!r}")
-    if opts.jac_reuse > 1:
-        raise NotImplementedError(
-            "cross-step Jacobian reuse (jac_reuse >= 2) is not ported; use "
-            "jac_reuse=1 (per-step chord) or 0 (full Newton)")
     if opts.controller not in ("i", "pi"):
         raise ValueError(f"unknown controller {opts.controller!r}")
     fused = None
@@ -274,7 +357,18 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
             raise ValueError("newton_impl='fused' requires jac_reuse >= 1")
         fused = fused_plan_for(compiled, ctx, params)
     mn = opts.jac_reuse > 0
+    mn_cross = opts.jac_reuse > 1
     mixed = opts.dense_lu == "mixed"
+    if opts.store_vars is None:
+        def proj(v):
+            return v
+    else:
+        sv = torch.as_tensor(np.asarray(opts.store_vars, np.int64),
+                             device=dev)
+
+        def proj(v):
+            return v[..., sv]
+    n_store = n if opts.store_vars is None else len(opts.store_vars)
     nv = compiled.n_nodes + compiled.n_internal
     jsh = opts.jac_shunt * torch.diag(
         (torch.arange(n, device=dev) < nv).to(dt))
@@ -394,9 +488,31 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         x=x0, xdot=xdot0, Qn=Q0, Qp=Q0, Sn=S0, x1=x0, x2=x0,
         t1=torch.full((L,), t0, dtype=dt, device=dev),
         t2=torch.full((L,), t0, dtype=dt, device=dev),
+        x3=x0, t3=torch.full((L,), t0, dtype=dt, device=dev),
         nhist=zi, bpi=zi, k=zi, nrej=zi, nnwt=zi, rrun=zi, nfr=zi,
         ok=torch.ones(L, dtype=torch.bool, device=dev),
         errp=torch.ones(L, dtype=dt, device=dev))
+    if mn_cross:
+        # each lane's cached linearization; jage starts past any age so
+        # that the first attempt refreshes, jfail forces a refresh at the
+        # same h after a Newton failure with a stale Jacobian
+        c.update(Gc=torch.zeros(L, n, n, dtype=dt, device=dev),
+                 Cc=torch.zeros(L, n, n, dtype=dt, device=dev),
+                 jage=torch.full((L,), 1 << 30, dtype=torch.int32,
+                                 device=dev),
+                 jfail=torch.zeros(L, dtype=torch.bool, device=dev))
+    if init_state is not None:
+        # step size and predictor history from the checkpoint (t, x and
+        # xdot are t0, x0 and xdot0); the charge history at the restored
+        # previous point
+        for f in CHECKPOINT_FIELDS:
+            if f in ("t", "x", "xdot") or f not in init_state:
+                continue
+            v = torch.as_tensor(
+                init_state[f], device=dev,
+                dtype=torch.int32 if f == "nhist" else dt)
+            c[f] = v.expand((L,) + tuple(c[f].shape[1:])).clone()
+        c["Qp"] = compiled.evaluate(c["x1"], ctx_at(c["t1"]), lp)[1]
     # output rows (accepted points); grown by whole chunks, one spare row
     # at the end receives the masked writes of lanes that did not accept
     rows = 0
@@ -409,7 +525,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         nonlocal rows, ts_b, xs_b, xd_b
         pad = new_rows - rows
         tsn = torch.full((L, pad + 1), tstop, dtype=dt, device=dev)
-        xsn = torch.zeros(L, pad + 1, n, dtype=dt, device=dev)
+        xsn = torch.zeros(L, pad + 1, n_store, dtype=dt, device=dev)
         if ts_b is None:
             ts_b, xs_b, xd_b = tsn, xsn, xsn.clone()
         else:
@@ -479,8 +595,18 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
 
         hh = h_real[:, None, None]
         if mn:
-            S0p, Q0p, G, C = compiled.evaluate(x_pred, ctx_at(t_new), lp,
-                                               jac=True)
+            if mn_cross:
+                # the cached (G, C) unless a lane refreshes: the walk runs
+                # for all lanes then, and only refreshing lanes take it
+                refresh = c["jfail"] | (c["jage"] >= opts.jac_reuse)
+                G, C = c["Gc"], c["Cc"]
+                if bool((refresh & lv).any()):
+                    _, _, Gf, Cf = compiled.evaluate(
+                        x_pred, ctx_at(t_new), lp, jac=True)
+                    G, C = _sel(refresh, Gf, G), _sel(refresh, Cf, C)
+            else:
+                S0p, Q0p, G, C = compiled.evaluate(x_pred, ctx_at(t_new),
+                                                   lp, jac=True)
             J = damp_J(c0[:, None, None] * C / hh + G) if cap_form \
                 else damp_J(a0[:, None, None] * C / hh
                             + beta[:, None, None] * G)
@@ -492,10 +618,16 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                     x_pred, J, fused.s_off(t_new, ctx_t, params), c0,
                     h_real, xdh, t_new, opts, params=params, live=lv)
             else:
-                init_parts = (S0p, Q0p,
-                              linalg.matvec(C, (c0[:, None] * x_pred + xdh)
-                                            / h_real[:, None])
-                              if cap_form else torch.zeros_like(S0p))
+                if mn_cross:
+                    # (G, C) may be stale: the initial residual is walked
+                    init_parts = fparts(x_pred, ctx_at(t_new), c0, xdh,
+                                        h_real)
+                else:
+                    init_parts = (S0p, Q0p,
+                                  linalg.matvec(C, (c0[:, None] * x_pred
+                                                    + xdh)
+                                                / h_real[:, None])
+                                  if cap_form else torch.zeros_like(S0p))
                 if mixed:
                     fct = linalg.chord_factor(J)
 
@@ -509,7 +641,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                 xn, Sn_new, Qn_new, nok, nnwt = newton_mod(
                     x_pred, t_new, h_real, a0, Qhist, c["Sn"], beta, c0,
                     xdh, chord_solve, init_parts, ~lv)
-            if opts.chord_fallback:
+            if opts.chord_fallback and not mn_cross:
                 eligible = c["nfr"] >= opts.rescue_after
                 xfin = torch.isfinite(xn).all(-1)
                 far = ~((xn - x_pred).abs().amax(-1) <= 5.0)
@@ -581,16 +713,32 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                 use_be[:, None], xdot_be,
                 2.0 * (xn - x) / h_real[:, None] - c["xdot"])
 
+        if mn_cross:
+            # a Newton failure with a stale Jacobian keeps h: the retry
+            # refreshes it
+            stale_fail = ~nok & ~refresh
+            h_rej = torch.where(stale_fail, h_real, h_rej)
+
         ok_cont = accept | (h_rej > hmin * 1.0000001)
         acc = accept & lv
         # output row: accepting lanes write row k, the others the spare row
         row = torch.where(acc, c["k"], torch.full_like(c["k"], rows)).long()
         ts_b[lanes, row] = t_new
-        xs_b[lanes, row] = xn
-        xd_b[lanes, row] = xdot_n
+        xs_b[lanes, row] = proj(xn)
+        xd_b[lanes, row] = proj(xdot_n)
         new_nh = torch.where(hit_bp | forced, torch.zeros_like(nh),
                              (nh + 1).clamp(max=3))
+        cross = {}
+        if mn_cross:
+            cross = dict(
+                Gc=_sel(lv, G, c["Gc"]), Cc=_sel(lv, C, c["Cc"]),
+                jage=torch.where(lv, torch.where(refresh, 1, c["jage"] + 1),
+                                 c["jage"]).to(torch.int32),
+                # a refresh after a stale failure or a breakpoint crossing
+                jfail=torch.where(lv, stale_fail | (acc & hit_bp),
+                                  c["jfail"]))
         return dict(
+            **cross,
             t=torch.where(acc, t_new, t),
             h=torch.where(lv, torch.where(accept, h_acc, h_rej), h),
             x=_sel(acc, xn, x),
@@ -600,8 +748,10 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
             Sn=_sel(acc, Sn_new, c["Sn"]),
             x1=_sel(acc, x, c["x1"]),
             x2=_sel(acc, c["x1"], c["x2"]),
+            x3=_sel(acc, c["x2"], c["x3"]),
             t1=torch.where(acc, t, c["t1"]),
             t2=torch.where(acc, c["t1"], c["t2"]),
+            t3=torch.where(acc, c["t2"], c["t3"]),
             nhist=torch.where(acc, new_nh, nh),
             rrun=torch.where(lv, torch.where(accept, 0, c["rrun"] + 1),
                              c["rrun"]).to(torch.int32),
@@ -637,33 +787,79 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     written = torch.arange(kmax, device=dev)[None, :] < c["k"][:, None]
     ts_all = torch.where(written, ts_b[:, :kmax], tstop)
     xs_all = torch.where(written[..., None], xs_b[:, :kmax],
-                         c["x"][:, None, :])
+                         proj(c["x"])[:, None, :])
     xd_all = torch.where(written[..., None], xd_b[:, :kmax],
-                         c["xdot"][:, None, :])
+                         proj(c["xdot"])[:, None, :])
     ts_all = torch.cat([torch.full((L, 1), t0, dtype=dt, device=dev),
                         ts_all], 1)
-    xs_all = torch.cat([x0[:, None], xs_all], 1)
-    xd_all = torch.cat([xdot0[:, None], xd_all], 1)
+    xs_all = torch.cat([proj(x0)[:, None], xs_all], 1)
+    xd_all = torch.cat([proj(xdot0)[:, None], xd_all], 1)
     finished = c["ok"] & (c["t"] >= t_end)
+    final = {f: c[f] for f in CHECKPOINT_FIELDS}
     return (ts_all, xs_all, xd_all, c["k"] + 1, finished, c["nrej"],
-            c["nnwt"], n_att)
+            c["nnwt"], n_att, final)
+
+
+def _store_columns(compiled, store_vars):
+    """(state indices, stored name -> column) of ``store_vars`` (net names
+    or indices), as the JAX package's ``tran`` resolves them."""
+    idx, store_map = [], {}
+    for col, v in enumerate(store_vars):
+        if isinstance(v, str):
+            net = compiled.circuit._nets.get(v.lower())
+            if net is None or net.is_ground:
+                raise ValueError(
+                    f"store_vars: {v!r} is not a storable net (ground and "
+                    "observables that are not states cannot be stored); "
+                    f"nets: {compiled.node_names[:20]}...")
+            i = net.index
+        else:
+            i = int(v)
+            if not 0 <= i < compiled.n_x:
+                raise ValueError(f"store_vars index {i} out of range "
+                                 f"(n_x={compiled.n_x})")
+        idx.append(i)
+        name = (v.lower() if isinstance(v, str)
+                else compiled.node_names[i] if i < len(compiled.node_names)
+                else f"x{i}")
+        store_map[name] = col
+    return tuple(idx), store_map
 
 
 def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
-         opts: TranOptions = None, dc_opts: NewtonOptions = None, x0=None):
+         opts: TranOptions = None, dc_opts: NewtonOptions = None, x0=None,
+         resume: dict = None):
     """Transient analysis over ``tspan = (t0, tstop)``.
 
     One lane (params as compiled, ``x0`` None or [n_x]) returns a
     :class:`TranSolution`.  Lanes — ``params`` leaves with a leading lane
     axis and/or ``x0`` [L, n_x] — run together and return one
     ``TranSolution`` per lane.  Without ``x0`` the operating point is
-    solved first (``Modes.TRANOP``; per lane when the lanes differ)."""
+    solved first (``Modes.TRANOP``; per lane when the lanes differ).
+    ``resume``: a checkpoint (``sol.checkpoint``, or a dict of [L, ...]
+    arrays for lanes) to continue from, with its step size and predictor
+    history; the operating point is skipped and ``tspan[0]`` gives way to
+    the checkpoint's time."""
     params = compiled.params0 if params is None else params
     if ctx is None:
         ctx = default_ctx(compiled)
-    opts = resolve_impl(compiled, opts or TranOptions(), ctx, params)
+    opts = opts or TranOptions()
+    store_map = None
+    if opts.store_vars is not None:
+        idx, store_map = _store_columns(compiled, opts.store_vars)
+        opts = dataclasses.replace(opts, store_vars=idx)
     dt, dev = compiled.dtype, compiled.device
     t0, tstop = float(tspan[0]), float(tspan[1])
+    if resume is not None:
+        tr = np.asarray(resume["t"], np.float64).reshape(-1)
+        if not (tr == tr[0]).all():
+            raise ValueError("checkpoint lanes stand at different times "
+                             f"({tr.min()} to {tr.max()})")
+        t0 = float(tr[0])
+        if t0 >= tstop:
+            raise ValueError(f"checkpoint time {t0} is already past "
+                             f"tstop={tstop}")
+        x0 = resume["x"]
     span = tstop - t0
     bps = compiled.breakpoints(tstop)
     bps = np.concatenate([bps[bps > t0], [tstop], [np.inf]])
@@ -680,6 +876,7 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
             if torch.as_tensor(v).dim() == compiled.params0[key][pn].dim() + 1:
                 L = torch.as_tensor(v).shape[0]
     batched = L is not None
+    opts = resolve_impl(compiled, opts, ctx, params, batched=batched)
     Lr = L if batched else 1
     converged0 = torch.ones(Lr, dtype=torch.bool, device=dev)
     if x0 is None:
@@ -700,12 +897,16 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
     x0b = x0.expand(Lr, compiled.n_x) if x0.dim() == 1 else x0
     ctx_op = ctx.with_mode(Modes.TRANOP).at_time(t0)
     xdot0, lte_mask = xdot0_and_mask(compiled, x0b, ctx_op, params)
-    ts, xs, xd, k, fin, nrej, nnwt, n_att = tran_core(
+    if resume is not None:
+        xdot0 = torch.as_tensor(resume["xdot"], dtype=dt,
+                                device=dev).expand(Lr, compiled.n_x)
+    ts, xs, xd, k, fin, nrej, nnwt, n_att, final = tran_core(
         compiled, params, ctx, x0b, xdot0, t0, tstop, bps, h0, opts,
-        lte_mask)
+        lte_mask, init_state=resume)
     ts, xs, xd = ts.cpu().numpy(), xs.cpu().numpy(), xd.cpu().numpy()
     k, fin = k.cpu().numpy(), (fin & converged0).cpu().numpy()
     nrej, nnwt = nrej.cpu().numpy(), nnwt.cpu().numpy()
+    final = {f: v.cpu().numpy() for f, v in final.items()}
     sols = []
     for i in range(Lr):
         pi = params
@@ -720,5 +921,7 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
             converged=bool(fin[i]), n_accepted=ki,
             n_rejected=int(nrej[i]), n_newton=int(nnwt[i]),
             compiled=compiled, ctx=ctx.with_mode(Modes.TRAN), params=pi,
-            n_attempts=n_att))
+            n_attempts=n_att,
+            checkpoint={f: v[i] for f, v in final.items()},
+            store_map=store_map))
     return sols if batched else sols[0]

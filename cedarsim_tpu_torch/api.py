@@ -1,28 +1,33 @@
 """Netlist in, results out — counterpart of ``cedarsim_tpu/api.py`` for the
-operating point (``.op``) and the transient (``.tran``).
+operating point (``.op``), the transient (``.tran``) and the batched DC
+sweep (``.dc``).
 
 :func:`simulate` parses and elaborates a SPICE netlist, compiles it on the
 card (or on ``device``), and runs the analyses its directives ask for, in
 their order, as the JAX package's ``simulate`` does: ``.tran`` with its
 ``tstop`` and ``tmax`` (the step cap), ``uic``, and ``.options
-method=trap|gear maxord=``.  A netlist without an analysis gets its
-operating point.  The analyses and front ends that are not ported raise
-``NotImplementedError`` naming their ROADMAP item; none is skipped:
-``.dc`` (A11), ``.ac``, ``.noise`` and ``.four`` (A15), Spectre text and
-``alter`` (A19), gear orders above 2 (BDF3/BDF5, A14b).  ``.measure`` and
-``.save`` already raise in the elaborator (A19).
+method=trap|gear maxord=``; ``.dc src start stop step [src2 ...]`` as one
+batched ``dc_sweep`` over the product of the sources' values; ``mc_seed``
+seeds the netlist's ``agauss``-style draws.  A netlist without an analysis
+gets its operating point.  The analyses and front ends that are not ported
+raise ``NotImplementedError`` naming their ROADMAP item; none is skipped:
+``.ac``, ``.noise`` and ``.four`` (A15), Spectre text and ``alter`` (A19),
+gear orders above 2 (BDF3/BDF5, A14b).  ``.measure`` and ``.save`` already
+raise in the elaborator (A19).
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from cedarsim_tpu_torch.analysis.dc import solve_dc
+from cedarsim_tpu_torch.analysis.sweeps import Sweep, ProductSweep, dc_sweep
 from cedarsim_tpu_torch.analysis.tran import TranOptions, tran
 from cedarsim_tpu_torch.core.compile import compile_circuit, default_ctx
 from cedarsim_tpu_torch.frontend.elaborate import elaborate
 from cedarsim_tpu_torch.frontend.parser import parse_spice
 
 _UNPORTED = {
-    "dc": "ROADMAP A11 (sweeps)",
     "ac": "ROADMAP A15 (AC and noise)",
     "noise": "ROADMAP A15 (AC and noise)",
     "four": "ROADMAP A15 (.four, .measure)",
@@ -75,16 +80,43 @@ def tran_options(circuit):
     return TranOptions(**okw)
 
 
+def dc_directive_sweep(args):
+    """The sweep of a ``.dc src start stop step [src2 start2 ...]`` card's
+    arguments (the JAX package's reading): each source's ``dc`` over
+    ``arange(start, stop + step/2, step)``, a product of the sources; None
+    when the arguments name no source."""
+    sweeps = []
+    i = 0
+    while i < len(args):
+        if not isinstance(args[i], str):
+            break
+        src = args[i].lower()
+        nums = args[i + 1:i + 4]
+        if len(nums) < 3 or any(isinstance(a, str) for a in nums):
+            break
+        start, stop, step = nums
+        vals = np.arange(start, stop + step * 0.5, step)
+        sweeps.append(Sweep(src if src.endswith(".dc") else src + ".dc",
+                            vals))
+        i += 4
+    if not sweeps:
+        return None
+    return sweeps[0] if len(sweeps) == 1 else ProductSweep(*sweeps)
+
+
 def simulate(text_or_circuit, include_paths=(), params=None, temp=None,
-             tran_opts: TranOptions = None, file="<netlist>", dialect=None,
-             device=None):
+             tran_opts: TranOptions = None, file="<netlist>", mc_seed=None,
+             dialect=None, device=None):
     """Run the analyses requested by the netlist's directives.
 
     ``text_or_circuit``: SPICE netlist text or an elaborated ``Circuit``.
     ``device``: where the circuit is compiled and solved (by default the
     CUDA card; ``"cpu"`` runs the kernels' plain versions).  Returns a dict
     with the ``circuit``, the ``compiled`` circuit and, as the directives
-    ask, ``"op"`` (a DC result) and ``"tran"`` (a ``TranSolution``)."""
+    ask, ``"op"`` (a DC result), ``"tran"`` (a ``TranSolution``), and
+    ``"dc"`` (a batched DC result, one lane per point) with ``"dc_sweep"``
+    (its points).  ``mc_seed`` seeds the elaboration's Monte-Carlo
+    draws."""
     if isinstance(text_or_circuit, str):
         text = text_or_circuit
         if dialect == "spectre" or "simulator lang" in text.lower() \
@@ -97,7 +129,8 @@ def simulate(text_or_circuit, include_paths=(), params=None, temp=None,
         if any(getattr(st, "cmd", None) in ("altergroup", "alterstmt")
                for st in nl.statements):
             raise NotImplementedError(f"alter statements — {_A19}")
-        circuit = elaborate(nl, include_paths=include_paths, params=params)
+        circuit = elaborate(nl, include_paths=include_paths, params=params,
+                            mc_seed=mc_seed)
     else:
         circuit = text_or_circuit
     return _run_circuit(circuit, temp, tran_opts, device)
@@ -123,6 +156,12 @@ def _run_circuit(circuit, temp=None, tran_opts=None, device=None):
             out["tran"] = tran(compiled, (0.0, d["tstop"]), ctx=ctx,
                                opts=opts)
             ran_any = True
+        elif cmd == "dc" and "dc" not in out and args:
+            sw = dc_directive_sweep(args)
+            if sw is not None:
+                out["dc"] = dc_sweep(compiled, sw, ctx=ctx)
+                out["dc_sweep"] = sw
+                ran_any = True
     if not ran_any:
         out["op"] = solve_dc(compiled, ctx=ctx)
     return out

@@ -56,7 +56,6 @@ writes it to a file.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import subprocess
@@ -217,7 +216,7 @@ def dff_lanes(torch, T, dev, lanes=N_LANES):
     and the per-lane warm DC of the W scatter (``linspace(0.99, 1.01)``,
     the middle lane nominal).  Returns (compiled, ctx, per-lane params,
     per-lane initial states)."""
-    from cedarsim_tpu_torch.analysis.dc import dc_core
+    from cedarsim_tpu_torch.analysis.dc import dc_from_nominal
     dff_dir = os.path.join(_repo(T), "benchmarks", "gf180_dff")
     with open(os.path.join(dff_dir, "dff_tb_bsim4.cir")) as f:
         nl = T.parse_spice(f.read(), file="dff_tb_bsim4.cir")
@@ -235,11 +234,8 @@ def dff_lanes(torch, T, dev, lanes=N_LANES):
               for pn, v in grp.items()} for k, grp in comp.params0.items()}
     pb[key] = dict(pb[key])
     pb[key]["W"] = comp.params0[key]["W"][None, :] * scatter[:, None]
-    light = dataclasses.replace(T.default_newton_options(comp),
-                                gmin_steps=2, src_steps=2, restarts=0,
-                                gmin_start=1e-6)
-    warm = dc_core(comp, pb, ctx.with_mode("tranop"),
-                   op.x.expand(lanes, comp.n_x), light)
+    warm = dc_from_nominal(comp, pb, ctx.with_mode("tranop"), op.x,
+                           T.default_newton_options(comp))
     if not bool(warm.converged.all()):
         raise AssertionError("per-lane warm DC did not converge")
     return comp, ctx, pb, warm.x

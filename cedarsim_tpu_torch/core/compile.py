@@ -19,8 +19,8 @@ per local unknown — the counterpart of the JAX package's ``jacfwd`` under
 
 Lanes: ``x`` is ``[n_x]`` or ``[L, n_x]``; a parameter leaf is the compiled
 ``[n_inst]`` (``[n_inst, P]`` for point lists) or carries a leading lane axis
-``[L, ...]``; ``ctx.time`` is a float or an ``[L]`` tensor.  Every lane is
-evaluated independently of the others.
+``[L, ...]``; ``ctx.time`` and ``ctx.temp`` are floats or ``[L]`` tensors.
+Every lane is evaluated independently of the others.
 """
 
 from __future__ import annotations
@@ -257,10 +257,15 @@ class CompiledCircuit:
         return out
 
     def _eval_ctx(self, ctx, n_inst):
-        t = ctx.time
-        if isinstance(t, torch.Tensor) and t.dim() == 1:
-            return ctx.at_time(t.repeat_interleave(n_inst))
-        return ctx
+        """``ctx`` for a group's flat eval batch: a per-lane time or
+        temperature [L] is repeated over each lane's ``n_inst`` padded
+        instances."""
+        kw = {}
+        for f in ("time", "temp"):
+            v = getattr(ctx, f)
+            if isinstance(v, torch.Tensor) and v.dim() == 1:
+                kw[f] = v.repeat_interleave(n_inst)
+        return ctx.replace(**kw) if kw else ctx
 
     def evaluate(self, x, ctx: SimSpec, lp, jac=False, v=None, keys=None):
         """Core walk over ``[L, n_x]`` states with prepared lane params
@@ -411,6 +416,63 @@ class CompiledCircuit:
 
     # ------------------------------------------------------------ utilities
 
+    def param_loc(self, dotted: str):
+        """Resolve ``"inst.name.param"`` to (group key, instance index,
+        param name); ``m`` is the multiplier ``$mult``."""
+        inst_name, pname = dotted.rsplit(".", 1)
+        if inst_name not in self._inst_loc:
+            raise KeyError(f"no instance {inst_name!r}")
+        key, j = self._inst_loc[inst_name]
+        if pname == "m":
+            pname = "$mult"
+        elif pname not in self.params0[key]:
+            if pname in self.groups[key].static_params:
+                raise KeyError(
+                    f"{inst_name}.{pname} was compiled as a static constant; "
+                    f"pass dynamic_params=[{pname!r}] (or "
+                    f"'{inst_name}.{pname}') to compile_circuit to sweep it")
+            raise KeyError(f"{inst_name} has no parameter {pname!r}")
+        return key, j, pname
+
+    def set_param(self, params, dotted: str, value):
+        """A copy of ``params`` with one instance parameter set (a bare name
+        sets it on every instance that has it).  An explicit value is given:
+        the ``$given`` flag beside it turns to 1, so that a device switching
+        on it (a PULSE source's ``dc`` in DC mode) sees the value."""
+        if "." not in dotted:
+            pname = dotted.lower()
+            new = dict(params)
+            hit = False
+            for key in self.group_order:
+                if pname in new[key]:
+                    grp = dict(new[key])
+                    grp[pname] = torch.full_like(
+                        torch.as_tensor(grp[pname]), float(value))
+                    if f"{pname}$given" in grp:
+                        grp[f"{pname}$given"] = torch.ones_like(
+                            torch.as_tensor(grp[f"{pname}$given"]))
+                    new[key] = grp
+                    hit = True
+                elif pname in self.groups[key].static_params:
+                    raise KeyError(
+                        f"{pname!r} was compiled as a static constant; pass "
+                        f"dynamic_params=[{pname!r}] to compile_circuit")
+            if not hit:
+                raise KeyError(f"no instance has parameter {pname!r}")
+            return new
+        key, j, pname = self.param_loc(dotted)
+        new = dict(params)
+        grp = dict(new[key])
+        v = torch.as_tensor(grp[pname]).clone()
+        v[j] = value
+        grp[pname] = v
+        if f"{pname}$given" in grp:
+            g = torch.as_tensor(grp[f"{pname}$given"]).clone()
+            g[j] = 1.0
+            grp[f"{pname}$given"] = g
+        new[key] = grp
+        return new
+
     def breakpoints(self, tstop: float) -> np.ndarray:
         """All source-waveform discontinuity times in (0, tstop), sorted,
         with near-duplicates (sub-1e-9·tstop apart) merged."""
@@ -501,3 +563,19 @@ def compile_circuit(circuit: Circuit, dtype=None, device=None,
     CUDA card; without one, pass ``device="cpu"``)."""
     return CompiledCircuit(circuit, dtype=dtype, device=device,
                            dynamic_params=dynamic_params)
+
+
+def ensure_dynamic(compiled: CompiledCircuit, names) -> CompiledCircuit:
+    """``compiled``, or a variant compiled again (on the same device) with
+    every param in ``names`` (dotted or bare) dynamic, so that a sweep can
+    give it a value per lane; variants are cached on ``compiled``."""
+    names = frozenset(n.lower() for n in names)
+    if names <= compiled.dynamic_params:
+        return compiled
+    want = compiled.dynamic_params | names
+    cache = compiled.__dict__.setdefault("_dyn_variants", {})
+    if want not in cache:
+        cache[want] = CompiledCircuit(compiled.circuit, dtype=compiled.dtype,
+                                      device=compiled.device,
+                                      dynamic_params=want)
+    return cache[want]

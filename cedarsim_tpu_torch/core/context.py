@@ -3,8 +3,9 @@
 A ``SimSpec`` carries the numeric fields every device eval may read (time,
 temperature, gmin, scale, source factor) plus the analysis mode string that
 selects a branch of the source models.  Numeric fields are Python floats or
-tensors; a batched transient gives ``time`` one entry per lane, and the
-compiler broadcasts such a field over the instances of each lane.
+tensors; a batched transient gives ``time`` one entry per lane, a DC sweep
+over temperature gives ``temp`` one (Kelvin), and the compiler broadcasts
+such a field over the instances of each lane.
 """
 
 from __future__ import annotations

@@ -17,6 +17,8 @@ import math
 import os
 import warnings
 
+import numpy as np
+
 from cedarsim_tpu_torch.core.circuit import Circuit, GROUND
 from cedarsim_tpu_torch.devices import (
     Resistor, Capacitor, Inductor, CoupledInductors, VSource, VSourcePWL,
@@ -27,12 +29,13 @@ from cedarsim_tpu_torch.devices import (
 from cedarsim_tpu_torch.frontend import parser as P
 from cedarsim_tpu_torch.frontend.expr import eval_expr, ExprError
 
-_A11 = "ROADMAP A11 (PVT and Monte-Carlo sweeps)"
 _A12 = "ROADMAP A12 (BSIM-CMG)"
 _A14B = ("ROADMAP A14b (transmission lines, VBIC, the VA delay, latch "
         "and noise channels)")
 _A15 = "ROADMAP A15 (AC and noise)"
 _A19 = "ROADMAP A19 (utilities and API)"
+_A19_STATS = ("ROADMAP A19 (the Spectre front end, which parses "
+              "statistics blocks)")
 
 
 def _unported(what, item):
@@ -48,12 +51,15 @@ class ElabError(ValueError):
 
 
 class ParamEnv:
-    """Lexically-scoped lazy parameter environment with cycle detection."""
+    """Lexically-scoped lazy parameter environment with cycle detection;
+    ``rng`` (inherited from the parent) feeds the Monte-Carlo functions."""
 
-    def __init__(self, parent=None):
+    def __init__(self, parent=None, rng=None):
         self.exprs = {}
         self.cache = {}
         self.parent = parent
+        self.rng = rng if rng is not None else (
+            parent.rng if parent is not None else None)
         self._evaluating = set()
 
     def define(self, name, expr):
@@ -82,7 +88,7 @@ class ParamEnv:
             else:
                 self._evaluating.add(name)
                 try:
-                    v = eval_expr(e, self, None)
+                    v = eval_expr(e, self, self.rng)
                 finally:
                     self._evaluating.discard(name)
             self.cache[name] = v
@@ -100,8 +106,14 @@ def _tiny_default(v, d):
 
 
 class Elaborator:
-    def __init__(self, include_paths=(), temp=27.0, param_overrides=None):
+    def __init__(self, include_paths=(), mc_seed=None, temp=27.0,
+                 param_overrides=None):
         self.include_paths = [os.fspath(p) for p in include_paths]
+        #: the Monte-Carlo draws of ``agauss``/``gauss``/``aunif``/``unif``
+        #: (numpy's generator, seeded as the JAX package's elaborator does,
+        #: so the same seed gives the same parameters)
+        self.rng = (np.random.default_rng(mc_seed)
+                    if mc_seed is not None else None)
         self.ckt = Circuit()
         self.globals = {"0", "gnd!", "vdd!", "vss!", "vcc!", "vee!"}
         self.warnings = []
@@ -138,7 +150,7 @@ class Elaborator:
         if isinstance(v, (int, float)):
             return float(v)
         try:
-            return float(eval_expr(v, env, None))
+            return float(eval_expr(v, env, self.rng))
         except ExprError as e:
             raise ElabError(str(e), loc)
 
@@ -146,7 +158,7 @@ class Elaborator:
 
     def run(self, netlist: P.SpiceNetlist) -> Circuit:
         self.ckt.title = netlist.title
-        env = ParamEnv()
+        env = ParamEnv(rng=self.rng)
         env.define("$temp", self.temp)
         scope = dict(models={}, subckts={}, env=env)
         elements = []
@@ -221,7 +233,7 @@ class Elaborator:
         env = scope["env"]
         if st.cmd == "statistics":
             raise NotImplementedError(
-                f"statistics blocks are not ported yet — {_A11}")
+                f"statistics blocks are not ported yet — {_A19_STATS}")
         if st.cmd == "funcdecl":
             name, args, body = st.args
             env.define(name.lower() + "()", ("funcdef", list(args), body))
@@ -834,7 +846,7 @@ class Elaborator:
             raise ElabError(
                 f"{el.name}: {el.model} has {len(sub.nodes)} ports "
                 f"({' '.join(sub.nodes)}), got {len(el.nodes)}", el.loc)
-        child_env = ParamEnv(parent=def_scope["env"])
+        child_env = ParamEnv(parent=def_scope["env"], rng=self.rng)
         for pname, pexpr in sub.params.items():
             child_env.define(pname, pexpr)
         for pname, pval in kw.items():   # already evaluated in caller env
@@ -854,8 +866,11 @@ class Elaborator:
             self._instantiate(e2, sc2, child_prefix, child_map, mfac)
 
 
-def elaborate(netlist, include_paths=(), params=None, temp=27.0) -> Circuit:
-    el = Elaborator(include_paths=include_paths, temp=temp,
+def elaborate(netlist, include_paths=(), params=None, mc_seed=None,
+              temp=27.0) -> Circuit:
+    """``mc_seed``: seed of the Monte-Carlo functions' draws (without one,
+    ``agauss`` and the like take their nominal value)."""
+    el = Elaborator(include_paths=include_paths, mc_seed=mc_seed, temp=temp,
                     param_overrides=params)
     return el.run(netlist)
 

@@ -15,7 +15,8 @@ Phases, each printing one line (any failure raises, so the exit code is not
 3. kernels — the GESP factor (B2) and substitution (B3) bitwise equal to
    their plain PyTorch versions on the card (random, equilibrated,
    diagonally dominant inputs from a fixed numpy seed; n from 8 to 240,
-   with B = 8 and 256 at n = 25 (the DFF cells' shapes), n = 32 and 33
+   with B = 8, 16 and 256 at n = 25 (the DFF cells' and the PVT xla
+   run's shapes), n = 32 and 33
    on both sides of the factor's one-warp regime and n = 32, 33, 64, 96
    and 122 reaching each of the substitution's rows-per-lane paths; each kernel's two launches bitwise equal); the
    mixed chord solve against float64 ``torch.linalg.solve``; kernel, plain
@@ -56,9 +57,10 @@ Phases, each printing one line (any failure raises, so the exit code is not
    level-1 MOSFETs of ``models_lv1.spice``) as one stream through the
    public ``tran`` over 0-700 ns with ``SimSpec.make(gmin=1e-15)`` and
    ``max_steps=16384``, gated at ``bench.py:554-557`` (q within 0.05 V of
-   0 at 150 and 250 ns and of 5 V at 700 ns).  One lane runs the exact
-   float64 solve, as the JAX package's unbatched "mixed" path does
-   (``cedarsim_tpu/ops/linalg.py:155``).
+   0 at 150 and 250 ns and of 5 V at 700 ns).  One stream takes the exact
+   float64 solve under "auto" and "mixed", as the JAX package's unbatched
+   chord pair does (``cedarsim_tpu/ops/linalg.py:155``); no GESP kernel
+   may launch.
 10. lv1_mixed (cell D) — the leg at the JAX package's 256 lanes, vto
    scaled per lane by ``linspace(0.99, 1.01)``, each lane from its own
    operating point, through the mixed chord path (``newton_impl="xla"``,
@@ -77,12 +79,34 @@ Phases, each printing one line (any failure raises, so the exit code is not
    netlist with every newly bound card (``benchmarks/netlists.py``), each
    against the same call with ``device="cpu"``: the operating point within
    1e-9 V and every node's waveform at five times within 1e-6 V.
+14. sweeps — on the card against the same call on the CPU: ``dc_sweep``
+   of the divider over a ``ProductSweep`` and of a ``tc1`` divider over
+   temperature, ``mc_dc`` of 256 points and a ``.dc`` card through
+   ``simulate``: every point within 1e-9 V.
+15. pvt — ``benchmarks/pvt_sweep.run_chunked``: the BSIM4 DFF over a
+   256-point W × VDD grid in one chunk of 256 lanes, 0-700 ns in two
+   windows chained by checkpoint, through the engine ``resolve_impl`` gives
+   a batched call on the card, which must be the fused kernel (B1): every
+   lane through the gate (q at 699 ns within 0.1 V of its own supply,
+   after the rescue ladder if a lane needs it), one B1 launch per step
+   attempt, the lanes per rescue tier printed, and the counts
+   ``CELL_P``.  It runs on the harness object (``pvt_sweep.PVT``) built
+   before the kernels' build, whose one fused plan is the plan phase 16
+   checks.
+16. pvt_fused_kernel — B1 on the PVT plan (W and VDD per lane) against its
+   plain version at [256, 25] on the PVT lanes' operating points, as phase
+   6; its times, bound and ptxas lines.
+17. pvt_xla — the harness with ``impl="xla"`` (B2/B3, ``dense_lu=
+   "mixed"``): 16 points over 0-100 ns, both GESP kernels launched, B1 not,
+   every count equal to the same call with ``device="cpu"`` (the kernels'
+   plain versions), run here after it.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
 the TPU kernel it replaces, launches on its path (B1 in phase 7 and, on
-the level-1 plan, in phase 12; B2/B3 in phase 5 and in phase 10; B4/B5 in
-phase 8), error, times and its bound: the larger of the
+the level-1 plan, in phase 12, on the PVT plan in phase 15; B2/B3 in phase
+5, in phase 10 and in phase 17; B4/B5 in phase 8), error, times and its
+bound: the larger of the
 bytes it must move over 3.35 TB/s and its operations over the card's peak
 for their type, both counted from this run's inputs.  The times
 (``benchmarks/kernel_times.py``): ``call_ms`` (= ``ms``), a Python loop of
@@ -128,6 +152,15 @@ CELL_B = (4832, 1291, 16754, 776)
 #: lanes)
 CELL_D = (384556, 57104, 1024766, 1740)
 CELL_E = (161553, 30938, 505888, 756)
+#: the PVT sweep (phase 15): 256 points, one chunk, two windows (accepted,
+#: rejected, Newton over all lanes, batched step attempts over both
+#: windows), and the 16-point run through the GESP kernels over 0-100 ns
+#: (phase 17; its counts are those of the same call on the CPU)
+PVT_POINTS = 256
+PVT_SEGMENTS = 2
+CELL_P = (158702, 38472, 532508, 816)
+PVT_XLA_POINTS = 16
+PVT_XLA_TSTOP = 1e-7
 #: the level-1 leg's gate (bench.py:554-557): (ns, level) of q
 LV1_GATE = ((150.0, 0.0), (250.0, 0.0), (700.0, 5.0))
 LV1_TSTOP = 7e-7
@@ -205,7 +238,7 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
     abs_err = {"factor": 0.0, "subst": 0.0}
     checked = []
     for B, n in [(1, 25), (8, 8), (8, 25), (37, 25), (128, 25),
-                 (LV1_LANES, 25), (8, 32), (8, 33), (8, 64), (8, 96),
+                 (PVT_XLA_POINTS, 25), (LV1_LANES, 25), (8, 32), (8, 33), (8, 64), (8, 96),
                  (8, 122), (4, n_max)]:
         A, b = kt.dominant_systems(rng, B, n)
         A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
@@ -479,15 +512,26 @@ def phase_repeat(torch, T, dev, dff):
     runs = [repeat_run(T, dff), repeat_run(T, dff)]
     wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
+        # the two children at once (each is host-bound on its own core)
+        procs = {}
         for seed in ("1", "2"):
             out = os.path.join(tmp, f"run{seed}.npz")
-            proc = subprocess.run(
+            procs[seed] = (out, subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--repeat-child",
-                 out], capture_output=True, text=True, timeout=600,
-                env={**os.environ, "PYTHONHASHSEED": seed})
-            if proc.returncode != 0:
+                 out], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True, env={**os.environ, "PYTHONHASHSEED": seed}))
+        try:
+            errs = {seed: p.communicate(timeout=600)[1]
+                    for seed, (_, p) in procs.items()}
+        finally:
+            for _, p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for seed, (out, p) in procs.items():
+            if p.returncode != 0:
                 raise AssertionError(f"repeat child (seed {seed}) failed:\n"
-                                     f"{proc.stderr[-4000:]}")
+                                     f"{errs[seed][-4000:]}")
             z = np.load(out)
             L = int(z["lanes"])
             runs.append(([z[f"ts{i}"] for i in range(L)],
@@ -687,7 +731,7 @@ def gate_lv1(sols):
     return worst
 
 
-def phase_lv1_single(torch, T, dev):
+def phase_lv1_single(torch, T, gesp_lu, dev):
     """Phase 9: one stream of the level-1 leg through the public tran,
     alone on the card."""
     with open(os.path.join(DFF_DIR, "dff_tb.cir")) as f:
@@ -696,13 +740,17 @@ def phase_lv1_single(torch, T, dev):
     comp = T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]),
                              device=dev)
     t_setup = time.perf_counter() - t0
-    opts = T.TranOptions(max_steps=16384, dense_lu="jax")
+    opts = T.TranOptions(max_steps=16384)
+    gesp_lu.lu_factor_gesp_f32.launches = 0
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     sol = T.tran(comp, (0.0, LV1_TSTOP), ctx=T.SimSpec.make(gmin=1e-15),
                  opts=opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
+    if gesp_lu.lu_factor_gesp_f32.launches:
+        raise AssertionError("one stream launched the GESP factor "
+                             f"{gesp_lu.lu_factor_gesp_f32.launches} times")
     worst = gate_lv1([sol])
     log("lv1_single", setup_s=t_setup, wall_s=wall,
         newton_per_s=sol.n_newton / wall, worst_gate_err=worst,
@@ -837,6 +885,177 @@ def phase_simulate(torch, T, dev):
                          card=[sc.n_accepted, sc.n_rejected, sc.n_newton],
                          cpu=[sp.n_accepted, sp.n_rejected, sp.n_newton])
     log("simulate", **out)
+
+
+def phase_sweeps(torch, T, dev):
+    """Phase 14: sweeps on the card against the same calls on the CPU."""
+    from cedarsim_tpu_torch.analysis import montecarlo, sweeps
+    from cedarsim_tpu_torch.frontend.elaborate import load_spice
+    divider = "* divider\nV1 vin 0 1\nR1 vin vmid 1k\nR2 vmid 0 1k\n.op\n"
+    tc1 = ("* tc1 divider\nV1 vin 0 1\nR1 vin vmid 1k tc1=0.002 tnom=27\n"
+           "R2 vmid 0 1k\n.op\n")
+    cases = {
+        "product": lambda d: sweeps.dc_sweep(
+            load_spice(divider), sweeps.ProductSweep(
+                sweeps.Sweep("v1.dc", [0.5, 1.0, 2.0]),
+                sweeps.Sweep("r1.r", [5e2, 1e3, 3e3])), device=d),
+        "temp": lambda d: sweeps.dc_sweep(
+            load_spice(tc1), sweeps.Sweep("temp", [-40.0, 27.0, 85.0,
+                                                   125.0]), device=d),
+        "mc_dc_256": lambda d: montecarlo.mc_dc(
+            load_spice(divider), 256, {"r2.r": ("rel", 0.05),
+                                       "r1.r": 20.0}, seed=3, device=d),
+        "simulate_dc": lambda d: T.simulate(
+            "* dc\nv1 a 0 1\nv2 c 0 1\nr1 a b 1k\nr2 b c 2k\n"
+            ".dc v1 0 1 0.25 v2 1 2 0.5\n", device=d)["dc"],
+    }
+    out = {}
+    for name, run in cases.items():
+        t0 = time.perf_counter()
+        rc = run(dev)
+        wall = time.perf_counter() - t0
+        rp = run("cpu")
+        if rc.x.device.type != "cuda":
+            raise AssertionError(f"sweep {name} ran on {rc.x.device}")
+        if not (bool(rc.converged.all()) and bool(rp.converged.all())):
+            raise AssertionError(f"sweep {name}: not every point converged")
+        err = float((rc.x.cpu() - rp.x).abs().max())
+        if not err <= SIM_DC_TOL:
+            raise AssertionError(f"sweep {name}: card vs cpu {err:.3g} V")
+        out[name] = dict(points=int(rc.x.shape[0]), max_abs_err=err,
+                         wall_s=wall)
+    log("sweeps", **out)
+
+
+def pvt_lanes(torch, dev):
+    """The PVT sweep's 256 lanes on the card: the harness's set-up
+    (``pvt_sweep.PVT``), the chunk's params and each lane's operating
+    point (the light ladder from the nominal one)."""
+    from cedarsim_tpu_torch.benchmarks import pvt_sweep
+    t0 = time.perf_counter()
+    pvt = pvt_sweep.PVT(dev)
+    vdds, wscs = pvt_sweep.grid(PVT_POINTS)
+    pb = pvt.chunk_params(vdds, wscs)
+    x0, _ = pvt.lane_ops(pb)
+    return pvt, pb, x0, time.perf_counter() - t0
+
+
+def phase_pvt(torch, gesp_lu, fc, dev, pvt_state, plan):
+    """Phase 15: the 256-point PVT sweep through its entry point on the
+    harness built by ``pvt_lanes`` (whose seconds are the set-up), B1's
+    launches counted from 0 around it; ``plan`` (the one phase 16 checks)
+    must be the only fused plan it launched."""
+    from cedarsim_tpu_torch.benchmarks import pvt_sweep
+    pvt = pvt_state[0]
+    fc.fused_chord.launches = 0
+    gesp_lu.lu_factor_gesp_f32.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pvt_sweep.run_chunked(PVT_POINTS, PVT_POINTS, PVT_SEGMENTS,
+                                device=dev, details=True, pvt=pvt)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    chunk, = res.pop("chunks")
+    launches = {"fused": fc.fused_chord.launches,
+                "factor": gesp_lu.lu_factor_gesp_f32.launches}
+    rescued = {int(k): v[0] for k, v in chunk["rescued"].items()}
+    log("pvt", **res, harness_setup_s=pvt_state[3], total_s=total,
+        launches=launches,
+        suspects=chunk["suspects"], rescued_lane_tier=rescued,
+        attempts_per_window=chunk["attempts"],
+        cell_b_attempts_8_lanes=CELL_B[3],
+        lanes_finished_first_pass=int(chunk["finished"].sum()),
+        card=smi())
+    if res["engine"] != "fused" or res["dense_lu"] != "mixed":
+        raise AssertionError(f"PVT engine {res['engine']}/"
+                             f"{res['dense_lu']}, not the fused kernel")
+    if not res["ok"]:
+        raise AssertionError(f"PVT gate failed: worst rail error "
+                             f"{res['worst_rail_err']}, tiers "
+                             f"{res['tiers']}")
+    if launches["fused"] < res["attempts"] or launches["fused"] <= 0:
+        raise AssertionError(f"PVT: {launches['fused']} B1 launches for "
+                             f"{res['attempts']} step attempts")
+    plans = list(pvt.comp._fused_plans.values())
+    if len(plans) != 1 or plans[0] is not plan:
+        raise AssertionError(f"PVT: {len(plans)} fused plans, not only the "
+                             "one phase 16 checks")
+    got = (res["accepted"], res["rejected"], res["newton"], res["attempts"])
+    if CELL_P is not None and got != CELL_P:
+        raise AssertionError(f"PVT counts (accepted, rejected, Newton, "
+                             f"attempts) {got}, recorded {CELL_P}")
+    return res, launches
+
+
+def phase_pvt_fused_kernel(torch, T, fc, pvt_state, plan):
+    """Phase 16: B1 on the PVT plan against its plain version at 256 lanes
+    (h = 1e-12 and 1e-10), and its times and bound there."""
+    pvt, pb, x0, t_setup = pvt_state
+    lanes = (pvt.comp, pvt.ctx, pb, x0)
+    info = plan.build()
+    worst = dict(xn=0.0, S=0.0, Q=0.0)
+    abs_err, nnwt = 0.0, []
+    for h in (1e-12, 1e-10):
+        args, opts = kt.fused_args(torch, T, plan, lanes, h)
+        k1, err = fused_vs_plain(torch, fc, plan, args, opts,
+                                 f"pvt h={h}", worst)
+        abs_err = max(abs_err, err["xn_abs"])
+        nnwt.append([int(k1[3][:, 1].min()), int(k1[3][:, 1].max())])
+    args, opts = kt.fused_args(torch, T, plan, lanes, 1e-12)
+
+    def run():
+        return fc.fused_chord(plan, *args, opts)
+    times = (kt.device_ms(run), kt.call_ms(run, 20),
+             kt.call_ms(lambda: fc.fused_chord_plain(plan, *args, opts), 3))
+    bnd, counted = fused_bound(plan, args, run())
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if any(w in ln for w in ("Function properties", "registers",
+                                      "spill"))]
+    n = pvt.comp.n_x
+    log("pvt_fused_kernel", lanes_setup_s=t_setup, worst_rel_err=worst,
+        nnwt_min_max=nnwt,
+        shape=[PVT_POINTS, n], ms_device_call_plain=list(times),
+        bound_ms=bnd, nodes=counted, per_lane_leaves=[
+            f"{k}.{pn}" for k, pn in fc.split_lanes(pvt.comp, pb)[1]],
+        threads=plan.threads, smem_bytes=plan.smem_bytes,
+        emit_s=info["emit_seconds"], nvcc_s=info["nvcc_seconds"],
+        ptxas=ptxas, header=os.path.relpath(info["path"], REPO))
+    return abs_err, times, bnd
+
+
+def phase_pvt_xla(torch, gesp_lu, fc, dev):
+    """Phase 17: the harness through the GESP kernels (``impl="xla"``),
+    16 points over 0-100 ns, its counts those of the same call on the
+    CPU."""
+    from cedarsim_tpu_torch.benchmarks import pvt_sweep
+    fc.fused_chord.launches = 0
+    gesp_lu.lu_factor_gesp_f32.launches = 0
+    gesp_lu.lu_subst_gesp_f32.launches = 0
+    torch.cuda.synchronize()
+    res = pvt_sweep.run_chunked(PVT_XLA_POINTS, PVT_XLA_POINTS, PVT_SEGMENTS,
+                                "xla", PVT_XLA_TSTOP, device=dev)
+    torch.cuda.synchronize()
+    launches = {"fused": fc.fused_chord.launches,
+                "factor": gesp_lu.lu_factor_gesp_f32.launches,
+                "subst": gesp_lu.lu_subst_gesp_f32.launches}
+    t0 = time.perf_counter()
+    cpu = pvt_sweep.run_chunked(PVT_XLA_POINTS, PVT_XLA_POINTS, PVT_SEGMENTS,
+                                "xla", PVT_XLA_TSTOP, device="cpu")
+    cpu_s = time.perf_counter() - t0
+
+    def counts(r):
+        return (r["accepted"], r["rejected"], r["newton"], r["attempts"])
+    got, want = counts(res), counts(cpu)
+    log("pvt_xla", **res, launches=launches, cpu_counts=want,
+        cpu_ok=cpu["ok"], cpu_s=cpu_s, card=smi())
+    if launches["fused"] or min(launches["factor"], launches["subst"]) <= 0:
+        raise AssertionError(f"PVT xla: kernels {launches}")
+    if not res["ok"] or res["engine"] != "xla" or res["dense_lu"] != "mixed":
+        raise AssertionError(f"PVT xla: {res}")
+    if got != want or not cpu["ok"]:
+        raise AssertionError(f"PVT xla counts (accepted, rejected, Newton, "
+                             f"attempts) {got}, the CPU's {want}")
+    return launches
 
 
 #: phase 8's kernel checks: the bench's two shapes, one system alone, an
@@ -988,13 +1207,16 @@ def main():
     lv1 = kt.lv1_lanes(torch, T, dev)
     lv1 = (*lv1, time.perf_counter() - t_lv1)
     # every kernel source compiles at once, one nvcc process each: the
-    # fused kernel with the BSIM4 model emitted from the DFF's plan, the
-    # fused kernel with the level-1 plan's Mos1 and the pivoting LU in
-    # threads beside the GESP build
+    # fused kernel with the BSIM4 model emitted from the DFF's plan, with
+    # the level-1 plan's Mos1 and with the PVT plan's BSIM4 (W an input),
+    # and the pivoting LU, in threads beside the GESP build
     t_plan = time.perf_counter()
     plan = fused_plan_for(dff[0], dff[1], dff[2])
     t_plan = time.perf_counter() - t_plan
     plan_lv1 = fused_plan_for(*lv1[:3])
+    pvt_state = pvt_lanes(torch, dev)
+    plan_pvt = fused_plan_for(pvt_state[0].comp, pvt_state[0].ctx,
+                              pvt_state[1])
     built = {}
 
     def build_in_thread(name, fn):
@@ -1009,6 +1231,7 @@ def main():
 
     th_fused = build_in_thread("fused", plan.build)
     th_lv1 = build_in_thread("fused_lv1", plan_lv1.build)
+    th_pvt = build_in_thread("fused_pvt", plan_pvt.build)
     th_pivot = build_in_thread("pivot", pivot_lu.build)
     b = gesp_lu.build()
     th_pivot.join()
@@ -1036,7 +1259,7 @@ def main():
         dict(plan_s=t_plan, emit_s=info["emit_seconds"],
              nvcc_s=info["nvcc_seconds"]))
     lu_launches, per_shape = phase_lu(torch, gesp_lu, pivot_lu, dev)
-    phase_lv1_single(torch, T, dev)
+    phase_lv1_single(torch, T, gesp_lu, dev)
     dl = phase_lv1(torch, T, gesp_lu, fc, lv1, "D", CELL_D,
                    extra=dict(jac_shunt=kt.LV1_XLA_OPTS["jac_shunt"]))
     th_lv1.join()
@@ -1047,6 +1270,14 @@ def main():
     el = phase_lv1(torch, T, gesp_lu, fc, lv1, "E", CELL_E)
     phase_lv1_repeat(torch, T, gesp_lu, fc, lv1)
     phase_simulate(torch, T, dev)
+    phase_sweeps(torch, T, dev)
+    th_pvt.join()
+    if isinstance(built["fused_pvt"], BaseException):
+        raise built["fused_pvt"]
+    _, pl = phase_pvt(torch, gesp_lu, fc, dev, pvt_state, plan_pvt)
+    pabs_err, ptimes, pbound = phase_pvt_fused_kernel(torch, T, fc,
+                                                      pvt_state, plan_pvt)
+    xl = phase_pvt_xla(torch, gesp_lu, fc, dev)
     src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
     b1p = ftimes["B1'"]
     n1 = lv1[0].n_x
@@ -1071,7 +1302,13 @@ def main():
                                "bound_by": fbounds["B1'"][1]},
                      lv1={"model": "Mos1", "launches": el["fused"],
                           "max_abs_err": labs_err, **lv1_entry(LV1_LANES),
-                          "eight_lanes": lv1_entry(N_LANES)}),
+                          "eight_lanes": lv1_entry(N_LANES)},
+                     pvt={"model": "BSIM4, W and VDD per lane",
+                          "launches": pl["fused"], "max_abs_err": pabs_err,
+                          "shape": [PVT_POINTS, pvt_state[0].comp.n_x],
+                          "device_ms": ptimes[0], "call_ms": ptimes[1],
+                          "plain_ms": ptimes[2], "bound_ms": pbound[0],
+                          "bound_by": pbound[1]}),
     ]
     design = {
         "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
@@ -1085,7 +1322,7 @@ def main():
             f"gesp_{key}_f32", src, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
             launches[key], *times[key], bounds[key], abs_err[key],
             shape=[N_LANES, 25], design=design[key],
-            lv1_launches=dl[key]))
+            lv1_launches=dl[key], pvt_xla_launches=xl[key]))
     for key, name, source, line in (
             ("gesp", "gesp_solve_f32", src, 164),
             ("pivot", "pivot_solve_f32",

@@ -10,9 +10,10 @@ the JAX package's ``simulate`` on the CPU in float64.
   no analysis (an operating point), ``tmax``, ``uic``, ``.options
   method=trap`` and ``method=gear`` (BDF2 up to ``maxord=2``).
 - What is not ported raises ``NotImplementedError`` naming its ROADMAP
-  item, and nothing is skipped: ``.dc`` (A11), ``.ac``, ``.noise`` and
-  ``.four`` (A15), Spectre text and ``alter`` (A19), gear orders above 2
-  (A14b), ``.save`` and ``.measure`` (A19, in the elaborator).
+  item, and nothing is skipped: ``.ac``, ``.noise`` and ``.four`` (A15),
+  Spectre text and ``alter`` (A19), gear orders above 2 (A14b), ``.save``
+  and ``.measure`` (A19, in the elaborator).  ``.dc`` runs (its tests are
+  in ``tests/test_torch_sweeps.py``).
 """
 
 import warnings
@@ -91,7 +92,6 @@ def test_tran_directive_options(extra, want):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (".dc v1 0 1 0.5", "A11"),
     (".ac dec 5 1k 1meg", "A15"),
     (".noise v(b) v1 dec 5 1k 1meg", "A15"),
     (".tran 1n 40n\n.four 50meg v(b)", "A15"),

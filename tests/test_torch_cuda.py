@@ -19,8 +19,9 @@ which sets JAX up for the other files):
   launch.
 - The mixed chord solve (kernels + two float64 refinement passes) against
   float64 ``torch.linalg.solve`` (1e-10 relative, well-conditioned systems).
-- The RC step on the card through the mixed chord path: the closed form one
-  τ after the edge (5e-3 V), with both kernels launched.
+- The RC step on the card through the mixed chord path, one lane as a
+  batch: the closed form one τ after the edge (5e-3 V), with both kernels
+  launched.
 - The fused chord kernel against its plain version on a VA diode circuit
   and a BSIM4 inverter at B ∈ {1, 3, 8} lanes (seeded perturbation, BE
   start): equal (ok, Newton count), xn and Q within 1e-9 relative, S
@@ -32,7 +33,10 @@ which sets JAX up for the other files):
   ``tran(newton_impl="fused")`` launches once per step attempt.
 - The fused chord kernel on the level-1 DFF's plan (the built-in ``Mos1``
   emitted, vto scattered per lane) against its plain version at B in {1,
-  8, 37} lanes, as above.
+  8, 37} lanes, as above; and on the PVT sweep's plan (the BSIM4 DFF, W
+  and the supply per lane) at 16 and 256 lanes.
+- The RC step as one stream under "mixed" takes the exact solve (no GESP
+  launch), as the JAX package's unbatched chord pair does.
 - The dense solves B4 (fused GESP, ``gesp_lu.lu_solve_gesp_f32``) and B5
   (partial pivoting, ``pivot_lu.lu_solve_pivot_f32``, rows shuffled per
   system) bitwise equal to their plain versions in both regimes and at
@@ -107,7 +111,7 @@ def test_kernels_match_plain(cuda_device, B, n):
 
 
 @pytest.mark.parametrize("n", [1, 8, 25, 31, 32, 33, 64, 122, 240])
-@pytest.mark.parametrize("B", [1, 8, 37, 256])
+@pytest.mark.parametrize("B", [1, 8, 16, 37, 256])
 def test_factor_kernel_matches_plain(cuda_device, B, n):
     """B2 in both regimes (one warp per system at n <= 32, one block
     above) and at their edge: bitwise its plain version, two launches
@@ -165,7 +169,7 @@ def test_fma_f32_on_the_card_is_libm_fmaf(cuda_device):
 
 
 @pytest.mark.parametrize("n", [1, 25, 31, 32, 33, 64, 96, 122, 240])
-@pytest.mark.parametrize("B", [1, 8, 37, 256])
+@pytest.mark.parametrize("B", [1, 8, 16, 37, 256])
 def test_subst_kernel_matches_plain(cuda_device, B, n):
     A, b = _systems(3 * n + B, B, n)
     A32 = torch.as_tensor(A, dtype=torch.float32, device=cuda_device)
@@ -221,12 +225,20 @@ def test_rc_closed_form_on_the_card(cuda_device):
     comp = T.compile_circuit(ckt, device=cuda_device)
     f0 = gesp_lu.lu_factor_gesp_f32.launches
     s0 = gesp_lu.lu_subst_gesp_f32.launches
-    sol = T.tran(comp, (0.0, 20e-6), opts=T.TranOptions(dense_lu="auto"))
+    # one lane as a batch ([1, n_x]) takes the GESP kernels under "auto";
+    # one stream ([n_x]) takes the exact solve, as the JAX package's does
+    x0 = T.solve_dc(comp, mode="tranop").x[None]
+    sol, = T.tran(comp, (0.0, 20e-6), opts=T.TranOptions(dense_lu="auto"),
+                  x0=x0)
     assert sol.converged
     assert gesp_lu.lu_factor_gesp_f32.launches > f0
     assert gesp_lu.lu_subst_gesp_f32.launches > s0
     want = 3.3 * (1.0 - np.exp(-1.0))
     assert abs(sol.interp("vout", 2.001e-6) - want) < 5e-3
+    f1 = gesp_lu.lu_factor_gesp_f32.launches
+    one = T.tran(comp, (0.0, 20e-6), opts=T.TranOptions(dense_lu="mixed"))
+    assert one.converged and gesp_lu.lu_factor_gesp_f32.launches == f1
+    assert abs(one.interp("vout", 2.001e-6) - want) < 5e-3
 
 
 # ------------------------------------------------------- fused chord kernel
@@ -342,6 +354,25 @@ def test_fused_kernel_matches_plain_mos1(cuda_device, B):
     assert plan.nl_keys == ["Mos1"]
     args, opts = kt.fused_args(torch, T, plan, lv1, 1e-12)
     _check_fused_kernel(plan, args, opts)
+
+
+@pytest.mark.parametrize("points", [16, 256])
+def test_fused_kernel_matches_plain_pvt(cuda_device, points):
+    """B1 on the PVT sweep's plan, where two lanes differ in two ways at
+    once (W, an input of the BSIM4 group, and the supply, a source offset
+    in s_off), at [points, 25] from the lanes' operating points, h = 1e-12
+    and 1e-10."""
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt, pvt_sweep
+    pvt = pvt_sweep.PVT(cuda_device)
+    pb = pvt.chunk_params(*pvt_sweep.grid(points))
+    x0, conv = pvt.lane_ops(pb)
+    assert bool(conv.all())
+    plan = fused_plan_for(pvt.comp, pvt.ctx, pb)
+    assert sorted(fc.split_lanes(pvt.comp, pb)[1]) == [
+        ("VA_bsim4", "W"), ("VSource", "dc")]
+    for h in (1e-12, 1e-10):
+        _check_fused_kernel(plan, *kt.fused_args(
+            torch, T, plan, (pvt.comp, pvt.ctx, pb, x0), h))
 
 
 @pytest.mark.parametrize("which", ["diode", "inverter"])

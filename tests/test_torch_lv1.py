@@ -126,3 +126,43 @@ def test_lv1_engines_match_jax(port, cell):
         q = [float(s.interp("q", t)) for t in (1e-7, TSTOP)]
         np.testing.assert_allclose(q, qr, rtol=0, atol=1e-6)
         assert abs(q[1]) < 0.05
+
+
+#: ROADMAP C3's window: the first 20 ns of the single stream, where one
+#: lane through the float32 GESP path and the exact solve already part
+C3_TSTOP = 2e-8
+
+
+def test_c3_one_stream_takes_the_exact_solve(monkeypatch):
+    """ROADMAP Queue C, C3: the level-1 DFF as one stream (full Newton, the
+    leg's default options) under ``dense_lu="mixed"``.  The JAX package
+    reaches its GESP kernels only inside ``vmap``, so its one stream takes
+    the exact LU; the port's one stream must give its accepted, rejected
+    and Newton counts, with no GESP factor.  The same lane as a batch of
+    one ([1, n_x]) takes the GESP path (its plain version here) and parts
+    from them."""
+    from cedarsim_tpu_torch.ops import gesp_lu
+    seen = []
+    plain = gesp_lu.lu_factor_gesp_f32_plain
+    monkeypatch.setattr(gesp_lu, "lu_factor_gesp_f32_plain",
+                        lambda A: seen.append(A.shape) or plain(A))
+    comp = T.compile_circuit(T.elaborate(
+        T.parse_spice(_text(), file="dff_tb.cir"), include_paths=[DFF_DIR]),
+        device="cpu")
+    cj = J.compile_circuit(J.elaborate(
+        J.parse_spice(_text(), file="dff_tb.cir"), include_paths=[DFF_DIR]))
+    ctx = T.SimSpec.make(gmin=1e-15)
+    ref = J.tran(cj, (0.0, C3_TSTOP), ctx=J.SimSpec.make(gmin=1e-15),
+                 opts=JTranOptions(max_steps=16384, dense_lu="mixed"))
+    one = T.tran(comp, (0.0, C3_TSTOP), ctx=ctx,
+                 opts=T.TranOptions(max_steps=16384, dense_lu="mixed"))
+
+    def counts(s):
+        return (bool(s.converged), s.n_accepted, s.n_rejected, s.n_newton)
+    assert counts(one) == counts(ref)
+    assert seen == []
+    x0 = T.solve_dc(comp, ctx=ctx, mode="tranop").x[None]
+    lane, = T.tran(comp, (0.0, C3_TSTOP), ctx=ctx, x0=x0,
+                   opts=T.TranOptions(max_steps=16384, dense_lu="mixed"))
+    assert len(seen) > 0 and all(s[0] == 1 for s in seen)
+    assert lane.converged and counts(lane) != counts(ref)

@@ -1,7 +1,8 @@
 """The port as a package: the card is its default device, and it reads its
 own model files, never the JAX package's.
 
-- ``compile_circuit``, ``params_from_numpy`` and ``simulate`` without a
+- ``compile_circuit``, ``params_from_numpy``, ``simulate``, ``dc_sweep``,
+  ``mc_dc``, ``mc_statistics`` and ``pvt_sweep.run_chunked`` without a
   device raise
   where no CUDA card is present (the message names ``device="cpu"``); with
   ``device="cpu"`` they run on the CPU; ``device="cuda"`` becomes the
@@ -43,13 +44,26 @@ def no_card(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["compile_circuit", "CompiledCircuit",
-                                   "params_from_numpy", "simulate"])
+                                   "params_from_numpy", "simulate",
+                                   "dc_sweep", "mc_dc", "mc_statistics",
+                                   "pvt_sweep.run_chunked"])
 def test_no_device_and_no_card_raises(no_card, entry):
+    from cedarsim_tpu_torch.analysis import montecarlo, sweeps
+    from cedarsim_tpu_torch.benchmarks import pvt_sweep
     with pytest.raises(RuntimeError, match='device="cpu"'):
         if entry == "params_from_numpy":
             params_from_numpy({"g": {"r": np.ones(2)}})
         elif entry == "simulate":
             T.simulate("* rc\nV1 a 0 1\nR1 a 0 1k\n.op\n")
+        elif entry == "dc_sweep":
+            sweeps.dc_sweep(_rc(), sweeps.Sweep("r1.r", [1e3, 2e3]))
+        elif entry == "mc_dc":
+            montecarlo.mc_dc(_rc(), 4, {"r1.r": ("rel", 0.1)})
+        elif entry == "mc_statistics":
+            montecarlo.mc_statistics(T.parse_spice(
+                "* mc\nV1 a 0 1\nR1 a 0 {agauss(1k, 100, 1)}\n.op\n"), 2)
+        elif entry == "pvt_sweep.run_chunked":
+            pvt_sweep.run_chunked(4, 4)
         else:
             getattr(T, entry)(_rc())
 

@@ -51,7 +51,12 @@ def _rc(P):
 
 
 def test_rc_closed_form_mixed():
-    sol = T.tran(_rc(T), (0.0, 20e-6), opts=T.TranOptions(dense_lu="mixed"))
+    # one lane as a batch ([1, n_x]): the mixed path (an unbatched stream
+    # takes the exact solve under "mixed", as the JAX package's does)
+    comp = _rc(T)
+    x0 = T.solve_dc(comp, mode="tranop").x[None]
+    sol, = T.tran(comp, (0.0, 20e-6), opts=T.TranOptions(dense_lu="mixed"),
+                  x0=x0)
     assert sol.converged
     want = 3.3 * (1.0 - np.exp(-1.0))
     assert abs(sol.interp("vout", 2.001e-6) - want) < 5e-3
@@ -121,8 +126,11 @@ def test_dff_lanes_mixed_vs_jax():
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
         assert abs(lane.n_accepted - sj.n_accepted) <= 0.1 * sj.n_accepted
     nominal = lanes[0]
-    # lane independence: the nominal lane equals the port run alone
-    solo = T.tran(ct, (0.0, tstop), ctx=ctx, opts=opts)
+    # lane independence: the nominal lane equals the port run alone, as a
+    # batch of one lane (the mixed path; one stream takes the exact solve)
+    p1 = {k: {pn: v[None] for pn, v in g.items()}
+          for k, g in ct.params0.items()}
+    solo, = T.tran(ct, (0.0, tstop), params=p1, ctx=ctx, opts=opts)
     assert solo.n_accepted == nominal.n_accepted
     np.testing.assert_allclose(nominal.xs[:, :ct.n_nodes],
                                solo.xs[:, :ct.n_nodes], rtol=0, atol=1e-12)
@@ -299,6 +307,16 @@ def test_port_never_imports_jax():
         "r = T.simulate(netlists.ALL_CARDS.replace('.tran 1n 50n', '.op'), "
         "device='cpu')\n"
         "assert bool(r['op'].converged)\n"
+        # sweeps, Monte-Carlo and the PVT harness: a .dc card through
+        # simulate(), a Monte-Carlo DC and the harness's modules
+        "from cedarsim_tpu_torch.analysis import sweeps, montecarlo\n"
+        "import cedarsim_tpu_torch.benchmarks.pvt_sweep\n"
+        "r = T.simulate('* d\\nv1 a 0 1\\nr1 a b 1k\\nr2 b 0 1k\\n"
+        ".dc v1 0 1 0.5\\n', device='cpu')\n"
+        "assert bool(r['dc'].converged.all())\n"
+        "m = montecarlo.mc_dc(r['compiled'], 4, {'r1.r': ('rel', 0.1)}, "
+        "seed=1)\n"
+        "assert bool(m.converged.all())\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m.startswith('cedarsim_tpu.') or m == "
         "'cedarsim_tpu' for m in sys.modules)\n"
