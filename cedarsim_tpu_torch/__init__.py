@@ -6,10 +6,12 @@ path of the gf180 DFF benchmark and the built-in device library so far:
 SPICE netlist → elaborated circuit (R, C, L, K, V/I sources with every
 waveform, E/F/G/H, S/W, D, MOS level 1, Gummel-Poon Q, J, Z, B, or
 Verilog-A) → compiled batched residuals and Jacobians → DC operating point
-→ transient over an explicit lane axis (``simulate`` runs a netlist's own
-``.op``/``.tran``/``.dc``), batched DC sweeps over parameters and
-temperature and Monte-Carlo DC (``dc_sweep``, ``mc_dc``,
-``mc_statistics``), with
+→ transient over an explicit lane axis, AC and noise analyses as batched
+complex solves over the frequencies (``ac``, ``noise``; S-parameter
+blocks), batched DC sweeps over parameters and temperature and
+Monte-Carlo DC (``dc_sweep``, ``mc_dc``, ``mc_statistics``);
+``simulate`` runs a netlist's own ``.op``/``.tran``/``.dc``/``.ac``/
+``.noise``/``.meas``/``.four``.  The transient runs
 the mixed-precision chord solves on the hand-written CUDA GESP LU kernels
 (``ops/gesp_lu.py``), or with every chord iteration of a step attempt in one
 launch of the fused chord kernel (``ops/fused_chord.py``, the BSIM4 walk
@@ -38,9 +40,12 @@ from cedarsim_tpu_torch.analysis.tran import (TranOptions, TranSolution,
 from cedarsim_tpu_torch.analysis.sweeps import (
     Sweep, ProductSweep, TandemSweep, SerialSweep, sweepify, dc_sweep)
 from cedarsim_tpu_torch.analysis.montecarlo import mc_dc, mc_statistics
+from cedarsim_tpu_torch.analysis.ac import (ac, acdec, noise, ACSolution,
+                                            NoiseSolution)
 from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan)
-from cedarsim_tpu_torch.api import simulate, find_tran_directive
+from cedarsim_tpu_torch.api import (simulate, find_tran_directive,
+                                    find_ac_directive)
 
 __all__ = [
     "Circuit", "SimSpec", "Modes", "CompiledCircuit", "compile_circuit",
@@ -54,6 +59,7 @@ __all__ = [
     "dc_core", "default_newton_options", "TranOptions", "TranSolution",
     "tran", "Sweep", "ProductSweep",
     "TandemSweep", "SerialSweep", "sweepify", "dc_sweep", "mc_dc",
-    "mc_statistics", "FusedEnvelopeError", "get_fused_plan", "simulate",
-    "find_tran_directive",
+    "mc_statistics", "ac", "acdec", "noise", "ACSolution", "NoiseSolution",
+    "FusedEnvelopeError", "get_fused_plan", "simulate",
+    "find_tran_directive", "find_ac_directive",
 ]

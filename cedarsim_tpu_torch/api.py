@@ -1,37 +1,37 @@
 """Netlist in, results out — counterpart of ``cedarsim_tpu/api.py`` for the
-operating point (``.op``), the transient (``.tran``) and the batched DC
-sweep (``.dc``).
+operating point (``.op``), the transient (``.tran``), the batched DC sweep
+(``.dc``), the AC and noise analyses (``.ac``, ``.noise``), ``.measure``
+and ``.four``.
 
 :func:`simulate` parses and elaborates a SPICE netlist, compiles it on the
 card (or on ``device``), and runs the analyses its directives ask for, in
 their order, as the JAX package's ``simulate`` does: ``.tran`` with its
 ``tstop`` and ``tmax`` (the step cap), ``uic``, and ``.options
 method=trap|gear maxord=``; ``.dc src start stop step [src2 ...]`` as one
-batched ``dc_sweep`` over the product of the sources' values; ``mc_seed``
-seeds the netlist's ``agauss``-style draws.  A netlist without an analysis
-gets its operating point.  The analyses and front ends that are not ported
-raise ``NotImplementedError`` naming their ROADMAP item; none is skipped:
-``.ac``, ``.noise`` and ``.four`` (A15), Spectre text and ``alter`` (A19),
-gear orders above 2 (BDF3/BDF5, A14b).  ``.measure`` and ``.save`` already
-raise in the elaborator (A19).
+batched ``dc_sweep`` over the product of the sources' values; ``.noise
+v(out) src dec n f1 f2`` and ``.ac dec|lin n f1 f2``; then every
+``.meas`` card against the analyses that ran, and ``.four`` on the
+transient.  ``mc_seed`` seeds the netlist's ``agauss``-style draws.  A
+netlist without an analysis gets its operating point.  The front ends
+and options that are not ported raise ``NotImplementedError`` naming
+their ROADMAP item; none is skipped: Spectre text and ``alter`` (A19),
+gear orders above 2 (BDF3/BDF5, A14b); ``.save``, ``.probe`` and
+``.data`` raise in the elaborator (A19).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from cedarsim_tpu_torch.analysis import ac as ac_mod
 from cedarsim_tpu_torch.analysis.dc import solve_dc
+from cedarsim_tpu_torch.analysis.measure import evaluate_all, fourier
 from cedarsim_tpu_torch.analysis.sweeps import Sweep, ProductSweep, dc_sweep
 from cedarsim_tpu_torch.analysis.tran import TranOptions, tran
 from cedarsim_tpu_torch.core.compile import compile_circuit, default_ctx
 from cedarsim_tpu_torch.frontend.elaborate import elaborate
 from cedarsim_tpu_torch.frontend.parser import parse_spice
 
-_UNPORTED = {
-    "ac": "ROADMAP A15 (AC and noise)",
-    "noise": "ROADMAP A15 (AC and noise)",
-    "four": "ROADMAP A15 (.four, .measure)",
-}
 _A19 = "ROADMAP A19 (front-end breadth: Spectre, alter)"
 _A14B = "ROADMAP A14b (BDF3/BDF5)"
 
@@ -49,6 +49,27 @@ def find_tran_directive(circuit):
             hmax = nums[3] if len(nums) > 3 else None
             return dict(tstep=tstep, tstop=tstop, tstart=tstart, hmax=hmax,
                         uic=uic)
+    return None
+
+
+class _HostView:
+    """A result whose observables read as host numpy arrays."""
+
+    def __init__(self, res):
+        self.res = res
+
+    def __getitem__(self, name):
+        return self.res[name].cpu().numpy()
+
+
+def find_ac_directive(circuit):
+    """(mode, n, fstart, fstop) from the netlist ``.ac``, or None."""
+    for cmd, args, kw in circuit.directives:
+        if cmd == "ac":
+            mode = args[0] if args and isinstance(args[0], str) else "dec"
+            nums = [a for a in args if isinstance(a, (int, float))]
+            n, f1, f2 = int(nums[0]), nums[1], nums[2]
+            return dict(mode=mode.lower(), n=n, fstart=f1, fstop=f2)
     return None
 
 
@@ -113,9 +134,11 @@ def simulate(text_or_circuit, include_paths=(), params=None, temp=None,
     ``device``: where the circuit is compiled and solved (by default the
     CUDA card; ``"cpu"`` runs the kernels' plain versions).  Returns a dict
     with the ``circuit``, the ``compiled`` circuit and, as the directives
-    ask, ``"op"`` (a DC result), ``"tran"`` (a ``TranSolution``), and
+    ask, ``"op"`` (a DC result), ``"tran"`` (a ``TranSolution``),
     ``"dc"`` (a batched DC result, one lane per point) with ``"dc_sweep"``
-    (its points).  ``mc_seed`` seeds the elaboration's Monte-Carlo
+    (its points), ``"ac"`` (an ``ACSolution``), ``"noise"`` (a
+    ``NoiseSolution``), ``"measures"`` (name → value) and ``"fourier"``
+    (name → harmonics).  ``mc_seed`` seeds the elaboration's Monte-Carlo
     draws."""
     if isinstance(text_or_circuit, str):
         text = text_or_circuit
@@ -137,14 +160,17 @@ def simulate(text_or_circuit, include_paths=(), params=None, temp=None,
 
 
 def _run_circuit(circuit, temp=None, tran_opts=None, device=None):
-    for cmd, _, _ in circuit.directives:
-        if cmd in _UNPORTED:
-            raise NotImplementedError(
-                f".{cmd} is not ported yet — {_UNPORTED[cmd]}")
     compiled = compile_circuit(circuit, device=device)
     ctx = default_ctx(compiled, temp_c=temp)
     out = {"circuit": circuit, "compiled": compiled}
     ran_any = False
+    bias = {}
+
+    def ac_bias():
+        """``.ac`` and ``.noise`` bias at one DC operating point."""
+        if "x" not in bias:
+            bias["x"] = solve_dc(compiled, ctx=ctx).x
+        return bias["x"]
     for cmd, args, kw in circuit.directives:
         if cmd == "op" and "op" not in out:
             out["op"] = solve_dc(compiled, ctx=ctx)
@@ -162,6 +188,50 @@ def _run_circuit(circuit, temp=None, tran_opts=None, device=None):
                 out["dc"] = dc_sweep(compiled, sw, ctx=ctx)
                 out["dc_sweep"] = sw
                 ran_any = True
+        elif cmd == "noise" and "noise" not in out:
+            # .noise v(out) src dec n f1 f2
+            words = [a for a in args if isinstance(a, str)]
+            nums = [a for a in args if isinstance(a, (int, float))]
+            outname = words[0].lower() if words else None
+            if outname in ("v",) and len(words) > 1:
+                outname = words[1].lower()
+            n_, f1, f2 = ((int(nums[0]), nums[1], nums[2])
+                          if len(nums) >= 3 else (10, 1.0, 1e9))
+            out["noise"] = ac_mod.noise(
+                compiled, outname, ac_mod.acdec(n_, f1, f2), ctx=ctx,
+                x_op=ac_bias() if compiled.n_eps else None)
+            ran_any = True
+        elif cmd == "ac" and "ac" not in out:
+            d = find_ac_directive(circuit)
+            if d["mode"] == "dec":
+                freqs = ac_mod.acdec(d["n"], d["fstart"], d["fstop"])
+            else:
+                freqs = np.linspace(d["fstart"], d["fstop"], d["n"])
+            out["ac"] = ac_mod.ac(compiled, freqs, ctx=ctx, x_op=ac_bias())
+            ran_any = True
     if not ran_any:
         out["op"] = solve_dc(compiled, ctx=ctx)
+    # .measure against whichever analyses ran (tran, ac, dc); a DC sweep's
+    # observables are read on the host, as the copied evaluator wants
+    view = dict(out)
+    if "dc" in out:
+        view["dc"] = _HostView(out["dc"])
+    meas = evaluate_all(view, circuit)
+    if meas:
+        out["measures"] = meas
+    if "tran" in out:
+        for cmd, args, kw in circuit.directives:
+            if cmd == "four" and args:
+                names = []
+                rest = [str(a) for a in args[1:]]
+                i = 0
+                while i < len(rest):
+                    if rest[i].lower() in ("v", "i") and i + 1 < len(rest):
+                        names.append(f"{rest[i]}({rest[i + 1]})")
+                        i += 2
+                    else:
+                        names.append(rest[i])
+                        i += 1
+                out.setdefault("fourier", {}).update(
+                    fourier(out["tran"], float(args[0]), names))
     return out

@@ -7,7 +7,20 @@ the times at which their waveforms are compared.
 - ``ALL_CARDS``: one netlist with every card the port binds beyond R, C,
   V and BSIM4: L with K coupling, a pulsed I source, E, F, G, H, S, W, D,
   Q, J, Z, two B sources, and SIN and EXP sources.
+- :func:`dff_ac_noise`: the gf180 DFF BSIM4 testbench
+  (``benchmarks/gf180_dff/dff_tb_bsim4.cir``) with ``AC 1`` on ``VVDD``
+  and ``.ac``/``.noise v(q) vvdd`` over 1 Hz-1 PHz in place of its
+  ``.TRAN``: the supply-to-Q transfer (the PSRR a designer reads off a
+  flop) and Q's noise, 30 BSIM4 instances with two noise sources each.
+- ``INVERTER_NOISE``: the gf180 BSIM4 inverter noise testbench (the
+  reference's ``inverter_noise.jl`` topology on ``models_bsim4.spice``),
+  ``.noise v(q) vd`` on the ngspice table's grid, ``dec 5`` over 1 kHz-1
+  PHz.
+
+Both decks include files of ``DFF_DIR``: pass it in ``include_paths``.
 """
+
+import os
 
 README_INVERTER = """* cmos inverter
 .model n1 nmos (level=1 vto=0.7 kp=100u cgso=1n cgdo=1n)
@@ -68,3 +81,45 @@ rbi bi 0 1k
 .end
 """
 ALL_CARDS_TIMES = (5e-9, 15e-9, 25e-9, 35e-9, 45e-9)
+
+#: the gf180 DFF benchmark's directory (its decks and model cards)
+DFF_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "benchmarks", "gf180_dff")
+
+
+def dff_ac_noise(n_per_decade=50, fstart=1.0, fstop=1e15):
+    """The DFF AC/noise deck, built from ``dff_tb_bsim4.cir`` as it stands
+    in the repo: ``AC 1`` on ``VVDD``, and its ``.TRAN`` card (which
+    ``simulate`` would run too) replaced by ``.ac dec`` and ``.noise v(q)
+    vvdd dec`` with ``n_per_decade`` points a decade (50: 751
+    frequencies)."""
+    with open(os.path.join(DFF_DIR, "dff_tb_bsim4.cir")) as f:
+        lines = f.read().splitlines()
+    out = []
+    for ln in lines:
+        low = ln.strip().lower()
+        if low == "vvdd vdd 0 5.0":
+            ln += " AC 1"
+        elif low.startswith(".tran"):
+            grid = f"dec {n_per_decade} {fstart:g} {fstop:g}"
+            out += [f".ac {grid}", f".noise v(q) vvdd {grid}"]
+            continue
+        out.append(ln)
+    text = "\n".join(out) + "\n"
+    if " AC 1" not in text or ".noise" not in text:
+        raise ValueError("dff_tb_bsim4.cir changed: no VVDD or .TRAN card")
+    return text
+
+
+INVERTER_NOISE = """* gf180 inverter noise TB (reference inverter_noise.jl)
+.option gmin=1e-15
+.include "models_bsim4.spice"
+Xneg VSS D Q VSS nfet_06v0 W=3.6e-07 L=6e-07
+Xpos VDD D Q VDD pfet_06v0 W=4.95e-07 L=5e-07
+VVDD VDD 0 5.0
+VVSS VSS 0 0.0
+CQ D 0 1e-15
+VD D 0 0.0 AC 1
+.noise v(q) vd dec 5 1k 1e15
+.end
+"""

@@ -2,15 +2,18 @@
 
 Counterpart of ``cedarsim_tpu/config.py``, dtype half only: circuit state,
 model evaluation and the exact solves are float64 (conductances span ~15
-decades).  The port never calls ``torch.set_default_dtype``; every tensor it
-makes names its dtype.  The JAX package's XLA-cache settings have no
-counterpart here (PyTorch runs eagerly).
+decades), the AC and noise solves complex128.  The port never calls
+``torch.set_default_dtype``; every tensor it makes names its dtype.  The
+JAX package's XLA-cache settings have no counterpart here (PyTorch runs
+eagerly).
 """
 
 import torch
 
 #: dtype of simulator state, model evaluation and exact solves
 real_dtype = torch.float64
+#: dtype of the AC and noise solves (G + jωC)·v = b
+complex_dtype = torch.complex128
 
 
 def resolve_device(device=None):

@@ -21,6 +21,13 @@ Lanes: ``x`` is ``[n_x]`` or ``[L, n_x]``; a parameter leaf is the compiled
 ``[n_inst]`` (``[n_inst, P]`` for point lists) or carries a leading lane axis
 ``[L, ...]``; ``ctx.time`` and ``ctx.temp`` are floats or ``[L]`` tensors.
 Every lane is evaluated independently of the others.
+
+Noise and AC: every noise source of every instance has a slot of the global
+noise-input vector (``n_eps`` long; ``Group.eps_idx``).  Without ``eps``
+the walk is exactly the one without noise; :meth:`eps_jacobian` walks the
+noisy groups once with the inputs as Duals (unit tangents) for ∂S/∂eps,
+:meth:`noise_sources` gathers each source's (power, exponent) and
+:meth:`ac_rhs` the sources' complex AC drive.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ class Group:
     var_idx: np.ndarray      # [n_inst, n_lvar] int, n_x = ground/pad slot
     row_idx: np.ndarray      # [n_inst, n_lrow] int, n_x = trash row
     kcl_mask: np.ndarray     # [n_lrow] bool: True for KCL rows (scaled by m)
+    eps_idx: np.ndarray      # [n_inst, n_noise] int into the noise inputs
     #: params uniform across the group and not requested dynamic: Python
     #: floats (or device tensors for point lists) so model conditionals on
     #: them fold on the host while the model is walked
@@ -121,6 +129,7 @@ class CompiledCircuit:
         self.groups: dict[str, Group] = {}
         self._inst_loc: dict[str, tuple[str, int]] = {}
         params0 = {}
+        eps_off = 0
         for key in order:
             insts = buckets[key]
             model = insts[0].model
@@ -128,8 +137,12 @@ class CompiledCircuit:
                               model.n_branch, model.n_control)
             var_idx = np.full((len(insts), model.n_lvar()), pad, np.int64)
             row_idx = np.full((len(insts), model.n_lrow()), pad, np.int64)
+            eps_idx = np.zeros((len(insts), model.n_noise), np.int64)
             for j, inst in enumerate(insts):
                 self._inst_loc[inst.name] = (key, j)
+                if model.n_noise:
+                    eps_idx[j] = eps_off + np.arange(model.n_noise)
+                    eps_off += model.n_noise
                 for k, net in enumerate(inst.nets):
                     if not net.is_ground:
                         var_idx[j, k] = net.index
@@ -158,7 +171,8 @@ class CompiledCircuit:
                         var_idx[j, nt + ni + nb + k] = ref.index
             kcl_mask = np.zeros(model.n_lrow(), bool)
             kcl_mask[: nt + ni] = True
-            grp = Group(key, model, insts, var_idx, row_idx, kcl_mask)
+            grp = Group(key, model, insts, var_idx, row_idx, kcl_mask,
+                        eps_idx)
             self.groups[key] = grp
             gp = {}
             for pn in insts[0].params.keys():
@@ -177,6 +191,7 @@ class CompiledCircuit:
                     gp[pn] = self._t(vals)
             gp["$mult"] = self._t([i.mult for i in insts])
             params0[key] = gp
+        self.n_eps = eps_off
         self.params0 = params0
         self.group_order = order
 
@@ -193,14 +208,29 @@ class CompiledCircuit:
 
     def _index(self, key, L, kind):
         """Flat scatter indices for ``L`` lanes (cached per group and L):
-        ``"row"`` into [L·(n_x+1)], ``"mat"`` into [L·(n_x+1)²]."""
+        ``"row"`` into [L·(n_x+1)], ``"mat"`` into [L·(n_x+1)²], ``"src"``
+        (each noise source) into [L·(n_eps+1)] and ``"eps"`` (each row by
+        noise source) into [L·(n_x+1)·(n_eps+1)]; the padding instances
+        write the trash row and column."""
         ck = (key, L, kind)
         if ck not in self._idx_cache:
             var_idx, row_idx = self._padded_idx(key)
             n1 = self.n_x + 1
+            e1 = self.n_eps + 1
             lanes = np.arange(L)[:, None, None]
+            if kind in ("src", "eps"):
+                eps_idx = self.groups[key].eps_idx
+                eps_idx = np.concatenate([eps_idx, np.full(
+                    (row_idx.shape[0] - eps_idx.shape[0], eps_idx.shape[1]),
+                    self.n_eps, eps_idx.dtype)])
             if kind == "row":
                 idx = lanes * n1 + row_idx[None]
+            elif kind == "src":
+                idx = lanes * e1 + eps_idx[None]
+            elif kind == "eps":
+                idx = (lanes[..., None] * n1 * e1
+                       + row_idx[None, :, :, None] * e1
+                       + eps_idx[None, :, None, :])
             else:
                 idx = (lanes[..., None] * n1 * n1
                        + row_idx[None, :, :, None] * n1
@@ -267,13 +297,15 @@ class CompiledCircuit:
                 kw[f] = v.repeat_interleave(n_inst)
         return ctx.replace(**kw) if kw else ctx
 
-    def evaluate(self, x, ctx: SimSpec, lp, jac=False, v=None, keys=None):
+    def evaluate(self, x, ctx: SimSpec, lp, jac=False, v=None, keys=None,
+                 eps=None):
         """Core walk over ``[L, n_x]`` states with prepared lane params
         ``lp`` (:meth:`lane_params`).  Returns (S, Q) [L, n_x]; with
         ``jac=True`` also (G, C) [L, n_x, n_x]; with a direction ``v``
         [L, n_x] instead the charge tangent C(x)·v [L, n_x].  ``keys``
         restricts the walk to those groups (in the compiled order): the
-        fused chord plan's linear and nonlinear subsets."""
+        fused chord plan's linear and nonlinear subsets.  ``eps`` [L,
+        n_eps]: the noise inputs (None: the walk without noise)."""
         L, n = x.shape
         n1 = n + 1
         dt, dev = self.dtype, self.device
@@ -307,8 +339,10 @@ class CompiledCircuit:
                 lv = [Dual(lvv[:, k], tv[None, :, k]) for k in range(nlv)]
             else:
                 lv = [lvv[:, k] for k in range(nlv)]
-            s_rows, q_rows = g.model.eval(lv, p, self._eval_ctx(ctx, ni),
-                                          None)
+            e = None
+            if eps is not None and g.model.n_noise:
+                e = self._group_eps(key, eps, B)
+            s_rows, q_rows = g.model.eval(lv, p, self._eval_ctx(ctx, ni), e)
             K = nlv if jac else 1
             s, ds = _stack_rows(s_rows, B, K, dt, dev)
             q, dq = _stack_rows(q_rows, B, K, dt, dev)
@@ -332,20 +366,36 @@ class CompiledCircuit:
             return S, Q, Qd.view(L, n1)[:, :n]
         return S, Q
 
-    def _call(self, x, ctx, params, jac=False, v=None):
+    def _group_eps(self, key, eps, B):
+        """A group's noise inputs for its flat eval batch: ``n_noise``
+        columns [B] gathered from ``eps`` [L, n_eps] (the padding instances
+        read zero)."""
+        L = eps.shape[0]
+        e_pad = torch.cat([eps, torch.zeros(L, 1, dtype=eps.dtype,
+                                            device=eps.device)], 1)
+        nn = self.groups[key].model.n_noise
+        idx = self._index(key, 1, "src")      # [n_pad·n_noise] into n_eps+1
+        le = e_pad[:, idx].reshape(B, nn)
+        return [le[:, k] for k in range(nn)]
+
+    def _call(self, x, ctx, params, jac=False, v=None, eps=None):
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
         single = x.dim() == 1
         xb = x[None] if single else x
         if v is not None:
             v = torch.as_tensor(v, dtype=self.dtype, device=self.device)
             v = v[None] if single else v
+        if eps is not None:
+            eps = torch.as_tensor(eps, dtype=self.dtype, device=self.device)
+            eps = eps.expand(xb.shape[0], self.n_eps)
         out = self.evaluate(xb, ctx, self.lane_params(params, xb.shape[0]),
-                            jac=jac, v=v)
+                            jac=jac, v=v, eps=eps)
         return tuple(o[0] for o in out) if single else out
 
-    def residuals(self, x, ctx: SimSpec, params=None):
-        """(S, Q): static residual and charge vector, each [..., n_x]."""
-        return self._call(x, ctx, params)
+    def residuals(self, x, ctx: SimSpec, params=None, eps=None):
+        """(S, Q): static residual and charge vector, each [..., n_x];
+        ``eps`` [n_eps] (or [L, n_eps]) are the noise inputs."""
+        return self._call(x, ctx, params, eps=eps)
 
     def res_jacs_fwd(self, x, ctx: SimSpec, params=None):
         """(S, Q, G, C) from one dual-number walk per group."""
@@ -358,6 +408,98 @@ class CompiledCircuit:
     def residuals_jvp(self, x, v, ctx: SimSpec, params=None):
         """(S, Q, C(x)·v) from one walk with a single tangent direction."""
         return self._call(x, ctx, params, v=v)
+
+    # -------------------------------------------------------- noise and AC
+
+    def _noisy_groups(self, x, ctx, params):
+        """The walk inputs of every group with noise sources at ``x``
+        ([n_x] or [L, n_x]): (L, one state?, and per group (key, model,
+        params, multiplier, eval batch B, local values [B] each, eval
+        ctx))."""
+        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        single = x.dim() == 1
+        xb = x[None] if single else x
+        L = xb.shape[0]
+        lp = self.lane_params(params, L)
+        x_pad = torch.cat([xb, torch.zeros_like(xb[:, :1])], 1)
+        out = []
+        for key in self.group_order:
+            g = self.groups[key]
+            if g.model.n_noise == 0:
+                continue
+            p, mult = lp[key]
+            ni = _n_pad(len(g.instances))
+            nlv = g.model.n_lvar()
+            lvv = x_pad[:, self._group_consts(key)[0]].reshape(L * ni, nlv)
+            out.append((key, g.model, p, mult, L * ni,
+                        [lvv[:, k] for k in range(nlv)],
+                        self._eval_ctx(ctx, ni)))
+        return L, single, out
+
+    def eps_jacobian(self, x, ctx: SimSpec, params=None):
+        """∂S/∂eps [..., n_x, n_eps] at ``x``: one walk of each noisy group
+        with its noise inputs as Duals of value 0 and unit tangents, the
+        VA's own scale factors on a noise term carried through; the KCL
+        rows scaled by the multiplier like S."""
+        L, single, groups = self._noisy_groups(x, ctx, params)
+        n1, e1 = self.n_x + 1, self.n_eps + 1
+        dt, dev = self.dtype, self.device
+        J = torch.zeros(L * n1 * e1, dtype=dt, device=dev)
+        for key, model, p, mult, B, lv, ctx_e in groups:
+            nn = model.n_noise
+            zero = torch.zeros(B, dtype=dt, device=dev)
+            eye = torch.eye(nn, dtype=dt, device=dev)
+            e = [Dual(zero, eye[:, k:k + 1].expand(nn, B)) for k in range(nn)]
+            s_rows, _ = model.eval(lv, p, ctx_e, e)
+            _, ds = _stack_rows(s_rows, B, nn, dt, dev)   # [B, n_lrow, nn]
+            scale = torch.where(self._group_consts(key)[1], mult[:, None],
+                                1.0)
+            _scatter_add(J, self._index(key, L, "eps"),
+                         (ds * scale[:, :, None]).reshape(-1))
+        J = J.view(L, n1, e1)[:, :self.n_x, :self.n_eps]
+        return J[0] if single else J
+
+    def noise_sources(self, x, ctx: SimSpec, params=None):
+        """(pwr, exp) [..., n_eps] of every noise source at the operating
+        point ``x``: a current PSD of pwr·f^(−exp) A²/Hz (unscaled by the
+        multiplier, as in the JAX package)."""
+        L, single, groups = self._noisy_groups(x, ctx, params)
+        e1 = self.n_eps + 1
+        dt, dev = self.dtype, self.device
+        pwr = torch.zeros(L * e1, dtype=dt, device=dev)
+        ex = torch.zeros(L * e1, dtype=dt, device=dev)
+        for key, model, p, _, B, lv, ctx_e in groups:
+            idx = self._index(key, L, "src")
+            for dst, rows in zip((pwr, ex), model.noise(lv, p, ctx_e)):
+                vals, _ = _stack_rows(rows, B, 1, dt, dev)   # [B, nn]
+                dst.index_put_((idx,), vals.reshape(-1))
+        pwr = pwr.view(L, e1)[:, :self.n_eps]
+        ex = ex.view(L, e1)[:, :self.n_eps]
+        return (pwr[0], ex[0]) if single else (pwr, ex)
+
+    def ac_rhs(self, params=None):
+        """Complex AC drive b [n_x] of (G + jωC)·v = b: each source's
+        ``ac``/``acphase`` phasor in its rows (unscaled by the multiplier,
+        as in the JAX package).  Assembled on the CPU (a few entries) and
+        moved to the circuit's device."""
+        params = self.params0 if params is None else params
+        cd = config.complex_dtype
+        b = torch.zeros(self.n_x + 1, dtype=cd)
+        for key in self.group_order:
+            g = self.groups[key]
+            p = dict(g.static_params)
+            for pn, v in params[key].items():
+                if pn != "$mult":
+                    p[pn] = torch.as_tensor(v, dtype=self.dtype).cpu()
+            rows = g.model.ac_rhs(p)
+            if rows is None:
+                continue
+            ni = len(g.instances)
+            vals = torch.stack([torch.as_tensor(r, dtype=cd).expand(ni)
+                                for r in rows], 1)
+            b.index_add_(0, torch.as_tensor(g.row_idx.reshape(-1)),
+                         vals.reshape(-1))
+        return b[:-1].to(self.device)
 
     # ---------------------------------------------------------- observables
 

@@ -21,8 +21,17 @@ Local equation rows (length ``n_lrow``)::
 
 Sign convention as in the JAX package: a KCL contribution is the current
 flowing out of the net into the device; branch current flows p→n through
-the device.  ``eps`` is the noise/aux input of the JAX protocol; the slice
-runs no noise analysis, so the compiler passes ``None``.
+the device.
+
+Noise and AC (the JAX protocol): a device declares ``n_noise`` independent
+noise sources.  ``eps`` is None in every analysis but noise, and the evals
+then take exactly the path they take without noise.  The noise analysis
+passes a list of ``n_noise`` inputs (zeros with unit tangents, Duals), and
+``eval`` adds ``eps[k]`` times a unit current into the rows the k-th source
+drives, so the walk yields ∂S/∂eps.  ``noise`` returns the sources' PSD
+``(power, exponent)`` at the operating point: a current PSD of ``power ·
+f**(−exponent)`` A²/Hz.  ``ac_rhs`` returns a source's complex AC drive per
+local row, or None for a device that drives nothing.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ class DeviceModel:
     n_branch: int = 0
     #: number of extra gathered control unknowns
     n_control: int = 0
-    #: number of noise sources (kept for layout parity with the JAX package)
+    #: number of noise sources (entries of ``eps``)
     n_noise: int = 0
     #: parameter defaults: dict name -> float
     params: dict = {}
@@ -67,6 +76,20 @@ class DeviceModel:
     @staticmethod
     def eval(lv, p, ctx, eps):
         raise NotImplementedError
+
+    @classmethod
+    def noise(cls, lv, p, ctx):
+        """Per-source noise PSD at the operating point ``lv``: two lists of
+        ``n_noise`` entries (float or [B] tensor), the power and the
+        exponent of ``power · f**(−exponent)`` A²/Hz."""
+        z = [0.0] * cls.n_noise
+        return z, list(z)
+
+    @classmethod
+    def ac_rhs(cls, p):
+        """Complex AC drive per local row (``n_lrow`` entries, complex or
+        complex tensor), or None: only the independent sources drive."""
+        return None
 
     @classmethod
     def prepare(cls, raw: dict) -> dict:

@@ -4,10 +4,15 @@
 Ideal and leakage junction diodes, Early and high-injection base-charge
 modulation (q1/q2/qb), depletion (cje/cjc/cjs) and diffusion (tf/tr)
 charges.  PNP is a polarity flip, so NPN and PNP evaluate as one group.
+Collector and base shot noise enter as ``eps[0]`` and ``eps[1]`` when the
+noise analysis passes them; the emitter row takes them as the JAX
+package's ``eval`` does (``ie = −(ic + ib) − eps[0] − eps[1]``, with ``ic``
+and ``ib`` already holding them).
 """
 
 from __future__ import annotations
 
+from cedarsim_tpu_torch import config
 from cedarsim_tpu_torch.core import dual as D
 from cedarsim_tpu_torch.devices.base import DeviceModel
 from cedarsim_tpu_torch.devices.simple import _limexp, qdep
@@ -63,7 +68,12 @@ class Bjt(DeviceModel):
         ib = ibe1 / p["bf"] + iben + ibc1 / p["br"] + ibcn \
             + ctx.gmin * (vbe + vbc)
         ic = ict - ibc1 / p["br"] - ibcn - ctx.gmin * vbc
-        ie = -(ic + ib)
+        if eps is None:
+            ie = -(ic + ib)
+        else:
+            ib = ib + eps[1]
+            ic = ic + eps[0]
+            ie = -(ic + ib) - eps[0] - eps[1]
 
         # charges
         qbe = qdep(vbe, p["cje"] * a, p["vje"], p["mje"], p["fc"]) \
@@ -76,3 +86,18 @@ class Bjt(DeviceModel):
         return ([sgn * ic, sgn * ib, sgn * ie, 0.0],
                 [sgn * (-qbc - qsc), sgn * (qbe + qbc), sgn * (-qbe),
                  sgn * qsc])
+
+    @classmethod
+    def noise(cls, lv, p, ctx):
+        """Shot noise 2q|I| of the collector transport current and of the
+        ideal base current."""
+        vc, vb, ve = lv[0], lv[1], lv[2]
+        sgn = p["ptype"]
+        vbe = sgn * (vb - ve)
+        vbc = sgn * (vb - vc)
+        vt = ctx.vt
+        isat = p["is"] * p["area"]
+        ibe1 = isat * (_limexp(vbe / (p["nf"] * vt)) - 1.0)
+        ibc1 = isat * (_limexp(vbc / (p["nr"] * vt)) - 1.0)
+        return ([2.0 * config.Q_CHARGE * abs(ibe1 - ibc1),
+                 2.0 * config.Q_CHARGE * abs(ibe1 / p["bf"])], [0.0, 0.0])

@@ -10,7 +10,10 @@ entries are ``[B]`` tensors or Duals, parameters are floats or ``[B]``
 tensors (``[B, P]`` / ``[P]`` for a PWL point list).  Every operation that
 the JAX package differentiates takes the same rule here (``core/dual.py``:
 ``jax.numpy``'s rules for the built-ins), so the local Jacobians agree to
-round-off.  Noise inputs (``eps``) are not ported: the evals read none.
+round-off.  The resistor's thermal and the diode's shot noise enter as
+``eps[0]`` in their current (only when the noise analysis passes ``eps``),
+and the V and I sources give their ``ac``/``acphase`` drive to the AC
+analysis (``ac_rhs``).
 """
 
 from __future__ import annotations
@@ -58,7 +61,15 @@ class Resistor(DeviceModel):
     def eval(lv, p, ctx, eps):
         g = 1.0 / Resistor.resistance(p, ctx)
         i = g * (lv[0] - lv[1])
+        if eps is not None:
+            i = i + eps[0]
         return [i, -i], [0.0, 0.0]
+
+    @classmethod
+    def noise(cls, lv, p, ctx):
+        """Thermal noise 4kT/|R|."""
+        r = cls.resistance(p, ctx)
+        return [4.0 * config.K_BOLTZMANN * ctx.temp / abs(r)], [0.0]
 
     @classmethod
     def prepare(cls, raw):
@@ -113,6 +124,18 @@ class CoupledInductors(DeviceModel):
                  -(m * i1 + p["l2"] * i2)])
 
 
+def _ac_phasor(p):
+    """``ac · e^(j·acphase·π/180)``: a Python complex, or a complex tensor
+    where ``ac`` or ``acphase`` is a tensor."""
+    mag, ph = p["ac"], p["acphase"] * (math.pi / 180.0)
+    if isinstance(mag, torch.Tensor) or isinstance(ph, torch.Tensor):
+        like = mag if isinstance(mag, torch.Tensor) else ph
+        mag = torch.as_tensor(mag, dtype=like.dtype, device=like.device)
+        ph = torch.as_tensor(ph, dtype=like.dtype, device=like.device)
+        return torch.complex(mag * torch.cos(ph), mag * torch.sin(ph))
+    return complex(mag * math.cos(ph), mag * math.sin(ph))
+
+
 def _source_value(p, ctx, wave, like):
     """Mode-dependent source value (DC in DCOP/AC unless only a waveform
     was given, the waveform at t=0 in TRANOP, at ctx.time in TRAN), times
@@ -147,6 +170,10 @@ class _VSourceBase(DeviceModel):
         vp, vn, ib = lv[0], lv[1], lv[2]
         v = _source_value(p, ctx, cls._wave(p), val(ib))
         return [ib, -ib, vp - vn - v], [0.0, 0.0, 0.0]
+
+    @classmethod
+    def ac_rhs(cls, p):
+        return [0.0, 0.0, _ac_phasor(p)]
 
 
 class VSource(_VSourceBase):
@@ -251,6 +278,11 @@ class _ISourceBase(DeviceModel):
     def eval_with_wave(cls, lv, p, ctx, eps):
         i = _source_value(p, ctx, cls._wave(p), val(lv[0]))
         return [i, -i], [0.0, 0.0]
+
+    @classmethod
+    def ac_rhs(cls, p):
+        b = _ac_phasor(p)
+        return [-b, b]
 
 
 class ISource(_ISourceBase):
@@ -466,9 +498,19 @@ class Diode(DeviceModel):
         i_brk = -isat * _limexp(-(p["bv"] + v) / vte)
         use_brk = _and(p["bv$given"] > 0, val(v) < val(-p["bv"]))
         i = D.where(use_brk, i_brk, i_fwd) + ctx.gmin * v
+        if eps is not None:
+            i = i + eps[0]
         cj0 = p["cj0"] * p["area"]
         q = qdep(v, cj0, p["vj"], p["m"], p["fc"]) + p["tt"] * i_fwd
         return [i, -i], [q, -q]
+
+    @classmethod
+    def noise(cls, lv, p, ctx):
+        """Shot noise 2q|I| of the forward current."""
+        v = lv[0] - lv[1]
+        vte = p["n"] * ctx.vt
+        i = cls.isat_t(p, ctx) * (_limexp(v / vte) - 1.0)
+        return [2.0 * config.Q_CHARGE * abs(i)], [0.0]
 
 
 def _and(a, b):

@@ -6,9 +6,12 @@ parameters resolve through lexically scoped lazy environments, models merge
 into device parameter dicts and ``m=`` multipliers compose down the
 hierarchy.  Every card binds a device class of the port, as the JAX
 elaborator binds it (``cedarsim_tpu/frontend/elaborate.py``).  A card whose
-device has no PyTorch counterpart yet (T/O/U lines, VBIC, S-parameter
-blocks, BSIM-CMG) raises ``NotImplementedError`` naming its ROADMAP item;
-nothing is bound in its place.
+device has no PyTorch counterpart yet (T/O/U lines, VBIC, BSIM-CMG) raises
+``NotImplementedError`` naming its ROADMAP item; nothing is bound in its
+place.  S-parameter elements (HSPICE ``S``) read their touchstone file
+into ``circuit.sparam_blocks``, which only the AC and noise analyses
+stamp, and ``.meas``/``.measure`` cards are recorded for
+``analysis/measure.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ from cedarsim_tpu_torch.frontend.expr import eval_expr, ExprError
 _A12 = "ROADMAP A12 (BSIM-CMG)"
 _A14B = ("ROADMAP A14b (transmission lines, VBIC, the VA delay, latch "
         "and noise channels)")
-_A15 = "ROADMAP A15 (AC and noise)"
 _A19 = "ROADMAP A19 (utilities and API)"
 _A19_STATS = ("ROADMAP A19 (the Spectre front end, which parses "
               "statistics blocks)")
@@ -296,8 +298,10 @@ class Elaborator:
             for name, cls in mods.items():
                 vam[name.lower()] = cls
             return
-        if st.cmd in ("alterstmt", "data", "meas", "measure", "save",
-                      "probe"):
+        if st.cmd in ("meas", "measure"):
+            self.ckt.directives.append(("meas", [st.loc.src], {}))
+            return
+        if st.cmd in ("alterstmt", "data", "save", "probe"):
             raise NotImplementedError(
                 f".{st.cmd} is not ported yet — {_A19}")
         if st.cmd in ("print", "plot", "width", "end", "backanno"):
@@ -305,6 +309,42 @@ class Elaborator:
         self.warn(f"unhandled directive .{st.cmd}", st.loc)
 
     # -------------------------------------------------------------- devices
+
+    def _instantiate_sparam(self, el, name, nets, scope):
+        """HSPICE S element: port k is (nets[k], ground); the port S-matrix
+        comes from the touchstone file named by the model card's
+        ``file=``/``tstonefile=``/``sfile=`` parameter, converted once to
+        port admittances Y(f), which the AC and noise analyses stamp.  Open
+        at DC and in the transient (gmin keeps the matrix regular)."""
+        from cedarsim_tpu_torch.frontend.touchstone import (
+            parse_touchstone, s_to_y, nports_from_name, TouchstoneError)
+        if el.model is None:
+            raise ElabError(f"{el.name}: S-element requires a model card "
+                            "naming the touchstone file", el.loc)
+        mdl = self._model(el.model, scope, el.loc)
+        raw = None
+        for src in (mdl.params, el.params):
+            for k in ("file", "tstonefile", "sfile"):
+                if k in src and raw is None:
+                    raw = src[k]
+        if raw is None:
+            raise ElabError(f"{el.name}: model {el.model!r} has no "
+                            "file=/tstonefile= parameter", el.loc)
+        path = raw[1] if isinstance(raw, tuple) and len(raw) > 1 else raw
+        path = self._resolve_file(str(path).strip("\"'"), el.loc)
+        with open(path) as f:
+            text = f.read()
+        try:
+            freqs, S, z0 = parse_touchstone(text, nports_from_name(path))
+        except TouchstoneError as e:
+            raise ElabError(f"{el.name}: bad touchstone file {path!r}: {e}",
+                            el.loc)
+        if S.shape[-1] != len(nets):
+            raise ElabError(
+                f"{el.name}: {S.shape[-1]}-port data but {len(nets)} "
+                "element nodes", el.loc)
+        self.ckt.sparam_blocks.append((name, list(nets), np.asarray(freqs),
+                                       s_to_y(S, z0)))
 
     def _net(self, name, prefix, nodemap):
         n = name.lower()
@@ -364,7 +404,8 @@ class Elaborator:
             self._instantiate_bsource(el, name, nets, env, m, prefix, nodemap)
             return
         if letter == "sparam":
-            raise _unported(f"{el.name}: S-parameter element", _A15)
+            self._instantiate_sparam(el, name, nets, scope)
+            return
         kw = {k: self.vres(v, env, el.loc) for k, v in el.params.items()}
         m = mfac * kw.pop("m", 1.0)
 

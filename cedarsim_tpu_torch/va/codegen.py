@@ -22,13 +22,19 @@ Semantics kept from the JAX interpreter:
 - The NaN-safe ``pow``/``sqrt``/``log`` derivatives (the JAX
   ``custom_jvp`` rules) are the derivative rules of the Dual functions.
 - ``$param_given``, ``$temperature``, ``$vt``, ``analysis()``,
-  ``$simparam``, analog functions with output arguments, ``white_noise``/
-  ``flicker_noise`` (zero in ``eval``: the slice runs no noise analysis).
+  ``$simparam``, analog functions with output arguments.
+- The noise channel: ``white_noise``/``flicker_noise`` site k (its lexical
+  AST node, stable when both branches of a conditional are walked)
+  returns ``eps[k]``, and ``noise()`` collects each site's (power,
+  exponent), zero where no walk reached it; ``noise_table`` is a site that
+  returns zero.  Without ``eps`` (every analysis but noise) a site returns
+  zero and its power is not evaluated, so the walk (and the CUDA source
+  ``va/emit.py`` records from it) is exactly the one without noise.
 
 Constructs that ``bsim4.va`` does not use — ``ddx``, ``idt``, the analog
 filters and event operators (laplace, absdelay, transition, slew, idtmod,
-zi), runtime-switched V/I branches, and noise collection — raise
-``NotImplementedError`` naming ROADMAP item A14b.
+zi) and runtime-switched V/I branches — raise ``NotImplementedError``
+naming ROADMAP item A14b.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ class VACodegenError(ValueError):
     pass
 
 
-_A14 = "ROADMAP A14b (VA analog operators, noise and delay channels)"
+_A14 = "ROADMAP A14b (VA analog operators and delay channels)"
 
 #: VA calls the port does not interpret yet
 _UNPORTED_CALLS = frozenset((
@@ -364,12 +370,12 @@ def make_device(module: Module, strict_ranges=False):
 
         @staticmethod
         def eval(lv, p, ctx, eps):
-            return interp.run(lv, p, ctx)
+            return interp.run(lv, p, ctx, eps)
 
         @classmethod
         def noise(cls, lv, p, ctx):
-            raise NotImplementedError(
-                f"{module.name}: noise analysis is not ported yet — {_A14}")
+            return interp.run(lv, p, ctx, [0.0] * cls.n_noise,
+                              collect_noise=True)
 
     VADevice.params = {n: None for n in porder}
     VADevice.__name__ = f"VA_{module.name}"
@@ -525,10 +531,13 @@ class _Interp:
         self.named_branch = named_branch
         self.n_nodes = n_nodes_local
         self.n_vbranch = n_vbranch
+        self.n_noise = len(noise_sites)
 
-    def run(self, lv, p, ctx):
-        """(static, dynamic): two lists of ``n_rows`` row contributions."""
-        st = _State(self, lv, p, ctx)
+    def run(self, lv, p, ctx, eps=None, collect_noise=False):
+        """(static, dynamic): two lists of ``n_rows`` row contributions;
+        with ``collect_noise`` instead (power, exponent), two lists of
+        ``n_noise`` entries."""
+        st = _State(self, lv, p, ctx, eps, collect_noise)
         env = {}
         for stmt in self.module.analog:
             st.stmt(stmt, env)
@@ -561,16 +570,23 @@ class _Interp:
                 va = lv[ia] if ia >= 0 else 0.0
                 vb = lv[ib] if ib >= 0 else 0.0
                 add_row(bidx, (va - vb) - s, None if q is None else -q)
+        if collect_noise:
+            pad = [0.0] * (self.n_noise - len(st.noise_pwr))
+            return st.noise_pwr + pad, st.noise_exp + list(pad)
         return static, dynamic
 
 
 class _State:
-    def __init__(self, interp, lv, p, ctx):
+    def __init__(self, interp, lv, p, ctx, eps=None, collect_noise=False):
         self.it = interp
         self.lv = lv
         self.dtype = val(lv[0]).dtype
         self.p = p
         self.ctx = ctx
+        self.eps = eps
+        self.collect = collect_noise
+        self.noise_pwr = []
+        self.noise_exp = []
         self.zero = 0.0
 
     # ------------------------------------------------------------ statements
@@ -897,9 +913,23 @@ class _State:
         if name == "ddt":
             v = _scalar(self.expr(args[0], env), "ddt argument")
             return (self.zero, v)
-        if name in ("white_noise", "flicker_noise", "noise_table"):
-            # the slice runs no noise analysis: every noise input is zero,
-            # so the power expression is never needed
+        if name in ("white_noise", "flicker_noise"):
+            if self.eps is None:
+                # no noise analysis: the input is zero and its power unused
+                return self.zero
+            k = it.noise_site_ids.get(id(node), 0)
+            pwr = _scalar(self.expr(args[0], env))
+            if self.collect:
+                while len(self.noise_pwr) <= k:
+                    self.noise_pwr.append(self.zero)
+                    self.noise_exp.append(self.zero)
+                self.noise_pwr[k] = pwr
+                if name == "flicker_noise" and len(args) > 1:
+                    self.noise_exp[k] = _scalar(self.expr(args[1], env))
+            if k < len(self.eps):
+                return self.eps[k]
+            return self.zero
+        if name == "noise_table":
             return self.zero
         if name == "analysis":
             mode = self.ctx.mode

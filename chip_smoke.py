@@ -100,6 +100,23 @@ Phases, each printing one line (any failure raises, so the exit code is not
    "mixed"``): 16 points over 0-100 ns, both GESP kernels launched, B1 not,
    every count equal to the same call with ``device="cpu"`` (the kernels'
    plain versions), run here after it.
+18. ac_noise — AC and noise through ``simulate`` on the card, no
+   hand-written kernel launched (all five counts stay 0: the complex
+   solve is ``torch.linalg.solve``, as the JAX package's is outside
+   Pallas): the BSIM4 DFF AC/noise deck (``benchmarks/netlists.py::
+   dff_ac_noise``, 751 frequencies, supply to q) against the same call
+   with ``device="cpu"``: operating points within 1e-9 V, the AC solution
+   within 1e-10 of its largest entry per frequency, the PSD within 1e-9
+   relative; the gf180 inverter noise deck with the structural gates of
+   ``tests/test_noise_pdk_goldens.py`` (plateau flat to 0.5 % below 1 MHz,
+   √PSD slope −1 ± 0.01 over 1e12-1e15 Hz, corner in 1e9-1e11 Hz); an RC
+   low-pass, |H| = 1/√2 at 1/(2πRC) within 1e-9 and the integrated noise
+   √(kT/C) within 1 %.  Its line gives the walls of the two ``simulate``
+   calls (card, CPU; ``.ac`` and ``.noise`` share one operating point),
+   the set-up (parse, compile, operating point), the AC and the noise
+   wall about that operating point (``x_op``; each ending in a
+   synchronise), the eps Jacobian walk, and the batched complex solve at
+   [751, 25, 25] (call and device time).
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
@@ -177,6 +194,11 @@ CHORD_RTOL = 1e-10
 #: the fused chord kernel against its plain version: the same float64 loop
 #: (no FMA contraction), other summation orders in the row sums
 FUSED_RTOL = 1e-9
+#: phase 18: card against CPU on the DFF AC/noise deck, and the RC gates
+AC_RTOL = 1e-10
+PSD_RTOL = 1e-9
+RC_H_TOL = 1e-9
+KTC_RTOL = 0.01
 #: H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): memory bytes/s
 #: and operations/s outside the tensor cores by type
 PEAK_BYTES_PER_S = 3.35e12
@@ -1058,6 +1080,126 @@ def phase_pvt_xla(torch, gesp_lu, fc, dev):
     return launches
 
 
+def phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev):
+    """Phase 18: AC and noise on the card (see the module docstring)."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    from cedarsim_tpu_torch import config
+    from cedarsim_tpu_torch.analysis.ac import _system
+    from cedarsim_tpu_torch.core.compile import default_ctx
+    counters = (gesp_lu.lu_factor_gesp_f32, gesp_lu.lu_subst_gesp_f32,
+                gesp_lu.lu_solve_gesp_f32, pivot_lu.lu_solve_pivot_f32,
+                fc.fused_chord)
+    for k in counters:
+        k.launches = 0
+    inc = [netlists.DFF_DIR]
+    text = netlists.dff_ac_noise()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = T.simulate(text, include_paths=inc, device=dev)
+    torch.cuda.synchronize()
+    sim_wall = time.perf_counter() - t0
+    rp = T.simulate(text, include_paths=inc, device="cpu")
+    cpu_wall = time.perf_counter() - t0 - sim_wall
+    comp = rc["compiled"]
+    ac_c, ac_p, ns_c, ns_p = rc["ac"], rp["ac"], rc["noise"], rp["noise"]
+    if comp.device.type != "cuda" or ac_c.v.device.type != "cuda":
+        raise AssertionError(f"AC ran on {ac_c.v.device}")
+    if len(ac_c.freqs) != 751 or comp.n_x != 25 or comp.n_eps != 60:
+        raise AssertionError(f"deck: {len(ac_c.freqs)} frequencies, n_x "
+                             f"{comp.n_x}, {comp.n_eps} noise sources")
+    op_err = float((ac_c.op_x.cpu() - ac_p.op_x).abs().max())
+    vc, vp = ac_c.v.cpu(), ac_p.v
+    ac_err = float(((vc - vp).abs().amax(1) / vp.abs().amax(1)).max())
+    qc, qp = ac_c["q"], ac_p["q"]
+    psd_err = float(np.max(np.abs(ns_c.psd - ns_p.psd) / ns_p.psd))
+    if not (op_err <= SIM_DC_TOL and ac_err <= AC_RTOL
+            and psd_err <= PSD_RTOL and np.all(np.isfinite(qc))
+            and np.all(ns_c.psd > 0)):
+        raise AssertionError(f"ac_noise: card vs cpu op {op_err:.3g} V, AC "
+                             f"{ac_err:.3g}, PSD {psd_err:.3g}")
+    total, inoise = ns_c.total(), ns_c.inoise()
+    # the set-up (parse, compile, operating point), then each analysis
+    # about that operating point
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nl = T.parse_spice(text)
+    comp = T.compile_circuit(T.elaborate(nl, include_paths=inc), device=dev)
+    ctx = default_ctx(comp)
+    op = T.solve_dc(comp, ctx=ctx)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    freqs = ac_c.freqs
+    T.ac(comp, freqs, ctx=ctx, x_op=op.x)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    T.noise(comp, "q", freqs, ctx=ctx, x_op=op.x)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    c_ac = ctx.with_mode(T.Modes.AC)
+    eps_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        te = time.perf_counter()
+        comp.eps_jacobian(op.x, c_ac)
+        torch.cuda.synchronize()
+        eps_s.append(time.perf_counter() - te)
+    A, _ = _system(comp, op.x, c_ac, comp.params0, freqs)
+    b = comp.ac_rhs().expand(A.shape[0], comp.n_x).contiguous()
+    solve = kt.library_times(lambda: torch.linalg.solve(A, b), 10)
+    n = comp.n_x
+    # complex LU and two substitutions: 8 real operations a complex
+    # multiply-add, ~(2/3)n³ + 2n² of them a system
+    solve_bound = bound(A.numel() * 16 + 2 * b.numel() * 16,
+                        A.shape[0] * 8 * (2 * n ** 3 / 3 + 2 * n * n),
+                        "float64")
+    # the inverter deck on the card: the structural gates
+    inv = T.simulate(netlists.INVERTER_NOISE, include_paths=inc,
+                     device=dev)["noise"]
+    f, s = inv.freqs, np.sqrt(inv.psd)
+    pl = s[f <= 1e6]
+    flat = float(np.ptp(pl) / pl.mean())
+    m = (f >= 1e12) & (f <= 1e15)
+    slope = float(np.polyfit(np.log10(f[m]), np.log10(s[m]), 1)[0])
+    corner = float(f[np.argmax(s < 0.5 * s[0])])
+    if not (flat < 5e-3 and abs(slope + 1.0) < 0.01
+            and 1e9 <= corner <= 1e11):
+        raise AssertionError(f"inverter gates: plateau {flat:.3g}, slope "
+                             f"{slope:.4f}, corner {corner:.3g} Hz")
+    # an RC low-pass on the card: the corner and kT/C
+    r, cap = 10e3, 1e-9
+    rc_ckt = T.Circuit()
+    vin, out = rc_ckt.net("vin"), rc_ckt.net("out")
+    rc_ckt.add(T.VSource, "V1", (vin, rc_ckt.gnd), dict(dc=0.0, ac=1.0))
+    rc_ckt.add(T.Resistor, "R1", (vin, out), dict(r=r))
+    rc_ckt.add(T.Capacitor, "C1", (out, rc_ckt.gnd), dict(c=cap))
+    rc_comp = T.compile_circuit(rc_ckt, device=dev)
+    h = T.ac(rc_comp, [1.0 / (2 * np.pi * r * cap)])["out"]
+    h_err = abs(abs(complex(h[0])) - 2 ** -0.5)
+    kt_total = T.noise(rc_comp, "out", T.acdec(48, 1.0, 1e9)).total()
+    ktc = (config.K_BOLTZMANN * (27.0 + config.T_ZERO_C) / cap) ** 0.5
+    ktc_err = abs(kt_total - ktc) / ktc
+    if not (h_err <= RC_H_TOL and ktc_err <= KTC_RTOL):
+        raise AssertionError(f"RC: |H| error {h_err:.3g}, kT/C error "
+                             f"{ktc_err:.3g}")
+    launches = {k.__name__: k.launches for k in counters}
+    if any(launches.values()):
+        raise AssertionError(f"a hand-written kernel launched: {launches}")
+    log("ac_noise", frequencies=len(freqs), n_x=n, noise_sources=comp.n_eps,
+        simulate_card_s=sim_wall, simulate_cpu_s=cpu_wall,
+        setup_s=t1 - t0, ac_wall_s=t2 - t1, noise_wall_s=t3 - t2,
+        eps_jacobian_s=min(eps_s), solve_shape=list(A.shape),
+        solve_call_ms=solve["call_ms"], solve_device_ms=solve["device_ms"],
+        solve_device_by=solve["device_by"], solve_bound_ms=solve_bound[0],
+        solve_bound_by=solve_bound[1], op_err_v=op_err, ac_rel_err=ac_err,
+        psd_rel_err=psd_err, q_gain_1hz=abs(complex(qc[0])),
+        q_psd_1hz=float(ns_c.psd[0]), total_v=total,
+        inoise_1hz=float(inoise[0]), inverter=dict(
+            plateau_ptp=flat, slope=slope, corner_hz=corner,
+            sqrt_psd_1khz=float(s[0])),
+        rc=dict(h_err=h_err, ktc_rel_err=ktc_err), launches=launches,
+        card=smi())
+
+
 #: phase 8's kernel checks: the bench's two shapes, one system alone, an
 #: odd batch at an odd n, the two sides of the one-warp regime's edge
 #: (n = 32 in registers, n = 33 in shared memory), and the largest n a
@@ -1278,6 +1420,7 @@ def main():
     pabs_err, ptimes, pbound = phase_pvt_fused_kernel(torch, T, fc,
                                                       pvt_state, plan_pvt)
     xl = phase_pvt_xla(torch, gesp_lu, fc, dev)
+    phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
     src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
     b1p = ftimes["B1'"]
     n1 = lv1[0].n_x

@@ -10,10 +10,12 @@ the JAX package's ``simulate`` on the CPU in float64.
   no analysis (an operating point), ``tmax``, ``uic``, ``.options
   method=trap`` and ``method=gear`` (BDF2 up to ``maxord=2``).
 - What is not ported raises ``NotImplementedError`` naming its ROADMAP
-  item, and nothing is skipped: ``.ac``, ``.noise`` and ``.four`` (A15),
-  Spectre text and ``alter`` (A19), gear orders above 2 (A14b), ``.save``
-  and ``.measure`` (A19, in the elaborator).  ``.dc`` runs (its tests are
-  in ``tests/test_torch_sweeps.py``).
+  item, and nothing is skipped: Spectre text and ``alter`` (A19), gear
+  orders above 2 (A14b), ``.save``, ``.probe`` and ``.data`` (A19, in the
+  elaborator).  ``.dc`` runs (its tests are in
+  ``tests/test_torch_sweeps.py``), and so do ``.ac``, ``.noise``,
+  ``.four`` and ``.measure`` (``tests/test_torch_ac.py``; here: the keys
+  they add).
 """
 
 import warnings
@@ -92,17 +94,27 @@ def test_tran_directive_options(extra, want):
 
 
 @pytest.mark.parametrize("extra, item", [
-    (".ac dec 5 1k 1meg", "A15"),
-    (".noise v(b) v1 dec 5 1k 1meg", "A15"),
-    (".tran 1n 40n\n.four 50meg v(b)", "A15"),
     (".tran 1n 40n\n.options method=gear maxord=3", "A14b"),
     (".tran 1n 40n\n.options method=gear maxord=5", "A14b"),
     (".tran 1n 40n\n.save v(b)", "A19"),
-    (".tran 1n 40n\n.measure tran vmax max v(b)", "A19"),
+    (".tran 1n 40n\n.probe v(b)", "A19"),
+    (".tran 1n 40n\n.data d1 r1 1k 2k\n.enddata", "A19"),
 ])
 def test_unported_directives_raise(extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         T.simulate(_rc(extra), device="cpu")
+
+
+@pytest.mark.parametrize("extra, keys", [
+    (".ac dec 5 1k 1meg", {"ac"}),
+    (".noise v(b) v1 dec 5 1k 1meg", {"noise"}),
+    (".tran 1n 40n\n.four 50meg v(b)", {"tran", "fourier"}),
+    (".tran 1n 40n\n.measure tran vmax max v(b)", {"tran", "measures"}),
+])
+def test_ported_directives_run(extra, keys):
+    rj, rt = _both(_rc(extra))
+    assert set(rt) - {"circuit", "compiled"} == keys
+    assert set(rt) == set(rj)
 
 
 @pytest.mark.parametrize("text, kw", [

@@ -2,8 +2,8 @@
 own model files, never the JAX package's.
 
 - ``compile_circuit``, ``params_from_numpy``, ``simulate``, ``dc_sweep``,
-  ``mc_dc``, ``mc_statistics`` and ``pvt_sweep.run_chunked`` without a
-  device raise
+  ``mc_dc``, ``mc_statistics``, ``pvt_sweep.run_chunked``, ``ac`` and
+  ``noise`` without a device raise
   where no CUDA card is present (the message names ``device="cpu"``); with
   ``device="cpu"`` they run on the CPU; ``device="cuda"`` becomes the
   indexed current card.
@@ -13,6 +13,12 @@ own model files, never the JAX package's.
 - ``cuda_lib.build_library`` keeps the compiler's log beside a library it
   builds, so a library loaded without a compile still reports ptxas's
   registers and spills.
+- Every module copied from the JAX package (the modules that need no JAX)
+  equals its original but for the import lines, the docstring's "Copy
+  of" paragraph and the citations' machine-specific path prefix.
+- ``simulate`` runs ``.ac``, ``.noise``, ``.four`` and ``.meas`` and
+  still raises, naming ROADMAP A19, on ``.save``, ``.probe`` and
+  ``.data``.
 """
 
 import os
@@ -46,7 +52,7 @@ def no_card(monkeypatch):
 @pytest.mark.parametrize("entry", ["compile_circuit", "CompiledCircuit",
                                    "params_from_numpy", "simulate",
                                    "dc_sweep", "mc_dc", "mc_statistics",
-                                   "pvt_sweep.run_chunked"])
+                                   "pvt_sweep.run_chunked", "ac", "noise"])
 def test_no_device_and_no_card_raises(no_card, entry):
     from cedarsim_tpu_torch.analysis import montecarlo, sweeps
     from cedarsim_tpu_torch.benchmarks import pvt_sweep
@@ -64,6 +70,10 @@ def test_no_device_and_no_card_raises(no_card, entry):
                 "* mc\nV1 a 0 1\nR1 a 0 {agauss(1k, 100, 1)}\n.op\n"), 2)
         elif entry == "pvt_sweep.run_chunked":
             pvt_sweep.run_chunked(4, 4)
+        elif entry == "ac":
+            T.ac(_rc(), [1e3])
+        elif entry == "noise":
+            T.noise(_rc(), "vout", [1e3])
         else:
             getattr(T, entry)(_rc())
 
@@ -136,3 +146,40 @@ def test_build_library_keeps_the_compiler_log(tmp_path, monkeypatch):
     assert "Used 7 registers" in first["log"]
     assert again["log"] == first["log"]
     assert again["lib"].answer() == 42
+
+
+#: the port's copies of JAX-free modules of the JAX package
+COPIES = ("core/circuit.py", "frontend/parser.py", "frontend/expr.py",
+          "frontend/numbers.py", "frontend/touchstone.py",
+          "analysis/measure.py", "va/ast.py", "va/diagnostics.py",
+          "va/lexer.py", "va/parser.py", "va/preproc.py")
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copies_equal_their_originals(rel):
+    import re
+    with open(os.path.join(PKG, rel)) as f:
+        mine = f.read()
+    with open(os.path.join(REPO, "cedarsim_tpu", rel)) as f:
+        orig = f.read()
+    para = re.compile(r"\n\nCopy of ``cedarsim_tpu/" + re.escape(rel)
+                      + r"``.*?path prefix\.\n", re.S)
+    assert len(para.findall(mine)) == 1
+    mine = para.sub("\n", mine)
+    mine = re.sub(r"^(\s*)from cedarsim_tpu_torch\.", r"\1from cedarsim_tpu.",
+                  mine, flags=re.M)
+    orig = re.sub(r"(?<![\w./])/[a-z]+/reference/", "reference/", orig)
+    assert mine == orig
+
+
+def test_simulate_runs_the_ac_noise_and_measure_directives():
+    base = ("* rc\nV1 a 0 DC 0 AC 1 SIN(0 1 1meg)\nR1 a b 1k\n"
+            "C1 b 0 1n\n")
+    out = T.simulate(base + ".ac dec 2 1k 1meg\n.noise v(b) v1 dec 2 1k "
+                     "1meg\n.tran 10n 3u\n.four 1meg v(b)\n"
+                     ".meas ac g find vm(b) at=1k\n", device="cpu")
+    assert {"ac", "noise", "tran", "fourier", "measures"} <= set(out)
+    assert out["measures"]["g"] == pytest.approx(1.0, rel=1e-3)
+    for card in (".save v(b)", ".probe v(b)", ".data d1 r1 1k 2k\n.enddata"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+            T.simulate(base + ".tran 10n 3u\n" + card + "\n", device="cpu")
