@@ -6,7 +6,9 @@ The JAX package runs the whole strategy as one ``lax.scan`` over a static
 schedule of (gshunt, sourcefac, reset-kind, is-final) rows, only to save TPU
 compile time.  Here the same schedule is a host loop, and each rung's Newton
 iteration runs over an explicit lane axis with per-lane done masks: a lane's
-result does not depend on the other lanes, as under ``jax.vmap``.
+result does not depend on the other lanes, as under ``jax.vmap``.  On a
+sparse circuit (``use_sparse_solver``) the Jacobian is a value vector in the
+sparse LU's filled pattern and each Newton solve is ``SparseOps.solve``.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from cedarsim_tpu_torch.core.compile import CompiledCircuit, default_ctx
+from cedarsim_tpu_torch.core.compile import (CompiledCircuit, default_ctx,
+                                             use_sparse_solver)
 from cedarsim_tpu_torch.core.context import SimSpec, Modes
+from cedarsim_tpu_torch.core.sparse_ops import get_sparse_ops
 from cedarsim_tpu_torch.ops import linalg
 
 
@@ -121,10 +125,26 @@ def dc_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0,
     base_g = ctx.gmin
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(1234)
-    eye = torch.eye(n, dtype=dt, device=dev)
+    sparse = use_sparse_solver(compiled)
+    if sparse:
+        # J is a value vector [L, nnz_f] in the sparse LU's filled pattern
+        sops = get_sparse_ops(compiled)
+        lin_solve = sops.solve
+    else:
+        lin_solve = linalg.solve
+        eye = torch.eye(n, dtype=dt, device=dev)
 
     def res_jac(x, gshunt, srcfac):
         c = ctx.replace(sourcefac=ctx.sourcefac * srcfac)
+        if sparse:
+            S, _, Gv, _ = compiled.evaluate(x, c, lp, jac="sparse")
+            f = S + (gshunt + base_g) * vmask * x
+            J = sops.add_diag(Gv, gshunt + base_g + opts.jac_shunt)
+            if ic_mask is not None:
+                f = f * (1.0 - ic_mask) + ic_mask * (x - ic_vals)
+                J = sops.add_a_diag(sops.mask_rows(J, 1.0 - ic_mask),
+                                    ic_mask)
+            return f, J
         S, _, G, _ = compiled.evaluate(x, c, lp, jac=True)
         f = S + (gshunt + base_g) * vmask * x
         J = G + eye * ((gshunt + base_g + opts.jac_shunt) * vmask)
@@ -144,7 +164,7 @@ def dc_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0,
             active = run & ~done & (it < opts.max_iter)
             if not bool(active.any()):
                 break
-            dx = linalg.solve(J, -f)
+            dx = lin_solve(J, -f)
             bad = ~torch.isfinite(dx).all(-1)
             dx = torch.where(bad[:, None], torch.zeros_like(dx), dx)
             mx = dx.abs().amax(-1)
@@ -157,7 +177,8 @@ def dc_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0,
             a2 = active[:, None]
             x = torch.where(a2, xn, x)
             f = torch.where(a2, fn, f)
-            J = torch.where(active[:, None, None], Jn, J)
+            J = torch.where(active.view((L,) + (1,) * (J.dim() - 1)), Jn,
+                            J)
             done = torch.where(active, dn, done)
             it = it + active.to(torch.int32)
         ok = done & torch.isfinite(x).all(-1)

@@ -21,7 +21,11 @@ per step attempt, exact residuals after) with the full-Newton
 failure with a stale Jacobian at the same h with a fresh one.  The chord
 iterations run either in the loop below (``newton_impl="xla"``) or in one
 launch of the fused chord kernel per step attempt (``"fused"``,
-``ops/fused_chord.py``).
+``ops/fused_chord.py``).  On a sparse circuit (``use_sparse_solver``) G and
+C are value vectors in the sparse LU's filled pattern, each Newton solve is
+``SparseOps.solve`` (the chord factors once per attempt with
+``SparseOps.factorize``), C·v is ``SparseOps.matvec``, and there is no
+cross-step reuse, as in the JAX package.
 
 A run stops with its integrator state in a checkpoint (``CHECKPOINT_FIELDS``)
 that a later run resumes (``tran(resume=)``, ``tran_core(init_state=)``),
@@ -36,8 +40,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from cedarsim_tpu_torch.core.compile import CompiledCircuit, default_ctx
+from cedarsim_tpu_torch.core.compile import (CompiledCircuit, default_ctx,
+                                             use_sparse_solver)
 from cedarsim_tpu_torch.core.context import SimSpec, Modes
+from cedarsim_tpu_torch.core.sparse_ops import get_sparse_ops
 from cedarsim_tpu_torch.ops import linalg
 from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan, split_lanes)
@@ -124,8 +130,18 @@ def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
     call with a lane axis takes "mixed" under "auto" on CUDA ("jax" on the
     CPU), and the GESP kernels under "mixed" at any lane count.
     ``newton_impl`` "auto" is "fused" on CUDA when :func:`auto_newton_impl`
-    says so (``ctx`` given), else "xla"."""
+    says so (``ctx`` given), else "xla".  A sparse circuit
+    (``use_sparse_solver``) solves with ``SparseOps`` at any lane count on
+    any device: "jax" and "xla" ("mixed" is ignored, as the JAX package's
+    sparse ``lin_solve`` ignores it), and an explicit "fused" raises, as
+    the JAX package's does."""
     dl, ni = opts.dense_lu, opts.newton_impl
+    if use_sparse_solver(compiled):
+        if ni == "fused":
+            raise ValueError("newton_impl='fused' is dense-path only")
+        if ni not in ("xla", "auto") or dl not in ("jax", "mixed", "auto"):
+            raise ValueError(f"unknown newton_impl={ni!r} / dense_lu={dl!r}")
+        return dataclasses.replace(opts, dense_lu="jax", newton_impl="xla")
     if dl == "auto":
         dl = "mixed" if (batched and compiled.device.type == "cuda") \
             else "jax"
@@ -356,8 +372,12 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         if opts.jac_reuse < 1:
             raise ValueError("newton_impl='fused' requires jac_reuse >= 1")
         fused = fused_plan_for(compiled, ctx, params)
+    sparse = use_sparse_solver(compiled)
+    sops = get_sparse_ops(compiled) if sparse else None
     mn = opts.jac_reuse > 0
-    mn_cross = opts.jac_reuse > 1
+    # the cross-step cache carries dense (G, C): off on the sparse path,
+    # where jac_reuse >= 2 is the per-step chord with its rescue
+    mn_cross = opts.jac_reuse > 1 and not sparse
     mixed = opts.dense_lu == "mixed"
     if opts.store_vars is None:
         def proj(v):
@@ -369,14 +389,35 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         def proj(v):
             return v[..., sv]
     n_store = n if opts.store_vars is None else len(opts.store_vars)
-    nv = compiled.n_nodes + compiled.n_internal
-    jsh = opts.jac_shunt * torch.diag(
-        (torch.arange(n, device=dev) < nv).to(dt))
+    # G and C: dense [L, n, n], or value vectors [L, nnz_f] in the sparse
+    # LU's filled pattern; the Newton loops below take either
+    jac_kind = "sparse" if sparse else True
+    if sparse:
+        lin_solve, c_apply = sops.solve, sops.matvec
 
-    def damp_J(J):
-        return J + jsh if opts.jac_shunt else J
+        def damp_J(J):
+            return sops.add_diag(J, opts.jac_shunt) if opts.jac_shunt else J
+    else:
+        lin_solve = linalg.chord_solve_once if mixed else linalg.solve
+        c_apply = linalg.matvec
+        nv = compiled.n_nodes + compiled.n_internal
+        jsh = opts.jac_shunt * torch.diag(
+            (torch.arange(n, device=dev) < nv).to(dt))
 
-    lin_solve = linalg.chord_solve_once if mixed else linalg.solve
+        def damp_J(J):
+            return J + jsh if opts.jac_shunt else J
+
+    def per_lane(a, like):
+        """A per-lane scalar [L] shaped to broadcast against ``like``."""
+        return a.view((-1,) + (1,) * (like.dim() - 1))
+
+    def assemble(G, C, c0, a0, beta, h):
+        """The corrector Jacobian c0·C/h + G (cap form) or a0·C/h + β·G
+        (charge form), damped."""
+        if cap_form:
+            return damp_J(per_lane(c0, C) * C / per_lane(h, C) + G)
+        return damp_J(per_lane(a0, C) * C / per_lane(h, C)
+                      + per_lane(beta, G) * G)
 
     def ctx_at(t):
         return ctx_t.at_time(t)
@@ -413,21 +454,18 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         S, Q, G, C, done, nnwt = seed
         it = torch.zeros(L, dtype=torch.int32, device=dev)
         cx = ctx_at(t_new)
-        hh = h[:, None, None]
         while True:
             active = ~done & (it < opts.max_newton)
             if not bool(active.any()):
                 break
-            ic = linalg.matvec(C, (c0[:, None] * x + xdh) / h[:, None]) \
+            ic = c_apply(C, (c0[:, None] * x + xdh) / h[:, None]) \
                 if cap_form else torch.zeros_like(S)
             f, _ = fres(x, S, Q, ic, a0, Qhist, Sn, beta, h)
-            J = damp_J(c0[:, None, None] * C / hh + G) if cap_form \
-                else damp_J(a0[:, None, None] * C / hh
-                            + beta[:, None, None] * G)
+            J = assemble(G, C, c0, a0, beta, h)
             dx, bad = limit(lin_solve(J, -f))
             xn = x + dx
-            Sn1, Qn1, Gn1, Cn1 = compiled.evaluate(xn, cx, lp, jac=True)
-            icn = linalg.matvec(Cn1, (c0[:, None] * xn + xdh) / h[:, None]) \
+            Sn1, Qn1, Gn1, Cn1 = compiled.evaluate(xn, cx, lp, jac=jac_kind)
+            icn = c_apply(Cn1, (c0[:, None] * xn + xdh) / h[:, None]) \
                 if cap_form else ic
             f_new, scale = fres(xn, Sn1, Qn1, icn, a0, Qhist, Sn, beta, h)
             dn = converged(dx, xn, f_new, scale, bad)
@@ -593,7 +631,6 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
             xdh = torch.where(use_be[:, None], -x,
                               -(2.0 * x + h_real[:, None] * c["xdot"]))
 
-        hh = h_real[:, None, None]
         if mn:
             if mn_cross:
                 # the cached (G, C) unless a lane refreshes: the walk runs
@@ -606,10 +643,8 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                     G, C = _sel(refresh, Gf, G), _sel(refresh, Cf, C)
             else:
                 S0p, Q0p, G, C = compiled.evaluate(x_pred, ctx_at(t_new),
-                                                   lp, jac=True)
-            J = damp_J(c0[:, None, None] * C / hh + G) if cap_form \
-                else damp_J(a0[:, None, None] * C / hh
-                            + beta[:, None, None] * G)
+                                                   lp, jac=jac_kind)
+            J = assemble(G, C, c0, a0, beta, h_real)
             if fused is not None:
                 # one fused chord kernel launch for every lane's chord loop
                 # (model walks, assembly, direction, tests); the rescue
@@ -624,11 +659,15 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                                         h_real)
                 else:
                     init_parts = (S0p, Q0p,
-                                  linalg.matvec(C, (c0[:, None] * x_pred
-                                                    + xdh)
-                                                / h_real[:, None])
+                                  c_apply(C, (c0[:, None] * x_pred + xdh)
+                                          / h_real[:, None])
                                   if cap_form else torch.zeros_like(S0p))
-                if mixed:
+                if sparse:
+                    fct = sops.factorize(J)
+
+                    def chord_solve(b):
+                        return sops.solve_factorized(fct, J, b)
+                elif mixed:
                     fct = linalg.chord_factor(J)
 
                     def chord_solve(b):
@@ -660,7 +699,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                 nok = torch.where(res, nok_r, nok)
         else:
             S0s, Q0s, G0s, C0s = compiled.evaluate(x_pred, ctx_at(t_new), lp,
-                                                   jac=True)
+                                                   jac=jac_kind)
             xn, Sn_new, Qn_new, nok, nnwt = newton_step(
                 x_pred, t_new, h_real, a0, Qhist, c["Sn"], beta, c0, xdh,
                 (S0s, Q0s, G0s, C0s, ~lv, torch.zeros_like(c["k"])))

@@ -17,7 +17,13 @@ the times at which their waveforms are compared.
   ``.noise v(q) vd`` on the ngspice table's grid, ``dec 5`` over 1 kHz-1
   PHz.
 
-Both decks include files of ``DFF_DIR``: pass it in ``include_paths``.
+- :func:`chain_netlist`: the N-cell gf180 DFF shift register (Q of cell k
+  drives D of cell k + 1, every cell on one CLKN), the JAX package's
+  large-circuit workload of the sparse Newton path; 40 BSIM4 cells are
+  452 unknowns.  :func:`chain` parses, elaborates and compiles it.
+
+The gf180 decks include files of ``DFF_DIR``: pass it in
+``include_paths``.
 """
 
 import os
@@ -123,3 +129,45 @@ VD D 0 0.0 AC 1
 .noise v(q) vd dec 5 1k 1e15
 .end
 """
+
+
+def chain_netlist(n_cells: int, tstop=2e-7, models="lv1") -> str:
+    """``models``: "lv1" (level-1 substitutes) or "bsim4" (the in-tree
+    BSIM4-class VA compact model): the same cell topology, the model cards
+    swap by include.  (A copy of ``benchmarks/gf180_dff/chain.py::
+    chain_netlist``, reading ``dffnq_cell.spice`` from ``DFF_DIR``.)"""
+    with open(os.path.join(DFF_DIR, "dffnq_cell.spice")) as f:
+        body = f.read()
+    lines = [
+        f"* {n_cells}-cell DFF shift register ({models} models)",
+        ".option gmin=1e-15",
+        f'.include "models_{models}.spice"',
+        ".subckt dffnq D CLKN Q VDD VNW VPW VSS",
+        body,
+        ".ends",
+        "VVDD VDD 0 5.0",
+        "VVSS VSS 0 0.0",
+        "VNW VNW VDD 0",
+        "VPW VPW VSS 0",
+        "VCLKN CLKN 0 PULSE(5 0 20n 1n 1n 25n 50n)",
+        "VD d0 0 PULSE(0 5 45n 1n 1n 50n 100n)",
+    ]
+    for k in range(n_cells):
+        lines.append(
+            f"XD{k} d{k} CLKN d{k + 1} VDD VNW VPW VSS dffnq")
+        lines.append(f"CL{k} d{k + 1} 0 5e-15")
+    lines.append(f".tran 1n {tstop}")
+    lines.append(".end")
+    return "\n".join(lines)
+
+
+def chain(n_cells: int, models="lv1", sparse="auto", device=None, **kw):
+    """The N-cell chain compiled on ``device`` (the counterpart of
+    ``benchmarks/gf180_dff/chain.py::build``)."""
+    from cedarsim_tpu_torch import compile_circuit
+    from cedarsim_tpu_torch.frontend.elaborate import elaborate
+    from cedarsim_tpu_torch.frontend.parser import parse_spice
+    nl = parse_spice(chain_netlist(n_cells, models=models),
+                     file=f"chain{n_cells}_{models}.cir")
+    ckt = elaborate(nl, include_paths=[DFF_DIR])
+    return compile_circuit(ckt, sparse=sparse, device=device, **kw)

@@ -1,5 +1,5 @@
 """Circuit compiler: graph IR → batched residual / Jacobian functions in
-PyTorch (counterpart of ``cedarsim_tpu/core/compile.py``, dense path only).
+PyTorch (counterpart of ``cedarsim_tpu/core/compile.py``).
 
 Formulation: charge-oriented MNA DAE ``F(x, t) = S(x, t) + d/dt Q(x) = 0``
 with unknowns x = [node voltages (ground excluded), internal node voltages,
@@ -21,6 +21,13 @@ Lanes: ``x`` is ``[n_x]`` or ``[L, n_x]``; a parameter leaf is the compiled
 ``[n_inst]`` (``[n_inst, P]`` for point lists) or carries a leading lane axis
 ``[L, ...]``; ``ctx.time`` and ``ctx.temp`` are floats or ``[L]`` tensors.
 Every lane is evaluated independently of the others.
+
+Sparse path: circuits of ``SPARSE_AUTO_THRESHOLD`` unknowns or more (or
+any circuit compiled with ``sparse=True``) solve their Newton systems with
+the static-pattern sparse LU (:func:`use_sparse_solver`); their Jacobian
+walk (``evaluate(jac="sparse")``) scatters each local Jacobian entry
+straight into the LU plan's filled pattern, ``[L, nnz_f]``, with no dense
+``[n, n]`` in between (``core/sparse_ops.py``).
 
 Noise and AC: every noise source of every instance has a slot of the global
 noise-input vector (``n_eps`` long; ``Group.eps_idx``).  Without ``eps``
@@ -60,18 +67,25 @@ class Group:
 
 
 class CompiledCircuit:
+    #: dense/sparse linear-algebra crossover (unknown count) for "auto"
+    SPARSE_AUTO_THRESHOLD = 256
+
     def __init__(self, circuit: Circuit, dtype=None, device=None,
-                 dynamic_params=()):
+                 dynamic_params=(), sparse="auto"):
         """``device``: the torch device every tensor of the circuit (and of
         every solve on it) lives on; by default the CUDA card, and with no
         card an error (pass ``device="cpu"``).  ``dynamic_params``: param
         names kept as per-instance tensors even when uniform across a group
-        (bare names apply to every instance, dotted names to one)."""
+        (bare names apply to every instance, dotted names to one).
+        ``sparse``: the Newton linear algebra, "auto" (sparse at
+        ``SPARSE_AUTO_THRESHOLD`` unknowns or more), True or False
+        (:func:`use_sparse_solver`)."""
         self.circuit = circuit
         self.dtype = dtype or config.real_dtype
         self.device = config.resolve_device(device)
         self.dynamic_params = frozenset(
             d.lower() for d in (dynamic_params or ()))
+        self.sparse_mode = sparse
         self._idx_cache = {}
         self._build()
 
@@ -208,16 +222,29 @@ class CompiledCircuit:
 
     def _index(self, key, L, kind):
         """Flat scatter indices for ``L`` lanes (cached per group and L):
-        ``"row"`` into [L·(n_x+1)], ``"mat"`` into [L·(n_x+1)²], ``"src"``
-        (each noise source) into [L·(n_eps+1)] and ``"eps"`` (each row by
-        noise source) into [L·(n_x+1)·(n_eps+1)]; the padding instances
-        write the trash row and column."""
+        ``"row"`` into [L·(n_x+1)], ``"mat"`` into [L·(n_x+1)²],
+        ``"sparse"`` (each local Jacobian entry's filled-pattern position,
+        ``SparseOps.group_pos``) into [L·(nnz_f+1)], ``"src"`` (each noise
+        source) into [L·(n_eps+1)] and ``"eps"`` (each row by noise
+        source) into [L·(n_x+1)·(n_eps+1)]; the padding instances write the
+        trash row and column (the sparse pattern's trash slot)."""
         ck = (key, L, kind)
         if ck not in self._idx_cache:
             var_idx, row_idx = self._padded_idx(key)
             n1 = self.n_x + 1
             e1 = self.n_eps + 1
             lanes = np.arange(L)[:, None, None]
+            if kind == "sparse":
+                from cedarsim_tpu_torch.core.sparse_ops import get_sparse_ops
+                sops = get_sparse_ops(self)
+                pos = sops.group_pos[key]
+                pos = np.concatenate([pos, np.full(
+                    (row_idx.shape[0] - pos.shape[0],) + pos.shape[1:],
+                    sops.nnz_f, pos.dtype)]).astype(np.int64)
+                idx = lanes[..., None] * (sops.nnz_f + 1) + pos[None]
+                self._idx_cache[ck] = torch.as_tensor(
+                    idx.reshape(-1), dtype=torch.int64, device=self.device)
+                return self._idx_cache[ck]
             if kind in ("src", "eps"):
                 eps_idx = self.groups[key].eps_idx
                 eps_idx = np.concatenate([eps_idx, np.full(
@@ -301,11 +328,13 @@ class CompiledCircuit:
                  eps=None):
         """Core walk over ``[L, n_x]`` states with prepared lane params
         ``lp`` (:meth:`lane_params`).  Returns (S, Q) [L, n_x]; with
-        ``jac=True`` also (G, C) [L, n_x, n_x]; with a direction ``v``
-        [L, n_x] instead the charge tangent C(x)·v [L, n_x].  ``keys``
-        restricts the walk to those groups (in the compiled order): the
-        fused chord plan's linear and nonlinear subsets.  ``eps`` [L,
-        n_eps]: the noise inputs (None: the walk without noise)."""
+        ``jac=True`` also (G, C) [L, n_x, n_x], with ``jac="sparse"`` (G,
+        C) as value vectors [L, nnz_f] in the filled pattern of the sparse
+        LU plan (``core/sparse_ops.py``); with a direction ``v`` [L, n_x]
+        instead the charge tangent C(x)·v [L, n_x].  ``keys`` restricts the
+        walk to those groups (in the compiled order): the fused chord
+        plan's linear and nonlinear subsets.  ``eps`` [L, n_eps]: the noise
+        inputs (None: the walk without noise)."""
         L, n = x.shape
         n1 = n + 1
         dt, dev = self.dtype, self.device
@@ -315,8 +344,14 @@ class CompiledCircuit:
         S = torch.zeros(L * n1, dtype=dt, device=dev)
         Q = torch.zeros(L * n1, dtype=dt, device=dev)
         if jac:
-            G = torch.zeros(L * n1 * n1, dtype=dt, device=dev)
-            C = torch.zeros(L * n1 * n1, dtype=dt, device=dev)
+            # dense [n+1, n+1] per lane, or the filled pattern and its
+            # trash slot; ground rows and columns land in the trash
+            m1 = n1 * n1
+            if jac == "sparse":
+                from cedarsim_tpu_torch.core.sparse_ops import get_sparse_ops
+                m1 = get_sparse_ops(self).nnz_f + 1
+            G = torch.zeros(L * m1, dtype=dt, device=dev)
+            C = torch.zeros(L * m1, dtype=dt, device=dev)
         if v is not None:
             Qd = torch.zeros(L * n1, dtype=dt, device=dev)
         walk = self.group_order
@@ -324,34 +359,14 @@ class CompiledCircuit:
             keys = set(keys)
             walk = [k for k in walk if k in keys]
         for key in walk:
-            g = self.groups[key]
-            p, mult = lp[key]
-            ni = _n_pad(len(g.instances))
-            B = L * ni
-            nlv = g.model.n_lvar()
-            vi, kcl, eye = self._group_consts(key)
-            lvv = x_pad[:, vi].reshape(B, nlv)
-            if jac:
-                lv = [Dual(lvv[:, k], eye[:, k:k + 1].expand(nlv, B))
-                      for k in range(nlv)]
-            elif v is not None:
-                tv = v_pad[:, vi].reshape(B, nlv)
-                lv = [Dual(lvv[:, k], tv[None, :, k]) for k in range(nlv)]
-            else:
-                lv = [lvv[:, k] for k in range(nlv)]
-            e = None
-            if eps is not None and g.model.n_noise:
-                e = self._group_eps(key, eps, B)
-            s_rows, q_rows = g.model.eval(lv, p, self._eval_ctx(ctx, ni), e)
-            K = nlv if jac else 1
-            s, ds = _stack_rows(s_rows, B, K, dt, dev)
-            q, dq = _stack_rows(q_rows, B, K, dt, dev)
-            scale = torch.where(kcl, mult[:, None], 1.0)  # [B, n_lrow]
+            s, q, ds, dq, scale = self._walk_group(key, x_pad, ctx, lp, L,
+                                                   bool(jac), v_pad, eps)
             ridx = self._index(key, L, "row")
             _scatter_add(S, ridx, (s * scale).reshape(-1))
             _scatter_add(Q, ridx, (q * scale).reshape(-1))
             if jac:
-                midx = self._index(key, L, "mat")
+                midx = self._index(key, L,
+                                   "sparse" if jac == "sparse" else "mat")
                 sc3 = scale[:, :, None]
                 _scatter_add(G, midx, (ds * sc3).reshape(-1))
                 _scatter_add(C, midx, (dq * sc3).reshape(-1))
@@ -359,12 +374,64 @@ class CompiledCircuit:
                 _scatter_add(Qd, ridx, (dq[:, :, 0] * scale).reshape(-1))
         S = S.view(L, n1)[:, :n]
         Q = Q.view(L, n1)[:, :n]
+        if jac == "sparse":
+            return S, Q, G.view(L, m1)[:, :-1], C.view(L, m1)[:, :-1]
         if jac:
             return (S, Q, G.view(L, n1, n1)[:, :n, :n],
                     C.view(L, n1, n1)[:, :n, :n])
         if v is not None:
             return S, Q, Qd.view(L, n1)[:, :n]
         return S, Q
+
+    def _walk_group(self, key, x_pad, ctx, lp, L, jac, v_pad, eps):
+        """One group's model walk over its flat eval batch of ``L`` lanes:
+        the row values s, q [B, n_lrow], their tangents ds, dq [B, n_lrow,
+        K] (K = n_lvar local Jacobian columns with ``jac``, else the one
+        direction of ``v_pad``, else zeros) and the KCL rows' multiplier
+        ``scale`` [B, n_lrow]."""
+        dt, dev = self.dtype, self.device
+        g = self.groups[key]
+        p, mult = lp[key]
+        ni = _n_pad(len(g.instances))
+        B = L * ni
+        nlv = g.model.n_lvar()
+        vi, kcl, eye = self._group_consts(key)
+        lvv = x_pad[:, vi].reshape(B, nlv)
+        if jac:
+            lv = [Dual(lvv[:, k], eye[:, k:k + 1].expand(nlv, B))
+                  for k in range(nlv)]
+        elif v_pad is not None:
+            tv = v_pad[:, vi].reshape(B, nlv)
+            lv = [Dual(lvv[:, k], tv[None, :, k]) for k in range(nlv)]
+        else:
+            lv = [lvv[:, k] for k in range(nlv)]
+        e = None
+        if eps is not None and g.model.n_noise:
+            e = self._group_eps(key, eps, B)
+        s_rows, q_rows = g.model.eval(lv, p, self._eval_ctx(ctx, ni), e)
+        K = nlv if jac else 1
+        s, ds = _stack_rows(s_rows, B, K, dt, dev)
+        q, dq = _stack_rows(q_rows, B, K, dt, dev)
+        scale = torch.where(kcl, mult[:, None], 1.0)  # [B, n_lrow]
+        return s, q, ds, dq, scale
+
+    def local_jacobians(self, x, ctx: SimSpec, params=None):
+        """Each group's unscaled local Jacobians at ``x`` [L, n_x]: {key:
+        (∂s/∂l, ∂q/∂l) [L, n_inst, n_lrow, n_lvar]}, the instances' rows
+        and local unknowns in the order of ``row_idx`` and ``var_idx`` (the
+        sparse plan's probe weights read them)."""
+        L, n = x.shape
+        lp = self.lane_params(params, L)
+        x_pad = torch.cat([x, torch.zeros_like(x[:, :1])], 1)
+        out = {}
+        for key in self.group_order:
+            g = self.groups[key]
+            ni, np_ = len(g.instances), _n_pad(len(g.instances))
+            _, _, ds, dq, _ = self._walk_group(key, x_pad, ctx, lp, L, True,
+                                               None, None)
+            shape = (L, np_) + tuple(ds.shape[1:])
+            out[key] = (ds.reshape(shape)[:, :ni], dq.reshape(shape)[:, :ni])
+        return out
 
     def _group_eps(self, key, eps, B):
         """A group's noise inputs for its flat eval batch: ``n_noise``
@@ -700,11 +767,22 @@ def default_ctx(compiled: CompiledCircuit, temp_c=None) -> SimSpec:
 
 
 def compile_circuit(circuit: Circuit, dtype=None, device=None,
-                    dynamic_params=()) -> CompiledCircuit:
-    """Compile a circuit for the dense path on ``device`` (by default the
-    CUDA card; without one, pass ``device="cpu"``)."""
+                    dynamic_params=(), sparse="auto") -> CompiledCircuit:
+    """Compile a circuit on ``device`` (by default the CUDA card; without
+    one, pass ``device="cpu"``).  ``sparse``: "auto" (the sparse Newton
+    linear algebra for circuits with n_x >= SPARSE_AUTO_THRESHOLD
+    unknowns), True, or False."""
     return CompiledCircuit(circuit, dtype=dtype, device=device,
-                           dynamic_params=dynamic_params)
+                           dynamic_params=dynamic_params, sparse=sparse)
+
+
+def use_sparse_solver(compiled: CompiledCircuit) -> bool:
+    """Whether DC and the transient solve ``compiled``'s Newton systems
+    with the sparse LU (``core/sparse_ops.py``) instead of a dense one."""
+    mode = getattr(compiled, "sparse_mode", "auto")
+    if mode == "auto":
+        return compiled.n_x >= CompiledCircuit.SPARSE_AUTO_THRESHOLD
+    return bool(mode)
 
 
 def ensure_dynamic(compiled: CompiledCircuit, names) -> CompiledCircuit:
@@ -719,5 +797,6 @@ def ensure_dynamic(compiled: CompiledCircuit, names) -> CompiledCircuit:
     if want not in cache:
         cache[want] = CompiledCircuit(compiled.circuit, dtype=compiled.dtype,
                                       device=compiled.device,
-                                      dynamic_params=want)
+                                      dynamic_params=want,
+                                      sparse=compiled.sparse_mode)
     return cache[want]

@@ -4,7 +4,11 @@
     python3 chip_smoke.py
 
 Phases, each printing one line (any failure raises, so the exit code is not
-0 and no result line is printed):
+0 and no result line is printed).  A line printed while a child process of
+the smoke ran, or after one ran since the line before, gives
+``beside_children_s``: for each child, the seconds since the previous line
+during which it ran, so that a wall taken beside another process on the
+card says so.
 
 1. device  — requires CUDA; prints the card's name and power limit; full
    float32 matmuls (no TF32).
@@ -25,13 +29,16 @@ Phases, each printing one line (any failure raises, so the exit code is not
 5. slice   — the gf180 DFF BSIM4 testbench (parse → elaborate → compile
    on the card → transient operating point → per-lane warm DC) as an 8-lane
    transient with a per-lane W scatter through the mixed chord path
-   (``newton_impl="xla"``), gated on the benchmark's golden Q levels; both
-   GESP kernels must have launched, and the step counts must be cell A's
-   (``CELL_A``).  It also counts how near the systems run to float32's
-   edge (``MixedMargin``; the wall includes its few small reductions per
-   solve).
+   (``newton_impl="xla"``) over 0-160 ns (``CELL_A_TSTOP``; 0-700 ns
+   before phase 19 needed the time), gated on the benchmark's golden Q
+   level at 150 ns; both GESP kernels must have launched, and the step
+   counts must be cell A's (``CELL_A``).  It also counts how near the
+   systems run to float32's edge (``MixedMargin``; the wall includes its
+   few small reductions per solve).
    repeat  — that path over 0-60 ns twice in this process and once in each
-   of two child processes with other string-hash seeds: bitwise equal.
+   of two child processes with other string-hash seeds (started after
+   phase 3, so that they run beside phases 4-5 and no other process
+   shares the card while phase 3 times its kernels): bitwise equal.
 6. fused_kernel — the fused chord kernel against its plain version on the
    DFF's lanes (seeded 0.05 V perturbation, BE start, two step sizes):
    equal (ok, Newton count), xn/S/Q within 1e-9, two launches bitwise
@@ -55,25 +62,30 @@ Phases, each printing one line (any failure raises, so the exit code is not
 
 9. lv1_single — ``bench.py``'s level-1 DFF leg (``dff_tb.cir``, the
    level-1 MOSFETs of ``models_lv1.spice``) as one stream through the
-   public ``tran`` over 0-700 ns with ``SimSpec.make(gmin=1e-15)`` and
-   ``max_steps=16384``, gated at ``bench.py:554-557`` (q within 0.05 V of
-   0 at 150 and 250 ns and of 5 V at 700 ns).  One stream takes the exact
+   public ``tran`` over 0-260 ns (``LV1_SHORT_TSTOP``; 0-700 ns before
+   phase 19) with ``SimSpec.make(gmin=1e-15)`` and ``max_steps=16384``,
+   gated at ``bench.py:554-557`` inside its window (q within 0.05 V of 0
+   at 150 and 250 ns).  One stream takes the exact
    float64 solve under "auto" and "mixed", as the JAX package's unbatched
    chord pair does (``cedarsim_tpu/ops/linalg.py:155``); no GESP kernel
    may launch.
 10. lv1_mixed (cell D) — the leg at the JAX package's 256 lanes, vto
    scaled per lane by ``linspace(0.99, 1.01)``, each lane from its own
    operating point, through the mixed chord path (``newton_impl="xla"``,
-   ``kernel_times.LV1_XLA_OPTS``): every lane passes the gate, both GESP
-   kernels launch and the fused kernel does not; the counts must be cell
-   D's (``CELL_D``).
-11. lv1_fused_kernel — the fused chord kernel on the level-1 plan (``Mos1``
+   ``kernel_times.LV1_XLA_OPTS``) over 0-260 ns (0-700 ns before phase
+   19): every lane passes the gate at 150 and 250 ns, both GESP kernels
+   launch and the fused kernel does not; the counts must be cell D's
+   (``CELL_D``).
+11. lv1_fused_kernel — (run after phase 18, once phase 19's child has
+   ended, so that no other process shares the card while it times) the
+   fused chord kernel on the level-1 plan (``Mos1``
    emitted) against its plain version on the 256 lanes, as phase 6;
    kernel, plain and bound times at 256 and 8 lanes; ptxas registers and
    spills of the ``Mos1`` build.
 12. lv1_fused (cell E) — the 256 lanes through the fused configuration
-   (``kernel_times.LV1_FUSED_OPTS``): the gate on every lane, one fused
-   launch per step attempt, and cell E's counts (``CELL_E``).
+   (``kernel_times.LV1_FUSED_OPTS``) over the whole 0-700 ns: the gate on
+   every lane, one fused launch per step attempt, and cell E's counts
+   (``CELL_E``).
    lv1_repeat — cells D and E over 0-60 ns twice each: bitwise equal.
 13. simulate — ``simulate()`` on the card: the README's inverter and a
    netlist with every newly bound card (``benchmarks/netlists.py``), each
@@ -93,11 +105,12 @@ Phases, each printing one line (any failure raises, so the exit code is not
    ``CELL_P``.  It runs on the harness object (``pvt_sweep.PVT``) built
    before the kernels' build, whose one fused plan is the plan phase 16
    checks.
-16. pvt_fused_kernel — B1 on the PVT plan (W and VDD per lane) against its
-   plain version at [256, 25] on the PVT lanes' operating points, as phase
-   6; its times, bound and ptxas lines.
+16. pvt_fused_kernel — (run after phase 11) B1 on the PVT plan (W and VDD
+   per lane) against its plain version at [256, 25] on the PVT lanes'
+   operating points, as phase 6; its times, bound and ptxas lines.
 17. pvt_xla — the harness with ``impl="xla"`` (B2/B3, ``dense_lu=
-   "mixed"``): 16 points over 0-100 ns, both GESP kernels launched, B1 not,
+   "mixed"``): 16 points over 0-100 ns (``PVT_XLA_TSTOP``), both GESP
+   kernels launched, B1 not,
    every count equal to the same call with ``device="cpu"`` (the kernels'
    plain versions), run here after it.
 18. ac_noise — AC and noise through ``simulate`` on the card, no
@@ -117,13 +130,44 @@ Phases, each printing one line (any failure raises, so the exit code is not
    wall about that operating point (``x_op``; each ending in a
    synchronise), the eps Jacobian walk, and the batched complex solve at
    [751, 25, 25] (call and device time).
+19. sparse — the JAX package's large-circuit transient on the card
+   through its entry point (``cedarsim_tpu_torch/benchmarks/
+   chain_transient.py::run``), in a child process started after phase 8
+   that runs beside phases 9-18 (each process host-bound on its own core;
+   the walls of both include the sharing, which each of those phases'
+   lines gives as ``beside_children_s``), every kernel count from 0 in
+   that process just before it and read just after: the 40-cell
+   gf180 BSIM4 shift register, 452 unknowns, compiled with
+   ``sparse="auto"``, which must take the sparse Newton path; its
+   operating point (``solve_dc(mode="tranop")``, ``max_step=1.0,
+   gmin_steps=14``) and the transient over 0-200 ns, one stream,
+   ``jac_reuse=1``: the four gates (d1 within 0.1 V of 5 V at 100 ns, d2
+   at 150 ns, d3 at 199 ns, d2 within 0.1 V of 0 at 199 ns), at least one
+   S1 launch per step attempt (the rescue adds its own), no GESP,
+   dense-solve or fused launch; set-up, wall, counts and launches
+   printed.  Then, in the main process after phase 16: its plan (built
+   on the card, the probe on the CPU)
+   bitwise the plan of the same circuit compiled on the CPU, its levels
+   and filled values printed; the operating point against the dense DC on
+   the card within 1e-9 V; the chain with a lane axis (2 lanes from the
+   operating point over 0-1 ns: S1/S2 at 2 lanes, no dense kernel), each
+   lane bitwise the one stream; and the sparse factor (S1,
+   ``sparse_lu.factor``) and solve (S2, ``sparse_lu.solve_factored``) on
+   the chain's equilibrated Jacobian at that operating point, at 1 and 8
+   lanes: bitwise their plain versions, two launches bitwise equal; each
+   one's device time (CUDA-graph replay) and call time, the plain
+   version's, the dense library call on the same systems
+   (``torch.linalg.lu_factor``/``lu_solve``, float64 [L, 452, 452]) and
+   the bound.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
 the TPU kernel it replaces, launches on its path (B1 in phase 7 and, on
 the level-1 plan, in phase 12, on the PVT plan in phase 15; B2/B3 in phase
-5, in phase 10 and in phase 17; B4/B5 in phase 8), error, times and its
-bound: the larger of the
+5, in phase 10 and in phase 17; B4/B5 in phase 8; S1/S2 in phase 19,
+which name no TPU kernel: ``replaces`` is null and ``jax_counterpart`` the
+XLA function they take the place of), error, times and its bound: the
+larger of the
 bytes it must move over 3.35 TB/s and its operations over the card's peak
 for their type, both counted from this run's inputs.  The times
 (``benchmarks/kernel_times.py``): ``call_ms`` (= ``ms``), a Python loop of
@@ -162,17 +206,24 @@ N_LANES = kt.N_LANES
 #: Newton, attempts) on the card: every kernel is bitwise its plain
 #: version, so these move only with the code (cell A's since the
 #: substitution rounds each product and difference on its own, PERF.md)
-CELL_A = (11478, 1107, 28560, 1580)
+#: cell A's window: 0-160 ns, past the first golden sample (150 ns), since
+#: phase 19 needs the time (the full 0-700 ns runs in cell B); its counts
+#: over that window were recorded on the card (0-700 ns: 11478, 1107,
+#: 28560, 1580)
+CELL_A_TSTOP = 1.6e-7
+CELL_A = (3086, 279, 7475, 428)
 CELL_B = (4832, 1291, 16754, 776)
 #: cells D and E, the level-1 DFF at 256 lanes through the mixed chord path
 #: and the fused engine (accepted, rejected, Newton, attempts over all
-#: lanes)
-CELL_D = (384556, 57104, 1024766, 1740)
+#: lanes); cell D over 0-260 ns (``LV1_SHORT_TSTOP``; over 0-700 ns it was
+#: 384556, 57104, 1024766, 1740), cell E over 0-700 ns
+CELL_D = (164482, 23578, 435608, 744)
 CELL_E = (161553, 30938, 505888, 756)
 #: the PVT sweep (phase 15): 256 points, one chunk, two windows (accepted,
 #: rejected, Newton over all lanes, batched step attempts over both
-#: windows), and the 16-point run through the GESP kernels over 0-100 ns
-#: (phase 17; its counts are those of the same call on the CPU)
+#: windows), and the 16-point run through the GESP kernels over
+#: 0-``PVT_XLA_TSTOP`` (phase 17; its counts are those of the same call on
+#: the CPU)
 PVT_POINTS = 256
 PVT_SEGMENTS = 2
 CELL_P = (158702, 38472, 532508, 816)
@@ -181,6 +232,9 @@ PVT_XLA_TSTOP = 1e-7
 #: the level-1 leg's gate (bench.py:554-557): (ns, level) of q
 LV1_GATE = ((150.0, 0.0), (250.0, 0.0), (700.0, 5.0))
 LV1_TSTOP = 7e-7
+#: the window of the level-1 single stream (phase 9) and of cell D (phase
+#: 10): 0-260 ns, past the gates at 150 and 250 ns (cell E keeps 0-700 ns)
+LV1_SHORT_TSTOP = 2.6e-7
 LV1_LANES = kt.LV1_LANES
 #: the repeat window of cells D and E (past the first clock edge, where q
 #: first switches)
@@ -234,9 +288,39 @@ def lu_ops(n, B, kind):
 T_START = time.perf_counter()
 
 
+#: the smoke's child processes, [name, start, end] on the smoke's clock
+#: (end None while one runs), and when the last line was printed: each
+#: line gives the seconds since the line before it during which a child
+#: ran (``beside_children_s``), so that a wall taken while another process
+#: shared the card and the host says so
+CHILD_SPANS = []
+LAST_LINE_T = [0.0]
+
+
+def track_child(name, proc):
+    """Record ``proc``'s span under ``name`` in ``CHILD_SPANS``."""
+    import threading
+    span = [name, time.perf_counter() - T_START, None]
+    CHILD_SPANS.append(span)
+
+    def wait():
+        proc.wait()
+        span[2] = time.perf_counter() - T_START
+    threading.Thread(target=wait, daemon=True).start()
+
+
 def log(phase, **kw):
-    print(json.dumps({"phase": phase, **kw,
-                      "t_s": time.perf_counter() - T_START}), flush=True)
+    now = time.perf_counter() - T_START
+    beside = {}
+    for name, t0, t1 in CHILD_SPANS:
+        overlap = min(now, now if t1 is None else t1) - max(LAST_LINE_T[0],
+                                                             t0)
+        if overlap > 0:
+            beside[name] = overlap
+    if beside:
+        kw["beside_children_s"] = beside
+    LAST_LINE_T[0] = now
+    print(json.dumps({"phase": phase, **kw, "t_s": now}), flush=True)
 
 
 def smi():
@@ -418,10 +502,11 @@ def counts(sols):
 
 def check_counts(cell, sols, want):
     """A cell's (accepted, rejected, Newton, attempts) over all lanes must
-    be the recorded ones."""
+    be the recorded ones (None: none recorded for this window yet; the
+    phase's line prints them)."""
     c = counts(sols)
     got = (c["accepted"], c["rejected"], c["newton"], sols[0].n_attempts)
-    if got != tuple(want):
+    if want is not None and got != tuple(want):
         raise AssertionError(f"cell {cell}: counts (accepted, rejected, "
                              f"Newton, attempts) {got}, recorded {want}")
 
@@ -481,7 +566,7 @@ class MixedMargin:
 
 def phase_slice(torch, T, gesp_lu, linalg, dev, dff):
     comp, ctx, pb, x0, golden, t_setup = dff
-    tstop = 7e-7
+    tstop = CELL_A_TSTOP
     opts = T.TranOptions(**XLA_OPTS)
     gesp_lu.lu_factor_gesp_f32.launches = 0
     gesp_lu.lu_subst_gesp_f32.launches = 0
@@ -496,7 +581,8 @@ def phase_slice(torch, T, gesp_lu, linalg, dev, dff):
                 "subst": gesp_lu.lu_subst_gesp_f32.launches}
     if min(launches.values()) <= 0:
         raise AssertionError(f"kernels not on the main path: {launches}")
-    worst = gate_golden(sols, golden, comp.n_x)
+    worst = gate_golden(sols, golden, comp.n_x, windows_ns=[
+        t for t in golden["samples_ns"] if t * 1e-9 <= tstop])
     check_counts("A", sols, CELL_A)
     log("slice", lanes=N_LANES, setup_s=t_setup, wall_s=wall,
         transients_per_s=N_LANES / wall, worst_golden_err=worst,
@@ -523,43 +609,63 @@ def _same(a, b):
         np.array_equal(u, w) for u, w in zip(a[0] + a[1], b[0] + b[1]))
 
 
-def phase_repeat(torch, T, dev, dff):
+def start_repeat_children():
+    """The repeat phase's two child processes, string-hash seeds 1 and 2,
+    started at once and early, so that each runs beside the main
+    process's phases (each is host-bound on its own core).  Returns (the
+    scratch directory, {seed: (output path, stderr file, process)});
+    ``stop_children`` ends them."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_repeat_")
+    procs = {}
+    for seed in ("1", "2"):
+        out = os.path.join(tmp, f"run{seed}.npz")
+        err = open(os.path.join(tmp, f"stderr{seed}.txt"), "w")
+        procs[seed] = (out, err, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--repeat-child",
+             out], stdout=subprocess.DEVNULL, stderr=err,
+            env={**os.environ, "PYTHONHASHSEED": seed}))
+        track_child(f"repeat_seed{seed}", procs[seed][2])
+    return tmp, procs
+
+
+def stop_children(children):
+    """End (if still running) and reap the repeat children, and remove
+    their scratch directory."""
+    import shutil
+    tmp, procs = children
+    for _, err, p in procs.values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        err.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_repeat(torch, T, dev, dff, children):
     """The mixed chord path on identical inputs, twice in this process and
     once in each of two child processes with string-hash seeds 1 and 2
     (before the interpreter merged branches in walk order, those two seeds
-    summed the BSIM4 rows in two different orders): every run must be
-    bitwise equal to the first."""
-    import tempfile
+    summed the BSIM4 rows in two different orders; ``children`` from
+    ``start_repeat_children``): every run must be bitwise equal to the
+    first."""
     t0 = time.perf_counter()
     runs = [repeat_run(T, dff), repeat_run(T, dff)]
     wall = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        # the two children at once (each is host-bound on its own core)
-        procs = {}
-        for seed in ("1", "2"):
-            out = os.path.join(tmp, f"run{seed}.npz")
-            procs[seed] = (out, subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--repeat-child",
-                 out], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-                text=True, env={**os.environ, "PYTHONHASHSEED": seed}))
-        try:
-            errs = {seed: p.communicate(timeout=600)[1]
-                    for seed, (_, p) in procs.items()}
-        finally:
-            for _, p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for seed, (out, p) in procs.items():
-            if p.returncode != 0:
+    _, procs = children
+    for seed, (out, err, p) in procs.items():
+        p.wait(timeout=600)
+        err.flush()
+        if p.returncode != 0:
+            with open(err.name) as f:
                 raise AssertionError(f"repeat child (seed {seed}) failed:\n"
-                                     f"{errs[seed][-4000:]}")
-            z = np.load(out)
-            L = int(z["lanes"])
-            runs.append(([z[f"ts{i}"] for i in range(L)],
-                         [z[f"xs{i}"] for i in range(L)],
-                         [tuple(int(c) for c in z["counts"][i])
-                          for i in range(L)]))
+                                     f"{f.read()[-4000:]}")
+        z = np.load(out)
+        L = int(z["lanes"])
+        runs.append(([z[f"ts{i}"] for i in range(L)],
+                     [z[f"xs{i}"] for i in range(L)],
+                     [tuple(int(c) for c in z["counts"][i])
+                      for i in range(L)]))
     equal = [_same(runs[0], r) for r in runs[1:]]
     dmax = 0.0
     for r in runs[1:]:
@@ -733,10 +839,10 @@ def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
     return launches
 
 
-def gate_lv1(sols):
+def gate_lv1(sols, tstop=LV1_TSTOP):
     """The level-1 leg's gate on every lane (bench.py:554-557): finished,
-    finite, q within GOLDEN_TOL of each level of ``LV1_GATE``.  Returns
-    the worst error."""
+    finite, q within GOLDEN_TOL of each level of ``LV1_GATE`` up to
+    ``tstop``.  Returns the worst error."""
     worst, errs = 0.0, []
     for lane, sol in enumerate(sols):
         if not sol.converged:
@@ -744,6 +850,8 @@ def gate_lv1(sols):
         if not np.isfinite(sol.xs).all():
             raise AssertionError(f"lv1 lane {lane}: non-finite waveform")
         for t_ns, want in LV1_GATE:
+            if t_ns * 1e-9 > tstop:
+                continue
             err = abs(float(sol.interp("q", t_ns * 1e-9)) - want)
             worst = max(worst, err)
             if not err < GOLDEN_TOL:
@@ -766,15 +874,16 @@ def phase_lv1_single(torch, T, gesp_lu, dev):
     gesp_lu.lu_factor_gesp_f32.launches = 0
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    sol = T.tran(comp, (0.0, LV1_TSTOP), ctx=T.SimSpec.make(gmin=1e-15),
+    sol = T.tran(comp, (0.0, LV1_SHORT_TSTOP),
+                 ctx=T.SimSpec.make(gmin=1e-15),
                  opts=opts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     if gesp_lu.lu_factor_gesp_f32.launches:
         raise AssertionError("one stream launched the GESP factor "
                              f"{gesp_lu.lu_factor_gesp_f32.launches} times")
-    worst = gate_lv1([sol])
-    log("lv1_single", setup_s=t_setup, wall_s=wall,
+    worst = gate_lv1([sol], LV1_SHORT_TSTOP)
+    log("lv1_single", tstop=LV1_SHORT_TSTOP, setup_s=t_setup, wall_s=wall,
         newton_per_s=sol.n_newton / wall, worst_gate_err=worst,
         **counts([sol]), attempts=sol.n_attempts, card=smi())
 
@@ -805,15 +914,15 @@ def lv1_run(torch, T, gesp_lu, fc, lv1, cell, tstop):
     return sols, launches, wall
 
 
-def phase_lv1(torch, T, gesp_lu, fc, lv1, cell, want, extra=None):
-    """Phases 10 and 12: cell D or E over the leg's window at 256 lanes,
-    gated on every lane, its counts held to ``want``."""
-    sols, launches, wall = lv1_run(torch, T, gesp_lu, fc, lv1, cell,
-                                   LV1_TSTOP)
-    worst = gate_lv1(sols)
+def phase_lv1(torch, T, gesp_lu, fc, lv1, cell, want, tstop, extra=None):
+    """Phases 10 and 12: cell D or E over 0-``tstop`` at 256 lanes, gated
+    on every lane at the points inside the window, its counts held to
+    ``want``."""
+    sols, launches, wall = lv1_run(torch, T, gesp_lu, fc, lv1, cell, tstop)
+    worst = gate_lv1(sols, tstop)
     if want is not None:
         check_counts(cell, sols, want)
-    log(f"lv1_{'mixed' if cell == 'D' else 'fused'}", cell=cell,
+    log(f"lv1_{'mixed' if cell == 'D' else 'fused'}", cell=cell, tstop=tstop,
         lanes=len(sols), setup_s=lv1[4], wall_s=wall,
         transients_per_s=len(sols) / wall, worst_gate_err=worst,
         **counts(sols), attempts=sols[0].n_attempts, launches=launches,
@@ -1200,6 +1309,297 @@ def phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev):
         card=smi())
 
 
+#: phase 19: the JAX package's large-circuit transient, the 40-cell BSIM4
+#: shift register (452 unknowns) through the sparse Newton path, and the
+#: sparse DC against the dense one on the card (float64 both)
+CHAIN_CELLS = 40
+CHAIN_N_X = 452
+SPARSE_DC_TOL = 1e-9
+#: S1/S2's lane counts in phase 19's kernel checks
+SPARSE_LANES = (1, 8)
+#: phase 19's lane-batched run of the chain: lanes and window
+SPARSE_BATCH = 2
+CHAIN_LANES_TSTOP = 1e-9
+
+
+def same_plan(a, b):
+    """Two sparse LU plans equal field by field, array by array."""
+    for f in dataclasses.fields(a):
+        u, w = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(u, tuple):
+            flat = [(x, y) for uu, ww in zip(u, w)
+                    for x, y in (zip(uu, ww) if isinstance(uu, tuple)
+                                 else [(uu, ww)])]
+            if len(u) != len(w) or not all(np.array_equal(x, y)
+                                           for x, y in flat):
+                return False
+        elif not np.array_equal(u, w):
+            return False
+    return True
+
+
+def sparse_bound(plan, L, kind):
+    """S1's or S2's bound for one launch at L lanes, from this plan: the
+    values, right-hand side and solution moved once (float64) and the int32
+    schedule arrays read once; the operations of the plan's levels (a
+    division, a multiply and a subtract per term, a comparison per boost)."""
+    from cedarsim_tpu_torch.ops import sparse_lu
+    sch = sparse_lu.schedule(plan, "cpu").kernel
+    if kind == "factor":
+        idx = sum(sch[k].numel() * 4 for k in sparse_lu.FACTOR_ARRAYS)
+        nbytes = 2 * 8 * L * plan.nnz_f + idx
+        ops = L * (sch["div_dst"].numel() + 2 * sch["term_l"].numel()
+                   + sch["piv"].numel() + plan.n)
+    else:
+        idx = sum(sch[k].numel() * 4 for k in sparse_lu.SOLVE_ARRAYS)
+        nbytes = 8 * L * (plan.nnz_f + 2 * plan.n) + idx
+        ops = L * (2 * (sch["fw_pos"].numel() + sch["bw_pos"].numel())
+                   + plan.n)
+    return bound(nbytes, ops, "float64")
+
+
+def sparse_main_path(torch, T, gesp_lu, pivot_lu, fc, dev):
+    """Phase 19's main path: the 40-cell BSIM4 chain through the
+    benchmark's entry point (compile, plan, operating point, transient),
+    every kernel count from 0 just before it and read just after, with its
+    gates.  Returns (the benchmark's record, the launches, the operating
+    point as numpy)."""
+    from cedarsim_tpu_torch.benchmarks import chain_transient as ct
+    from cedarsim_tpu_torch.core.compile import use_sparse_solver
+    from cedarsim_tpu_torch.ops import sparse_lu
+    counters = (gesp_lu.lu_factor_gesp_f32, gesp_lu.lu_subst_gesp_f32,
+                gesp_lu.lu_solve_gesp_f32, pivot_lu.lu_solve_pivot_f32,
+                fc.fused_chord, sparse_lu.factor, sparse_lu.solve_factored)
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    rec = ct.run(CHAIN_CELLS, "bsim4", device=dev)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    sol = rec.pop("sol")
+    comp = sol.compiled
+    if not (rec["path"] == "sparse" and use_sparse_solver(comp)
+            and comp.n_x == CHAIN_N_X and comp.device == dev):
+        raise AssertionError(f"chain: n_x {comp.n_x}, path {rec['path']}, "
+                             f"on {comp.device}")
+    if not rec["ok"]:
+        raise AssertionError(f"chain gate: worst {rec['worst_gate_err']}, "
+                             f"converged {rec['converged']}")
+    dense_kernels = {k: n for k, n in launches.items()
+                     if k not in ("factor", "solve_factored")}
+    if any(dense_kernels.values()):
+        raise AssertionError(f"a dense kernel launched on the sparse path: "
+                             f"{dense_kernels}")
+    if rec["launches"]["factor"] < rec["attempts"] or \
+            min(launches["factor"], launches["solve_factored"]) <= 0:
+        raise AssertionError(f"S1/S2 launches {launches}, transient "
+                             f"{rec['launches']}, {rec['attempts']} attempts")
+    if not np.isfinite(sol.xs).all() or sol.xs.shape[1] != CHAIN_N_X:
+        raise AssertionError("chain: bad waveform")
+    return rec, launches, sol.xs[0]
+
+
+def sparse_child(out):
+    """``--sparse-child OUT``: phase 19's main path on the card in a
+    process of its own, its record, launches and operating point saved to
+    OUT (numpy .npz)."""
+    import torch
+    import cedarsim_tpu_torch as T
+    from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu
+    from cedarsim_tpu_torch.ops import fused_chord as fc
+    rec, launches, x_op = sparse_main_path(torch, T, gesp_lu, pivot_lu, fc,
+                                           torch.device("cuda", 0))
+    np.savez(out, rec=json.dumps(rec), launches=json.dumps(launches),
+             x_op=x_op)
+
+
+def start_sparse_child():
+    """Phase 19's main path in a child process (``sparse_child``), started
+    after phase 8 so that the chain's transient, host-bound on its own
+    core, runs beside phases 9-18.  Returns (scratch directory, {"19":
+    (output path, stderr file, process)}), as ``start_repeat_children``;
+    ``stop_children`` ends it."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sparse_")
+    out = os.path.join(tmp, "sparse.npz")
+    err = open(os.path.join(tmp, "stderr.txt"), "w")
+    p = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sparse-child", out],
+        stdout=subprocess.DEVNULL, stderr=err)
+    track_child("sparse", p)
+    return tmp, {"19": (out, err, p)}
+
+
+def join_sparse_child(child):
+    """Wait for phase 19's child; returns what ``sparse_main_path`` did."""
+    _, procs = child
+    out, err, p = procs["19"]
+    t0 = time.perf_counter()
+    p.wait(timeout=1100)
+    err.flush()
+    if p.returncode != 0:
+        with open(err.name) as f:
+            raise AssertionError(f"phase 19's main path failed:\n"
+                                 f"{f.read()[-4000:]}")
+    z = np.load(out)
+    return (json.loads(str(z["rec"])), json.loads(str(z["launches"])),
+            z["x_op"], time.perf_counter() - t0)
+
+
+def phase_sparse(torch, T, dev, main):
+    """Phase 19 on what its main path (``sparse_main_path``) returned: the
+    plan, the dense DC, the chain with lanes, S1 and S2 against their plain
+    versions (see the module docstring).  Returns S1's and S2's kernel
+    entries."""
+    from cedarsim_tpu_torch.benchmarks import chain_transient as ct
+    from cedarsim_tpu_torch.benchmarks import netlists
+    from cedarsim_tpu_torch.core.sparse_ops import TAU, get_sparse_ops
+    from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu, sparse_lu
+    from cedarsim_tpu_torch.ops import fused_chord as fc
+    rec, launches, x_op, waited_s = main
+    b = sparse_lu.build()
+    comp = netlists.chain(CHAIN_CELLS, models="bsim4", device=dev)
+    counters = (gesp_lu.lu_factor_gesp_f32, gesp_lu.lu_subst_gesp_f32,
+                gesp_lu.lu_solve_gesp_f32, pivot_lu.lu_solve_pivot_f32,
+                fc.fused_chord, sparse_lu.factor, sparse_lu.solve_factored)
+    for k in counters:
+        k.launches = 0
+    # the plan built on the card, bitwise the one built on the CPU
+    sops = get_sparse_ops(comp)
+    plan = sops.plan
+    cpu_plan = get_sparse_ops(netlists.chain(CHAIN_CELLS, models="bsim4",
+                                             device="cpu")).plan
+    if not same_plan(plan, cpu_plan):
+        raise AssertionError("the plan built on the card is not the CPU's")
+    # the operating point (row 0 of the transient), sparse against dense
+    ctx = T.SimSpec.make(gmin=1e-15)
+    x_op = torch.as_tensor(x_op, device=dev)
+    dense = T.compile_circuit(comp.circuit, sparse=False, device=dev)
+    t0 = time.perf_counter()
+    opd = T.solve_dc(dense, ctx=ctx, mode="tranop",
+                     opts=T.NewtonOptions(**ct.DC_OPTS))
+    torch.cuda.synchronize()
+    dense_dc_s = time.perf_counter() - t0
+    dc_err = float((x_op - opd.x).abs().max())
+    if not (bool(opd.converged) and dc_err <= SPARSE_DC_TOL):
+        raise AssertionError(f"chain DC: dense {bool(opd.converged)}, "
+                             f"sparse against dense {dc_err:.3g}")
+    # the chain with a lane axis: SPARSE_BATCH lanes from the operating
+    # point over 0-CHAIN_LANES_TSTOP through the sparse path (S1/S2 at L
+    # lanes, no dense kernel), each lane bitwise the one stream
+    f0 = sparse_lu.factor.launches
+    topts = T.TranOptions(**ct.TRAN_OPTS)
+    t0 = time.perf_counter()
+    batch = T.tran(comp, (0.0, CHAIN_LANES_TSTOP), ctx=ctx, opts=topts,
+                   x0=x_op.expand(SPARSE_BATCH, -1).contiguous())
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    one = T.tran(comp, (0.0, CHAIN_LANES_TSTOP), ctx=ctx, opts=topts,
+                 x0=x_op)
+    batch_launches = {k.__name__: k.launches for k in counters}
+    if not (all(b.converged and np.array_equal(b.xs, one.xs)
+                and np.array_equal(b.ts, one.ts) for b in batch)
+            and one.converged):
+        raise AssertionError("chain lanes: a lane is not the one stream")
+    if sparse_lu.factor.launches <= f0 or any(
+            n for k, n in batch_launches.items()
+            if k not in ("factor", "solve_factored")):
+        raise AssertionError(f"chain lanes: launches {batch_launches}")
+    # S1 and S2 on the equilibrated J at the operating point
+    c_op = ctx.with_mode("tranop")
+    S, _, Gv, _ = sops.res_jacs_sparse(x_op, c_op)
+    J = sops.add_diag(Gv, ctx.gmin)
+    v1, dr, dc = sops.equilibrate(J)
+    v1 = v1[None]
+    tau = TAU
+    rng = np.random.default_rng(19)
+    entries = {}
+    for L in SPARSE_LANES:
+        v = v1.expand(L, -1) * torch.as_tensor(
+            1.0 + 1e-3 * rng.standard_normal((L, 1)), device=dev)
+        rhs = (S * dr)[None].expand(L, -1).contiguous()
+        v = v.contiguous()
+        f1 = sparse_lu.factor(plan, v, tau)
+        f2 = sparse_lu.factor(plan, v, tau)
+        fp = sparse_lu.factor_plain(plan, v, tau)
+        x1 = sparse_lu.solve_factored(plan, fp, rhs)
+        x2 = sparse_lu.solve_factored(plan, fp, rhs)
+        xp = sparse_lu.solve_factored_plain(plan, fp, rhs)
+        torch.cuda.synchronize()
+        for name, k1, k2, p in (("S1", f1, f2, fp), ("S2", x1, x2, xp)):
+            if not torch.equal(k1.view(torch.int64), k2.view(torch.int64)):
+                raise AssertionError(f"{name} L={L}: two launches differ")
+            if not torch.equal(k1.view(torch.int64), p.view(torch.int64)):
+                raise AssertionError(f"{name} L={L}: not bitwise its plain "
+                                     "version")
+            if not bool(torch.isfinite(k1).all()):
+                raise AssertionError(f"{name} L={L}: non-finite")
+        # the dense library call on the same systems (a yardstick only)
+        A = torch.zeros(L, comp.n_x, comp.n_x, dtype=torch.float64,
+                        device=dev)
+        rows = torch.as_tensor(plan.pos_arow, dtype=torch.int64, device=dev)
+        cols = torch.as_tensor(plan.pos_acol, dtype=torch.int64, device=dev)
+        A[:, rows, cols] = v
+        LU, piv = torch.linalg.lu_factor(A)
+        xl = torch.linalg.lu_solve(LU, piv, rhs[..., None])[..., 0]
+        x_ref = dc * sparse_lu.solve_factored(plan, f1, rhs)[0]
+        lib_err = float((xl[0] * dc - x_ref).abs().max()
+                        / x_ref.abs().max())
+
+        def s1(v=v):
+            return sparse_lu.factor(plan, v, tau)
+
+        def s2(fp=fp, rhs=rhs):
+            return sparse_lu.solve_factored(plan, fp, rhs)
+        entries[L] = {
+            "factor": (kt.device_ms(s1), kt.call_ms(s1, 50),
+                       kt.call_ms(lambda: sparse_lu.factor_plain(
+                           plan, v, tau), 3),
+                       *library_ms(lambda: torch.linalg.lu_factor(A), 20),
+                       sparse_bound(plan, L, "factor")),
+            "solve": (kt.device_ms(s2), kt.call_ms(s2, 50),
+                      kt.call_ms(lambda: sparse_lu.solve_factored_plain(
+                          plan, fp, rhs), 3),
+                      *library_ms(lambda: torch.linalg.lu_solve(
+                          LU, piv, rhs[..., None]), 20),
+                      sparse_bound(plan, L, "solve")),
+            "dense_lu_rel_diff": lib_err}
+    log("sparse", n_x=comp.n_x, n_levels=plan.n_levels, nnz=plan.nnz,
+        nnz_f=plan.nnz_f, forward_levels=len(plan.f_lev),
+        backward_levels=len(plan.b_lev), plan_equal_cpu=True,
+        dense_dc_s=dense_dc_s, dc_sparse_vs_dense_v=dc_err,
+        lanes=dict(lanes=SPARSE_BATCH, tstop=CHAIN_LANES_TSTOP,
+                   wall_s=batch_s, attempts=batch[0].n_attempts,
+                   accepted=batch[0].n_accepted, bitwise_one_stream=True),
+        kernel_times={f"L{L}": {k: (list(v) if isinstance(v, tuple) else v)
+                                for k, v in e.items()}
+                      for L, e in entries.items()},
+        nvcc_s=b["seconds"], ptxas=[ln.strip() for ln in b["log"]
+                                    .splitlines() if "registers" in ln],
+        transient=rec, launches=launches, waited_for_child_s=waited_s,
+        wall_per_attempt_ms=1e3 * rec["wall_s"] / rec["attempts"],
+        card=smi())
+    out = {}
+    for key, name, line in (("factor", "sparse_factor_f64", 493),
+                            ("solve", "sparse_solve_f64", 548)):
+        dev_ms, call, plain, lib, lib_dev, lib_by, bnd = entries[1][key]
+        e8 = entries[8][key]
+        out[key] = kernel_entry(
+            name, "cedarsim_tpu_torch/csrc/sparse_lu.cu", None,
+            launches["factor" if key == "factor" else "solve_factored"],
+            dev_ms, call, plain, lib, lib_dev, lib_by, bnd, 0.0,
+            jax_counterpart=f"cedarsim_tpu/ops/sparse_lu.py:{line}",
+            shape=[1, plan.nnz_f], n=plan.n, n_levels=plan.n_levels,
+            library_call=("torch.linalg.lu_factor" if key == "factor"
+                          else "torch.linalg.lu_solve")
+            + f" float64 [1, {plan.n}, {plan.n}]",
+            eight_lanes={"shape": [8, plan.nnz_f], "device_ms": e8[0],
+                         "call_ms": e8[1], "plain_ms": e8[2],
+                         "library_ms": e8[3], "library_device_ms": e8[4],
+                         "bound_ms": e8[6][0], "bound_by": e8[6][1]})
+    return out
+
+
 #: phase 8's kernel checks: the bench's two shapes, one system alone, an
 #: odd batch at an odd n, the two sides of the one-warp regime's edge
 #: (n = 32 in registers, n = 33 in shared memory), and the largest n a
@@ -1335,7 +1735,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False)")
     import cedarsim_tpu_torch as T
-    from cedarsim_tpu_torch.ops import gesp_lu, linalg, pivot_lu
+    from cedarsim_tpu_torch.ops import gesp_lu, linalg, pivot_lu, sparse_lu
     from cedarsim_tpu_torch.ops import fused_chord as fc
     from cedarsim_tpu_torch.analysis.tran import fused_plan_for
     dev = torch.device("cuda", 0)
@@ -1375,6 +1775,7 @@ def main():
     th_lv1 = build_in_thread("fused_lv1", plan_lv1.build)
     th_pvt = build_in_thread("fused_pvt", plan_pvt.build)
     th_pivot = build_in_thread("pivot", pivot_lu.build)
+    th_sparse = build_in_thread("sparse", sparse_lu.build)
     b = gesp_lu.build()
     th_pivot.join()
     if isinstance(built["pivot"], BaseException):
@@ -1387,107 +1788,132 @@ def main():
         path=[os.path.relpath(b["path"], REPO),
               os.path.relpath(built["pivot"]["path"], REPO)],
         ptxas=ptxas)
-    abs_err, times, bounds = phase_kernels(torch, gesp_lu, linalg, dev)
-    phase_rc(T, dev)
-    launches = phase_slice(torch, T, gesp_lu, linalg, dev, dff)
-    phase_repeat(torch, T, dev, dff)
-    th_fused.join()
-    if isinstance(built["fused"], BaseException):
-        raise built["fused"]
-    fabs_err, ftimes, info, fbounds = phase_fused_kernel(
-        torch, T, fc, dev, dff, plan, t_plan)
-    flaunches = phase_fused_slice(
-        torch, T, gesp_lu, fc, dev, dff,
-        dict(plan_s=t_plan, emit_s=info["emit_seconds"],
-             nvcc_s=info["nvcc_seconds"]))
-    lu_launches, per_shape = phase_lu(torch, gesp_lu, pivot_lu, dev)
-    phase_lv1_single(torch, T, gesp_lu, dev)
-    dl = phase_lv1(torch, T, gesp_lu, fc, lv1, "D", CELL_D,
-                   extra=dict(jac_shunt=kt.LV1_XLA_OPTS["jac_shunt"]))
-    th_lv1.join()
-    if isinstance(built["fused_lv1"], BaseException):
-        raise built["fused_lv1"]
-    labs_err, ltimes, lbounds = phase_lv1_fused_kernel(torch, T, fc, lv1,
-                                                       plan_lv1)
-    el = phase_lv1(torch, T, gesp_lu, fc, lv1, "E", CELL_E)
-    phase_lv1_repeat(torch, T, gesp_lu, fc, lv1)
-    phase_simulate(torch, T, dev)
-    phase_sweeps(torch, T, dev)
-    th_pvt.join()
-    if isinstance(built["fused_pvt"], BaseException):
-        raise built["fused_pvt"]
-    _, pl = phase_pvt(torch, gesp_lu, fc, dev, pvt_state, plan_pvt)
-    pabs_err, ptimes, pbound = phase_pvt_fused_kernel(torch, T, fc,
-                                                      pvt_state, plan_pvt)
-    xl = phase_pvt_xla(torch, gesp_lu, fc, dev)
-    phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
-    src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
-    b1p = ftimes["B1'"]
-    n1 = lv1[0].n_x
+    children = [None, None]
+    try:
+        abs_err, times, bounds = phase_kernels(torch, gesp_lu, linalg, dev)
+        # the repeat phase's children run beside phases 4-5 from here on,
+        # after phase 3's kernel timings
+        children[0] = start_repeat_children()
+        phase_rc(T, dev)
+        launches = phase_slice(torch, T, gesp_lu, linalg, dev, dff)
+        phase_repeat(torch, T, dev, dff, children[0])
+        th_fused.join()
+        if isinstance(built["fused"], BaseException):
+            raise built["fused"]
+        fabs_err, ftimes, info, fbounds = phase_fused_kernel(
+            torch, T, fc, dev, dff, plan, t_plan)
+        flaunches = phase_fused_slice(
+            torch, T, gesp_lu, fc, dev, dff,
+            dict(plan_s=t_plan, emit_s=info["emit_seconds"],
+                 nvcc_s=info["nvcc_seconds"]))
+        lu_launches, per_shape = phase_lu(torch, gesp_lu, pivot_lu, dev)
+        # phase 19's main path (the chain's transient) runs from here in a
+        # child process beside phases 9-18; the kernel-timing phases 11
+        # and 16 wait until it has ended, so that no other process shares
+        # the card while they time
+        th_sparse.join()
+        if isinstance(built["sparse"], BaseException):
+            raise built["sparse"]
+        children[1] = start_sparse_child()
+        phase_lv1_single(torch, T, gesp_lu, dev)
+        dl = phase_lv1(torch, T, gesp_lu, fc, lv1, "D", CELL_D,
+                       LV1_SHORT_TSTOP,
+                       extra=dict(jac_shunt=kt.LV1_XLA_OPTS["jac_shunt"]))
+        th_lv1.join()
+        if isinstance(built["fused_lv1"], BaseException):
+            raise built["fused_lv1"]
+        el = phase_lv1(torch, T, gesp_lu, fc, lv1, "E", CELL_E, LV1_TSTOP)
+        phase_lv1_repeat(torch, T, gesp_lu, fc, lv1)
+        phase_simulate(torch, T, dev)
+        phase_sweeps(torch, T, dev)
+        th_pvt.join()
+        if isinstance(built["fused_pvt"], BaseException):
+            raise built["fused_pvt"]
+        _, pl = phase_pvt(torch, gesp_lu, fc, dev, pvt_state, plan_pvt)
+        xl = phase_pvt_xla(torch, gesp_lu, fc, dev)
+        phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
+        main19 = join_sparse_child(children[1])
+        labs_err, ltimes, lbounds = phase_lv1_fused_kernel(torch, T, fc, lv1,
+                                                           plan_lv1)
+        pabs_err, ptimes, pbound = phase_pvt_fused_kernel(torch, T, fc,
+                                                          pvt_state, plan_pvt)
+        sparse_entries = phase_sparse(torch, T, dev, main19)
+        src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
+        b1p = ftimes["B1'"]
+        n1 = lv1[0].n_x
 
-    def lv1_entry(B):
-        return {"shape": [B, n1], "device_ms": ltimes[B][0],
-                "call_ms": ltimes[B][1], "plain_ms": ltimes[B][2],
-                "bound_ms": lbounds[B][0], "bound_by": lbounds[B][1]}
-    kernels = [
-        kernel_entry("fused_chord_f64",
-                     "cedarsim_tpu_torch/csrc/fused_chord.cu",
-                     "cedarsim_tpu/ops/fused_chord.py:632",
-                     flaunches["fused"], *ftimes["B1"], None, None, None,
-                     fbounds["B1"], fabs_err,
-                     also_replaces="cedarsim_tpu/ops/fused_chord.py:526",
-                     shape=[N_LANES, dff[0].n_x],
-                     one_lane={"shape": [1, dff[0].n_x],
-                               "launches": flaunches["fused_one_lane"],
-                               "device_ms": b1p[0], "call_ms": b1p[1],
-                               "plain_ms": b1p[2],
-                               "bound_ms": fbounds["B1'"][0],
-                               "bound_by": fbounds["B1'"][1]},
-                     lv1={"model": "Mos1", "launches": el["fused"],
-                          "max_abs_err": labs_err, **lv1_entry(LV1_LANES),
-                          "eight_lanes": lv1_entry(N_LANES)},
-                     pvt={"model": "BSIM4, W and VDD per lane",
-                          "launches": pl["fused"], "max_abs_err": pabs_err,
-                          "shape": [PVT_POINTS, pvt_state[0].comp.n_x],
-                          "device_ms": ptimes[0], "call_ms": ptimes[1],
-                          "plain_ms": ptimes[2], "bound_ms": pbound[0],
-                          "bound_by": pbound[1]}),
-    ]
-    design = {
-        "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
-                  "system, rows in registers, steps in panels of 4 "
-                  "(factor_panels), at n <= 32; one block per system, "
-                  "steps in pairs, above",
-        "subst": "one warp per system, column order, system staged in "
-                 "shared memory"}
-    for key, line in (("factor", 313), ("subst", 354)):
-        kernels.append(kernel_entry(
-            f"gesp_{key}_f32", src, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
-            launches[key], *times[key], bounds[key], abs_err[key],
-            shape=[N_LANES, 25], design=design[key],
-            lv1_launches=dl[key], pvt_xla_launches=xl[key]))
-    for key, name, source, line in (
-            ("gesp", "gesp_solve_f32", src, 164),
-            ("pivot", "pivot_solve_f32",
-             "cedarsim_tpu_torch/csrc/pivot_lu.cu", 50)):
-        (B, n), *rest = list(per_shape)
-        e = per_shape[(B, n)][key]
-        kernels.append(kernel_entry(
-            name, source, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
-            lu_launches[key], e["device_ms"], e["call_ms"], e["plain_ms"],
-            e["library_ms"], e["library_device_ms"], e["library_device_by"],
-            (e["bound_ms"], e["bound_by"]), e["max_abs_err"], shape=[B, n],
-            other_shapes=[{"shape": list(s), **per_shape[s][key]}
-                          for s in rest]))
-    print(json.dumps({"kernels": kernels}))
-    print(smi())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        def lv1_entry(B):
+            return {"shape": [B, n1], "device_ms": ltimes[B][0],
+                    "call_ms": ltimes[B][1], "plain_ms": ltimes[B][2],
+                    "bound_ms": lbounds[B][0], "bound_by": lbounds[B][1]}
+        kernels = [
+            kernel_entry("fused_chord_f64",
+                         "cedarsim_tpu_torch/csrc/fused_chord.cu",
+                         "cedarsim_tpu/ops/fused_chord.py:632",
+                         flaunches["fused"], *ftimes["B1"], None, None, None,
+                         fbounds["B1"], fabs_err,
+                         also_replaces="cedarsim_tpu/ops/fused_chord.py:526",
+                         shape=[N_LANES, dff[0].n_x],
+                         one_lane={"shape": [1, dff[0].n_x],
+                                   "launches": flaunches["fused_one_lane"],
+                                   "device_ms": b1p[0], "call_ms": b1p[1],
+                                   "plain_ms": b1p[2],
+                                   "bound_ms": fbounds["B1'"][0],
+                                   "bound_by": fbounds["B1'"][1]},
+                         lv1={"model": "Mos1", "launches": el["fused"],
+                              "max_abs_err": labs_err, **lv1_entry(LV1_LANES),
+                              "eight_lanes": lv1_entry(N_LANES)},
+                         pvt={"model": "BSIM4, W and VDD per lane",
+                              "launches": pl["fused"], "max_abs_err": pabs_err,
+                              "shape": [PVT_POINTS, pvt_state[0].comp.n_x],
+                              "device_ms": ptimes[0], "call_ms": ptimes[1],
+                              "plain_ms": ptimes[2], "bound_ms": pbound[0],
+                              "bound_by": pbound[1]}),
+        ]
+        design = {
+            "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
+                      "system, rows in registers, steps in panels of 4 "
+                      "(factor_panels), at n <= 32; one block per system, "
+                      "steps in pairs, above",
+            "subst": "one warp per system, column order, system staged in "
+                     "shared memory"}
+        for key, line in (("factor", 313), ("subst", 354)):
+            kernels.append(kernel_entry(
+                f"gesp_{key}_f32", src,
+                f"cedarsim_tpu/ops/pallas_lu.py:{line}",
+                launches[key], *times[key], bounds[key], abs_err[key],
+                shape=[N_LANES, 25], design=design[key],
+                lv1_launches=dl[key], pvt_xla_launches=xl[key]))
+        for key, name, source, line in (
+                ("gesp", "gesp_solve_f32", src, 164),
+                ("pivot", "pivot_solve_f32",
+                 "cedarsim_tpu_torch/csrc/pivot_lu.cu", 50)):
+            (B, n), *rest = list(per_shape)
+            e = per_shape[(B, n)][key]
+            kernels.append(kernel_entry(
+                name, source, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
+                lu_launches[key], e["device_ms"], e["call_ms"], e["plain_ms"],
+                e["library_ms"], e["library_device_ms"],
+                e["library_device_by"],
+                (e["bound_ms"], e["bound_by"]), e["max_abs_err"], shape=[B, n],
+                other_shapes=[{"shape": list(s), **per_shape[s][key]}
+                              for s in rest]))
+        kernels += [sparse_entries["factor"], sparse_entries["solve"]]
+        print(json.dumps({"kernels": kernels}))
+        print(smi())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+    finally:
+        for c in children:
+            if c is not None:
+                stop_children(c)
 
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--repeat-child":
         repeat_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--sparse-child":
+        sparse_child(sys.argv[2])
     else:
         main()

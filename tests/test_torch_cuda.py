@@ -46,9 +46,18 @@ which sets JAX up for the other files):
   with the card's shared memory per block named; on a tie of magnitudes
   the pivoting kernel takes the first row, so it is bitwise the GESP
   kernel where no row is swapped, in each regime.
+- The sparse factor (S1, ``sparse_lu.factor``) and solve (S2,
+  ``sparse_lu.solve_factored``) bitwise equal to their plain versions on
+  seeded MNA-like plans of n 20 to 500 and on the 40-cell BSIM4 chain's
+  plan, at L in {1, 8} lanes, with values in shared memory and in device
+  memory (by an ``nnz_f`` above a block's shared memory, and with the
+  regime test replaced so that every size takes device memory), two
+  launches bitwise equal, one launch counted per call; pivots boosted;
+  the wrappers refuse another dtype or shape.
 """
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -515,3 +524,130 @@ def test_dense_solve_refuses_n_241(cuda_device, kernel):
     assert fn.launches == n0
     with pytest.raises(TypeError):
         fn(A[:, :25, :25].double().contiguous(), b[:, :25].double())
+
+
+# ------------------------------------------------------ S1 and S2 (sparse)
+
+def _sparse_case(n, seed, L, device):
+    """A seeded MNA-like plan (``tests/test_torch_sparse_lu.py``'s
+    generator) and L lanes of its values and right-hand sides."""
+    from cedarsim_tpu_torch.ops import sparse_lu
+    plan, A = _sparse_plan(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    mats = np.stack([A * (1.0 + 0.05 * k) for k in range(L)])
+    vals = sparse_lu.vals_from_dense(plan, torch.as_tensor(mats,
+                                                           device=device))
+    b = torch.as_tensor(rng.standard_normal((L, n)), device=device)
+    return plan, vals, b
+
+
+@functools.lru_cache(maxsize=None)
+def _sparse_plan(n, seed):
+    from cedarsim_tpu_torch.ops import sparse_lu
+    rng = np.random.default_rng(seed)
+    A = np.zeros((n, n))
+    for i in range(n):
+        A[i, i] += 2.0 + rng.random()
+        for _ in range(4):
+            j = int(rng.integers(0, n))
+            if j != i:
+                v = -rng.random()
+                A[i, j] += v
+                A[j, i] += v * (0.5 + rng.random())
+    for b in range(3):
+        i, j = n - 1 - 2 * b, int(rng.integers(0, n // 2))
+        A[i, j] += 1.0
+        A[j, i] += 1.0
+        A[i, i] = 0.0
+    rr, cc = np.nonzero(A)
+    return sparse_lu.build_plan(n, rr, cc, weights=A[rr, cc]), A
+
+
+def _sparse_check(plan, vals, b, tau):
+    """S1 and S2 against their plain versions: bitwise, twice."""
+    from cedarsim_tpu_torch.ops import sparse_lu
+    f0 = sparse_lu.factor.launches
+    s0 = sparse_lu.solve_factored.launches
+    f1 = sparse_lu.factor(plan, vals, tau)
+    f2 = sparse_lu.factor(plan, vals, tau)
+    fp = sparse_lu.factor_plain(plan, vals, tau)
+    x1 = sparse_lu.solve_factored(plan, fp, b)
+    x2 = sparse_lu.solve_factored(plan, fp, b)
+    xp = sparse_lu.solve_factored_plain(plan, fp, b)
+    torch.cuda.synchronize()
+    assert sparse_lu.factor.launches == f0 + 2
+    assert sparse_lu.solve_factored.launches == s0 + 2
+    for k1, k2, p in ((f1, f2, fp), (x1, x2, xp)):
+        assert torch.equal(k1.view(torch.int64), k2.view(torch.int64))
+        assert torch.equal(k1.view(torch.int64), p.view(torch.int64))
+    assert bool(torch.isfinite(xp).all())
+    return fp, xp
+
+
+@pytest.mark.parametrize("L", [1, 8])
+@pytest.mark.parametrize("n", [20, 120, 500])
+@pytest.mark.parametrize("regime", ["auto", "device memory"])
+def test_sparse_kernels_match_plain(cuda_device, monkeypatch, n, L, regime):
+    """At n = 500 the values exceed a block's shared memory on their own;
+    "device memory" takes both kernels' device-memory regime at every n."""
+    from cedarsim_tpu_torch.ops import sparse_lu
+    if regime != "auto":
+        monkeypatch.setattr(sparse_lu, "shared_regime", lambda *a: False)
+    plan, vals, b = _sparse_case(n, n, L, cuda_device)
+    # 0.3 boosts some pivots of these systems, TAU none
+    for tau in (float(np.sqrt(np.finfo(np.float64).eps)), 0.3):
+        _sparse_check(plan, vals, b, tau)
+    fp = sparse_lu.factor_plain(plan, vals, 0.0)
+    x = sparse_lu.solve_factored(plan, fp, b)
+    A = torch.zeros(L, n, n, dtype=torch.float64, device=cuda_device)
+    r = torch.as_tensor(plan.in_rows, dtype=torch.int64, device=cuda_device)
+    c = torch.as_tensor(plan.in_cols, dtype=torch.int64, device=cuda_device)
+    pos = torch.as_tensor(plan.in_pos, dtype=torch.int64, device=cuda_device)
+    A[:, r, c] = vals[:, pos]
+    ref = torch.linalg.solve(A, b)
+    assert _rel(x, ref) < 1e-8
+
+
+def test_sparse_factor_above_shared_memory(cuda_device):
+    """An ``nnz_f`` above a block's shared memory takes S1's device-memory
+    regime on its own, and S2 its shared one; both bitwise their plain
+    versions."""
+    from cedarsim_tpu_torch.ops import sparse_lu
+    plan, vals, b = _sparse_case(420, 5, 2, cuda_device)
+    assert not sparse_lu.shared_regime(plan.nnz_f, cuda_device)
+    assert sparse_lu.shared_regime(plan.n, cuda_device)
+    _sparse_check(plan, vals, b, float(np.sqrt(np.finfo(np.float64).eps)))
+
+
+@pytest.mark.parametrize("L", [1, 8])
+def test_sparse_kernels_on_the_bsim4_chain(cuda_device, L):
+    """The 40-cell BSIM4 chain's plan (452 unknowns) on its equilibrated
+    Jacobian at a seeded state: S1 and S2 bitwise their plain versions."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    from cedarsim_tpu_torch.core.sparse_ops import TAU, get_sparse_ops
+    comp = netlists.chain(40, models="bsim4", device=cuda_device)
+    sops = get_sparse_ops(comp)
+    assert comp.n_x == 452 and sops.plan.nnz_f * 8 > 48 * 1024
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(0.0, 5.0, (L, comp.n_x)),
+                        device=cuda_device)
+    ctx = T.SimSpec.make(gmin=1e-15).with_mode("tranop")
+    S, _, G, _ = comp.evaluate(x, ctx, comp.lane_params(None, L),
+                               jac="sparse")
+    J = sops.add_diag(G, 1e-12)
+    f, dr, _ = sops.factorize(J)
+    from cedarsim_tpu_torch.ops import sparse_lu
+    v, _, _ = sops.equilibrate(J)
+    _sparse_check(sops.plan, v, S * dr, TAU)
+    assert torch.equal(f, sparse_lu.factor_plain(sops.plan, v, TAU))
+
+
+def test_sparse_wrappers_refuse(cuda_device):
+    from cedarsim_tpu_torch.ops import sparse_lu
+    plan, vals, b = _sparse_case(20, 1, 2, cuda_device)
+    with pytest.raises(TypeError):
+        sparse_lu.factor(plan, vals.float(), 0.0)
+    with pytest.raises(ValueError):
+        sparse_lu.factor(plan, vals[:, :-1], 0.0)
+    with pytest.raises(ValueError):
+        sparse_lu.solve_factored(plan, vals, b[:, :-1])

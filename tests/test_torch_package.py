@@ -15,7 +15,10 @@ own model files, never the JAX package's.
   registers and spills.
 - Every module copied from the JAX package (the modules that need no JAX)
   equals its original but for the import lines, the docstring's "Copy
-  of" paragraph and the citations' machine-specific path prefix.
+  of" paragraph and the citations' machine-specific path prefix;
+  ``native/symbolic.cpp`` is byte for byte the JAX package's.
+- No module of the port, and not ``chip_smoke.py``, imports ``jax`` or
+  ``cedarsim_tpu`` (an AST scan of every import).
 - ``simulate`` runs ``.ac``, ``.noise``, ``.four`` and ``.meas`` and
   still raises, naming ROADMAP A19, on ``.save``, ``.probe`` and
   ``.data``.
@@ -119,6 +122,41 @@ def test_bsim4_copy_equals_the_jax_packages():
     assert mine == ref
 
 
+def test_native_planner_copy_equals_the_jax_packages():
+    with open(os.path.join(PKG, "native", "symbolic.cpp"), "rb") as f:
+        mine = f.read()
+    with open(os.path.join(REPO, "cedarsim_tpu", "native", "symbolic.cpp"),
+              "rb") as f:
+        assert mine == f.read()
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in sorted(files)
+                if f.endswith(".py")]
+    return out
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_the_port_imports_no_jax(path):
+    """No module of the port, and not ``chip_smoke.py``, imports JAX or the
+    JAX package (``cedarsim_tpu``, not even its JAX-free modules)."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib",
+                                                   "cedarsim_tpu")]
+    assert not bad, bad
+
+
 def test_build_library_keeps_the_compiler_log(tmp_path, monkeypatch):
     """A library built earlier loads without a compile and still reports
     the log its build printed (ptxas's registers and spills): the log is
@@ -152,7 +190,7 @@ def test_build_library_keeps_the_compiler_log(tmp_path, monkeypatch):
 COPIES = ("core/circuit.py", "frontend/parser.py", "frontend/expr.py",
           "frontend/numbers.py", "frontend/touchstone.py",
           "analysis/measure.py", "va/ast.py", "va/diagnostics.py",
-          "va/lexer.py", "va/parser.py", "va/preproc.py")
+          "va/lexer.py", "va/parser.py", "va/preproc.py", "ops/sparse.py")
 
 
 @pytest.mark.parametrize("rel", COPIES)
