@@ -44,7 +44,7 @@ from cedarsim_tpu_torch.core.compile import (CompiledCircuit, default_ctx,
                                              use_sparse_solver)
 from cedarsim_tpu_torch.core.context import SimSpec, Modes
 from cedarsim_tpu_torch.core.sparse_ops import get_sparse_ops
-from cedarsim_tpu_torch.ops import linalg
+from cedarsim_tpu_torch.ops import gesp_lu, linalg
 from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan, split_lanes)
 from cedarsim_tpu_torch.analysis.dc import NewtonOptions, solve_dc
@@ -127,8 +127,13 @@ def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
     takes the exact float64 solve under "auto" and under "mixed", since the
     JAX package's chord pair reaches the float32 GESP kernels only inside
     its ``custom_vmap`` rule (``cedarsim_tpu/ops/linalg.py:155-216``); a
-    call with a lane axis takes "mixed" under "auto" on CUDA ("jax" on the
-    CPU), and the GESP kernels under "mixed" at any lane count.
+    call with a lane axis takes "mixed" under "auto" on CUDA where the GESP
+    kernels hold the system in a block's shared memory
+    (``gesp_lu.max_n``: n <= 240 on an H100), else "jax" (the exact float64
+    solve, as on the CPU), and the GESP kernels under "mixed" at any lane
+    count; on CUDA an explicit "mixed" above that n raises, as the JAX
+    package's Pallas kernels do (``cedarsim_tpu/ops/pallas_lu.py:287,
+    424``), naming the two ways out.
     ``newton_impl`` "auto" is "fused" on CUDA when :func:`auto_newton_impl`
     says so (``ctx`` given), else "xla".  A sparse circuit
     (``use_sparse_solver``) solves with ``SparseOps`` at any lane count on
@@ -142,11 +147,19 @@ def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
         if ni not in ("xla", "auto") or dl not in ("jax", "mixed", "auto"):
             raise ValueError(f"unknown newton_impl={ni!r} / dense_lu={dl!r}")
         return dataclasses.replace(opts, dense_lu="jax", newton_impl="xla")
+    on_card = compiled.device.type == "cuda"
+    limit = gesp_lu.max_n(compiled.device) if on_card else None
     if dl == "auto":
-        dl = "mixed" if (batched and compiled.device.type == "cuda") \
+        dl = "mixed" if (batched and on_card and compiled.n_x <= limit) \
             else "jax"
     elif dl == "mixed" and not batched:
         dl = "jax"
+    elif dl == "mixed" and on_card and compiled.n_x > limit:
+        raise ValueError(
+            f"dense_lu='mixed': {compiled.n_x} unknowns exceed what the "
+            f"GESP kernels hold in a block's shared memory on this card "
+            f"(n <= {limit}); use dense_lu='jax' (the exact float64 solve) "
+            "or compile the circuit with sparse=True")
     if ni == "auto":
         ni = "xla"
         if compiled.device.type == "cuda" and ctx is not None:
@@ -244,15 +257,17 @@ def xdot0_and_mask(compiled, x, ctx, params):
     """(ẋ0, lte_mask) from one model walk at the operating point, per lane:
     ẋ0 the minimum-norm solution of C·ẋ = −S (ridge-regularised normal
     equations), lte_mask 1.0 for unknowns with a nonzero column in C (all
-    ones for an all-algebraic circuit).  ``x`` is [n_x] or [L, n_x]."""
+    ones for an all-algebraic circuit).  ``x`` is [n_x] or [L, n_x].  CᵀC
+    is ``linalg.normal_matrix`` (O(L·n²) memory, a lane's bits its own),
+    λ added to its diagonal in place, the solve ``linalg.solve_lanes``."""
     ctx = ctx.with_mode(Modes.TRAN)
-    S, _, _, C = compiled.res_jacs_fwd(x, ctx, params)
+    jacs = compiled.res_jacs_fwd(x, ctx, params)
+    S, C = jacs[0], jacs[3]
+    del jacs                       # G and Q are not needed
     lam = 1e-12 * (C.abs().amax((-1, -2)) ** 2 + 1e-30)
-    eye = torch.eye(compiled.n_x, dtype=compiled.dtype,
-                    device=compiled.device)
-    CtC = (C[..., :, :, None] * C[..., :, None, :]).sum(-3)
-    A = CtC + lam[..., None, None] * eye
-    xd0 = linalg.solve(A, -(C * S[..., :, None]).sum(-2))
+    A = linalg.normal_matrix(C)
+    A.diagonal(dim1=-2, dim2=-1).add_(lam[..., None])     # + λ·I
+    xd0 = linalg.solve_lanes(A, -(C * S[..., :, None]).sum(-2))
     m = (C.abs().amax(-2) > 0).to(compiled.dtype)
     mask = torch.where(m.amax(-1, keepdim=True) > 0, m, torch.ones_like(m))
     return xd0, mask
@@ -398,7 +413,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         def damp_J(J):
             return sops.add_diag(J, opts.jac_shunt) if opts.jac_shunt else J
     else:
-        lin_solve = linalg.chord_solve_once if mixed else linalg.solve
+        lin_solve = linalg.chord_solve_once if mixed else linalg.solve_lanes
         c_apply = linalg.matvec
         nv = compiled.n_nodes + compiled.n_internal
         jsh = opts.jac_shunt * torch.diag(

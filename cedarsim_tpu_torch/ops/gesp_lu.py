@@ -14,6 +14,7 @@ counts its kernel launches in its ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -51,6 +52,25 @@ def build():
     lib.gesp_solve_f32.restype = i
     _LIB.update(b)
     return _LIB
+
+
+def max_n(device):
+    """The most unknowns whose systems both the GESP factor (B2) and the
+    substitution (B3) hold in a block's shared memory on ``device`` (its
+    own limit, ``cuda_lib.smem_per_block``; 240 on an H100)."""
+    return _max_n(cuda_lib.smem_per_block(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_n(limit):
+    # counted up once per shared-memory limit: resolve_impl asks each call
+    def fits(n):
+        return (cuda_lib.dense_solve_smem(n, _SOLVE_STATIC_SMEM) <= limit
+                and 4 * n * (n | 1) <= limit)
+    n = 0
+    while fits(n + 1):
+        n += 1
+    return n
 
 
 # ------------------------------------------------------------------ factor

@@ -29,20 +29,23 @@ on a failed build or launch; there is no other path.
 The JAX package runs each as one compiled program over the levels
 (``jax.lax.fori_loop`` over packed bands); the port's counterpart of that
 program is one kernel launch, since an eager loop would launch several
-kernels a level (207 factor levels on the 40-cell BSIM4 chain).
+kernels a level (32 factor levels on the 40-cell BSIM4 chain).
 
 **Summation order.**  Several updates of one level can add into one
 position.  Each level's updates are grouped by destination once per plan
-(a CSR: destinations, offsets, and the (l, u) pairs in list order), and
-one thread owns a destination and subtracts its terms in list order; the
-plain versions sum the same terms in the same order, as an explicit padded
-``[m, k_max]`` gather and a sequential loop over k (the padding reads a
-trash slot that holds 0, and ``a - 0·0`` is ``a``).  The backward sweep
-sums its terms from zero, then subtracts the sum, as ``segment_sum`` does;
-the forward sweep subtracts term by term.  So each kernel is bitwise its
-plain version, and both take the order of a serial scatter over the JAX
-plan's update lists.  The wrappers count their kernel launches in
-``factor.launches`` and ``solve_factored.launches``.
+(a CSR: destinations, offsets, and the (l, u) pairs in list order).  The
+kernels form every product of a level at once, then one thread owns a
+destination and subtracts its products in list order (destinations dealt
+longest first, :func:`_longest_first`); the plain versions sum the same
+terms in the same order, as an explicit padded ``[m, k_max]`` gather and
+a sequential loop over k (the padding reads a trash slot that holds 0, and
+``a - 0·0`` is ``a``).  A product rounds on its own in both (the kernels
+are built without fused multiply-adds), so where it is formed changes no
+bit.  The backward sweep sums its terms from zero, then subtracts the sum,
+as ``segment_sum`` does; the forward sweep subtracts term by term.  So
+each kernel is bitwise its plain version, and both take the order of a
+serial scatter over the JAX plan's update lists.  The wrappers count their
+kernel launches in ``factor.launches`` and ``solve_factored.launches``.
 """
 
 from __future__ import annotations
@@ -536,31 +539,64 @@ def _backward_rows(rows_l, cols_l, pos_l, diag_i):
 
 #: the kernels' int32 schedule arrays, in their C argument order
 FACTOR_ARRAYS = ("div_off", "div_dst", "div_piv", "piv_off", "piv",
-                 "dst_off", "dst", "term_off", "term_l", "term_u", "diag")
+                 "dst_off", "dst", "term_off", "term_l", "term_u",
+                 "lev_term", "diag")
 SOLVE_ARRAYS = ("rperm", "cperm", "fw_off", "fw_row", "fw_term_off",
-                "fw_pos", "fw_col", "bw_off", "bw_row", "bw_diag",
-                "bw_term_off", "bw_pos", "bw_col")
+                "fw_pos", "fw_col", "fw_lev_term", "bw_off", "bw_row",
+                "bw_diag", "bw_term_off", "bw_pos", "bw_col", "bw_lev_term")
+#: threads per block of S1 and S2 (``kThreads`` in ``csrc/sparse_lu.cu``):
+#: a level's destinations are dealt to them round-robin
+THREADS = 512
+
+
+def _longest_first(off):
+    """How a level's destinations (their term offsets ``off``) are dealt:
+    longest first (ties in their order), so that round-robin gives the
+    busiest thread at most the longest destination plus the level's terms
+    over the threads.  Returns the order of the destinations, their new
+    term offsets (from 0) and the gather of their terms, each destination's
+    still in list order."""
+    off = np.asarray(off, np.int64)
+    cnt = np.diff(off)
+    order = np.argsort(-cnt, kind="stable")
+    lens = cnt[order]
+    new = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    idx = (np.arange(new[-1]) - np.repeat(new[:-1], lens)
+           + np.repeat(off[:-1][order], lens))
+    return order, new, idx
 
 
 def build_schedule(plan: SparsePlan):
     """A plan's level schedule on the host (numpy, once per plan): the
-    kernels' CSR arrays (``FACTOR_ARRAYS``, ``SOLVE_ARRAYS``) and the plain
+    kernels' arrays (``FACTOR_ARRAYS``, ``SOLVE_ARRAYS``) and the plain
     versions' padded levels.  Each level groups its terms by destination
     (:func:`_grouped`): the factor's updates by the position they write,
     the forward sweep's by row, the backward sweep's by row over every row
-    of the level."""
+    of the level.  The kernels take each level's destinations longest
+    first (:func:`_longest_first`) and each level's first term
+    (``lev_term``, ``fw_lev_term``, ``bw_lev_term``: the products of a
+    level sit at their term index minus it); the plain versions take them
+    in ascending order.  The order of destinations changes no bit: each
+    destination's terms keep their order, and destinations are disjoint."""
     nnz_f, n = plan.nnz_f, plan.n
     k = {name: [] for name in FACTOR_ARRAYS + SOLVE_ARRAYS}
-    for name in ("div_off", "piv_off", "dst_off", "term_off", "fw_off",
-                 "fw_term_off", "bw_off", "bw_term_off"):
+    for name in ("div_off", "piv_off", "dst_off", "term_off", "lev_term",
+                 "fw_off", "fw_term_off", "fw_lev_term", "bw_off",
+                 "bw_term_off", "bw_lev_term"):
         k[name].append(0)
 
-    def level(off_name, dests, term_off_name, off, **arrays):
-        # one level's destinations, their term offsets and their arrays
-        k[off_name].append(k[off_name][-1] + len(dests))
+    def level(names, off, dests, terms):
+        # one level's destinations (longest first), their term offsets,
+        # where the level's terms end, and the arrays
+        off_name, term_off_name, lev_name = names
+        order, off, idx = _longest_first(off)
+        k[off_name].append(k[off_name][-1] + len(order))
         k[term_off_name].extend((k[term_off_name][-1] + off[1:]).tolist())
-        for name, a in arrays.items():
-            k[name].extend(np.asarray(a).tolist())
+        k[lev_name].append(k[term_off_name][-1])
+        for name, a in dests.items():
+            k[name].extend(np.asarray(a)[order].tolist())
+        for name, a in terms.items():
+            k[name].extend(np.asarray(a)[idx].tolist())
 
     fact, fwd, bwd = [], [], []
     for lv in range(plan.n_levels):
@@ -574,20 +610,20 @@ def build_schedule(plan: SparsePlan):
         k["div_off"].append(len(k["div_dst"]))
         k["piv"].extend(piv.tolist())
         k["piv_off"].append(len(k["piv"]))
-        level("dst_off", dst, "term_off", off, dst=dst, term_l=ul,
-              term_u=uu)
+        level(("dst_off", "term_off", "lev_term"), off, dict(dst=dst),
+              dict(term_l=ul, term_u=uu))
         fact.append((piv, dd, dp, dst,
                      *_padded(off, (nnz_f, nnz_f), ul, uu)))
     for rows_l, cols_l, pos_l in plan.f_lev:
         rows, off, (pos, col) = _grouped(rows_l, pos_l, cols_l)
-        level("fw_off", rows, "fw_term_off", off, fw_row=rows, fw_pos=pos,
-              fw_col=col)
+        level(("fw_off", "fw_term_off", "fw_lev_term"), off,
+              dict(fw_row=rows), dict(fw_pos=pos, fw_col=col))
         fwd.append((rows, *_padded(off, (nnz_f, n), pos, col)))
     for rows_l, cols_l, pos_l, diag_i in plan.b_lev:
         rows, off, pos, col = _backward_rows(rows_l, cols_l, pos_l, diag_i)
         diag = np.asarray(plan.diag_pos, np.int64)[rows]
-        level("bw_off", rows, "bw_term_off", off, bw_row=rows,
-              bw_diag=diag, bw_pos=pos, bw_col=col)
+        level(("bw_off", "bw_term_off", "bw_lev_term"), off,
+              dict(bw_row=rows, bw_diag=diag), dict(bw_pos=pos, bw_col=col))
         bwd.append((rows, diag, *_padded(off, (nnz_f, n), pos, col)))
     k["diag"] = plan.diag_pos
     k["rperm"] = plan.rperm
@@ -597,6 +633,26 @@ def build_schedule(plan: SparsePlan):
     return kernel, fact, fwd, bwd
 
 
+def widths(kernel):
+    """The most terms of any factor level and of any solve level (the
+    products a level forms at once) of a schedule's kernel arrays."""
+    def most(*names):
+        return max([int(np.diff(kernel[a]).max(initial=0)) for a in names])
+    return most("lev_term"), most("fw_lev_term", "bw_lev_term")
+
+
+def smem_bytes(plan: SparsePlan, kernel):
+    """The shared memory (bytes per block) S1 and S2 take in their shared
+    regimes: S1 a lane's values, the products of its widest level (float64)
+    and four level offsets (int32, levels + 1 each); S2 a lane's values,
+    its unknowns, the products of its widest level and two level offsets of
+    each sweep (``csrc/sparse_lu.cu``)."""
+    wf, ws = widths(kernel)
+    n_f, n_b = len(kernel["fw_off"]) - 1, len(kernel["bw_off"]) - 1
+    return (8 * (plan.nnz_f + wf) + 16 * (plan.n_levels + 1),
+            8 * (plan.nnz_f + plan.n + ws) + 8 * (n_f + n_b + 2))
+
+
 @dataclasses.dataclass
 class Schedule:
     """A plan's level schedule on one device: the kernels' int32 arrays
@@ -604,8 +660,9 @@ class Schedule:
     (pivots, div_dst, div_piv, destinations, l, u, m, k); ``fwd``: (rows,
     pos, col, m, k); ``bwd``: (rows, diagonal positions, pos, col, m, k);
     the terms of the m destinations padded to k each with the trash slots
-    ``nnz_f`` and ``n``, :func:`_padded`), and each stored position's
-    A-space row and column (``matvec``)."""
+    ``nnz_f`` and ``n``, :func:`_padded`), each stored position's A-space
+    row and column (``matvec``), the widest factor and solve levels
+    (:func:`widths`) and S1's and S2's shared memory (:func:`smem_bytes`)."""
     kernel: dict
     fact: list
     fwd: list
@@ -615,6 +672,10 @@ class Schedule:
     diag_pos: torch.Tensor
     pos_arow: torch.Tensor
     pos_acol: torch.Tensor
+    factor_width: int
+    solve_width: int
+    factor_smem: int
+    solve_smem: int
 
 
 #: each plan's host schedule and its copies per device (plans are keyed by
@@ -638,6 +699,8 @@ def schedule(plan: SparsePlan, device) -> Schedule:
                                    device=device)
         def level(lv):
             return tuple(a if isinstance(a, int) else t(a) for a in lv)
+        wf, ws = widths(kernel)
+        smem_f, smem_s = smem_bytes(plan, kernel)
         per_plan[key] = Schedule(
             kernel={name: t(a, torch.int32) for name, a in kernel.items()},
             fact=[level(lv) for lv in fact],
@@ -645,7 +708,8 @@ def schedule(plan: SparsePlan, device) -> Schedule:
             bwd=[level(lv) for lv in bwd],
             rperm=t(plan.rperm), cperm=t(plan.cperm),
             diag_pos=t(plan.diag_pos), pos_arow=t(plan.pos_arow),
-            pos_acol=t(plan.pos_acol))
+            pos_acol=t(plan.pos_acol), factor_width=wf, solve_width=ws,
+            factor_smem=smem_f, solve_smem=smem_s)
     return per_plan[key]
 
 
@@ -772,12 +836,16 @@ def build():
     b = cuda_lib.build_library("sparse_lu", SOURCE, NVCC_FLAGS)
     lib = b["lib"]
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.sparse_factor_f64.argtypes = ([p, p, i, i, i, i, d]
+    lib.sparse_factor_f64.argtypes = ([p, p, p, i, i, i, i, i, d]
                                       + [p] * len(FACTOR_ARRAYS) + [i, p])
     lib.sparse_factor_f64.restype = i
-    lib.sparse_solve_f64.argtypes = ([p, p, p, p, i, i, i, i, i]
+    lib.sparse_solve_f64.argtypes = ([p, p, p, p, i, i, i, i, i, i]
                                      + [p] * len(SOLVE_ARRAYS) + [i, p])
     lib.sparse_solve_f64.restype = i
+    if lib.sparse_lu_threads() != THREADS:
+        raise RuntimeError(f"sparse_lu: the kernels run "
+                           f"{lib.sparse_lu_threads()} threads a block, "
+                           f"the schedule is dealt for {THREADS}")
     _LIB.update(b)
     return _LIB
 
@@ -795,12 +863,12 @@ def _ptrs(arrays, names):
             for k in names]
 
 
-def shared_regime(count, device) -> bool:
-    """Whether ``count`` float64 values of one lane fit a block's opt-in
-    shared memory on ``device`` (S1 keeps a lane's ``nnz_f`` values there,
-    S2 a lane's ``n`` unknowns); else they stay in device memory, in the
-    same kernel."""
-    return count * 8 <= cuda_lib.smem_per_block(torch.device(device))
+def shared_regime(nbytes, device) -> bool:
+    """Whether what S1 or S2 keeps in shared memory (``nbytes`` per block,
+    ``Schedule.factor_smem`` or ``solve_smem``) fits a block's opt-in
+    shared memory on ``device``; else the same kernel runs on device
+    memory."""
+    return nbytes <= cuda_lib.smem_per_block(torch.device(device))
 
 
 def _device_of(what, t):
@@ -823,13 +891,16 @@ def factor(plan: SparsePlan, vals, boost: float = 0.0):
     _check("vals", vals, (L, plan.nnz_f))
     vals = vals.contiguous()
     out = torch.empty_like(vals)
-    shared = shared_regime(plan.nnz_f, vals.device)
     if L and plan.nnz_f:
-        arrays = schedule(plan, vals.device).kernel
+        sch = schedule(plan, vals.device)
+        shared = shared_regime(sch.factor_smem, vals.device)
+        work = out if shared else vals.new_empty(
+            (L, max(sch.factor_width, 1)))
         err = build()["lib"].sparse_factor_f64(
-            vals.data_ptr(), out.data_ptr(), L, plan.nnz_f, plan.n,
-            plan.n_levels, float(boost), *_ptrs(arrays, FACTOR_ARRAYS),
-            int(shared), cuda_lib.current_stream(vals.device))
+            vals.data_ptr(), out.data_ptr(), work.data_ptr(), L, plan.nnz_f,
+            plan.n, plan.n_levels, sch.factor_width, float(boost),
+            *_ptrs(sch.kernel, FACTOR_ARRAYS), int(shared),
+            cuda_lib.current_stream(vals.device))
         cuda_lib.raise_on(err, "sparse_factor_f64")
         factor.launches += 1
     return out[0] if single else out
@@ -855,14 +926,14 @@ def solve_factored(plan: SparsePlan, f, b):
                          f"{b.device}")
     f, b = f.contiguous(), b.contiguous()
     out = torch.empty_like(b)
-    shared = shared_regime(n, f.device)
-    work = out if shared else torch.empty_like(b)
     if L and n:
-        arrays = schedule(plan, f.device).kernel
+        sch = schedule(plan, f.device)
+        shared = shared_regime(sch.solve_smem, f.device)
+        work = out if shared else b.new_empty((L, n + sch.solve_width))
         err = build()["lib"].sparse_solve_f64(
             f.data_ptr(), b.data_ptr(), out.data_ptr(), work.data_ptr(), L,
             plan.nnz_f, n, len(plan.f_lev), len(plan.b_lev),
-            *_ptrs(arrays, SOLVE_ARRAYS), int(shared),
+            sch.solve_width, *_ptrs(sch.kernel, SOLVE_ARRAYS), int(shared),
             cuda_lib.current_stream(f.device))
         cuda_lib.raise_on(err, "sparse_solve_f64")
         solve_factored.launches += 1

@@ -142,14 +142,24 @@ card says so.
    operating point (``solve_dc(mode="tranop")``, ``max_step=1.0,
    gmin_steps=14``) and the transient over 0-200 ns, one stream,
    ``jac_reuse=1``: the four gates (d1 within 0.1 V of 5 V at 100 ns, d2
-   at 150 ns, d3 at 199 ns, d2 within 0.1 V of 0 at 199 ns), at least one
+   at 150 ns, d3 at 199 ns, d2 within 0.1 V of 0 at 199 ns), the counts
+   ``CELL_F`` (the JAX package's CPU run's), at least one
    S1 launch per step attempt (the rescue adds its own), no GESP,
    dense-solve or fused launch; set-up, wall, counts and launches
    printed.  Then, in the main process after phase 16: its plan (built
    on the card, the probe on the CPU)
    bitwise the plan of the same circuit compiled on the CPU, its levels
    and filled values printed; the operating point against the dense DC on
-   the card within 1e-9 V; the chain with a lane axis (2 lanes from the
+   the card within 1e-9 V; ẋ0 of the chain at that point (``tran.
+   xdot0_and_mask``), its peak device memory above what was allocated
+   before it under ``XDOT0_PEAK_LIMIT`` (ROADMAP C7; the normal matrix's
+   own and the n³ bytes of the broadcast product it replaced beside it);
+   ROADMAP C6's witness (``c6_chain``: the 21-cell level-1 chain, 243
+   unknowns, at 2 lanes over 0-1 ns through ``dense_lu="auto"``, which
+   resolves to the exact solve, while an explicit "mixed" raises naming
+   its two ways out: no kernel launched, each lane bitwise the one stream,
+   within 1e-9 V of the CPU from the same operating point); the chain
+   with a lane axis (2 lanes from the
    operating point over 0-1 ns: S1/S2 at 2 lanes, no dense kernel), each
    lane bitwise the one stream; and the sparse factor (S1,
    ``sparse_lu.factor``) and solve (S2, ``sparse_lu.solve_factored``) on
@@ -1315,11 +1325,29 @@ def phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev):
 CHAIN_CELLS = 40
 CHAIN_N_X = 452
 SPARSE_DC_TOL = 1e-9
+#: cell F's counts (accepted, rejected, Newton, attempts): those of the JAX
+#: package's CPU run of the same chain, which the card has matched since the
+#: sparse path came
+CELL_F = (2506, 655, 6998, 3160)
 #: S1/S2's lane counts in phase 19's kernel checks
 SPARSE_LANES = (1, 8)
 #: phase 19's lane-batched run of the chain: lanes and window
 SPARSE_BATCH = 2
 CHAIN_LANES_TSTOP = 1e-9
+#: phase 19's ẋ0 of the chain (ROADMAP C7): the most device memory its
+#: set-up may take above what was allocated before it (the normal matrix
+#: CᵀC in O(n²); the broadcast product it replaced held n³ float64, 0.74 GB)
+XDOT0_PEAK_LIMIT = 10 * 2 ** 20
+#: ROADMAP C6's witness: the level-1 chain of 21 cells, 11·21 + 12 = 243
+#: unknowns (above the 240 the GESP kernels hold, below the sparse path's
+#: 256), at 2 lanes over 0-1 ns through dense_lu="auto", which must take the
+#: exact float64 solve; the card against the CPU from the same operating
+#: point (the exact solve on both, other summation orders in the walks)
+C6_CELLS = 21
+C6_N_X = 243
+C6_LANES = 2
+C6_TSTOP = 1e-9
+C6_TOL = 1e-9
 
 
 def same_plan(a, b):
@@ -1358,6 +1386,103 @@ def sparse_bound(plan, L, kind):
     return bound(nbytes, ops, "float64")
 
 
+def xdot0_memory(torch, T, comp, x_op, ctx):
+    """Phase 19's ẋ0 of the chain (``tran.xdot0_and_mask``, one stream at
+    the operating point, as ``tran`` calls it) and of its normal matrix
+    (``linalg.normal_matrix``) alone: each one's peak device memory above
+    what was allocated before it, bytes."""
+    from cedarsim_tpu_torch.analysis.tran import xdot0_and_mask
+    from cedarsim_tpu_torch.ops import linalg
+    x = x_op[None]
+    c_op = ctx.with_mode("tranop").at_time(0.0)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, out
+    whole, (xd0, _) = peak(lambda: xdot0_and_mask(comp, x, c_op,
+                                                  comp.params0))
+    _, _, _, C = comp.res_jacs_fwd(x, ctx.with_mode("tran").at_time(0.0),
+                                   comp.params0)
+    normal, _ = peak(lambda: linalg.normal_matrix(C))
+    if not bool(torch.isfinite(xd0).all()) or whole > XDOT0_PEAK_LIMIT:
+        raise AssertionError(f"chain ẋ0: {whole} bytes above the baseline "
+                             f"(limit {XDOT0_PEAK_LIMIT}), finite "
+                             f"{bool(torch.isfinite(xd0).all())}")
+    return dict(peak_bytes=whole, normal_matrix_peak_bytes=normal,
+                broadcast_product_bytes=8 * comp.n_x ** 3,
+                limit_bytes=XDOT0_PEAK_LIMIT)
+
+
+def c6_chain(torch, T, dev, counters):
+    """ROADMAP C6 on the card: the 21-cell level-1 chain (243 unknowns) at
+    ``C6_LANES`` lanes over 0-``C6_TSTOP`` through ``tran`` with
+    ``dense_lu="auto"``, which must resolve to the exact solve ("jax"), and
+    an explicit "mixed" must raise naming ``dense_lu="jax"`` and
+    ``sparse=True``: no kernel of the port launched, each lane bitwise the
+    one stream, the one stream within ``C6_TOL`` of the same call on the
+    CPU from the same operating point."""
+    from cedarsim_tpu_torch.analysis.tran import resolve_impl
+    from cedarsim_tpu_torch.benchmarks import chain_transient as ct
+    from cedarsim_tpu_torch.benchmarks import netlists
+    from cedarsim_tpu_torch.core.compile import use_sparse_solver
+    from cedarsim_tpu_torch.ops import gesp_lu
+    comp = netlists.chain(C6_CELLS, device=dev)
+    if comp.n_x != C6_N_X or use_sparse_solver(comp):
+        raise AssertionError(f"C6 chain: {comp.n_x} unknowns, sparse "
+                             f"{use_sparse_solver(comp)}")
+    opts = T.TranOptions(max_steps=4096)
+    limit = gesp_lu.max_n(dev)
+    resolved = resolve_impl(comp, opts, batched=True).dense_lu
+    if not limit < C6_N_X or resolved != "jax":
+        raise AssertionError(f"C6: 'auto' gives {resolved!r} at "
+                             f"{C6_N_X} unknowns, GESP limit {limit}")
+    try:
+        resolve_impl(comp, T.TranOptions(dense_lu="mixed"), batched=True)
+        raise AssertionError("C6: an explicit 'mixed' above the GESP limit "
+                             "did not raise")
+    except ValueError as e:
+        if "dense_lu='jax'" not in str(e) or "sparse=True" not in str(e):
+            raise AssertionError(f"C6: 'mixed' raised {e!r}") from e
+    ctx = T.SimSpec.make(gmin=1e-15)
+    op = T.solve_dc(comp, ctx=ctx, mode="tranop",
+                    opts=T.NewtonOptions(**ct.DC_OPTS))
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lanes = T.tran(comp, (0.0, C6_TSTOP), ctx=ctx, opts=opts,
+                   x0=op.x.expand(C6_LANES, -1).contiguous())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    one = T.tran(comp, (0.0, C6_TSTOP), ctx=ctx, opts=opts, x0=op.x)
+    launches = {k.__name__: k.launches for k in counters}
+    if any(launches.values()):
+        raise AssertionError(f"C6: a kernel launched: {launches}")
+    if not (one.converged and all(
+            s.converged and np.array_equal(s.xs, one.xs)
+            and np.array_equal(s.ts, one.ts) for s in lanes)):
+        raise AssertionError("C6: a lane is not the one stream")
+    cpu = T.tran(netlists.chain(C6_CELLS, device="cpu"), (0.0, C6_TSTOP),
+                 ctx=ctx, opts=opts, x0=op.x.cpu())
+    probe = np.linspace(0.0, C6_TSTOP, 11)
+    err = max(float(np.abs(np.interp(probe, one.ts, one.xs[:, i])
+                           - np.interp(probe, cpu.ts, cpu.xs[:, i])).max())
+              for i in range(C6_N_X))
+    if not (cpu.converged and err <= C6_TOL):
+        raise AssertionError(f"C6: card against CPU {err:.3g} V")
+    return dict(cells=C6_CELLS, n_x=comp.n_x, gesp_max_n=limit,
+                lanes=C6_LANES, tstop=C6_TSTOP, dense_lu=resolved,
+                wall_s=wall, accepted=one.n_accepted,
+                rejected=one.n_rejected, newton=one.n_newton,
+                cpu_counts=[cpu.n_accepted, cpu.n_rejected, cpu.n_newton],
+                card_vs_cpu_v=err, bitwise_one_stream=True,
+                launches=launches)
+
+
 def sparse_main_path(torch, T, gesp_lu, pivot_lu, fc, dev):
     """Phase 19's main path: the 40-cell BSIM4 chain through the
     benchmark's entry point (compile, plan, operating point, transient),
@@ -1385,6 +1510,10 @@ def sparse_main_path(torch, T, gesp_lu, pivot_lu, fc, dev):
     if not rec["ok"]:
         raise AssertionError(f"chain gate: worst {rec['worst_gate_err']}, "
                              f"converged {rec['converged']}")
+    got = (rec["accepted"], rec["rejected"], rec["newton"], rec["attempts"])
+    if got != CELL_F:
+        raise AssertionError(f"cell F: counts (accepted, rejected, Newton, "
+                             f"attempts) {got}, recorded {CELL_F}")
     dense_kernels = {k: n for k, n in launches.items()
                      if k not in ("factor", "solve_factored")}
     if any(dense_kernels.values()):
@@ -1484,6 +1613,11 @@ def phase_sparse(torch, T, dev, main):
     if not (bool(opd.converged) and dc_err <= SPARSE_DC_TOL):
         raise AssertionError(f"chain DC: dense {bool(opd.converged)}, "
                              f"sparse against dense {dc_err:.3g}")
+    # ẋ0's device memory (C7), and C6's witness
+    xdot0 = xdot0_memory(torch, T, comp, x_op, ctx)
+    c6 = c6_chain(torch, T, dev, counters)
+    for k in counters:
+        k.launches = 0
     # the chain with a lane axis: SPARSE_BATCH lanes from the operating
     # point over 0-CHAIN_LANES_TSTOP through the sparse path (S1/S2 at L
     # lanes, no dense kernel), each lane bitwise the one stream
@@ -1576,6 +1710,7 @@ def phase_sparse(torch, T, dev, main):
                       for L, e in entries.items()},
         nvcc_s=b["seconds"], ptxas=[ln.strip() for ln in b["log"]
                                     .splitlines() if "registers" in ln],
+        xdot0_memory=xdot0, c6=c6,
         transient=rec, launches=launches, waited_for_child_s=waited_s,
         wall_per_attempt_ms=1e3 * rec["wall_s"] / rec["attempts"],
         card=smi())

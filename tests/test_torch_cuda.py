@@ -46,14 +46,21 @@ which sets JAX up for the other files):
   with the card's shared memory per block named; on a tie of magnitudes
   the pivoting kernel takes the first row, so it is bitwise the GESP
   kernel where no row is swapped, in each regime.
+- The transient's exact float64 solves (``linalg.solve_lanes``,
+  ``lu_factor_exact``, ``lu_solve_exact``), one library call a lane: each
+  lane bitwise the same system alone at (L, n) in {(2, 243), (8, 25),
+  (3, 452)}, where a lane of the one batched call is not; ẋ0's normal
+  matrix ``linalg.normal_matrix`` bitwise the CPU's and within 1e-13 of
+  ``C.mT @ C``.
 - The sparse factor (S1, ``sparse_lu.factor``) and solve (S2,
   ``sparse_lu.solve_factored``) bitwise equal to their plain versions on
   seeded MNA-like plans of n 20 to 500 and on the 40-cell BSIM4 chain's
-  plan, at L in {1, 8} lanes, with values in shared memory and in device
-  memory (by an ``nnz_f`` above a block's shared memory, and with the
-  regime test replaced so that every size takes device memory), two
-  launches bitwise equal, one launch counted per call; pivots boosted;
-  the wrappers refuse another dtype or shape.
+  plan and the 90-cell level-1 chain's (1,002 unknowns), at L in {1, 8}
+  lanes, with values in shared memory and in device memory (by an
+  ``nnz_f`` above a block's shared memory, and with the regime test
+  replaced so that every size takes device memory), two launches bitwise
+  equal, one launch counted per call; pivots boosted; the wrappers refuse
+  another dtype or shape.
 """
 
 import dataclasses
@@ -609,14 +616,42 @@ def test_sparse_kernels_match_plain(cuda_device, monkeypatch, n, L, regime):
 
 
 def test_sparse_factor_above_shared_memory(cuda_device):
-    """An ``nnz_f`` above a block's shared memory takes S1's device-memory
-    regime on its own, and S2 its shared one; both bitwise their plain
-    versions."""
+    """An ``nnz_f`` above a block's shared memory takes both kernels'
+    device-memory regime on its own (each keeps a lane's values in shared
+    memory in its shared regime); both bitwise their plain versions."""
     from cedarsim_tpu_torch.ops import sparse_lu
     plan, vals, b = _sparse_case(420, 5, 2, cuda_device)
-    assert not sparse_lu.shared_regime(plan.nnz_f, cuda_device)
-    assert sparse_lu.shared_regime(plan.n, cuda_device)
+    sch = sparse_lu.schedule(plan, cuda_device)
+    assert not sparse_lu.shared_regime(plan.nnz_f * 8, cuda_device)
+    assert not sparse_lu.shared_regime(sch.factor_smem, cuda_device)
+    assert not sparse_lu.shared_regime(sch.solve_smem, cuda_device)
     _sparse_check(plan, vals, b, float(np.sqrt(np.finfo(np.float64).eps)))
+
+
+@pytest.mark.parametrize("L", [1, 8])
+@pytest.mark.parametrize("regime", ["auto", "device memory"])
+def test_sparse_kernels_on_the_level1_chain_90(cuda_device, monkeypatch, L,
+                                               regime):
+    """The 90-cell level-1 chain's plan (1,002 unknowns, 200 factor levels;
+    ``benchmarks/sparse_crossover.py``'s largest) on seeded values with a
+    dominant diagonal: S1 and S2 (both in shared memory under "auto")
+    bitwise their plain versions in both regimes."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    from cedarsim_tpu_torch.core.sparse_ops import TAU, get_sparse_ops
+    from cedarsim_tpu_torch.ops import sparse_lu
+    plan = get_sparse_ops(netlists.chain(90, device="cpu")).plan
+    assert plan.n == 1002
+    if regime != "auto":
+        monkeypatch.setattr(sparse_lu, "shared_regime", lambda *a: False)
+    else:
+        sch = sparse_lu.schedule(plan, cuda_device)
+        assert sparse_lu.shared_regime(sch.factor_smem, cuda_device)
+        assert sparse_lu.shared_regime(sch.solve_smem, cuda_device)
+    rng = np.random.default_rng(90)
+    v = rng.uniform(-1.0, 1.0, (L, plan.nnz_f))
+    v[:, plan.diag_pos] = 4.0 + rng.uniform(0.0, 1.0, (L, plan.n))
+    b = torch.as_tensor(rng.standard_normal((L, plan.n)), device=cuda_device)
+    _sparse_check(plan, torch.as_tensor(v, device=cuda_device), b, TAU)
 
 
 @pytest.mark.parametrize("L", [1, 8])
@@ -651,3 +686,60 @@ def test_sparse_wrappers_refuse(cuda_device):
         sparse_lu.factor(plan, vals[:, :-1], 0.0)
     with pytest.raises(ValueError):
         sparse_lu.solve_factored(plan, vals, b[:, :-1])
+
+
+# ------------------------------------------- exact solves and ẋ0 (C6, C7)
+
+@pytest.mark.parametrize("L, n", [(2, 243), (8, 25), (3, 452)])
+def test_exact_solves_lanes_are_single_lanes(cuda_device, L, n):
+    """The transient's exact float64 solves, one library call a lane: each
+    lane of ``solve_lanes``, ``lu_factor_exact`` and ``lu_solve_exact``
+    bitwise the same system alone (a batched cuSOLVER or MAGMA call is
+    not, at these shapes)."""
+    rng = np.random.default_rng(L * 1000 + n)
+    A = torch.as_tensor(rng.standard_normal((L, n, n)) + n * np.eye(n),
+                        device=cuda_device)
+    b = torch.as_tensor(rng.standard_normal((L, n)), device=cuda_device)
+    x = linalg.solve_lanes(A, b)
+    fct = linalg.lu_factor_exact(A)
+    y = linalg.lu_solve_exact(*fct, b)
+    for i in range(L):
+        assert torch.equal(x[i], linalg.solve_lanes(A[i:i + 1],
+                                                    b[i:i + 1])[0])
+        one = linalg.lu_factor_exact(A[i:i + 1])
+        assert torch.equal(fct[0][i], one[0][0])
+        assert torch.equal(y[i], linalg.lu_solve_exact(*one, b[i:i + 1])[0])
+    assert _rel(x, torch.linalg.solve(A, b)) < 1e-12
+
+
+@pytest.mark.parametrize("L, n", [(2, 243), (8, 25), (3, 452)])
+def test_batched_exact_solve_is_not_lane_bitwise(cuda_device, L, n):
+    """Why the transient's exact solves go a lane at a time on the card: a
+    lane of one batched ``torch.linalg`` factor or solve (cuBLAS's batched
+    LU below 512 unknowns) is not bitwise the same system alone
+    (cuSOLVER's), at C6's shape (2 lanes of 243 unknowns) among others."""
+    rng = np.random.default_rng(L * 1000 + n)
+    A = torch.as_tensor(rng.standard_normal((L, n, n)) + n * np.eye(n),
+                        device=cuda_device)
+    b = torch.as_tensor(rng.standard_normal((L, n)), device=cuda_device)
+    LU = torch.linalg.lu_factor_ex(A)[0]
+    x = torch.linalg.solve_ex(A, b)[0]
+    alone = [(torch.linalg.lu_factor_ex(A[i:i + 1])[0][0],
+              torch.linalg.solve_ex(A[i:i + 1], b[i:i + 1])[0][0])
+             for i in range(L)]
+    assert not all(torch.equal(LU[i], lu) and torch.equal(x[i], xi)
+                   for i, (lu, xi) in enumerate(alone))
+    assert linalg._lanes_apart(A)
+
+
+@pytest.mark.parametrize("L, n", [(1, 452), (3, 61)])
+def test_normal_matrix_is_the_cpus(cuda_device, L, n):
+    """CᵀC in its fixed order (products and sums rounded one by one): on
+    the card bitwise the CPU's, within 1e-13 of ``C.mT @ C``."""
+    rng = np.random.default_rng(n)
+    C = rng.standard_normal((L, n, n)) * 1e-13
+    Mc = linalg.normal_matrix(torch.as_tensor(C, device=cuda_device))
+    M = linalg.normal_matrix(torch.as_tensor(C))
+    assert torch.equal(Mc.cpu(), M)
+    ref = torch.as_tensor(C).mT @ torch.as_tensor(C)
+    assert float((M - ref).abs().max() / ref.abs().max()) <= 1e-13

@@ -243,29 +243,75 @@ def test_plain_order_is_a_serial_scatter():
     assert max(len(np.unique(d)) < len(d) for d in tp.upd_dst if len(d))
 
 
-def test_kernel_schedule_replays_the_plain_order():
+def _schedule_case(case):
+    """A plan and its float64 values: the seeded MNA-like plans (n 5, 20,
+    120) with their matrices, and the 2- and 6-cell level-1 chains' plans
+    with seeded values on a dominant diagonal."""
+    kind, size = case
+    rng = np.random.default_rng(3 + size)
+    if kind == "seeded":
+        A, rng, tp, _ = _plans(size)
+        return tp, tlu.vals_from_dense(tp, torch.as_tensor(A)).numpy(), rng
+    tp = get_sparse_ops(netlists.chain(size, device="cpu")).plan
+    v = rng.uniform(-1.0, 1.0, tp.nnz_f)
+    v[tp.diag_pos] = rng.choice([-1.0, 1.0], tp.n) * rng.uniform(
+        0.2, 4.0, tp.n)
+    return tp, v, rng
+
+
+def _dealt(lo, hi, threads):
+    """Items lo..hi-1 of a level as the kernel's threads take them: thread
+    t the items lo + t, lo + t + threads, ..."""
+    return [i for t in range(threads) for i in range(lo + t, hi, threads)]
+
+
+@pytest.mark.parametrize("case", [("seeded", 5), ("seeded", 20),
+                                  ("seeded", 120), ("chain", 2),
+                                  ("chain", 6)])
+def test_kernel_schedule_replays_the_plain_order(case):
     """The int32 arrays S1 and S2 read (``build_schedule``), walked as the
-    kernels walk them (per level, each destination's terms in order), give
-    bitwise the plain factor and solve: the host half of the CUDA kernels,
-    which run only on a card."""
-    n = 120
-    A, rng, tp, _ = _plans(n)
+    kernels walk them, give bitwise the plain factor and solve: the host
+    half of the CUDA kernels, which run only on a card.  Per level: the
+    divisions; the pivots written back and every product formed into a
+    scratch at its term index minus ``lev_term`` (``fw_lev_term``,
+    ``bw_lev_term``); then each destination, dealt round-robin to the
+    kernel's threads longest first, minus its products in list order.  The
+    dealing balances by term count: the busiest thread walks at most the
+    level's longest destination plus its terms over the threads."""
+    tp, v0, rng = _schedule_case(case)
     k = tlu.build_schedule(tp)[0]
-    v0 = tlu.vals_from_dense(tp, torch.as_tensor(A)).numpy()
+    T = tlu.THREADS
+    n = tp.n
     tau = 0.3
     v = [float(a) for a in v0]
 
     def boosted(p):
         return (-tau if p < 0 else tau) if abs(p) < tau else p
+
+    def dealt_longest_first(off_name, term_off, lev_term, lv):
+        lo, hi = k[off_name][lv], k[off_name][lv + 1]
+        cnt = np.diff(term_off[lo:hi + 1])
+        assert (np.diff(cnt) <= 0).all()            # longest first
+        assert term_off[lo] == lev_term[lv] and term_off[hi] == lev_term[
+            lv + 1]
+        busiest = max((cnt[t::T].sum() for t in range(min(T, len(cnt)))),
+                      default=0)
+        assert busiest <= cnt.max(initial=0) + -(-cnt.sum() // T)
+        return _dealt(lo, hi, T)
+
     for lv in range(tp.n_levels):
-        for t in range(k["div_off"][lv], k["div_off"][lv + 1]):
+        for t in _dealt(k["div_off"][lv], k["div_off"][lv + 1], T):
             v[k["div_dst"][t]] /= boosted(v[k["div_piv"][t]])
-        for t in range(k["piv_off"][lv], k["piv_off"][lv + 1]):
+        for t in _dealt(k["piv_off"][lv], k["piv_off"][lv + 1], T):
             v[k["piv"][t]] = boosted(v[k["piv"][t]])
-        for t in range(k["dst_off"][lv], k["dst_off"][lv + 1]):
+        k0 = k["lev_term"][lv]
+        prod = {j - k0: v[k["term_l"][j]] * v[k["term_u"][j]]
+                for j in _dealt(k0, k["lev_term"][lv + 1], T)}
+        for t in dealt_longest_first("dst_off", k["term_off"],
+                                     k["lev_term"], lv):
             acc = v[k["dst"][t]]
             for j in range(k["term_off"][t], k["term_off"][t + 1]):
-                acc = acc - v[k["term_l"][j]] * v[k["term_u"][j]]
+                acc = acc - prod[j - k0]
             v[k["dst"][t]] = acc
     for p in k["diag"]:
         v[p] = boosted(v[p])
@@ -274,18 +320,29 @@ def test_kernel_schedule_replays_the_plain_order():
     b = rng.standard_normal(n)
     y = [float(b[r]) for r in k["rperm"]]
     for lv in range(len(tp.f_lev)):
-        for t in range(k["fw_off"][lv], k["fw_off"][lv + 1]):
+        k0 = k["fw_lev_term"][lv]
+        prod = {j - k0: v[k["fw_pos"][j]] * y[k["fw_col"][j]]
+                for j in _dealt(k0, k["fw_lev_term"][lv + 1], T)}
+        for t in dealt_longest_first("fw_off", k["fw_term_off"],
+                                     k["fw_lev_term"], lv):
             acc = y[k["fw_row"][t]]
             for j in range(k["fw_term_off"][t], k["fw_term_off"][t + 1]):
-                acc = acc - v[k["fw_pos"][j]] * y[k["fw_col"][j]]
+                acc = acc - prod[j - k0]
             y[k["fw_row"][t]] = acc
     for lv in range(len(tp.b_lev)):
-        for t in range(k["bw_off"][lv], k["bw_off"][lv + 1]):
+        k0 = k["bw_lev_term"][lv]
+        prod = {j - k0: v[k["bw_pos"][j]] * y[k["bw_col"][j]]
+                for j in _dealt(k0, k["bw_lev_term"][lv + 1], T)}
+        for t in dealt_longest_first("bw_off", k["bw_term_off"],
+                                     k["bw_lev_term"], lv):
             acc = 0.0
             for j in range(k["bw_term_off"][t], k["bw_term_off"][t + 1]):
-                acc = acc + v[k["bw_pos"][j]] * y[k["bw_col"][j]]
+                acc = acc + prod[j - k0]
             r = k["bw_row"][t]
             y[r] = (y[r] - acc) / v[k["bw_diag"][t]]
     x = np.empty(n)
     x[k["cperm"]] = y
     assert _bitwise(tlu.solve_factored_plain(tp, f, torch.as_tensor(b)), x)
+    wf, ws = tlu.widths(k)
+    assert wf == max(len(d) for d in tp.upd_dst) and ws == max(
+        [len(r) for r, _, _ in tp.f_lev] + [len(r) for r, *_ in tp.b_lev])
