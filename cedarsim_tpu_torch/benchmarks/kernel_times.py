@@ -87,12 +87,43 @@ FACTOR_SWEEP = tuple((N_LANES, n) for n in (8, 16, 25, 32, 33, 64, 122,
 #: node-first MNA pivots away from exact cancellation (PERF.md)
 XLA_OPTS = dict(max_steps=8192, jac_reuse=1, dense_lu="mixed",
                 newton_impl="xla", accept_slack=1.5, jac_shunt=1e-9)
+#: ``bench.py``'s two DFF legs (``bench.py:93-103``; a copy, since the port
+#: does not import ``bench.py``): testbench, golden, the group and the
+#: parameter scattered per lane, the leg's tolerances and (CMG) the JAX
+#: package's lane count for it on its chip
+LEGS = {
+    "bsim4": dict(tb="dff_tb_bsim4.cir", golden="golden_bsim4.json",
+                  group="bsim4", param="W",
+                  tpu_opts=dict(newton_reltol=1e-4, newton_abstol=5e-7,
+                                res_tol=1e-3, jac_shunt=1e-7, res_rel=3e-5,
+                                rtol=1e-2, atol=1e-4)),
+    "cmg": dict(tb="dff_tb_cmg.cir", golden="golden_cmg.json",
+                group="bsimcmg", param="NFIN", tpu_nb=32,
+                tpu_opts=dict(newton_reltol=3e-4, newton_abstol=2e-6,
+                              res_tol=3e-3, jac_shunt=1e-7, res_rel=1e-4,
+                              rtol=2e-2, atol=3e-4)),
+}
+#: cell G, the CMG leg at the JAX package's lane count on its chip
+#: (``bench.py:100``): G-fused, B1 on the CMG plan (cell B's configuration
+#: with the leg's tolerances), and G-xla, the chord path through
+#: ``dense_lu="auto"`` (the GESP kernels B2/B3 on a card).  G-xla's
+#: Jacobian-only shunt is 1e-4, not the leg's 1e-7: at 1e-7 the no-pivot
+#: float32 factor loses an internal node's pivot of the CMG Jacobian at
+#: h = 1e-12 (the mixed chord solve's error passes 1e6 relative,
+#: ``tests/test_torch_cmg_dff.py``), and the chord loop stalls (ROADMAP
+#: Queue C)
+CMG_LANES = LEGS["cmg"]["tpu_nb"]
+CMG_FUSED_OPTS = dict(max_steps=8192, jac_reuse=1, formulation="cap",
+                      newton_impl="fused", dense_lu="mixed",
+                      **LEGS["cmg"]["tpu_opts"])
+CMG_XLA_OPTS = dict(max_steps=8192, jac_reuse=1, newton_impl="xla",
+                    dense_lu="auto",
+                    **dict(LEGS["cmg"]["tpu_opts"], jac_shunt=1e-4))
 #: cell B, the fused engine's options of chip_smoke.py's phase 7 (the JAX
 #: package's fused configuration, bench.py:96-98, accept_slack 1.0)
 FUSED_OPTS = dict(max_steps=8192, jac_reuse=1, formulation="cap",
-                  newton_impl="fused", dense_lu="mixed", newton_reltol=1e-4,
-                  newton_abstol=5e-7, res_tol=1e-3, jac_shunt=1e-7,
-                  res_rel=3e-5, rtol=1e-2, atol=1e-4)
+                  newton_impl="fused", dense_lu="mixed",
+                  **LEGS["bsim4"]["tpu_opts"])
 
 
 #: the level-1 DFF leg (bench.py:541-617): the JAX package's lane count on
@@ -211,34 +242,76 @@ def dominant_systems(rng, B, n):
     return A, b
 
 
-def dff_lanes(torch, T, dev, lanes=N_LANES):
-    """The DFF testbench compiled on ``dev``, its transient operating point
-    and the per-lane warm DC of the W scatter (``linspace(0.99, 1.01)``,
-    the middle lane nominal).  Returns (compiled, ctx, per-lane params,
-    per-lane initial states)."""
+def dff_lanes(torch, T, dev, lanes=N_LANES, leg="bsim4"):
+    """A DFF leg's testbench (``LEGS[leg]``) compiled on ``dev``, its
+    transient operating point and the per-lane warm DC of the leg's
+    scatter (its parameter times ``linspace(0.99, 1.01)``, the middle lane
+    nominal).  Returns (compiled, ctx, per-lane params, per-lane initial
+    states)."""
     from cedarsim_tpu_torch.analysis.dc import dc_from_nominal
+    cfg = LEGS[leg]
     dff_dir = os.path.join(_repo(T), "benchmarks", "gf180_dff")
-    with open(os.path.join(dff_dir, "dff_tb_bsim4.cir")) as f:
-        nl = T.parse_spice(f.read(), file="dff_tb_bsim4.cir")
+    with open(os.path.join(dff_dir, cfg["tb"])) as f:
+        nl = T.parse_spice(f.read(), file=cfg["tb"])
     comp = T.compile_circuit(T.elaborate(nl, include_paths=[dff_dir]),
                              device=dev)
     ctx = T.SimSpec.make(gmin=1e-15)
     op = T.solve_dc(comp, ctx=ctx, mode="tranop")
     if not bool(op.converged):
-        raise AssertionError("DFF operating point did not converge")
-    key = [k for k in comp.group_order if "bsim4" in k.lower()][0]
+        raise AssertionError(f"DFF ({leg}) operating point did not converge")
+    key = [k for k in comp.group_order if cfg["group"] in k.lower()][0]
     sc = np.linspace(0.99, 1.01, lanes)
     sc[lanes // 2] = 1.0
     scatter = torch.as_tensor(sc, dtype=comp.dtype, device=dev)
     pb = {k: {pn: v.expand((lanes,) + tuple(v.shape))
               for pn, v in grp.items()} for k, grp in comp.params0.items()}
     pb[key] = dict(pb[key])
-    pb[key]["W"] = comp.params0[key]["W"][None, :] * scatter[:, None]
+    pn = cfg["param"]
+    pb[key][pn] = comp.params0[key][pn][None, :] * scatter[:, None]
     warm = dc_from_nominal(comp, pb, ctx.with_mode("tranop"), op.x,
                            T.default_newton_options(comp))
     if not bool(warm.converged.all()):
         raise AssertionError("per-lane warm DC did not converge")
     return comp, ctx, pb, warm.x
+
+
+def golden(T, leg="bsim4"):
+    """The leg's golden (``benchmarks/gf180_dff/golden_*.json``)."""
+    with open(os.path.join(_repo(T), "benchmarks", "gf180_dff",
+                           LEGS[leg]["golden"])) as f:
+        return json.load(f)
+
+
+#: the DFF legs' golden tolerance (bench.py GOLDEN_TOL)
+GOLDEN_TOL = 0.05
+
+
+def gate_golden(sols, gold, n_x, tstop=float("inf")):
+    """``bench.py``'s gate on the lanes of a DFF leg, at the golden points
+    up to ``tstop``: every lane finished with finite waveforms of ``n_x``
+    unknowns, the nominal (middle) lane within ``GOLDEN_TOL`` of every
+    point, every lane at the points outside the 401 ns race (the third and
+    fourth).  Raises on a miss; returns the worst error, or None when no
+    golden point lies inside the window."""
+    worst, errs = None, []
+    nominal = len(sols) // 2
+    for lane, sol in enumerate(sols):
+        if not sol.converged:
+            raise AssertionError(f"lane {lane} did not finish")
+        if not (np.isfinite(sol.xs).all() and sol.xs.shape[1] == n_x):
+            raise AssertionError(f"lane {lane}: bad waveform")
+        for j, (t_ns, g) in enumerate(zip(gold["samples_ns"], gold["q"])):
+            if t_ns * 1e-9 > tstop:
+                continue
+            if j in (2, 3) and lane != nominal:
+                continue        # the race points gate only the nominal lane
+            err = abs(float(sol.interp("q", t_ns * 1e-9)) - g)
+            worst = err if worst is None else max(worst, err)
+            if err > GOLDEN_TOL:
+                errs.append((lane, t_ns, err))
+    if errs:
+        raise AssertionError(f"golden gate failed (lane, ns, err): {errs}")
+    return worst
 
 
 def lv1_lanes(torch, T, dev, lanes=LV1_LANES):
@@ -269,14 +342,15 @@ def _repo(T):
     return os.path.dirname(os.path.dirname(os.path.abspath(T.__file__)))
 
 
-def fused_args(torch, T, plan, dff, h, lanes=None):
+def fused_args(torch, T, plan, dff, h, lanes=None, opts=None):
     """The fused kernel's inputs on the DFF's lanes (all, or the slice
     ``lanes``): a BE start of step ``h`` from the warm state, the node
     unknowns perturbed by a seeded 0.05 V so that the chord loop iterates,
-    J = C/h + G + the Jacobian shunt at the predictor."""
+    J = C/h + G + the Jacobian shunt at the predictor; ``opts``: the
+    transient's options (default ``FUSED_OPTS``)."""
     comp, ctx, pb, x0 = dff
     dev = x0.device
-    opts = T.TranOptions(**FUSED_OPTS)
+    opts = T.TranOptions(**(FUSED_OPTS if opts is None else opts))
     ctx_t = ctx.with_mode("tran")
     L, n = x0.shape
     pert = np.zeros((L, n))

@@ -16,7 +16,9 @@ the times at which their waveforms are compared.
   reference's ``inverter_noise.jl`` topology on ``models_bsim4.spice``),
   ``.noise v(q) vd`` on the ngspice table's grid, ``dec 5`` over 1 kHz-1
   PHz.
-
+- ``CMG_INVERTER_NOISE``: the reference's BSIM-CMG inverter noise circuit
+  on the ASAP7 TT Spectre deck ``7nm_TT.scs``: pass the deck's directory
+  in ``include_paths``.
 - :func:`chain_netlist`: the N-cell gf180 DFF shift register (Q of cell k
   drives D of cell k + 1, every cell on one CLKN), the JAX package's
   large-circuit workload of the sparse Newton path; 40 BSIM4 cells are
@@ -127,6 +129,22 @@ VVSS VSS 0 0.0
 CQ D 0 1e-15
 VD D 0 0.0 AC 1
 .noise v(q) vd dec 5 1k 1e15
+.end
+"""
+
+
+#: the BSIM-CMG inverter of the reference's noise test on the ASAP7 TT
+#: deck (``tests/test_noise_pdk_goldens.py::CMG_EXACT_TOPOLOGY``; include
+#: path: the directory of ``7nm_TT.scs``): noise at q over the frequencies
+#: of ngspice's table for it
+CMG_INVERTER_NOISE = """* CMG inverter noise, ASAP7 TT (inverter_cmg_cedar.cir)
+.include "7nm_TT.scs"
+mneg Q D VSS VSS nmos_lvt
+mpos Q D VDD VDD pmos_lvt
+VVDD VDD 0 1.0
+VVSS VSS 0 0.0
+CQ D 0 1e-15
+VD D 0 0.5 AC 1 SIN (0.5 0.01 1e7)
 .end
 """
 

@@ -6,12 +6,13 @@ parameters resolve through lexically scoped lazy environments, models merge
 into device parameter dicts and ``m=`` multipliers compose down the
 hierarchy.  Every card binds a device class of the port, as the JAX
 elaborator binds it (``cedarsim_tpu/frontend/elaborate.py``).  A card whose
-device has no PyTorch counterpart yet (T/O/U lines, VBIC, BSIM-CMG) raises
+device has no PyTorch counterpart yet (T/O/U lines, VBIC) raises
 ``NotImplementedError`` naming its ROADMAP item; nothing is bound in its
-place.  S-parameter elements (HSPICE ``S``) read their touchstone file
-into ``circuit.sparam_blocks``, which only the AC and noise analyses
-stamp, and ``.meas``/``.measure`` cards are recorded for
-``analysis/measure.py``.
+place.  ``.scs`` includes (Spectre model decks such as ASAP7's) parse with
+the Spectre grammar of ``frontend/spectre.py``.  S-parameter elements
+(HSPICE ``S``) read their touchstone file into ``circuit.sparam_blocks``,
+which only the AC and noise analyses stamp, and ``.meas``/``.measure``
+cards are recorded for ``analysis/measure.py``.
 """
 
 from __future__ import annotations
@@ -32,12 +33,10 @@ from cedarsim_tpu_torch.devices import (
 from cedarsim_tpu_torch.frontend import parser as P
 from cedarsim_tpu_torch.frontend.expr import eval_expr, ExprError
 
-_A12 = "ROADMAP A12 (BSIM-CMG)"
 _A14B = ("ROADMAP A14b (transmission lines, VBIC, the VA delay, latch "
         "and noise channels)")
 _A19 = "ROADMAP A19 (utilities and API)"
-_A19_STATS = ("ROADMAP A19 (the Spectre front end, which parses "
-              "statistics blocks)")
+_A19_STATS = "ROADMAP A19 (Spectre statistics blocks)"
 
 
 def _unported(what, item):
@@ -211,13 +210,15 @@ class Elaborator:
 
     def _do_include(self, st: P.Include, scope, elements):
         path = self._resolve_file(st.path, st.loc)
-        if path.lower().endswith(".scs"):
-            raise NotImplementedError(
-                f"Spectre-dialect include {path!r}: the Spectre front end "
-                f"is not ported yet — {_A19}")
         with open(path, "r", errors="replace") as f:
             text = f.read()
-        sub = P.SpiceParser(text, file=path, title_line=False).parse()
+        if path.lower().endswith(".scs"):
+            # Spectre-dialect include (e.g. the ASAP7 ``7nm_TT.scs`` model
+            # deck, which carries no ``simulator lang=`` line of its own)
+            from cedarsim_tpu_torch.frontend.spectre import parse_mixed
+            sub = parse_mixed(text, file=path, start_lang="spectre")
+        else:
+            sub = P.SpiceParser(text, file=path, title_line=False).parse()
         stmts = sub.statements
         if st.section is not None:
             sections = {}
@@ -475,8 +476,9 @@ class Elaborator:
                                         polarity)
                 return
             if level in (17.0, 72.0):
-                raise _unported(f"{el.name}: BSIM-CMG (level {level:g})",
-                                _A12)
+                self._instantiate_cmg(el, name, nets, kw, mdl, env, m,
+                                      polarity)
+                return
             if level not in (1.0,):
                 self.warn(f"MOS level {level:g} not built in yet; using "
                           "level 1", el.loc)
@@ -730,6 +732,37 @@ class Elaborator:
             self._apply_bsim4_binning(cls, p, bin_corr)
         if ignored:
             self.warn(f"bsim4 model {el.model!r}: ignoring unsupported "
+                      f"parameter(s) {sorted(set(ignored))}", el.loc)
+        while len(nets) < 4:
+            nets.append(nets[-1])
+        self.ckt.add(cls, name, nets[:4], p, m=m)
+
+    def _instantiate_cmg(self, el, name, nets, kw, mdl, env, m, polarity):
+        """BSIM-CMG FinFET from a ``.model level=17/72`` card or a Spectre
+        ``bsimcmg`` master (e.g. the ASAP7 7nm TT decks).  Card parameters
+        map case-insensitively onto the CMC bsimcmg107 module's parameters;
+        the polarity becomes DEVTYPE (1=n, 0=p).  The 4th SPICE terminal
+        (bulk) lands on the module's substrate node ``e``."""
+        from cedarsim_tpu_torch.models import bsimcmg_class
+        cls = bsimcmg_class()
+        p = {"DEVTYPE": 1.0 if polarity == "nmos" else 0.0}
+        ignored = []
+
+        def take(k, v):
+            actual = cls.param_lower.get(k.lower())
+            if actual is not None:
+                p[actual] = v
+            else:
+                ignored.append(k)
+
+        for k, v in mdl.params.items():
+            if k in ("level", "version", "type"):
+                continue
+            take(k, self.vres(v, env, el.loc))
+        for k, v in kw.items():
+            take(k, v)
+        if ignored:
+            self.warn(f"bsimcmg model {el.model!r}: ignoring unsupported "
                       f"parameter(s) {sorted(set(ignored))}", el.loc)
         while len(nets) < 4:
             nets.append(nets[-1])

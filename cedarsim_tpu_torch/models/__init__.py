@@ -1,11 +1,11 @@
 """Compact models compiled through the port's Verilog-A interpreter
 (counterpart of ``cedarsim_tpu/models/__init__.py``).
 
-``bsim4.va`` here is a byte-for-byte copy of ``cedarsim_tpu/models/
-bsim4.va``, the JAX package's original BSIM4-class model (a test holds the
-two equal, so a fix goes into both).  The port reads no file of the JAX
-package.  Only the BSIM4-class model is ported so far; BSIM-CMG is ROADMAP
-A12 and VBIC is part of A14: their sources come across with those slices.
+``bsim4.va`` and the CMC BSIM-CMG 107 sources in ``bsimcmg107/`` (third
+party, with their own README) are byte-for-byte copies of the JAX
+package's files (a test holds each pair equal, so a fix goes into both).
+The port reads no file of the JAX package.  VBIC is part of ROADMAP A14:
+its source comes across with that slice.
 """
 
 from __future__ import annotations
@@ -15,8 +15,13 @@ import os
 #: the port's own model directory (``cedarsim_tpu_torch/models``)
 MODELS_DIR = os.path.dirname(os.path.abspath(__file__))
 
+#: the CMC BSIM-CMG 107 sources: netlists reach them with
+#: ``.hdl "bsimcmg.va"``, which the elaborator's file resolution finds on
+#: ``MODEL_SEARCH_PATHS``
+BSIMCMG107_DIR = os.path.join(MODELS_DIR, "bsimcmg107")
+
 #: implicit include-path tail searched by the elaborator for model files
-MODEL_SEARCH_PATHS = (MODELS_DIR,)
+MODEL_SEARCH_PATHS = (MODELS_DIR, BSIMCMG107_DIR)
 
 _CACHE: dict = {}
 
@@ -34,4 +39,18 @@ def bsim4_class(rdsmod: int = 0):
         path = os.path.join(MODELS_DIR, "bsim4.va")
         with open(path) as f:
             _CACHE[key] = load_va(f.read(), path, defines=defines)["bsim4"]
+    return _CACHE[key]
+
+
+def bsimcmg_class():
+    """Compile (once per process) and return the CMC BSIM-CMG 107
+    DeviceModel class: the target of ``.model ... level=17/72`` cards and
+    of Spectre ``bsimcmg`` masters (the ASAP7 decks use this path)."""
+    key = ("bsimcmg", ())
+    if key not in _CACHE:
+        from cedarsim_tpu_torch.va.codegen import load_va
+        path = os.path.join(BSIMCMG107_DIR, "bsimcmg.va")
+        with open(path) as f:
+            _CACHE[key] = load_va(f.read(), path,
+                                  include_paths=(BSIMCMG107_DIR,))["bsimcmg"]
     return _CACHE[key]

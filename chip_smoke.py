@@ -15,12 +15,13 @@ card says so.
 2. build   — compiles every CUDA source of the checkout at once, one nvcc
    each: the GESP LU kernels, the pivoting LU kernel and the fused chord
    kernel with the BSIM4 model emitted from the DFF's plan (the DFF is set
-   up on the card first).
+   up on the card first), with the level-1, PVT and BSIM-CMG plans' models
+   (cell G's 32 lanes are set up on the card while nvcc runs).
 3. kernels — the GESP factor (B2) and substitution (B3) bitwise equal to
    their plain PyTorch versions on the card (random, equilibrated,
    diagonally dominant inputs from a fixed numpy seed; n from 8 to 240,
    with B = 8, 16 and 256 at n = 25 (the DFF cells' and the PVT xla
-   run's shapes), n = 32 and 33
+   run's shapes) and B = 32 at n = 85 (cell G's), n = 32 and 33
    on both sides of the factor's one-warp regime and n = 32, 33, 64, 96
    and 122 reaching each of the substitution's rows-per-lane paths; each kernel's two launches bitwise equal); the
    mixed chord solve against float64 ``torch.linalg.solve``; kernel, plain
@@ -170,11 +171,50 @@ card says so.
    (``torch.linalg.lu_factor``/``lu_solve``, float64 [L, 452, 452]) and
    the bound.
 
+20. cmg_fused_kernel — (run after phase 23, once the children have
+   ended) B1 on the CMG plan (the BSIM-CMG 107 walk emitted: 449 hoisted,
+   3,131 walk nodes) against its plain version on cell G's 32 lanes, as
+   phase 6 with the leg's fused options; its device, call and plain times
+   and bound at [32, 85]; emit and nvcc seconds, ptxas's registers, stack
+   and spills; shared memory a lane.
+21. cmg_fused (cell G) — ``bench.py``'s BSIM-CMG DFF leg
+   (``cedarsim_tpu_torch/benchmarks/cmg_dff.py``: ``dff_tb_cmg.cir``, 30
+   BSIM-CMG FinFETs, 85 unknowns, NFIN·``linspace(0.99, 1.01)`` per lane,
+   each lane from its own warm DC) at the JAX package's 32 lanes for it,
+   through the public ``tran()`` with ``newton_impl="fused"`` (the cap
+   form, ``jac_reuse=1``, the leg's tolerances) over 0-700 ns: the golden
+   gate of ``golden_cmg.json`` (the nominal lane within 0.05 V at every
+   point, every lane at 150, 250 and 700 ns), one B1 launch per batched
+   step attempt, no GESP launch, the counts ``CELL_G_FUSED``; then its
+   counts over 0-``G_CPU_TSTOP`` equal to the same call's on the CPU.
+22. cmg_xla (cell G) — the same leg through the chord path with
+   ``dense_lu="auto"``, which on the card is B2/B3 (``jac_shunt=1e-4``,
+   ROADMAP Queue C), over 0-60 ns (``G_XLA_TSTOP``: across the first
+   clock edge, CLKN falling over 50-51.02 ns; over 0-160 ns the 32 lanes
+   in lockstep do not finish in 1,000 s, PERF.md §4): B2 and B3 launched
+   at [32, 85], B1 not; on every lane the latch's clock nodes (cki, ncki)
+   switched with the edge and q, which starts on either rail (the
+   operating point's latch state), at the golden's first level (0 V)
+   after it (``edge_crossed``); the counts ``CELL_G_XLA``; over
+   0-``G_CPU_TSTOP`` the counts equal to the same call's on the CPU
+   (``dense_lu="mixed"``, the kernels' plain versions).
+   Phases 21 and 22 run in two child processes (one an engine, each
+   setting its lanes up on the card) started after phase 8, beside
+   phases 9-18 as phase 19's (every kernel count from 0 in that process
+   just before its run and read just after); their lines are printed
+   from their records once they have ended.
+23. cmg_noise — the reference's BSIM-CMG inverter on the ASAP7 TT Spectre
+   deck (``netlists.CMG_INVERTER_NOISE``) compiled on the card, its noise
+   at q: √PSD within 1e-6 of the ngspice table, the PSD within
+   ``CMG_PSD_RTOL`` of the same call on the CPU, no hand-written kernel
+   launched.
+
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
 the TPU kernel it replaces, launches on its path (B1 in phase 7 and, on
-the level-1 plan, in phase 12, on the PVT plan in phase 15; B2/B3 in phase
-5, in phase 10 and in phase 17; B4/B5 in phase 8; S1/S2 in phase 19,
+the level-1 plan, in phase 12, on the PVT plan in phase 15, on the CMG
+plan in phase 21; B2/B3 in phase 5, in phase 10, in phase 17 and in phase
+22; B4/B5 in phase 8; S1/S2 in phase 19,
 which name no TPU kernel: ``replaces`` is null and ``jax_counterpart`` the
 XLA function they take the place of), error, times and its bound: the
 larger of the
@@ -209,7 +249,7 @@ from cedarsim_tpu_torch.benchmarks import kernel_times as kt  # noqa: E402
 
 DFF_DIR = os.path.join(REPO, "benchmarks", "gf180_dff")
 #: golden tolerance of the DFF benchmark (bench.py GOLDEN_TOL)
-GOLDEN_TOL = 0.05
+GOLDEN_TOL = kt.GOLDEN_TOL
 #: lanes of the transient and the per-lane W scatter (bench.py:217-225)
 N_LANES = kt.N_LANES
 #: cell A's and cell B's step counts over all lanes (accepted, rejected,
@@ -355,7 +395,7 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
     checked = []
     for B, n in [(1, 25), (8, 8), (8, 25), (37, 25), (128, 25),
                  (PVT_XLA_POINTS, 25), (LV1_LANES, 25), (8, 32), (8, 33), (8, 64), (8, 96),
-                 (8, 122), (4, n_max)]:
+                 (8, 122), (CMG_LANES, 85), (4, n_max)]:
         A, b = kt.dominant_systems(rng, B, n)
         A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
         b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
@@ -472,36 +512,9 @@ def dff_setup(torch, T, dev):
     """The DFF testbench compiled on the card, its transient operating
     point and the per-lane warm DC of the W scatter.  Returns (comp, ctx,
     per-lane params, per-lane initial states, golden, set-up seconds)."""
-    with open(os.path.join(DFF_DIR, "golden_bsim4.json")) as f:
-        golden = json.load(f)
     t0 = time.perf_counter()
     comp, ctx, pb, x0 = kt.dff_lanes(torch, T, dev)
-    return comp, ctx, pb, x0, golden, time.perf_counter() - t0
-
-
-def gate_golden(sols, golden, n_x, windows_ns=None):
-    """The benchmark's gate: every lane finished with finite waveforms,
-    the nominal lane within GOLDEN_TOL of every golden point, every lane at
-    the points outside the 401 ns race.  Returns the worst error."""
-    worst, errs = 0.0, []
-    for lane, sol in enumerate(sols):
-        if not sol.converged:
-            raise AssertionError(f"lane {lane} did not finish")
-        if not (np.isfinite(sol.xs).all() and sol.xs.shape[1] == n_x):
-            raise AssertionError(f"lane {lane}: bad waveform")
-        for j, (t_ns, g) in enumerate(zip(golden["samples_ns"],
-                                          golden["q"])):
-            if windows_ns is not None and t_ns not in windows_ns:
-                continue
-            if j in (2, 3) and lane != N_LANES // 2:
-                continue        # the race points gate only the nominal lane
-            err = abs(float(sol.interp("q", t_ns * 1e-9)) - g)
-            worst = max(worst, err)
-            if err > GOLDEN_TOL:
-                errs.append((lane, t_ns, err))
-    if errs:
-        raise AssertionError(f"golden gate failed (lane, ns, err): {errs}")
-    return worst
+    return comp, ctx, pb, x0, kt.golden(T), time.perf_counter() - t0
 
 
 def counts(sols):
@@ -591,8 +604,7 @@ def phase_slice(torch, T, gesp_lu, linalg, dev, dff):
                 "subst": gesp_lu.lu_subst_gesp_f32.launches}
     if min(launches.values()) <= 0:
         raise AssertionError(f"kernels not on the main path: {launches}")
-    worst = gate_golden(sols, golden, comp.n_x, windows_ns=[
-        t for t in golden["samples_ns"] if t * 1e-9 <= tstop])
+    worst = kt.gate_golden(sols, golden, comp.n_x, tstop)
     check_counts("A", sols, CELL_A)
     log("slice", lanes=N_LANES, setup_s=t_setup, wall_s=wall,
         transients_per_s=N_LANES / wall, worst_golden_err=worst,
@@ -838,7 +850,7 @@ def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
     if launches["fused"] != sols[0].n_attempts or launches["fused"] <= 0:
         raise AssertionError(f"fused launches {launches['fused']} != "
                              f"{sols[0].n_attempts} step attempts")
-    worst = gate_golden(sols, golden, comp.n_x)
+    worst = kt.gate_golden(sols, golden, comp.n_x)
     check_counts("B", sols, CELL_B)
     log("fused_slice", lanes=N_LANES,
         setup_s=t_setup + fused_setup["plan_s"] + fused_setup["nvcc_s"],
@@ -1319,6 +1331,256 @@ def phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev):
         card=smi())
 
 
+#: cell G (phases 20-22, ``benchmarks/cmg_dff.py``): ``bench.py``'s
+#: BSIM-CMG DFF leg (85 unknowns) at the JAX package's 32 lanes for it;
+#: G-fused over the leg's 0-700 ns, G-xla over 0-``G_XLA_TSTOP``, across
+#: the first clock edge (CLKN falls over 50-51.02 ns, ``G_EDGE``) but
+#: short of the first golden point (150 ns): its 32 lanes in lockstep take
+#: 284 s on the card over 0-60 ns and had reached only 63 ns after 488 s
+#: of a 0-160 ns run (PERF.md §4), while G-fused takes ~90 s for the whole
+#: leg.  Their counts (accepted, rejected, Newton over all lanes, batched
+#: attempts) on the card; over 0-``G_CPU_TSTOP`` they must equal the same
+#: call's on the CPU (the kernels' plain versions there).  Beyond it the
+#: two part: the card's operating point holds the slave latch at q = 0 V,
+#: the CPU's at VDD, both DC solutions of the latch that CLKN = 1 holds
+#: (ROADMAP C9).
+CMG_LANES = kt.CMG_LANES
+G_XLA_TSTOP = 6e-8
+G_EDGE = (5e-8, 5.102e-8)
+CELL_G_FUSED = (19408, 5569, 91663, 784)
+CELL_G_XLA = (3934, 1461, 39844, 396)
+G_CPU_TSTOP = 2e-9
+#: phase 23: the ASAP7 BSIM-CMG inverter's √PSD against ngspice's table
+#: (the reference's gate, ``tests/test_noise_pdk_goldens.py``) and its PSD
+#: on the card against the CPU's.  The adjoint systems G + jωC reach
+#: cond 2.4e8 there (q sits on its rail), so two correct complex solves of
+#: them part by up to cond·eps = 2.7e-8 and the PSD, |H|², by twice that
+#: (ROADMAP C8: the CPU's torch against the JAX package's LAPACK part by
+#: 3.1e-9)
+CMG_NGSPICE_RTOL = 1e-6
+CMG_PSD_RTOL = 5.4e-8
+#: the ASAP7 7nm TT deck (Spectre ``bsimcmg`` cards) and ngspice's table
+#: of the inverter's noise on it, the repo's test data
+ASAP7_DIR = os.path.join(REPO, "tests", "data", "asap7")
+CMG_NOISE_TABLE = os.path.join(REPO, "tests",
+                               "data_cmg_inverter_noise_ngspice.py")
+
+
+def cmg_noise_table():
+    """(frequencies Hz, ngspice's √PSD V/√Hz) from ``CMG_NOISE_TABLE``,
+    read as data: the literal assigned to ``NGSPICE_CMG_INV_NOISE``."""
+    import ast
+    with open(CMG_NOISE_TABLE) as f:
+        tree = ast.parse(f.read())
+    rows, = [ast.literal_eval(n.value) for n in tree.body
+             if isinstance(n, ast.Assign)
+             and n.targets[0].id == "NGSPICE_CMG_INV_NOISE"]
+    return np.array([r[0] for r in rows]), np.array([r[1] for r in rows])
+
+
+def cmg_setup(torch, T, dev):
+    """Cell G's lanes on the card (``cmg_dff.setup``) and their fused
+    plan: (lanes, set-up s, plan, plan s)."""
+    from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+    from cedarsim_tpu_torch.benchmarks import cmg_dff
+    cmg, setup_s = cmg_dff.setup(device=dev)
+    t0 = time.perf_counter()
+    plan = fused_plan_for(*cmg[:3])
+    return cmg, setup_s, plan, time.perf_counter() - t0
+
+
+def phase_cmg_fused_kernel(torch, T, fc, cmg, plan, t_plan):
+    """Phase 20: B1 on the CMG plan (the BSIM-CMG walk emitted) against
+    its plain version on cell G's 32 lanes, as phase 6 (the leg's fused
+    options, h = 1e-12 and 1e-10); its device, call and plain times and
+    bound at [32, 85]; emit and nvcc seconds, ptxas's lines."""
+    info = plan.build()
+    worst = dict(xn=0.0, S=0.0, Q=0.0)
+    abs_err, nnwt = 0.0, []
+    for h in (1e-12, 1e-10):
+        args, opts = kt.fused_args(torch, T, plan, cmg, h,
+                                   opts=kt.CMG_FUSED_OPTS)
+        k1, err = fused_vs_plain(torch, fc, plan, args, opts,
+                                 f"cmg h={h}", worst)
+        abs_err = max(abs_err, err["xn_abs"])
+        nnwt.append([int(k1[3][:, 1].min()), int(k1[3][:, 1].max())])
+
+    def run():
+        return fc.fused_chord(plan, *args, opts)
+    times = (kt.device_ms(run), kt.call_ms(run, 20),
+             kt.call_ms(lambda: fc.fused_chord_plain(plan, *args, opts), 3))
+    bnd, counted = fused_bound(plan, args, run())
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if any(w in ln for w in ("Function properties", "registers",
+                                      "spill"))]
+    log("cmg_fused_kernel", worst_rel_err=worst, nnwt_min_max=nnwt,
+        ms_device_call_plain=list(times), shape=list(cmg[3].shape),
+        bound_ms=bnd, nodes=counted, n_inst=plan.n_inst,
+        threads=plan.threads, smem_bytes=plan.smem_bytes,
+        smem_limit=plan.smem_limit, fc_max_hoist=plan.max_hoist,
+        plan_s=t_plan, emit_s=info["emit_seconds"],
+        nvcc_s=info["nvcc_seconds"], ptxas=ptxas,
+        header=os.path.relpath(info["path"], REPO))
+    return abs_err, times, bnd
+
+
+def cmg_cpu_counts(T, engine, cmg_cpu, tstop):
+    """Cell G's counts through ``engine`` over 0-``tstop`` on the CPU,
+    from the CPU's own lanes ``cmg_cpu`` (the kernels' plain versions:
+    ``dense_lu="mixed"`` for G-xla)."""
+    from cedarsim_tpu_torch.benchmarks import cmg_dff
+    r = cmg_dff.run(engine, tstop, dff=cmg_cpu,
+                    dense_lu="mixed" if engine == "xla" else None)
+    return (r["accepted"], r["rejected"], r["newton"], r["attempts"])
+
+
+def edge_crossed(T, sols, tstop):
+    """G-xla's gate for a window that crosses the first clock edge
+    (``G_EDGE``) and ends before the first golden point: on every lane the
+    latch's clock nodes start at CLKN = 1's levels (cki at VDD, ncki at 0
+    V) and end at the edge's (cki 0 V, ncki VDD), q starts on a rail (the
+    operating point's latch state, either) and ends at the golden's first
+    level (0 V, which q holds from that edge to 150 ns), all within
+    ``GOLDEN_TOL``.  Returns (the worst error, the lanes whose q started
+    at VDD)."""
+    gold = kt.golden(T, "cmg")
+    vdd, q_after = gold["vdd"], gold["q"][0]
+    if not G_EDGE[1] < tstop < gold["samples_ns"][0] * 1e-9:
+        raise AssertionError(f"G-xla's window 0-{tstop:g} s does not end "
+                             "between the first edge and golden point")
+    worst, high = 0.0, 0
+    for lane, sol in enumerate(sols):
+        (c0, n0, q0), (c1, n1, q1) = [
+            [float(sol.interp(name, t)) for name in ("cki", "ncki", "q")]
+            for t in (0.0, tstop)]
+        high += q0 > vdd / 2
+        errs = (abs(c0 - vdd), abs(n0), abs(c1), abs(n1 - vdd),
+                min(abs(q0), abs(q0 - vdd)), abs(q1 - q_after))
+        if not max(errs) <= GOLDEN_TOL:
+            raise AssertionError(f"G-xla lane {lane}: the clock edge did "
+                                 f"not reach the latch, errors {errs}")
+        worst = max(worst, *errs)
+    return worst, high
+
+
+def cmg_path(T, engine, cmg, plan, cmg_cpu):
+    """Cell G through ``engine`` (phase 21: "fused", phase 22: "xla"):
+    the public ``tran()`` (``cmg_dff.run``, every kernel count from 0 just
+    before the call and read just after), gated on ``golden_cmg.json`` as
+    ``bench.py`` gates it inside the window; G-fused one B1 launch per
+    batched step attempt and no GESP launch, G-xla B2 and B3 launched
+    through ``dense_lu="auto"`` and no B1, and the first clock edge
+    through the latch (``edge_crossed``); the counts recorded for the
+    cell; then the card's counts over 0-``G_CPU_TSTOP`` equal to the
+    CPU's.  Returns the run's record."""
+    from cedarsim_tpu_torch.benchmarks import cmg_dff
+    fused = engine == "fused"
+    tstop = cmg_dff.TSTOP if fused else G_XLA_TSTOP
+    res = cmg_dff.run(engine, tstop, dff=cmg, plan=plan)
+    sols = res.pop("sols")
+    la = res["launches"]
+    if fused:
+        if la["fused"] != res["attempts"] or la["fused"] <= 0 \
+                or la["factor"] or la["subst"]:
+            raise AssertionError(f"G-fused: launches {la}, "
+                                 f"{res['attempts']} step attempts")
+    else:
+        if la["fused"] or min(la["factor"], la["subst"]) <= 0 \
+                or res["dense_lu"] != "mixed":
+            raise AssertionError(f"G-xla: launches {la}, dense_lu "
+                                 f"{res['dense_lu']}")
+        res["edge_err"], res["lanes_q0_at_vdd"] = edge_crossed(T, sols,
+                                                               tstop)
+    check_counts("G-" + engine, sols,
+                 CELL_G_FUSED if fused else CELL_G_XLA)
+    res.pop("ptxas", None)
+    card = cmg_dff.run(engine, G_CPU_TSTOP, dff=cmg, plan=plan)
+    got = (card["accepted"], card["rejected"], card["newton"],
+           card["attempts"])
+    want = cmg_cpu_counts(T, engine, cmg_cpu, G_CPU_TSTOP)
+    if got != want:
+        raise AssertionError(f"cell G {engine} over 0-{G_CPU_TSTOP:g} s: "
+                             f"counts {got} on the card, {want} on the CPU")
+    res["card_equals_cpu_counts"] = dict(tstop=G_CPU_TSTOP, counts=got)
+    return res
+
+
+def cmg_child(engine, out):
+    """``--cmg-child ENGINE OUT``: phase 21 ("fused") or 22 ("xla"),
+    cell G through one engine (``cmg_path``), in a process of its own: the
+    lanes' set-up on the card, the fused plan (its library built by the
+    main process before), the CPU's lanes for the count comparison, then
+    the run; its record saved to OUT (JSON).  Two torch threads, so that
+    its CPU run shares the host with the smoke's other processes; a line
+    to stderr at each step."""
+    import torch
+    import cedarsim_tpu_torch as T
+    from cedarsim_tpu_torch.benchmarks import cmg_dff
+    torch.set_num_threads(2)
+    cmg, setup_s, plan, plan_s = cmg_setup(torch, T, torch.device("cuda", 0))
+    print(f"cmg_{engine}: set up in {setup_s:.1f} s", file=sys.stderr,
+          flush=True)
+    cmg_cpu = cmg_dff.setup(device="cpu")[0]
+    rec = cmg_path(T, engine, cmg, plan, cmg_cpu)
+    rec.update(lanes_setup_s=setup_s, plan_s=plan_s)
+    print(f"cmg_{engine}: done, tran {rec['wall_s']:.1f} s", file=sys.stderr,
+          flush=True)
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_cmg(engine, child):
+    """Phase 21 or 22's line, from its child's record (``cmg_child``);
+    returns the run's launches."""
+    out, waited = join_child(child)
+    with open(out) as f:
+        rec = json.load(f)
+    log("cmg_" + engine, **rec, ran_in_child=True, waited_s=waited)
+    return rec["launches"]
+
+
+def phase_cmg_noise(torch, T, gesp_lu, pivot_lu, fc, dev):
+    """Phase 23: the ASAP7 BSIM-CMG inverter (``netlists.
+    CMG_INVERTER_NOISE``: the Spectre deck through ``elaborate``, compiled
+    on the card) and its noise at q (``ctx`` gmin 1e-15): √PSD within
+    ``CMG_NGSPICE_RTOL`` of ngspice's table, the PSD within
+    ``CMG_PSD_RTOL`` of the same call on the CPU; no hand-written kernel
+    launched."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    counters = (gesp_lu.lu_factor_gesp_f32, gesp_lu.lu_subst_gesp_f32,
+                gesp_lu.lu_solve_gesp_f32, pivot_lu.lu_solve_pivot_f32,
+                fc.fused_chord)
+    for k in counters:
+        k.launches = 0
+    freqs, ref = cmg_noise_table()
+    ctx = T.SimSpec.make(gmin=1e-15)
+    out = []
+    for d in (dev, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comp = T.compile_circuit(T.elaborate(
+            T.parse_spice(netlists.CMG_INVERTER_NOISE),
+            include_paths=[ASAP7_DIR]), device=d)
+        t1 = time.perf_counter()
+        ns = T.noise(comp, "q", freqs, ctx=ctx)
+        torch.cuda.synchronize()
+        out.append((ns.psd, t1 - t0, time.perf_counter() - t1))
+    (psd, setup_s, noise_s), cpu = out
+    ng_err = float(np.max(np.abs(np.sqrt(np.abs(psd)) / ref - 1.0)))
+    cpu_err = float(np.max(np.abs(psd - cpu[0]) / cpu[0]))
+    launches = {k.__name__: k.launches for k in counters}
+    log("cmg_noise", frequencies=len(freqs), ngspice_rel_err=ng_err,
+        ngspice_rtol=CMG_NGSPICE_RTOL, cpu_psd_rel_err=cpu_err,
+        cpu_rtol=CMG_PSD_RTOL, setup_s=setup_s, noise_s=noise_s,
+        cpu_setup_s=cpu[1], cpu_noise_s=cpu[2],
+        launches=launches, card=smi())
+    if any(launches.values()):
+        raise AssertionError(f"a hand-written kernel launched: {launches}")
+    if not (ng_err <= CMG_NGSPICE_RTOL and cpu_err <= CMG_PSD_RTOL):
+        raise AssertionError(f"CMG inverter noise: ngspice {ng_err:.3g}, "
+                             f"card vs CPU {cpu_err:.3g}")
+
+
 #: phase 19: the JAX package's large-circuit transient, the 40-cell BSIM4
 #: shift register (452 unknowns) through the sparse Newton path, and the
 #: sparse DC against the dense one on the card (float64 both)
@@ -1538,41 +1800,52 @@ def sparse_child(out):
     from cedarsim_tpu_torch.ops import fused_chord as fc
     rec, launches, x_op = sparse_main_path(torch, T, gesp_lu, pivot_lu, fc,
                                            torch.device("cuda", 0))
-    np.savez(out, rec=json.dumps(rec), launches=json.dumps(launches),
-             x_op=x_op)
+    with open(out, "wb") as f:
+        np.savez(f, rec=json.dumps(rec), launches=json.dumps(launches),
+                 x_op=x_op)
 
 
-def start_sparse_child():
-    """Phase 19's main path in a child process (``sparse_child``), started
-    after phase 8 so that the chain's transient, host-bound on its own
-    core, runs beside phases 9-18.  Returns (scratch directory, {"19":
-    (output path, stderr file, process)}), as ``start_repeat_children``;
+def start_child(kind, *args):
+    """This script with ``--<kind>-child [ARGS] OUT`` in a child process
+    (phase 19's main path, ``sparse_child``, or cell G's through the
+    engine in ARGS, ``cmg_child``, each started after phase 8),
+    host-bound on its own core beside the main process's phases.  Returns
+    (scratch directory, {name: (output path, stderr file, process)}), the
+    name ``kind`` joined to ARGS by "_", as ``start_repeat_children``;
     ``stop_children`` ends it."""
     import tempfile
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_sparse_")
-    out = os.path.join(tmp, "sparse.npz")
+    name = "_".join((kind,) + args)
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    out = os.path.join(tmp, f"{name}.out")
     err = open(os.path.join(tmp, "stderr.txt"), "w")
     p = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--sparse-child", out],
-        stdout=subprocess.DEVNULL, stderr=err)
-    track_child("sparse", p)
-    return tmp, {"19": (out, err, p)}
+        [sys.executable, os.path.abspath(__file__), f"--{kind}-child",
+         *args, out], stdout=subprocess.DEVNULL, stderr=err)
+    track_child(name, p)
+    return tmp, {name: (out, err, p)}
 
 
-def join_sparse_child(child):
-    """Wait for phase 19's child; returns what ``sparse_main_path`` did."""
+def join_child(child):
+    """Wait for a child of ``start_child``; returns (its output path, the
+    seconds waited), or raises with the end of its stderr if it failed."""
     _, procs = child
-    out, err, p = procs["19"]
+    (kind, (out, err, p)), = procs.items()
     t0 = time.perf_counter()
     p.wait(timeout=1100)
     err.flush()
     if p.returncode != 0:
         with open(err.name) as f:
-            raise AssertionError(f"phase 19's main path failed:\n"
+            raise AssertionError(f"the {kind} child failed:\n"
                                  f"{f.read()[-4000:]}")
-    z = np.load(out)
+    return out, time.perf_counter() - t0
+
+
+def join_sparse_child(child):
+    """Wait for phase 19's child; returns what ``sparse_main_path`` did."""
+    out, waited = join_child(child)
+    z = np.load(out, allow_pickle=False)
     return (json.loads(str(z["rec"])), json.loads(str(z["launches"])),
-            z["x_op"], time.perf_counter() - t0)
+            z["x_op"], waited)
 
 
 def phase_sparse(torch, T, dev, main):
@@ -1911,7 +2184,14 @@ def main():
     th_pvt = build_in_thread("fused_pvt", plan_pvt.build)
     th_pivot = build_in_thread("pivot", pivot_lu.build)
     th_sparse = build_in_thread("sparse", sparse_lu.build)
-    b = gesp_lu.build()
+    th_gesp = build_in_thread("gesp", gesp_lu.build)
+    # cell G's lanes and plan (phase 20 checks B1 on it), while nvcc runs
+    cmg, cmg_setup_s, plan_cmg, t_plan_cmg = cmg_setup(torch, T, dev)
+    th_cmg = build_in_thread("fused_cmg", plan_cmg.build)
+    th_gesp.join()
+    if isinstance(built["gesp"], BaseException):
+        raise built["gesp"]
+    b = built["gesp"]
     th_pivot.join()
     if isinstance(built["pivot"], BaseException):
         raise built["pivot"]
@@ -1922,8 +2202,8 @@ def main():
                           "pivot_lu": built["pivot"]["seconds"]},
         path=[os.path.relpath(b["path"], REPO),
               os.path.relpath(built["pivot"]["path"], REPO)],
-        ptxas=ptxas)
-    children = [None, None]
+        ptxas=ptxas, cmg_setup_s=cmg_setup_s)
+    children = [None, None, None, None]
     try:
         abs_err, times, bounds = phase_kernels(torch, gesp_lu, linalg, dev)
         # the repeat phase's children run beside phases 4-5 from here on,
@@ -1949,7 +2229,14 @@ def main():
         th_sparse.join()
         if isinstance(built["sparse"], BaseException):
             raise built["sparse"]
-        children[1] = start_sparse_child()
+        children[1] = start_child("sparse")
+        # cell G's children (phases 21-22) too, once its fused library is
+        # built (they load it), after phase 8's timings
+        th_cmg.join()
+        if isinstance(built["fused_cmg"], BaseException):
+            raise built["fused_cmg"]
+        children[2] = start_child("cmg", "fused")
+        children[3] = start_child("cmg", "xla")
         phase_lv1_single(torch, T, gesp_lu, dev)
         dl = phase_lv1(torch, T, gesp_lu, fc, lv1, "D", CELL_D,
                        LV1_SHORT_TSTOP,
@@ -1967,7 +2254,12 @@ def main():
         _, pl = phase_pvt(torch, gesp_lu, fc, dev, pvt_state, plan_pvt)
         xl = phase_pvt_xla(torch, gesp_lu, fc, dev)
         phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
+        phase_cmg_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
         main19 = join_sparse_child(children[1])
+        gl = {"fused": phase_cmg("fused", children[2]),
+              "xla": phase_cmg("xla", children[3])}
+        cabs_err, ctimes, cbound = phase_cmg_fused_kernel(
+            torch, T, fc, cmg[:4], plan_cmg, t_plan_cmg)
         labs_err, ltimes, lbounds = phase_lv1_fused_kernel(torch, T, fc, lv1,
                                                            plan_lv1)
         pabs_err, ptimes, pbound = phase_pvt_fused_kernel(torch, T, fc,
@@ -2003,7 +2295,14 @@ def main():
                               "shape": [PVT_POINTS, pvt_state[0].comp.n_x],
                               "device_ms": ptimes[0], "call_ms": ptimes[1],
                               "plain_ms": ptimes[2], "bound_ms": pbound[0],
-                              "bound_by": pbound[1]}),
+                              "bound_by": pbound[1]},
+                         cmg={"model": "BSIM-CMG 107, NFIN per lane",
+                              "launches": gl["fused"]["fused"],
+                              "max_abs_err": cabs_err,
+                              "shape": [CMG_LANES, cmg[0].n_x],
+                              "device_ms": ctimes[0], "call_ms": ctimes[1],
+                              "plain_ms": ctimes[2], "bound_ms": cbound[0],
+                              "bound_by": cbound[1]}),
         ]
         design = {
             "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
@@ -2018,7 +2317,8 @@ def main():
                 f"cedarsim_tpu/ops/pallas_lu.py:{line}",
                 launches[key], *times[key], bounds[key], abs_err[key],
                 shape=[N_LANES, 25], design=design[key],
-                lv1_launches=dl[key], pvt_xla_launches=xl[key]))
+                lv1_launches=dl[key], pvt_xla_launches=xl[key],
+                cmg_xla_launches=gl["xla"][key]))
         for key, name, source, line in (
                 ("gesp", "gesp_solve_f32", src, 164),
                 ("pivot", "pivot_solve_f32",
@@ -2050,5 +2350,7 @@ if __name__ == "__main__":
         repeat_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--sparse-child":
         sparse_child(sys.argv[2])
+    elif len(sys.argv) == 4 and sys.argv[1] == "--cmg-child":
+        cmg_child(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -112,7 +112,6 @@ def test_charge_tangent_is_c_times_v():
 @pytest.mark.parametrize("card, item", [
     ("T1 a 0 b 0 z0=50 td=1n", "A14b"),
     ("O1 a 0 b 0 lmod\n.model lmod ltra r=1 l=1n c=1p len=1", "A14b"),
-    ("M1 a a 0 0 cmod\n.model cmod nmos level=72", "A12"),
     ("Q1 a a 0 qmod\n.model qmod npn level=4", "A14b"),
 ])
 def test_unported_cards_raise(card, item):

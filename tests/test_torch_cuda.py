@@ -8,10 +8,10 @@ which sets JAX up for the other files):
 - Each GESP kernel bitwise equal to its plain PyTorch version on the same
   CUDA tensors (both round each multiply-add of the factor once, each term
   of the substitution twice), with one launch counted per call; the
-  factor (B2) at n in {1, 8, 25, 31, 32, 33, 64, 122, 240} (both regimes
-  and their edge) and B in {1, 8, 37, 256} (256: the level-1 cell D's
-  lanes), the substitution (B3) at n from 1 to 240 (1, 2, 4 and 8 rows per
-  lane) and the same B, each with its
+  factor (B2) at n in {1, 8, 25, 31, 32, 33, 64, 85, 122, 240} (both
+  regimes and their edge) and B in {1, 8, 16, 32, 37, 256} (256: the
+  level-1 cell D's lanes; [32, 85]: cell G's), the substitution (B3) at n
+  from 1 to 240 (1, 2, 4 and 8 rows per lane) and the same B, each with its
   two launches bitwise equal; the factor's zero and tiny negative pivots
   boosted to +-1e-20 on the diagonal, as on the CPU.
 - ``rounding.fma_f32`` on CUDA tensors bitwise C's ``fmaf``.
@@ -33,8 +33,9 @@ which sets JAX up for the other files):
   ``tran(newton_impl="fused")`` launches once per step attempt.
 - The fused chord kernel on the level-1 DFF's plan (the built-in ``Mos1``
   emitted, vto scattered per lane) against its plain version at B in {1,
-  8, 37} lanes, as above; and on the PVT sweep's plan (the BSIM4 DFF, W
-  and the supply per lane) at 16 and 256 lanes.
+  8, 37} lanes, as above; on the PVT sweep's plan (the BSIM4 DFF, W
+  and the supply per lane) at 16 and 256 lanes; and on the CMG plan (the
+  BSIM-CMG DFF of cell G, NFIN per lane) at 1 and 32 lanes.
 - The RC step as one stream under "mixed" takes the exact solve (no GESP
   launch), as the JAX package's unbatched chord pair does.
 - The dense solves B4 (fused GESP, ``gesp_lu.lu_solve_gesp_f32``) and B5
@@ -108,7 +109,8 @@ def _bitwise(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-@pytest.mark.parametrize("B, n", [(1, 25), (8, 25), (37, 25), (8, 64)])
+@pytest.mark.parametrize("B, n", [(1, 25), (8, 25), (37, 25), (8, 64),
+                                  (32, 85)])
 def test_kernels_match_plain(cuda_device, B, n):
     A, b = _systems(B * n, B, n)
     A32 = torch.as_tensor(A, dtype=torch.float32, device=cuda_device)
@@ -126,8 +128,8 @@ def test_kernels_match_plain(cuda_device, B, n):
     assert _bitwise(x_k, x_p)
 
 
-@pytest.mark.parametrize("n", [1, 8, 25, 31, 32, 33, 64, 122, 240])
-@pytest.mark.parametrize("B", [1, 8, 16, 37, 256])
+@pytest.mark.parametrize("n", [1, 8, 25, 31, 32, 33, 64, 85, 122, 240])
+@pytest.mark.parametrize("B", [1, 8, 16, 32, 37, 256])
 def test_factor_kernel_matches_plain(cuda_device, B, n):
     """B2 in both regimes (one warp per system at n <= 32, one block
     above) and at their edge: bitwise its plain version, two launches
@@ -184,8 +186,8 @@ def test_fma_f32_on_the_card_is_libm_fmaf(cuda_device):
         assert same.all(), (kind, int((~same).sum()))
 
 
-@pytest.mark.parametrize("n", [1, 25, 31, 32, 33, 64, 96, 122, 240])
-@pytest.mark.parametrize("B", [1, 8, 16, 37, 256])
+@pytest.mark.parametrize("n", [1, 25, 31, 32, 33, 64, 85, 96, 122, 240])
+@pytest.mark.parametrize("B", [1, 8, 16, 32, 37, 256])
 def test_subst_kernel_matches_plain(cuda_device, B, n):
     A, b = _systems(3 * n + B, B, n)
     A32 = torch.as_tensor(A, dtype=torch.float32, device=cuda_device)
@@ -389,6 +391,19 @@ def test_fused_kernel_matches_plain_pvt(cuda_device, points):
     for h in (1e-12, 1e-10):
         _check_fused_kernel(plan, *kt.fused_args(
             torch, T, plan, (pvt.comp, pvt.ctx, pb, x0), h))
+
+
+@pytest.mark.parametrize("B", [1, 32])
+def test_fused_kernel_matches_plain_cmg(cuda_device, B):
+    """B1 on the CMG plan (the BSIM-CMG walk emitted; cell G's lanes, NFIN
+    per lane) with the leg's fused options, h = 1e-12 and 1e-10."""
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    cmg = kt.dff_lanes(torch, T, cuda_device, lanes=B, leg="cmg")
+    plan = fused_plan_for(*cmg[:3])
+    assert plan.nl_keys == ["VA_bsimcmg"] and plan.n_x == 85
+    for h in (1e-12, 1e-10):
+        _check_fused_kernel(plan, *kt.fused_args(
+            torch, T, plan, cmg, h, opts=kt.CMG_FUSED_OPTS))
 
 
 @pytest.mark.parametrize("which", ["diode", "inverter"])

@@ -9,7 +9,9 @@ own model files, never the JAX package's.
   indexed current card.
 - ``cedarsim_tpu_torch.models.MODELS_DIR`` and every entry of
   ``MODEL_SEARCH_PATHS`` lie inside ``cedarsim_tpu_torch/``, and its
-  ``bsim4.va`` is byte for byte the JAX package's (a fix goes into both).
+  ``bsim4.va``, every file of ``models/bsimcmg107/`` and of
+  ``va/stdlib/`` are byte for byte the JAX package's (a fix goes into
+  both).
 - ``cuda_lib.build_library`` keeps the compiler's log beside a library it
   builds, so a library loaded without a compile still reports ptxas's
   registers and spills.
@@ -122,6 +124,26 @@ def test_bsim4_copy_equals_the_jax_packages():
     assert mine == ref
 
 
+#: the directories the port holds byte for byte: the CMC BSIM-CMG 107
+#: sources and the Verilog-A standard headers
+BYTE_COPY_DIRS = ("models/bsimcmg107", "va/stdlib")
+
+
+@pytest.mark.parametrize("rel", [
+    f"{d}/{name}" for d in BYTE_COPY_DIRS
+    for name in sorted(os.listdir(os.path.join(REPO, "cedarsim_tpu", d)))])
+def test_model_sources_equal_the_jax_packages(rel):
+    """Each file of the copied directories is byte for byte the JAX
+    package's, and each directory holds the same files."""
+    with open(os.path.join(PKG, rel), "rb") as f:
+        mine = f.read()
+    with open(os.path.join(REPO, "cedarsim_tpu", rel), "rb") as f:
+        assert mine == f.read()
+    d = os.path.dirname(rel)
+    assert sorted(os.listdir(os.path.join(PKG, d))) == sorted(
+        os.listdir(os.path.join(REPO, "cedarsim_tpu", d)))
+
+
 def test_native_planner_copy_equals_the_jax_packages():
     with open(os.path.join(PKG, "native", "symbolic.cpp"), "rb") as f:
         mine = f.read()
@@ -190,7 +212,8 @@ def test_build_library_keeps_the_compiler_log(tmp_path, monkeypatch):
 COPIES = ("core/circuit.py", "frontend/parser.py", "frontend/expr.py",
           "frontend/numbers.py", "frontend/touchstone.py",
           "analysis/measure.py", "va/ast.py", "va/diagnostics.py",
-          "va/lexer.py", "va/parser.py", "va/preproc.py", "ops/sparse.py")
+          "va/lexer.py", "va/parser.py", "va/preproc.py", "ops/sparse.py",
+          "frontend/spectre.py")
 
 
 @pytest.mark.parametrize("rel", COPIES)
