@@ -17,7 +17,7 @@ S-parameter blocks (touchstone files, ``frontend/touchstone.py``) add their
 port admittance Y(f), interpolated linearly on their grid and clamped at
 both ends.  The delay and latch stamps of the JAX package's ``_delay_ac``
 serve devices the port does not elaborate yet: a circuit with ring or
-latch sites raises, naming ROADMAP A14b.
+latch sites raises, naming ROADMAP A14b part 3.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from cedarsim_tpu_torch.core.compile import CompiledCircuit, default_ctx
 from cedarsim_tpu_torch.core.context import Modes, SimSpec
 from cedarsim_tpu_torch.ops import linalg
 
-_A14B = "ROADMAP A14b (the delay and latch channels)"
+_A14B = "ROADMAP A14b part 3 (the delay ring and the latch channel)"
 
 
 def _check_no_delay(compiled):

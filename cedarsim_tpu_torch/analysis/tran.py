@@ -49,8 +49,6 @@ from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan, split_lanes)
 from cedarsim_tpu_torch.analysis.dc import NewtonOptions, solve_dc
 
-_A14 = "ROADMAP A14b"
-
 #: step attempts between two host checks of "every lane done"; attempts on
 #: finished lanes are masked no-ops, so this trades at most this many wasted
 #: attempts at the end for fewer host synchronisations
@@ -63,8 +61,13 @@ class TranOptions:
     atol: float = 1e-6
     trtol: float = 7.0
     #: "trap" (trapezoidal with BE starts), "be", "bdf2" (variable-step,
-    #: order 1-2) or "auto": trap for the charge formulation, bdf2 for the
-    #: cap formulation.  bdf3/bdf5 are ROADMAP A14b.
+    #: order 1-2), "bdf3" (the variable-order ladder 1→3: BE on a fresh
+    #: history, BDF2 after one accepted step, BDF3 after two), "bdf5" (the
+    #: ladder 1→5, Lagrange coefficients over the active nodes, a quartic
+    #: predictor from five history points) or "auto": trap for the charge
+    #: formulation, bdf2 for the cap formulation.  The order restarts at
+    #: breakpoints; bdf3/bdf5's cubic and quartic predictors raise the
+    #: error estimate's order one step after the corrector's.
     method: str = "auto"
     max_steps: int = 8192          # output buffer size
     max_newton: int = 12
@@ -284,11 +287,14 @@ def _differential_mask(compiled, x, ctx, params):
 
 
 #: integrator state that makes a transient resumable: the point, the step
-#: size and the three-point history behind the predictor and the BDF2
-#: corrector (``x3``/``t3`` are carried for the JAX package's checkpoint
-#: layout, whose BDF3 reads them); per lane, with a leading lane axis
+#: size and the history behind the predictor and the BDF corrector (the
+#: JAX package's layout); per lane, with a leading lane axis.  A bdf5 run
+#: adds its fifth history point (``BDF5_FIELDS``); a checkpoint without it
+#: seeds it at the third and caps the ladder at order 4, as the JAX package
+#: does on every resume
 CHECKPOINT_FIELDS = ("t", "h", "x", "xdot", "x1", "x2", "x3", "t1", "t2",
                      "t3", "nhist", "errp")
+BDF5_FIELDS = ("x4", "t4")
 
 
 def blank_checkpoint(x, xdot, h0):
@@ -318,6 +324,35 @@ def window_schedules(bps_all, edges):
     L = max(len(w) for w in win)
     return np.stack([np.concatenate([w, np.full(L - len(w), np.inf)])
                      for w in win])
+
+
+def bdf_alphas(ts, h, k):
+    """The order-``k`` BDF coefficients a_j = h·L_j'(ts[0]), j = 0…k, of
+    the Lagrange basis over the nodes ``ts`` (ts[0] the new time, then the
+    history, newest first; [L] tensors), node gaps clamped away from 0 so
+    that a fresh history's lanes stay finite (the order select ignores
+    them).  At uniform spacing they are the textbook BDF values."""
+    tiny = 1e-300
+    out = []
+    for j in range(k + 1):
+        if j == 0:
+            sm = 0.0
+            for m in range(1, k + 1):
+                sm = sm + 1.0 / (ts[0] - ts[m]).clamp(min=tiny)
+            out.append(h * sm)
+            continue
+        num = h
+        for m in range(1, k + 1):
+            if m != j:
+                num = num * (ts[0] - ts[m]).clamp(min=tiny)
+        den = -(ts[0] - ts[j]).clamp(min=tiny)
+        for m in range(1, k + 1):
+            if m != j:
+                dd = ts[j] - ts[m]
+                den = den * (dd.clamp(min=tiny) if m > j
+                             else dd.clamp(max=-tiny))
+        out.append(num / den)
+    return out
 
 
 def _sel(m, a, b):
@@ -372,10 +407,9 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     method = opts.method
     if method == "auto":
         method = "bdf2" if cap_form else "trap"
-    if method in ("bdf3", "bdf5"):
-        raise NotImplementedError(f"method={method!r} is {_A14}")
-    if method not in ("trap", "be", "bdf2"):
-        raise ValueError(f"unknown integration method {method!r}")
+    if method not in ("trap", "be", "bdf2", "bdf3", "bdf5"):
+        raise ValueError(f"unknown integration method {method!r} "
+                         "(trap | be | bdf2 | bdf3 | bdf5)")
     if opts.controller not in ("i", "pi"):
         raise ValueError(f"unknown controller {opts.controller!r}")
     fused = None
@@ -545,6 +579,13 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         nhist=zi, bpi=zi, k=zi, nrej=zi, nnwt=zi, rrun=zi, nfr=zi,
         ok=torch.ones(L, dtype=torch.bool, device=dev),
         errp=torch.ones(L, dtype=dt, device=dev))
+    # the deeper charge history of the higher orders (Qpp at x2, Qppp at
+    # x3, Qpppp at x4) and bdf5's fifth history point
+    if method in ("bdf3", "bdf5"):
+        c.update(Qpp=Q0)
+    if method == "bdf5":
+        c.update(Qppp=Q0, Qpppp=Q0, x4=x0,
+                 t4=torch.full((L,), t0, dtype=dt, device=dev))
     if mn_cross:
         # each lane's cached linearization; jage starts past any age so
         # that the first attempt refreshes, jfail forces a refresh at the
@@ -557,15 +598,33 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     if init_state is not None:
         # step size and predictor history from the checkpoint (t, x and
         # xdot are t0, x0 and xdot0); the charge history at the restored
-        # previous point
-        for f in CHECKPOINT_FIELDS:
+        # previous points
+        deep = method == "bdf5" and all(f in init_state
+                                        for f in BDF5_FIELDS)
+        for f in CHECKPOINT_FIELDS + (BDF5_FIELDS if deep else ()):
             if f in ("t", "x", "xdot") or f not in init_state:
                 continue
             v = torch.as_tensor(
                 init_state[f], device=dev,
                 dtype=torch.int32 if f == "nhist" else dt)
             c[f] = v.expand((L,) + tuple(c[f].shape[1:])).clone()
-        c["Qp"] = compiled.evaluate(c["x1"], ctx_at(c["t1"]), lp)[1]
+
+        def q_at(i):
+            return compiled.evaluate(c[f"x{i}"], ctx_at(c[f"t{i}"]), lp)[1]
+
+        c["Qp"] = q_at(1)
+        if method in ("bdf3", "bdf5"):
+            c["Qpp"] = q_at(2)
+        if method == "bdf5":
+            c["Qppp"] = q_at(3)
+            if deep:
+                c["Qpppp"] = q_at(4)
+            else:
+                # no fifth point: seed it at the third and hold the ladder
+                # at order 4 until the history refills
+                c["Qpppp"] = c["Qppp"]
+                c["x4"], c["t4"] = c["x3"].clone(), c["t3"].clone()
+                c["nhist"] = c["nhist"].clamp(max=3)
     # output rows (accepted points); grown by whole chunks, one spare row
     # at the end receives the masked writes of lanes that did not accept
     rows = 0
@@ -621,6 +680,36 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         x_pred = torch.where((nh >= 2)[:, None], x_quad,
                              torch.where((nh >= 1)[:, None], x_lin, x))
 
+        def ddiv(ta, tb, ya, yb):
+            """(ya − yb)/(ta − tb) where ta > tb, else 0 (a fresh
+            history's degenerate node gap)."""
+            return torch.where((ta > tb)[:, None],
+                               (ya - yb) / (ta - tb).clamp(min=tiny)[:, None],
+                               0.0)
+
+        if method in ("bdf3", "bdf5"):
+            # cubic Newton-polynomial predictor over (t, x) … (t3, x3): one
+            # order above the BDF3 corrector, so the predictor-corrector
+            # difference gauges the h⁴ term
+            t3, x3 = c["t3"], c["x3"]
+            d1c = ddiv(t2, t3, x2, x3)
+            d2b = ddiv(t1, t3, d1b, d1c)
+            d3 = ddiv(t, t3, d2, d2b)
+            x_cub = x_quad + d3 * h_real[:, None] * (t_new - t1)[:, None] \
+                * (t_new - t2)[:, None]
+            x_pred = torch.where((nh >= 3)[:, None], x_cub, x_pred)
+        if method == "bdf5":
+            # the quartic continuation through (t4, x4)
+            t4, x4 = c["t4"], c["x4"]
+            d1d = ddiv(t3, t4, x3, x4)
+            d2c = ddiv(t2, t4, d1c, d1d)
+            d3b = ddiv(t1, t4, d2b, d2c)
+            d4 = ddiv(t, t4, d3, d3b)
+            x_quart = x_cub + (d4 * h_real[:, None] * (t_new - t1)[:, None]
+                               * (t_new - t2)[:, None]
+                               * (t_new - t3)[:, None])
+            x_pred = torch.where((nh >= 4)[:, None], x_quart, x_pred)
+
         use_be = nh == 0
         if method == "bdf2":
             hi = nh >= 1
@@ -629,15 +718,65 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
             a1 = torch.where(hi, -(1.0 + r), -one)
             a2 = torch.where(hi, r * r / (1.0 + r), zero)
             beta = one
+        elif method == "bdf3":
+            # order 1 + min(nhist, 2); uniform h at order 3 gives
+            # (11/6, −3, 3/2, −1/3)
+            hr = h_real
+            e1 = h_real.clamp(min=tiny)                 # t_new − t
+            e2 = (t_new - t1).clamp(min=tiny)
+            e3 = (t_new - t2).clamp(min=tiny)
+            f12 = (t - t1).clamp(min=tiny)
+            f13 = (t - t2).clamp(min=tiny)
+            f23 = (t1 - t2).clamp(min=tiny)
+            o3 = (hr * (1.0 / e1 + 1.0 / e2 + 1.0 / e3),
+                  -hr * e2 * e3 / (e1 * f12 * f13),
+                  hr * e1 * e3 / (e2 * f12 * f23),
+                  -hr * e1 * e2 / (e3 * f13 * f23))
+            o2 = (hr * (1.0 / e1 + 1.0 / e2),
+                  -hr * e2 / (e1 * f12),
+                  hr * e1 / (e2 * f12))
+            hi3, hi2 = nh >= 2, nh >= 1
+            a0 = torch.where(hi3, o3[0], torch.where(hi2, o2[0], one))
+            a1 = torch.where(hi3, o3[1], torch.where(hi2, o2[1], -one))
+            a2 = torch.where(hi3, o3[2], torch.where(hi2, o2[2], zero))
+            a3 = torch.where(hi3, o3[3], zero)
+            beta = one
+        elif method == "bdf5":
+            # order 1 + min(nhist, 4); uniform h at order 5 gives
+            # (137/60, −5, 5, −10/3, 5/4, −1/5)
+            ts_n = (t_new, t, t1, t2, c["t3"], c["t4"])
+            lags = [bdf_alphas(ts_n, h_real, k) + [one * 0.0] * (5 - k)
+                    for k in (1, 2, 3, 4, 5)]
+
+            def pick(j):
+                v = lags[0][j]
+                for ki in (2, 3, 4, 5):
+                    v = torch.where(nh >= ki - 1, lags[ki - 1][j], v)
+                return v
+
+            a0, a1, a2, a3, a4, a5 = (pick(j) for j in range(6))
+            beta = one
         elif method == "be":
             a0, a1, a2, beta = one, -one, zero, one
         else:
             a0, a1, a2 = one, -one, zero
             beta = torch.where(use_be, one, 0.5 * one)
         Qhist = a1[:, None] * c["Qn"] + a2[:, None] * c["Qp"]
+        if method == "bdf3":
+            Qhist = Qhist + a3[:, None] * c["Qpp"]
+        elif method == "bdf5":
+            Qhist = (Qhist + a3[:, None] * c["Qpp"]
+                     + a4[:, None] * c["Qppp"] + a5[:, None] * c["Qpppp"])
         if method == "bdf2":
             c0 = a0
             xdh = a1[:, None] * x + a2[:, None] * x1
+        elif method == "bdf3":
+            c0 = a0
+            xdh = a1[:, None] * x + a2[:, None] * x1 + a3[:, None] * x2
+        elif method == "bdf5":
+            c0 = a0
+            xdh = (a1[:, None] * x + a2[:, None] * x1 + a3[:, None] * x2
+                   + a4[:, None] * c["x3"] + a5[:, None] * c["x4"])
         elif method == "be":
             c0 = one
             xdh = -x
@@ -729,17 +868,37 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         accept = nok & (lte_ok | stalled)
         forced = accept & ~lte_ok
 
-        grow = min(opts.grow, 1.5) if method == "bdf2" else opts.grow
+        # the step-ratio clamps of variable-step BDF's zero stability,
+        # per active order
+        if method == "bdf2":
+            grow = min(opts.grow, 1.5) * one
+        elif method == "bdf3":
+            grow = torch.where(nh >= 2, min(opts.grow, 1.3) * one,
+                               min(opts.grow, 1.5) * one)
+        elif method == "bdf5":
+            grow = torch.where(nh >= 3, min(opts.grow, 1.2) * one,
+                               torch.where(nh >= 2, min(opts.grow, 1.3) * one,
+                                           min(opts.grow, 1.5) * one))
+        else:
+            grow = opts.grow * one
         err_ctl = err
-        p1 = 3.0
+        # order + 1 of the error estimate: h³ with the quadratic predictor,
+        # h⁴ / h⁵ once the cubic / quartic one is active
+        if method == "bdf3":
+            p1 = torch.where(nh >= 3, 4.0 * one, 3.0 * one)
+        elif method == "bdf5":
+            p1 = torch.where(nh >= 4, 5.0 * one,
+                             torch.where(nh >= 3, 4.0 * one, 3.0 * one))
+        else:
+            p1 = 3.0
         if opts.controller == "pi":
             errp = c["errp"].clamp(min=1e-10)
             err_s = err_ctl.clamp(min=1e-10)
             fac_raw = 0.9 * err_s ** (-0.7 / p1) * errp ** (0.4 / p1)
         else:
             fac_raw = 0.9 * err_ctl ** (-1.0 / p1)
-        fac = torch.where(have_lte, fac_raw.clamp(opts.shrink, grow),
-                          2.0 * one)
+        fac = torch.where(have_lte, torch.minimum(
+            fac_raw.clamp(min=opts.shrink), grow), 2.0 * one)
         h_acc = (h_real * fac).clamp(hmin, hmax)
         bpi_acc = torch.searchsorted(bps, t_new + 1e-12 * span,
                                      right=False).to(torch.int32)
@@ -760,6 +919,13 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         if method == "bdf2":
             xdot_n = (a0[:, None] * xn + a1[:, None] * x
                       + a2[:, None] * x1) / h_real[:, None]
+        elif method == "bdf3":
+            xdot_n = (a0[:, None] * xn + a1[:, None] * x + a2[:, None] * x1
+                      + a3[:, None] * x2) / h_real[:, None]
+        elif method == "bdf5":
+            xdot_n = (a0[:, None] * xn + a1[:, None] * x + a2[:, None] * x1
+                      + a3[:, None] * x2 + a4[:, None] * c["x3"]
+                      + a5[:, None] * c["x4"]) / h_real[:, None]
         elif method == "be":
             xdot_n = xdot_be
         else:
@@ -781,10 +947,18 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         xs_b[lanes, row] = proj(xn)
         xd_b[lanes, row] = proj(xdot_n)
         new_nh = torch.where(hit_bp | forced, torch.zeros_like(nh),
-                             (nh + 1).clamp(max=3))
-        cross = {}
+                             (nh + 1).clamp(max=5 if method == "bdf5"
+                                            else 3))
+        more = {}
+        if method in ("bdf3", "bdf5"):
+            more.update(Qpp=_sel(acc, c["Qp"], c["Qpp"]))
+        if method == "bdf5":
+            more.update(Qppp=_sel(acc, c["Qpp"], c["Qppp"]),
+                         Qpppp=_sel(acc, c["Qppp"], c["Qpppp"]),
+                         x4=_sel(acc, c["x3"], c["x4"]),
+                         t4=torch.where(acc, c["t3"], c["t4"]))
         if mn_cross:
-            cross = dict(
+            more.update(
                 Gc=_sel(lv, G, c["Gc"]), Cc=_sel(lv, C, c["Cc"]),
                 jage=torch.where(lv, torch.where(refresh, 1, c["jage"] + 1),
                                  c["jage"]).to(torch.int32),
@@ -792,7 +966,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                 jfail=torch.where(lv, stale_fail | (acc & hit_bp),
                                   c["jfail"]))
         return dict(
-            **cross,
+            **more,
             t=torch.where(acc, t_new, t),
             h=torch.where(lv, torch.where(accept, h_acc, h_rej), h),
             x=_sel(acc, xn, x),
@@ -849,7 +1023,8 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     xs_all = torch.cat([proj(x0)[:, None], xs_all], 1)
     xd_all = torch.cat([proj(xdot0)[:, None], xd_all], 1)
     finished = c["ok"] & (c["t"] >= t_end)
-    final = {f: c[f] for f in CHECKPOINT_FIELDS}
+    final = {f: c[f] for f in CHECKPOINT_FIELDS
+             + (BDF5_FIELDS if method == "bdf5" else ())}
     return (ts_all, xs_all, xd_all, c["k"] + 1, finished, c["nrej"],
             c["nnwt"], n_att, final)
 

@@ -14,9 +14,8 @@ v(out) src dec n f1 f2`` and ``.ac dec|lin n f1 f2``; then every
 transient.  ``mc_seed`` seeds the netlist's ``agauss``-style draws.  A
 netlist without an analysis gets its operating point.  The front ends
 and options that are not ported raise ``NotImplementedError`` naming
-their ROADMAP item; none is skipped: Spectre text and ``alter`` (A19),
-gear orders above 2 (BDF3/BDF5, A14b); ``.save``, ``.probe`` and
-``.data`` raise in the elaborator (A19).
+their ROADMAP item; none is skipped: Spectre text and ``alter`` (A19);
+``.save``, ``.probe`` and ``.data`` raise in the elaborator (A19).
 """
 
 from __future__ import annotations
@@ -33,7 +32,6 @@ from cedarsim_tpu_torch.frontend.elaborate import elaborate
 from cedarsim_tpu_torch.frontend.parser import parse_spice
 
 _A19 = "ROADMAP A19 (front-end breadth: Spectre, alter)"
-_A14B = "ROADMAP A14b (BDF3/BDF5)"
 
 
 def find_tran_directive(circuit):
@@ -77,7 +75,8 @@ def tran_options(circuit):
     """The :class:`TranOptions` a netlist's ``.tran`` and ``.options``
     ask for (the JAX package's rules): the step cap from ``tmax``, or
     near ``tstep`` (at most 5·tstep, at most span/25) without it; ``uic``;
-    ``method=trap``, or ``method=gear`` with ``maxord`` at most 2 (BDF2)."""
+    ``method=trap``, or ``method=gear``: BDF, ``maxord`` 2 (the
+    default) the bdf2 ladder, 3 bdf3, 4 and above the order-5 ladder."""
     d = find_tran_directive(circuit)
     okw = {}
     span = max(d["tstop"] - (d["tstart"] or 0.0), 1e-30)
@@ -93,11 +92,8 @@ def tran_options(circuit):
         okw["method"] = "trap"
     elif m == "gear":
         mo = int(o.get("maxord", 2))
-        if mo > 2:
-            raise NotImplementedError(
-                f".options method=gear maxord={mo} maps to "
-                f"{'bdf3' if mo == 3 else 'bdf5'}, which is {_A14B}")
-        okw["method"] = "bdf2"
+        okw["method"] = ("bdf2" if mo <= 2
+                         else "bdf3" if mo == 3 else "bdf5")
     return TranOptions(**okw)
 
 

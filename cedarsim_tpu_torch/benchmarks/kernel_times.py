@@ -342,12 +342,20 @@ def _repo(T):
     return os.path.dirname(os.path.dirname(os.path.abspath(T.__file__)))
 
 
-def fused_args(torch, T, plan, dff, h, lanes=None, opts=None):
+#: the leading coefficient a0 = 1 + 1/2 + … + 1/k of a uniform-step BDF
+#: corrector of order k (cells E-bdf3 and E-bdf5)
+BDF_A0 = {k: sum(1.0 / j for j in range(1, k + 1)) for k in (3, 5)}
+
+
+def fused_args(torch, T, plan, dff, h, lanes=None, opts=None, order=1):
     """The fused kernel's inputs on the DFF's lanes (all, or the slice
-    ``lanes``): a BE start of step ``h`` from the warm state, the node
-    unknowns perturbed by a seeded 0.05 V so that the chord loop iterates,
-    J = C/h + G + the Jacobian shunt at the predictor; ``opts``: the
-    transient's options (default ``FUSED_OPTS``)."""
+    ``lanes``): a step ``h`` from the warm state, the node unknowns
+    perturbed by a seeded 0.05 V so that the chord loop iterates; a BE
+    start (J = C/h + G + the Jacobian shunt at the predictor), or with
+    ``order`` k a uniform-step BDFk step whose history sits at the warm
+    state (c0 = a0 = ``BDF_A0[k]``, the history combination −a0·x0,
+    J = a0·C/h + G + the shunt); ``opts``: the transient's options
+    (default ``FUSED_OPTS``)."""
     comp, ctx, pb, x0 = dff
     dev = x0.device
     opts = T.TranOptions(**(FUSED_OPTS if opts is None else opts))
@@ -366,10 +374,14 @@ def fused_args(torch, T, plan, dff, h, lanes=None, opts=None):
         (torch.arange(n, device=dev) < nv).to(comp.dtype))
     t = torch.full((L,), h, dtype=comp.dtype, device=dev)
     _, _, G, C = comp.res_jacs_fwd(x_pred, ctx_t.at_time(t), pb)
-    J = C / h + G + shunt
+    if order == 1:
+        J, c0, xdh = C / h + G + shunt, 1.0, -x0
+    else:
+        c0 = BDF_A0[order]
+        J, xdh = c0 * C / h + G + shunt, -c0 * x0
     return plan.inputs(x_pred, J, plan.s_off(t, ctx_t, pb),
-                       torch.ones(L, dtype=comp.dtype, device=dev),
-                       torch.full_like(t, h), -x0, t, pb), opts
+                       torch.full((L,), c0, dtype=comp.dtype, device=dev),
+                       torch.full_like(t, h), xdh, t, pb), opts
 
 
 def measure(torch, T, dev, which="all"):

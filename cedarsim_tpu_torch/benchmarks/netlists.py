@@ -24,6 +24,14 @@ the times at which their waveforms are compared.
   large-circuit workload of the sparse Newton path; 40 BSIM4 cells are
   452 unknowns.  :func:`chain` parses, elaborates and compiles it.
 
+- ``VBIC_AMP``: the reference's bipolar common-emitter amplifier
+  (``tests/test_bipolar_amplifier.py``: BC546B, a 1 mV 500 Hz drive, a
+  100 kΩ load) with Q1 on a VBIC level-4 card mapped from that file's
+  Gummel-Poon card (IBEI = IS/BF, IBCI = IS/BR, RBX = RBM, RBI = RB − RBM,
+  the junction and transit parameters as they are) and self-heating on
+  (RTH 250 K/W, a TO-92 junction to ambient; CTH 1 mJ/K), which puts the
+  thermal node on the switched branch's I side.
+
 The gf180 decks include files of ``DFF_DIR``: pass it in
 ``include_paths``.
 """
@@ -189,3 +197,22 @@ def chain(n_cells: int, models="lv1", sparse="auto", device=None, **kw):
                      file=f"chain{n_cells}_{models}.cir")
     ckt = elaborate(nl, include_paths=[DFF_DIR])
     return compile_circuit(ckt, sparse=sparse, device=device, **kw)
+
+
+VBIC_AMP = """* bipolar common-emitter amplifier, Q1 on VBIC with self-heating
+.model qv npn level=4 is=7.59e-15 ibei=1.581e-17 nei=1 iben=3.278e-15
++ nen=1.2665 ibci=1.518e-15 ibcn=2e-13 ncn=1.2 ikf=0.0962 ikr=0.03
++ vef=73.4 rcx=0.25 rbx=10 rbi=90 re=0.5 cje=1.25e-11 pe=0.65 me=0.55
++ cjc=6.33e-12 pc=0.65 mc=0.33 fc=0.5 tf=4.26e-10 tr=1.5e-7 rth=250
++ cth=1e-3
+RLoad1 out 0 100k
+R2 nb 0 10k
+Q1 nc nb 0 qv
+Vin1 vin 0 dc 0 ac 1 sin(0 1m 500)
+Cin1 vin nb 10u
+VCC1 vcc 0 5
+R1 vcc nb 68k
+Cout1 nc out 10u
+R3 vcc nc 10k
+.end
+"""

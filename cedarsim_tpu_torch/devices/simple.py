@@ -3,7 +3,7 @@ R, C, L, coupled L (K), the V and I sources (DC, PWL, PULSE, SIN, EXP), the
 controlled sources (E, G, H, F), the switches (S, W), the junction diode,
 the open and short circuits and the nonlinear R and C factories.  The
 transmission lines (``TLine``, ``LTRALine``) need the integrator's delay
-channel and are ROADMAP A14b.
+channel and are ROADMAP A14b part 3.
 
 Each ``eval`` is the JAX package's stamp over a batch of instances: ``lv``
 entries are ``[B]`` tensors or Duals, parameters are floats or ``[B]``

@@ -33,8 +33,8 @@ from cedarsim_tpu_torch.devices import (
 from cedarsim_tpu_torch.frontend import parser as P
 from cedarsim_tpu_torch.frontend.expr import eval_expr, ExprError
 
-_A14B = ("ROADMAP A14b (transmission lines, VBIC, the VA delay, latch "
-        "and noise channels)")
+_A14B = ("ROADMAP A14b part 3 (transmission lines, the VA delay ring and "
+        "latch channel)")
 _A19 = "ROADMAP A19 (utilities and API)"
 _A19_STATS = "ROADMAP A19 (Spectre statistics blocks)"
 
@@ -506,7 +506,10 @@ class Elaborator:
             mdl = self._model(el.model, scope, el.loc)
             lvl = self.vres(mdl.params.get("level", 1.0), env, el.loc)
             if mdl.mtype == "vbic" or lvl in (4.0, 9.0):
-                raise _unported(f"{el.name}: VBIC (Q level {lvl:g})", _A14B)
+                # ngspice/hspice select VBIC at BJT level 4 (and 9)
+                self._instantiate_vbic(el, name, nets, kw, mdl, env, m,
+                                       val)
+                return
             p = self._map_params(Bjt, mdl.params, env, el.loc,
                                  rename={"tnom": None, "xtb": None,
                                          "xti": None, "eg": None,
@@ -735,6 +738,46 @@ class Elaborator:
                       f"parameter(s) {sorted(set(ignored))}", el.loc)
         while len(nets) < 4:
             nets.append(nets[-1])
+        self.ckt.add(cls, name, nets[:4], p, m=m)
+
+    def _instantiate_vbic(self, el, name, nets, kw, mdl, env, m, val):
+        """VBIC BJT from a ``.model level=4/9`` card or a Spectre ``vbic``
+        master with ``type=npn/pnp``.  Card parameters map case-
+        insensitively onto the VA module's parameters; unknown names are
+        collected into one warning."""
+        from cedarsim_tpu_torch.models import vbic_class
+        cls = vbic_class()
+        if mdl.mtype == "vbic":
+            ty = mdl.params.get("type")
+            if isinstance(ty, tuple) and ty and ty[0] == "ref":
+                ty = ty[1]
+            npn = not str(ty).lower().startswith("p")
+        else:
+            npn = mdl.mtype != "pnp"
+        p = {"TYPE": 1.0 if npn else -1.0}
+        ignored = []
+        for k, v in mdl.params.items():
+            if k in ("level", "type"):
+                continue
+            actual = cls.param_lower.get(k.lower())
+            if actual is None:
+                ignored.append(k)
+                continue
+            p[actual] = self.vres(v, env, el.loc)
+        for k, v in kw.items():
+            actual = cls.param_lower.get(k.lower())
+            if actual is None:
+                ignored.append(k)
+                continue
+            p[actual] = v
+        area = kw.get("area", val(0, 1.0))
+        if area is not None:
+            p["AREA"] = area
+        if ignored:
+            self.warn(f"vbic model {el.model!r}: ignoring unsupported "
+                      f"parameter(s) {sorted(set(ignored))}", el.loc)
+        while len(nets) < 4:
+            nets.append(GROUND)
         self.ckt.add(cls, name, nets[:4], p, m=m)
 
     def _instantiate_cmg(self, el, name, nets, kw, mdl, env, m, polarity):

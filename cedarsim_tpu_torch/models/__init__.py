@@ -1,11 +1,10 @@
 """Compact models compiled through the port's Verilog-A interpreter
 (counterpart of ``cedarsim_tpu/models/__init__.py``).
 
-``bsim4.va`` and the CMC BSIM-CMG 107 sources in ``bsimcmg107/`` (third
-party, with their own README) are byte-for-byte copies of the JAX
-package's files (a test holds each pair equal, so a fix goes into both).
-The port reads no file of the JAX package.  VBIC is part of ROADMAP A14:
-its source comes across with that slice.
+``bsim4.va``, ``vbic.va`` and the CMC BSIM-CMG 107 sources in
+``bsimcmg107/`` (third party, with their own README) are byte-for-byte
+copies of the JAX package's files (a test holds each pair equal, so a fix
+goes into both).  The port reads no file of the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +38,19 @@ def bsim4_class(rdsmod: int = 0):
         path = os.path.join(MODELS_DIR, "bsim4.va")
         with open(path) as f:
             _CACHE[key] = load_va(f.read(), path, defines=defines)["bsim4"]
+    return _CACHE[key]
+
+
+def vbic_class():
+    """Compile (once per process) and return the VBIC DeviceModel class:
+    the target of BJT ``.model`` cards at level 4 or 9 and of Spectre
+    ``vbic`` masters."""
+    key = ("vbic", ())
+    if key not in _CACHE:
+        from cedarsim_tpu_torch.va.codegen import load_va
+        path = os.path.join(MODELS_DIR, "vbic.va")
+        with open(path) as f:
+            _CACHE[key] = load_va(f.read(), path)["vbic"]
     return _CACHE[key]
 
 

@@ -239,7 +239,8 @@ class FusedChordPlan:
         self.row_ptr_t = it(row_ptr)
         self.ent_slot_t = it([e[0] for e in flat] or [0])
         self.nnz = len(flat)
-        self._ent_kcl = torch.as_tensor([e[1] for e in flat], device=dev)
+        self._ent_kcl = torch.as_tensor([bool(e[1]) for e in flat],
+                                        dtype=torch.bool, device=dev)
         self._ent_inst = torch.as_tensor([e[2] for e in flat],
                                          dtype=torch.int64, device=dev)
         # the kernel also gives each circuit row one thread: the envelope

@@ -31,10 +31,22 @@ Semantics kept from the JAX interpreter:
   zero and its power is not evaluated, so the walk (and the CUDA source
   ``va/emit.py`` records from it) is exactly the one without noise.
 
-Constructs that ``bsim4.va`` does not use — ``ddx``, ``idt``, the analog
-filters and event operators (laplace, absdelay, transition, slew, idtmod,
-zi) and runtime-switched V/I branches — raise ``NotImplementedError``
-naming ROADMAP item A14b.
+- Runtime-switched V/I branches: a branch with both kinds of contribution
+  keeps a current unknown; each contribution sets its mode and discards
+  the other kind's accumulation, and its row is (va − vb) − v_expr in V
+  mode, i_br − i_expr in I mode, selected per evaluation (a mode that
+  folds on the host picks its row there).
+- ``ddx(expr, V(node))``: a third value channel carries the tangent along
+  each probed node through the arithmetic (the partial derivative with
+  the other nodes held), so its local Jacobian, a second derivative,
+  follows from the Dual arithmetic on those expressions.
+- ``idt(arg, ic)``: one state unknown per site after the branch currents;
+  its row pins the state to ``ic`` at the operating point and is
+  −arg + d/dt(y) otherwise.
+
+The analog filters and delay operators (laplace, absdelay, transition,
+slew, idtmod, zi) need the integrator's delay ring and latch channel and
+raise ``NotImplementedError`` naming ROADMAP item A14b part 3.
 """
 
 from __future__ import annotations
@@ -57,17 +69,23 @@ class VACodegenError(ValueError):
     pass
 
 
-_A14 = "ROADMAP A14b (VA analog operators and delay channels)"
+_A14 = ("ROADMAP A14b part 3 (the VA filter and delay operators, with "
+        "the integrator's delay ring and latch channel)")
 
 #: VA calls the port does not interpret yet
 _UNPORTED_CALLS = frozenset((
-    "ddx", "idt", "laplace_nd", "laplace_np", "laplace_zd", "laplace_zp",
-    "absdelay", "transition", "slew", "idtmod", "zi_nd", "zi_np", "zi_zd",
-    "zi_zp"))
+    "laplace_nd", "laplace_np", "laplace_zd", "laplace_zp", "absdelay",
+    "transition", "slew", "idtmod", "zi_nd", "zi_np", "zi_zd", "zi_zp"))
 
 
-# -------------------------------------------------- (static, charge) values
-# Every interpreter value is a (static, charge) pair; charge None = zero.
+# ------------------------------------------- (static, charge, ddx) values
+# Every interpreter value is (static, charge, dtangents): the resistive
+# value, the coefficient of ddt() (None = zero) and, for ``ddx``, a dict
+# probe-node name -> d(static)/dV(probe) (None = no dependence), carried as
+# explicit arithmetic as the JAX interpreter carries it.  The dict keeps
+# the order its keys were made in, so the walk's operations do not depend
+# on the process.  A module without ``ddx`` has no tangents, and then no
+# operation here differs from the two-channel walk.
 
 def _flatten_muldiv(e, num, den):
     """Flatten a */ expression tree into numerator/denominator factor lists
@@ -83,13 +101,27 @@ def _flatten_muldiv(e, num, den):
 
 
 def _pair(v):
-    return v if isinstance(v, tuple) else (v, None)
+    return v if isinstance(v, tuple) else (v, None, None)
+
+
+def _dmerge(da, db, f):
+    if da is None and db is None:
+        return None
+    da, db = da or {}, db or {}
+    return {k: f(da.get(k, 0.0), db.get(k, 0.0))
+            for k in dict.fromkeys([*da, *db])}
+
+
+def _dscale(d, c):
+    if d is None:
+        return None
+    return {k: v * c for k, v in d.items()}
 
 
 def _padd(a, b):
     a, b = _pair(a), _pair(b)
     q = a[1] if b[1] is None else (b[1] if a[1] is None else a[1] + b[1])
-    return (a[0] + b[0], q)
+    return (a[0] + b[0], q, _dmerge(a[2], b[2], lambda x, y: x + y))
 
 
 def _psub(a, b):
@@ -100,12 +132,12 @@ def _psub(a, b):
         q = -b[1]
     else:
         q = a[1] - b[1]
-    return (a[0] - b[0], q)
+    return (a[0] - b[0], q, _dmerge(a[2], b[2], lambda x, y: x - y))
 
 
 def _pneg(a):
     a = _pair(a)
-    return (-a[0], None if a[1] is None else -a[1])
+    return (-a[0], None if a[1] is None else -a[1], _dscale(a[2], -1.0))
 
 
 def _pmul(a, b):
@@ -119,7 +151,9 @@ def _pmul(a, b):
         q = b[1] * a[0]
     else:
         q = None
-    return (a[0] * b[0], q)
+    d = _dmerge(_dscale(a[2], b[0]), _dscale(b[2], a[0]),
+                lambda x, y: x + y)
+    return (a[0] * b[0], q, d)
 
 
 def _pdiv(a, b):
@@ -127,7 +161,14 @@ def _pdiv(a, b):
     if b[1] is not None:
         raise VACodegenError("division by a ddt() expression")
     q = None if a[1] is None else a[1] / b[0]
-    return (a[0] / b[0], q)
+    d = None
+    if a[2] is not None or b[2] is not None:
+        # d(a/b) = da/b − a·db/b² (formed only where a tangent exists: the
+        # walk runs eagerly, so an unused tangent would still cost its ops)
+        d = _dmerge(_dscale(a[2], 1.0 / b[0]),
+                    _dscale(b[2], -a[0] / (b[0] * b[0])),
+                    lambda x, y: x + y)
+    return (a[0] / b[0], q, d)
 
 
 def _scalar(a, what="expression"):
@@ -135,6 +176,12 @@ def _scalar(a, what="expression"):
     if a[1] is not None:
         raise VACodegenError(f"ddt() result used inside nonlinear {what}")
     return a[0]
+
+
+def _dual(a):
+    """(value, dtangents) view of a value."""
+    a = _pair(a)
+    return a[0], a[2]
 
 
 def _concrete(*vs):
@@ -190,6 +237,30 @@ _MATH1 = {
 _MATH2 = {
     "pow": D.safe_pow, "min": D.minimum, "max": D.maximum,
     "atan2": D.atan2, "hypot": D.hypot, "fmod": D.fmod,
+}
+
+#: f -> f' for the ddx tangent's chain rule (the JAX interpreter's
+#: ``_DMATH1``, on values that may be Duals)
+_DMATH1 = {
+    "exp": D.exp,
+    "ln": lambda x: 1.0 / x,
+    "log": lambda x: 1.0 / (x * math.log(10.0)),
+    "log10": lambda x: 1.0 / (x * math.log(10.0)),
+    "sqrt": lambda x: 0.5 / D.sqrt(D.maximum(x, 1e-300)),
+    "abs": D.sign,
+    "limexp": lambda x: D.where(val(x) <= 80.0, D.exp(D.minimum(x, 80.0)),
+                                math.exp(80.0)),
+    "sin": D.cos, "cos": lambda x: -D.sin(x),
+    "tan": lambda x: 1.0 + D.tan(x) * D.tan(x),
+    "asin": lambda x: 1.0 / D.sqrt(D.maximum(1 - x * x, 1e-300)),
+    "acos": lambda x: -1.0 / D.sqrt(D.maximum(1 - x * x, 1e-300)),
+    "atan": lambda x: 1.0 / (1 + x * x),
+    "sinh": D.cosh, "cosh": D.sinh,
+    "tanh": lambda x: 1.0 - D.tanh(x) * D.tanh(x),
+    "asinh": lambda x: 1.0 / D.sqrt(x * x + 1),
+    "acosh": lambda x: 1.0 / D.sqrt(D.maximum(x * x - 1, 1e-300)),
+    "atanh": lambda x: 1.0 / D.maximum(1 - x * x, 1e-300),
+    "floor": lambda x: 0.0, "ceil": lambda x: 0.0,
 }
 
 
@@ -289,9 +360,22 @@ def make_device(module: Module, strict_ranges=False):
                 f"module {module.name}: {e[1]}() is not ported to the "
                 f"PyTorch VA interpreter yet — {_A14}")
 
+    ddx_probes = []        # node names probed by ddx(expr, V(node))
+    for e in _all_exprs(module):
+        if e[0] == "call" and e[1] == "ddx" and len(e[2]) == 2:
+            acc = e[2][1]
+            if acc[0] == "call" and acc[1] == "V" and len(acc[2]) == 1 \
+                    and acc[2][0][0] == "ref":
+                if acc[2][0][1] not in ddx_probes:
+                    ddx_probes.append(acc[2][0][1])
+            else:
+                raise VACodegenError(
+                    f"module {module.name}: ddx() supports single-node "
+                    "V(node) probes")
     v_branches = []        # ordered (a, b) pairs with any V contribution
     i_branches = set()
     noise_sites = []
+    idt_sites = []
     for st in _walk_stmts(module.analog):
         if st[0] == "contrib":
             kind, a, b = st[1]
@@ -303,15 +387,17 @@ def make_device(module: Module, strict_ranges=False):
                     v_branches.append(key)
             else:
                 i_branches.add(key)
-    if any(key in i_branches for key in v_branches):
-        raise NotImplementedError(
-            f"module {module.name}: runtime-switched V/I branches are not "
-            f"ported yet — {_A14}")
+    # a branch with both kinds of contribution is runtime-switched: it
+    # keeps a current unknown and its row selects the active constraint
+    switch_branches = frozenset(k for k in v_branches if k in i_branches)
     for e in _all_exprs(module):
         if e[0] == "call" and e[1] in ("white_noise", "flicker_noise",
                                         "noise_table"):
             if not any(x is e for x in noise_sites):
                 noise_sites.append(e)
+        if e[0] == "call" and e[1] == "idt":
+            if not any(x is e for x in idt_sites):
+                idt_sites.append(e)
 
     pdefaults = {}
     porder = []
@@ -335,12 +421,14 @@ def make_device(module: Module, strict_ranges=False):
                     enumerate(v_branches)}
 
     interp = _Interp(module, node_index, branch_index, named_branch,
-                     n_nodes_local, len(v_branches), noise_sites)
+                     n_nodes_local, len(v_branches), noise_sites,
+                     ddx_probes, idt_sites, switch_branches)
 
     class VADevice(DeviceModel):
         terminals = tuple(ports)
         n_internal = len(internal)
-        n_branch = len(v_branches)
+        #: a current unknown per V branch, then a state per idt site
+        n_branch = len(v_branches) + len(idt_sites)
         n_noise = len(noise_sites)
         params = {}
         given_params = ()
@@ -523,9 +611,14 @@ _CONSTS = {"M_PI": math.pi, "M_E": math.e, "M_SQRT2": math.sqrt(2),
 
 class _Interp:
     def __init__(self, module, node_index, branch_index, named_branch,
-                 n_nodes_local, n_vbranch, noise_sites):
+                 n_nodes_local, n_vbranch, noise_sites, ddx_probes=(),
+                 idt_sites=(), switch_branches=frozenset()):
         self.module = module
         self.noise_site_ids = {id(e): k for k, e in enumerate(noise_sites)}
+        self.ddx_probes = tuple(ddx_probes)
+        self.idt_site_ids = {id(e): k for k, e in enumerate(idt_sites)}
+        self.n_idt = len(idt_sites)
+        self.switch_branches = switch_branches
         self.node_index = node_index
         self.branch_index = branch_index
         self.named_branch = named_branch
@@ -541,7 +634,7 @@ class _Interp:
         env = {}
         for stmt in self.module.analog:
             st.stmt(stmt, env)
-        n_rows = self.n_nodes + self.n_vbranch
+        n_rows = self.n_nodes + self.n_vbranch + self.n_idt
         static = [0.0] * n_rows
         dynamic = [0.0] * n_rows
 
@@ -555,10 +648,47 @@ class _Interp:
         for key, value in env.items():
             if not isinstance(key, tuple):
                 continue
+            if key[0] == "IDT":
+                # idt state y: pinned to its ic at the operating point (an
+                # integrator has no DC solution otherwise), else the row
+                # −arg + d/dt(y)
+                row = self.n_nodes + self.n_vbranch + key[1]
+                arg, icval = value
+                if ctx.mode in (Modes.DCOP, Modes.TRANOP):
+                    add_row(row, lv[row] - icval, None)
+                else:
+                    add_row(row, -_pair(arg)[0], lv[row])
+                continue
             kind, a, b = key
-            s, q = _pair(value)
+            if kind == "Vact" or (kind == "I"
+                                  and (a, b) in self.switch_branches):
+                continue          # a switched branch's I: with its V below
+            s, q, _ = _pair(value)
             ia = self.node_index[a]
             ib = self.node_index[b] if b is not None else -1
+            if kind == "V" and (a, b) in self.switch_branches:
+                # V mode: (va − vb) − v_expr = 0, I mode: i_br − i_expr = 0
+                bidx = self.branch_index[(a, b)]
+                ibr = lv[bidx]
+                add_row(ia, ibr, None)
+                add_row(ib, -ibr, None)
+                va = lv[ia] if ia >= 0 else 0.0
+                vb = lv[ib] if ib >= 0 else 0.0
+                act = _pair(env.get(("Vact", a, b), 0.0))[0]
+                i_s, i_q, _ = _pair(env.get(("I", a, b), 0.0))
+                qv = 0.0 if q is None else -q
+                qi = 0.0 if i_q is None else -i_q
+                if _concrete(act):
+                    # the mode folded on the host (a test on static params)
+                    v_mode = float(act) != 0.0
+                    add_row(bidx, (va - vb) - s if v_mode else ibr - i_s,
+                            qv if v_mode else qi)
+                else:
+                    on = val(act) != 0
+                    add_row(bidx, _where(on, (va - vb) - s, ibr - i_s,
+                                         st.dtype),
+                            _where(on, qv, qi, st.dtype))
+                continue
             if kind == "I":
                 add_row(ia, s, q)
                 add_row(ib, -s, None if q is None else -q)
@@ -611,9 +741,23 @@ class _State:
             kind, a, b = st[1]
             if a in self.it.named_branch:
                 a, b = self.it.named_branch[a]
-            v = _pair(self.expr(st[2], env))
+            s_, q_, _ = _pair(self.expr(st[2], env))
+            v = (s_, q_, None)         # contributions drop ddx tangents
+            if (a, b) in self.it.switch_branches:
+                # a contribution of one kind discards the other kind's
+                # accumulation, and sets the branch's mode
+                vk, ik = ("V", a, b), ("I", a, b)
+                if kind == "V":
+                    env[vk] = _padd(env.get(vk, (self.zero, None, None)), v)
+                    env[ik] = (self.zero, None, None)
+                    env[("Vact", a, b)] = 1.0
+                else:
+                    env[ik] = _padd(env.get(ik, (self.zero, None, None)), v)
+                    env[vk] = (self.zero, None, None)
+                    env[("Vact", a, b)] = 0.0
+                return
             key = (kind, a, b)
-            env[key] = _padd(env.get(key, (self.zero, None)), v)
+            env[key] = _padd(env.get(key, (self.zero, None, None)), v)
             return
         if k == "if":
             cond = _scalar(self.expr(st[1], env), "condition")
@@ -741,12 +885,16 @@ class _State:
         the order in which ``run`` sums it into its rows, so the bits of a
         model evaluation do not depend on the process."""
         for k in dict.fromkeys([*env_t, *env_f]):
-            base = env.get(k, (self.zero, None))
+            base = env.get(k, (self.zero, None, None))
             tv = env_t.get(k, base)
             fv = env_f.get(k, base)
             if tv is fv:
                 env[k] = tv
                 continue
+            if isinstance(k, tuple) and k[0] == "IDT":
+                raise VACodegenError(
+                    f"{self.it.module.name}: idt() under a condition on "
+                    "an unknown")
             a, b = _pair(tv), _pair(fv)
             s = a[0] if a[0] is b[0] else _where(cond, a[0], b[0],
                                                  self.dtype)
@@ -758,7 +906,9 @@ class _State:
                 qa = self.zero if a[1] is None else a[1]
                 qb = self.zero if b[1] is None else b[1]
                 q = _where(cond, qa, qb, self.dtype)
-            env[k] = (s, q)
+            d = _dmerge(a[2], b[2], lambda x, y: x if x is y else
+                        _where(cond, x, y, self.dtype))
+            env[k] = (s, q, d)
 
     # ----------------------------------------------------------- expressions
 
@@ -801,7 +951,9 @@ class _State:
                 qa = self.zero if a[1] is None else a[1]
                 qb = self.zero if b[1] is None else b[1]
                 q = _where(cb, qa, qb, self.dtype)
-            return (s, q)
+            d = _dmerge(a[2], b[2],
+                        lambda x, y: _where(cb, x, y, self.dtype))
+            return (s, q, d)
         if k == "call":
             return self._callexpr(e[1], e[2], env, node=e)
         raise VACodegenError(f"unhandled expression {e!r}")
@@ -853,10 +1005,20 @@ class _State:
         if op == "/":
             return _pdiv(a, b)
         if op == "**":
-            va, vb = _scalar(a, "'**'"), _scalar(b, "'**'")
-            if _concrete(va, vb):
+            (va, da), (vb, db) = _dual(a), _dual(b)
+            _scalar(a, "'**'"), _scalar(b, "'**'")
+            if _concrete(va, vb) and da is None and db is None:
                 return _host_binop(op, float(va), float(vb))
-            return D.safe_pow(va, vb)
+            out = D.safe_pow(va, vb)
+            if da is None and db is None:
+                return out
+            d1 = _dscale(da, vb * D.safe_pow(va, vb - 1.0))
+            d2 = None
+            if db is not None:
+                pos = val(va) > 0
+                d2 = _dscale(db, D.where(pos, D.log(D.where(pos, va, 1.0))
+                                         * out, 0.0))
+            return (out, None, _dmerge(d1, d2, lambda x, y: x + y))
         sa, sb = _scalar(a, f"'{op}'"), _scalar(b, f"'{op}'")
         if _concrete(sa, sb):
             return _host_binop(op, float(sa), float(sb))
@@ -900,6 +1062,8 @@ class _State:
             a = self._node_v(args[0][1])
             if len(args) > 1:
                 return a - self._node_v(args[1][1])
+            if args[0][1] in it.ddx_probes:
+                return (a, None, {args[0][1]: 1.0})
             return a
         if name == "I":
             nm = args[0][1] if args[0][0] == "ref" else None
@@ -912,7 +1076,23 @@ class _State:
                 "with V<+ contributions")
         if name == "ddt":
             v = _scalar(self.expr(args[0], env), "ddt argument")
-            return (self.zero, v)
+            return (self.zero, v, None)
+        if name == "ddx":
+            # the partial derivative along V(probe), the other nodes held:
+            # the probe tangent carried through the expression
+            _, d = _dual(self.expr(args[0], env))
+            probe = args[1][2][0][1]
+            if d is None or probe not in d:
+                return self.zero
+            return d[probe]
+        if name == "idt":
+            # one state unknown per site (its row is written by ``run``)
+            k = it.idt_site_ids[id(node)]
+            arg = self.expr(args[0], env)
+            icval = (_scalar(self.expr(args[1], env)) if len(args) > 1
+                     else self.zero)
+            env[("IDT", k)] = (arg, icval)
+            return self.lv[it.n_nodes + it.n_vbranch + k]
         if name in ("white_noise", "flicker_noise"):
             if self.eps is None:
                 # no noise analysis: the input is zero and its power unused
@@ -976,10 +1156,15 @@ class _State:
         if name in ("$port_connected",):
             return 1.0
         if name in _MATH1:
-            v = _scalar(self.expr(args[0], env), name)
-            if _concrete(v):
+            raw = self.expr(args[0], env)
+            v, d = _dual(raw)
+            _scalar(raw, name)
+            if _concrete(v) and d is None:
                 return _HOST_MATH1[name](float(v))
-            return _MATH1[name](v)
+            out = _MATH1[name](v)
+            if d is not None:
+                return (out, None, _dscale(d, _DMATH1[name](v)))
+            return out
         if name in _MATH2:
             v1 = _scalar(self.expr(args[0], env), name)
             v2 = _scalar(self.expr(args[1], env), name)

@@ -52,7 +52,8 @@ import torch
 
 from cedarsim_tpu_torch.core.dual import Dual
 
-_A14 = "ROADMAP A14b"
+_A21 = ("ROADMAP A21 (constructs the emitted walk does not take yet: "
+        "integer and bitwise arithmetic, point-list params)")
 
 #: C preamble of every emitted header: ``__host__ __device__`` compile away
 #: off nvcc (the host build of the tests), and NaN-propagating min/max
@@ -180,7 +181,7 @@ class _Sym(torch.Tensor):
                     if isinstance(a, _Sym)), None)
         if rec is None:
             raise NotImplementedError(f"emit: torch.{name} on nested "
-                                      f"operands ({_A14})")
+                                      f"operands ({_A21})")
         return _record(rec, name, args, kwargs)
 
 
@@ -194,7 +195,7 @@ def _lit(a):
         if flat.numel() == 0 or not bool((flat == flat[0]).all()):
             raise NotImplementedError(
                 "emit: a non-uniform constant tensor reached the model walk "
-                f"(point-list params are {_A14})")
+                f"(point-list params are {_A21})")
         v = flat[0].item()
         return bool(v) if a.dtype == torch.bool else float(v)
     if isinstance(a, bool):
@@ -221,7 +222,7 @@ def _record(rec, name, args, kwargs):
         if dt == torch.bool:
             return x if x._kind == "b" else rec.node("tobool", (x,), "b")
         raise NotImplementedError(
-            f"emit: cast to {dt} (integer VA arithmetic is {_A14})")
+            f"emit: cast to {dt} (integer VA arithmetic is {_A21})")
     if name in ("full_like", "ones_like", "zeros_like"):
         dt = kwargs.get("dtype") or args[0].dtype
         v = {"ones_like": 1.0, "zeros_like": 0.0}.get(name)
@@ -251,7 +252,7 @@ def _record(rec, name, args, kwargs):
         kind = "b" if op == "not" else "d"
         if op == "not" and _kind(args[0]) != "b":
             raise NotImplementedError(
-                f"emit: bitwise not of a number ({_A14})")
+                f"emit: bitwise not of a number ({_A21})")
         return rec.node(op, (_lit(args[0]),), kind)
     if name in _TORCH_BIN and len(args) == 2 and not kwargs:
         op = _TORCH_BIN[name]
@@ -260,12 +261,12 @@ def _record(rec, name, args, kwargs):
             op, a, b = op[1:], b, a
         if op in ("and", "or") and not (_kind(a) == _kind(b) == "b"):
             raise NotImplementedError(
-                f"emit: bitwise '{op}' of numbers ({_A14})")
+                f"emit: bitwise '{op}' of numbers ({_A21})")
         kind = "b" if op in _BOOL_OPS else "d"
         return rec.node(op, (a, b), kind)
     raise NotImplementedError(
         f"emit: torch.{name} in a model walk has no device-code form yet "
-        f"({_A14})")
+        f"({_A21})")
 
 
 def _c_lit(v):
@@ -314,7 +315,7 @@ def emit_group(compiled, key, ctx):
         if isinstance(pt, torch.Tensor):
             raise NotImplementedError(
                 f"emit: group {key!r} has a point-list static param "
-                f"({_A14})")
+                f"({_A21})")
     for k, pn in enumerate(dyn_names(compiled, key)):
         p[pn] = rec.node("in", ("dyn", k), "d")
     ctx_e = ctx.at_time(rec.node("in", ("t",), "d"))

@@ -15,8 +15,9 @@ card says so.
 2. build   — compiles every CUDA source of the checkout at once, one nvcc
    each: the GESP LU kernels, the pivoting LU kernel and the fused chord
    kernel with the BSIM4 model emitted from the DFF's plan (the DFF is set
-   up on the card first), with the level-1, PVT and BSIM-CMG plans' models
-   (cell G's 32 lanes are set up on the card while nvcc runs).
+   up on the card first), with the level-1, PVT, BSIM-CMG and VBIC plans'
+   models (cells G's and V's 32 lanes are set up on the card while nvcc
+   runs).
 3. kernels — the GESP factor (B2) and substitution (B3) bitwise equal to
    their plain PyTorch versions on the card (random, equilibrated,
    diagonally dominant inputs from a fixed numpy seed; n from 8 to 240,
@@ -208,13 +209,52 @@ card says so.
    at q: √PSD within 1e-6 of the ngspice table, the PSD within
    ``CMG_PSD_RTOL`` of the same call on the CPU, no hand-written kernel
    launched.
+24. vbic_fused_kernel — (run after phase 20) B1 on the VBIC plan (the
+   VBIC walk emitted, its thermal node on the switched branch's I side)
+   against its plain version on cell V's 32 lanes, as phase 20 with cell
+   V's fused options (h = 1e-6 and 1e-4); its device, call and plain times
+   and bound at [32, 12]; emit and nvcc seconds, ptxas's registers and
+   spills.
+25. vbic_fused (cell V) — the reference's bipolar amplifier on a VBIC
+   card with self-heating (``benchmarks/vbic_amp.py``: 12 unknowns, AREA
+   ·``linspace(0.99, 1.01)`` per lane, ``gmin=1e-12``) at 32 lanes over
+   0-6 ms through ``newton_impl="fused"`` (``kernel_times.FUSED_OPTS``):
+   on every lane the output's amplitude over 4-6 ms within 25 % of |AC
+   gain at 500 Hz| × 1 mV (the gain from ``ac`` on the card at the lane's
+   operating point), one B1 launch per batched step attempt, no GESP
+   launch, the counts ``CELL_V_FUSED``; then its counts over
+   0-``V_CPU_TSTOP`` equal to the same call's on the CPU.
+26. vbic_xla (cell V) — the same through the chord path with
+   ``dense_lu="auto"`` (B2/B3 at [32, 12]) and the Jacobian-only shunt of
+   the other chord-path cells (1e-9: the thermal node's KCL row has no
+   diagonal, ROADMAP Queue C), the counts ``CELL_V_XLA``, and over
+   0-``V_CPU_TSTOP`` the CPU's (``dense_lu="mixed"``).
+27. vbic_noise — the amplifier (one stream) compiled on the card, its
+   noise at out over 10 Hz-10 MHz (VBIC's shot, flicker and resistor
+   thermal sites, which B1 does not run): the PSD positive and within
+   2·cond·eps of the same call on the CPU, cond the largest condition
+   number of G + jωC at the CPU's operating point over the frequencies; no
+   hand-written kernel launched.
+28-29. lv1_bdf3, lv1_bdf5 (cells E-bdf3, E-bdf5) — cell E (the level-1
+   DFF, 256 lanes, B1 on the ``Mos1`` plan, cell B's options) with
+   ``method="bdf3"`` and ``"bdf5"`` over 0-700 ns: the level-1 gate on
+   every lane, one B1 launch per batched step attempt, the counts
+   ``CELL_E_BDF3``/``CELL_E_BDF5``, and over 0-``E_BDF_CPU_TSTOP`` the
+   counts of the same call on the CPU.  Phase 11 also holds B1 at a
+   uniform-step BDF3 and BDF5 start (its leading coefficient and history
+   combination) against its plain version and times it at [256, 25].
+   Phases 25-29 run in one child process (``a14b_child``: first the CPU's
+   side of their count comparisons, from the CPU's own lanes, then the
+   card's runs) started after phase 8 beside cell G's; their lines are
+   printed from its record once it has ended.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
 the TPU kernel it replaces, launches on its path (B1 in phase 7 and, on
-the level-1 plan, in phase 12, on the PVT plan in phase 15, on the CMG
-plan in phase 21; B2/B3 in phase 5, in phase 10, in phase 17 and in phase
-22; B4/B5 in phase 8; S1/S2 in phase 19,
+the level-1 plan, in phase 12 and at bdf3/bdf5 in phases 28-29, on the
+PVT plan in phase 15, on the CMG plan in phase 21, on the VBIC plan in
+phase 25; B2/B3 in phase 5, in phase 10, in phase 17, in phase 22 and in
+phase 26; B4/B5 in phase 8; S1/S2 in phase 19,
 which name no TPU kernel: ``replaces`` is null and ``jax_counterpart`` the
 XLA function they take the place of), error, times and its bound: the
 larger of the
@@ -910,12 +950,15 @@ def phase_lv1_single(torch, T, gesp_lu, dev):
         **counts([sol]), attempts=sol.n_attempts, card=smi())
 
 
-def lv1_run(torch, T, gesp_lu, fc, lv1, cell, tstop):
+def lv1_run(torch, T, gesp_lu, fc, lv1, cell, tstop, method=None):
     """Cell D or E over 0-tstop through the public tran, with the kernels'
-    launches counted from 0.  Returns (solutions, launches, wall s)."""
+    launches counted from 0 (``method``: the integrator, else the cell's
+    own).  Returns (solutions, launches, wall s)."""
     comp, ctx, pb, x0 = lv1[:4]
-    opts = T.TranOptions(**(kt.LV1_XLA_OPTS if cell == "D"
-                            else kt.LV1_FUSED_OPTS))
+    opts = dict(kt.LV1_XLA_OPTS if cell == "D" else kt.LV1_FUSED_OPTS)
+    if method is not None:
+        opts["method"] = method
+    opts = T.TranOptions(**opts)
     fc.fused_chord.launches = 0
     gesp_lu.lu_factor_gesp_f32.launches = 0
     gesp_lu.lu_subst_gesp_f32.launches = 0
@@ -985,16 +1028,25 @@ def phase_lv1_fused_kernel(torch, T, fc, lv1, plan):
         nnwt.append([int(k1[3][:, 1].min()), int(k1[3][:, 1].max())])
     times, bounds = {}, {}
     n = lv1[0].n_x
-    for B in (LV1_LANES, N_LANES):
+    # the BE start at 256 and 8 lanes, and uniform-step BDF3 and BDF5
+    # starts (cells E-bdf3, E-bdf5) at 256, each against its plain version
+    for B, order in ((LV1_LANES, 1), (N_LANES, 1), (LV1_LANES, 3),
+                     (LV1_LANES, 5)):
         args, opts = kt.fused_args(torch, T, plan, lv1[:4], 1e-12,
-                                   lanes=slice(0, B))
+                                   lanes=slice(0, B), order=order)
+        key = B if order == 1 else f"bdf{order}"
+        if order > 1:
+            k1, err = fused_vs_plain(torch, fc, plan, args, opts,
+                                     f"lv1 bdf{order}", worst)
+            abs_err = max(abs_err, err["xn_abs"])
+            nnwt.append([int(k1[3][:, 1].min()), int(k1[3][:, 1].max())])
 
         def run(a=args):
             return fc.fused_chord(plan, *a, opts)
-        times[B] = (kt.device_ms(run), kt.call_ms(run, 50),
-                    kt.call_ms(lambda a=args: fc.fused_chord_plain(
-                        plan, *a, opts), 5))
-        bounds[B], counted = fused_bound(plan, args, run())
+        times[key] = (kt.device_ms(run), kt.call_ms(run, 50),
+                      kt.call_ms(lambda a=args: fc.fused_chord_plain(
+                          plan, *a, opts), 5))
+        bounds[key], counted = fused_bound(plan, args, run())
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if any(w in ln for w in ("Function properties", "registers",
                                       "spill"))]
@@ -1345,6 +1397,19 @@ def phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev):
 #: the CPU's at VDD, both DC solutions of the latch that CLKN = 1 holds
 #: (ROADMAP C9).
 CMG_LANES = kt.CMG_LANES
+#: cell V (phases 24-27): the card's counts over the whole window
+#: (accepted, rejected, Newton, attempts over all lanes), and the window
+#: over which they equal the CPU's
+CELL_V_FUSED = (2368, 704, 7192, 96)
+CELL_V_XLA = (4320, 1231, 12142, 176)
+V_CPU_TSTOP = 2e-4
+#: the amplifier's noise analysis (phase 27): 10 Hz-10 MHz, 10 a decade
+V_NOISE_FREQS = np.logspace(1.0, 7.0, 61)
+#: cells E-bdf3 and E-bdf5 (phases 28-29) over 0-700 ns, and the window
+#: over which their counts equal the CPU's
+CELL_E_BDF3 = (168739, 26553, 472628, 768)
+CELL_E_BDF5 = (224014, 26352, 574998, 984)
+E_BDF_CPU_TSTOP = 2e-9
 G_XLA_TSTOP = 6e-8
 G_EDGE = (5e-8, 5.102e-8)
 CELL_G_FUSED = (19408, 5569, 91663, 784)
@@ -1579,6 +1644,232 @@ def phase_cmg_noise(torch, T, gesp_lu, pivot_lu, fc, dev):
     if not (ng_err <= CMG_NGSPICE_RTOL and cpu_err <= CMG_PSD_RTOL):
         raise AssertionError(f"CMG inverter noise: ngspice {ng_err:.3g}, "
                              f"card vs CPU {cpu_err:.3g}")
+
+
+def vbic_setup(torch, T, dev):
+    """Cell V's lanes on the card (``vbic_amp.setup``) and their fused
+    plan: (lanes, set-up s, plan, plan s)."""
+    from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+    from cedarsim_tpu_torch.benchmarks import vbic_amp
+    amp, setup_s = vbic_amp.setup(device=dev)
+    t0 = time.perf_counter()
+    plan = fused_plan_for(*amp[:3])
+    return amp, setup_s, plan, time.perf_counter() - t0
+
+
+def phase_vbic_fused_kernel(torch, T, fc, amp, plan, t_plan):
+    """Phase 24: B1 on the VBIC plan against its plain version on cell V's
+    32 lanes (cell V's fused options, h = 1e-6 and 1e-4); its device, call
+    and plain times and bound at [32, 12]; emit and nvcc seconds, ptxas's
+    lines."""
+    info = plan.build()
+    worst = dict(xn=0.0, S=0.0, Q=0.0)
+    abs_err, nnwt = 0.0, []
+    for h in (1e-6, 1e-4):
+        args, opts = kt.fused_args(torch, T, plan, amp[:4], h)
+        k1, err = fused_vs_plain(torch, fc, plan, args, opts,
+                                 f"vbic h={h}", worst)
+        abs_err = max(abs_err, err["xn_abs"])
+        nnwt.append([int(k1[3][:, 1].min()), int(k1[3][:, 1].max())])
+
+    def run():
+        return fc.fused_chord(plan, *args, opts)
+    times = (kt.device_ms(run), kt.call_ms(run, 50),
+             kt.call_ms(lambda: fc.fused_chord_plain(plan, *args, opts), 5))
+    bnd, counted = fused_bound(plan, args, run())
+    ptxas = [ln.strip() for ln in info["log"].splitlines()
+             if any(w in ln for w in ("Function properties", "registers",
+                                      "spill"))]
+    log("vbic_fused_kernel", worst_rel_err=worst, nnwt_min_max=nnwt,
+        ms_device_call_plain=list(times), shape=list(amp[3].shape),
+        bound_ms=bnd, nodes=counted, n_inst=plan.n_inst,
+        threads=plan.threads, smem_bytes=plan.smem_bytes, plan_s=t_plan,
+        emit_s=info["emit_seconds"], nvcc_s=info["nvcc_seconds"],
+        ptxas=ptxas, header=os.path.relpath(info["path"], REPO))
+    return abs_err, times, bnd
+
+
+def vbic_path(T, engine, amp, plan, cpu_counts):
+    """Phases 25 ("fused") and 26 ("xla"): cell V through ``engine``, the
+    public ``tran()`` (``vbic_amp.run``, every kernel count from 0 just
+    before the call and read just after) over 0-6 ms, gated on every lane
+    (``vbic_amp.gate``), V-fused one B1 launch per batched step attempt
+    and no GESP launch, V-xla B2 and B3 launched through ``dense_lu=
+    "auto"`` and no B1; the counts recorded for the cell; then the card's
+    counts over 0-``V_CPU_TSTOP`` equal to the CPU's (``cpu_counts``).
+    Returns the run's record."""
+    from cedarsim_tpu_torch.benchmarks import vbic_amp
+    fused = engine == "fused"
+    res = vbic_amp.run(engine, vbic_amp.TSTOP, amp=amp, plan=plan)
+    sols = res.pop("sols")
+    la = res["launches"]
+    if fused:
+        if la["fused"] != res["attempts"] or la["fused"] <= 0 \
+                or la["factor"] or la["subst"]:
+            raise AssertionError(f"V-fused: launches {la}, "
+                                 f"{res['attempts']} step attempts")
+    elif la["fused"] or min(la["factor"], la["subst"]) <= 0 \
+            or res["dense_lu"] != "mixed":
+        raise AssertionError(f"V-xla: launches {la}, dense_lu "
+                             f"{res['dense_lu']}")
+    check_counts("V-" + engine, sols, CELL_V_FUSED if fused else CELL_V_XLA)
+    r = vbic_amp.run(engine, V_CPU_TSTOP, amp=amp, plan=plan)
+    got = [r["accepted"], r["rejected"], r["newton"], r["attempts"]]
+    want = cpu_counts["V-" + engine]
+    if got != want:
+        raise AssertionError(f"cell V {engine} over 0-{V_CPU_TSTOP:g} s: "
+                             f"counts {got} on the card, {want} on the CPU")
+    res["card_equals_cpu_counts"] = dict(tstop=V_CPU_TSTOP, counts=got)
+    return res
+
+
+def vbic_noise(torch, T, gesp_lu, pivot_lu, fc, dev):
+    """Phase 27: the amplifier (one stream) compiled on the card and on the
+    CPU, its noise at out over ``V_NOISE_FREQS``: the PSD finite and
+    positive, and the card's within 2·cond·eps of the CPU's (cond: the
+    largest condition number of G + jωC at the CPU's operating point over
+    the frequencies); no hand-written kernel launched.  Returns its
+    record."""
+    from cedarsim_tpu_torch.benchmarks import netlists, vbic_amp
+    counters = (gesp_lu.lu_factor_gesp_f32, gesp_lu.lu_subst_gesp_f32,
+                gesp_lu.lu_solve_gesp_f32, pivot_lu.lu_solve_pivot_f32,
+                fc.fused_chord)
+    for k in counters:
+        k.launches = 0
+    ctx = T.SimSpec.make(gmin=vbic_amp.GMIN)
+    out = []
+    for d in (dev, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comp = T.compile_circuit(T.elaborate(
+            T.parse_spice(netlists.VBIC_AMP)), device=d)
+        t1 = time.perf_counter()
+        ns = T.noise(comp, "out", V_NOISE_FREQS, ctx=ctx)
+        torch.cuda.synchronize()
+        out.append((np.asarray(ns.psd), t1 - t0,
+                    time.perf_counter() - t1, comp))
+    (psd, setup_s, noise_s, _), (cpu, cpu_setup_s, cpu_noise_s, comp) = out
+    op = T.solve_dc(comp, ctx=ctx)
+    _, _, G, C = comp.res_jacs_fwd(op.x, ctx.with_mode("dcop"))
+    w = torch.as_tensor(2 * np.pi * V_NOISE_FREQS, dtype=torch.complex128)
+    A = G.to(torch.complex128)[None] + 1j * w[:, None, None] \
+        * C.to(torch.complex128)[None]
+    cond = float(torch.linalg.cond(A).abs().max())
+    rtol = 2.0 * cond * 2.0 ** -53
+    err = float(np.max(np.abs(psd - cpu) / cpu))
+    launches = {k.__name__: k.launches for k in counters}
+    if any(launches.values()):
+        raise AssertionError(f"a hand-written kernel launched: {launches}")
+    if not (np.isfinite(psd).all() and (psd > 0).all() and err <= rtol):
+        raise AssertionError(f"amplifier noise: card vs CPU {err:.3g} "
+                             f"(bound {rtol:.3g})")
+    return dict(frequencies=len(V_NOISE_FREQS), cpu_psd_rel_err=err,
+                rtol=rtol, cond=cond,
+                psd_min_max=[float(psd.min()), float(psd.max())],
+                setup_s=setup_s, noise_s=noise_s, cpu_setup_s=cpu_setup_s,
+                cpu_noise_s=cpu_noise_s, launches=launches, card=smi())
+
+
+def lv1_bdf_counts(T, lv1, method, tstop=E_BDF_CPU_TSTOP):
+    """Cell E-``method``'s counts over 0-``tstop`` on ``lv1``'s lanes:
+    [accepted, rejected, Newton, attempts]."""
+    comp, ctx, pb, x0 = lv1[:4]
+    s = T.tran(comp, (0.0, tstop), params=pb, ctx=ctx,
+               opts=T.TranOptions(**dict(kt.LV1_FUSED_OPTS, method=method)),
+               x0=x0)
+    c = counts(s)
+    return [c["accepted"], c["rejected"], c["newton"], s[0].n_attempts]
+
+
+def lv1_bdf_path(torch, T, gesp_lu, fc, lv1, cpu_counts, method, want):
+    """Phases 28 ("bdf3") and 29 ("bdf5"): cell E with ``method`` over
+    0-700 ns, gated on every lane (``gate_lv1``), one B1 launch per batched
+    step attempt, its counts held to ``want``; then its counts over
+    0-``E_BDF_CPU_TSTOP`` equal to the CPU's (``cpu_counts``).  Returns
+    its record."""
+    sols, launches, wall = lv1_run(torch, T, gesp_lu, fc, lv1, "E",
+                                   LV1_TSTOP, method=method)
+    worst = gate_lv1(sols, LV1_TSTOP)
+    check_counts("E-" + method, sols, want)
+    got = lv1_bdf_counts(T, lv1, method)
+    if got != cpu_counts["E-" + method]:
+        raise AssertionError(f"cell E-{method} over 0-{E_BDF_CPU_TSTOP:g} "
+                             f"s: counts {got} on the card, "
+                             f"{cpu_counts['E-' + method]} on the CPU")
+    return dict(cell="E-" + method, tstop=LV1_TSTOP, lanes=len(sols),
+                wall_s=wall, transients_per_s=len(sols) / wall,
+                worst_gate_err=worst, **counts(sols),
+                attempts=sols[0].n_attempts, launches=launches,
+                card_equals_cpu_counts=dict(tstop=E_BDF_CPU_TSTOP,
+                                            counts=got), card=smi())
+
+
+def a14b_child(out):
+    """``--a14b-child OUT``: phases 25-29 in a process of its own (two
+    torch threads), started after phase 8 as cell G's are.  First the
+    CPU's side of their count comparisons, from the CPU's own lanes: cell
+    V's counts over 0-``V_CPU_TSTOP`` through each engine
+    (``dense_lu="mixed"`` for V-xla: the kernels' plain versions) and
+    cells E-bdf3/E-bdf5's over 0-``E_BDF_CPU_TSTOP``; then on the card
+    cell V's lanes and plan (its library built by the main process
+    before), V-fused, V-xla, the amplifier's noise, and cells E-bdf3 and
+    E-bdf5 on the level-1 lanes.  Each phase's record, with the seconds
+    the set-ups took, saved to OUT (JSON); a line to stderr at each
+    step."""
+    import torch
+    import cedarsim_tpu_torch as T
+    from cedarsim_tpu_torch.benchmarks import vbic_amp
+    from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu
+    from cedarsim_tpu_torch.ops import fused_chord as fc
+    torch.set_num_threads(2)
+    dev = torch.device("cuda", 0)
+
+    def say(what):
+        print(f"a14b: {what}", file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    amp_cpu = vbic_amp.setup(device="cpu")[0]
+    cpu_counts = {}
+    for engine in ("fused", "xla"):
+        r = vbic_amp.run(engine, V_CPU_TSTOP, amp=amp_cpu,
+                         dense_lu=None if engine == "fused" else "mixed")
+        cpu_counts["V-" + engine] = [r["accepted"], r["rejected"],
+                                     r["newton"], r["attempts"]]
+    lv1_cpu = kt.lv1_lanes(torch, T, torch.device("cpu"))
+    for method in ("bdf3", "bdf5"):
+        cpu_counts["E-" + method] = lv1_bdf_counts(T, lv1_cpu, method)
+    rec = dict(cpu_counts=cpu_counts, cpu_s=time.perf_counter() - t0)
+    say(f"CPU counts in {rec['cpu_s']:.1f} s")
+    amp, rec["vbic_setup_s"], plan, rec["vbic_plan_s"] = vbic_setup(
+        torch, T, dev)
+    for engine in ("fused", "xla"):
+        rec["vbic_" + engine] = vbic_path(T, engine, amp, plan, cpu_counts)
+        say(f"V-{engine} done")
+    rec["vbic_noise"] = vbic_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
+    t0 = time.perf_counter()
+    lv1 = kt.lv1_lanes(torch, T, dev)
+    rec["lv1_setup_s"] = time.perf_counter() - t0
+    for method, want in (("bdf3", CELL_E_BDF3), ("bdf5", CELL_E_BDF5)):
+        rec["lv1_" + method] = lv1_bdf_path(torch, T, gesp_lu, fc, lv1,
+                                            cpu_counts, method, want)
+        say(f"E-{method} done")
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_a14b(child):
+    """Phases 25-29's lines, from their child's record (``a14b_child``);
+    returns (V's launches by engine, E-bdf's by method)."""
+    out, waited = join_child(child)
+    with open(out) as f:
+        rec = json.load(f)
+    log("a14b_setup", cpu_counts=rec["cpu_counts"], cpu_s=rec["cpu_s"],
+        vbic_setup_s=rec["vbic_setup_s"], vbic_plan_s=rec["vbic_plan_s"],
+        lv1_setup_s=rec["lv1_setup_s"], ran_in_child=True, waited_s=waited)
+    for phase in ("vbic_fused", "vbic_xla", "vbic_noise", "lv1_bdf3",
+                  "lv1_bdf5"):
+        log(phase, **rec[phase], ran_in_child=True)
+    return ({e: rec["vbic_" + e]["launches"] for e in ("fused", "xla")},
+            {m: rec["lv1_" + m]["launches"] for m in ("bdf3", "bdf5")})
 
 
 #: phase 19: the JAX package's large-circuit transient, the 40-cell BSIM4
@@ -2188,6 +2479,11 @@ def main():
     # cell G's lanes and plan (phase 20 checks B1 on it), while nvcc runs
     cmg, cmg_setup_s, plan_cmg, t_plan_cmg = cmg_setup(torch, T, dev)
     th_cmg = build_in_thread("fused_cmg", plan_cmg.build)
+    # cell V's lanes and plan (phase 24 checks B1 on it, phases 25-26 in
+    # a child load its library)
+    from cedarsim_tpu_torch.benchmarks import vbic_amp
+    amp, amp_setup_s, plan_vbic, t_plan_vbic = vbic_setup(torch, T, dev)
+    th_vbic = build_in_thread("fused_vbic", plan_vbic.build)
     th_gesp.join()
     if isinstance(built["gesp"], BaseException):
         raise built["gesp"]
@@ -2202,8 +2498,8 @@ def main():
                           "pivot_lu": built["pivot"]["seconds"]},
         path=[os.path.relpath(b["path"], REPO),
               os.path.relpath(built["pivot"]["path"], REPO)],
-        ptxas=ptxas, cmg_setup_s=cmg_setup_s)
-    children = [None, None, None, None]
+        ptxas=ptxas, cmg_setup_s=cmg_setup_s, vbic_setup_s=amp_setup_s)
+    children = [None, None, None, None, None]
     try:
         abs_err, times, bounds = phase_kernels(torch, gesp_lu, linalg, dev)
         # the repeat phase's children run beside phases 4-5 from here on,
@@ -2237,6 +2533,12 @@ def main():
             raise built["fused_cmg"]
         children[2] = start_child("cmg", "fused")
         children[3] = start_child("cmg", "xla")
+        # phases 25-29 too, once the VBIC and level-1 libraries are built
+        for th, name in ((th_vbic, "fused_vbic"), (th_lv1, "fused_lv1")):
+            th.join()
+            if isinstance(built[name], BaseException):
+                raise built[name]
+        children[4] = start_child("a14b")
         phase_lv1_single(torch, T, gesp_lu, dev)
         dl = phase_lv1(torch, T, gesp_lu, fc, lv1, "D", CELL_D,
                        LV1_SHORT_TSTOP,
@@ -2255,11 +2557,14 @@ def main():
         xl = phase_pvt_xla(torch, gesp_lu, fc, dev)
         phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
         phase_cmg_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
+        vl, bl = phase_a14b(children[4])
         main19 = join_sparse_child(children[1])
         gl = {"fused": phase_cmg("fused", children[2]),
               "xla": phase_cmg("xla", children[3])}
         cabs_err, ctimes, cbound = phase_cmg_fused_kernel(
             torch, T, fc, cmg[:4], plan_cmg, t_plan_cmg)
+        vabs_err, vtimes, vbound = phase_vbic_fused_kernel(
+            torch, T, fc, amp, plan_vbic, t_plan_vbic)
         labs_err, ltimes, lbounds = phase_lv1_fused_kernel(torch, T, fc, lv1,
                                                            plan_lv1)
         pabs_err, ptimes, pbound = phase_pvt_fused_kernel(torch, T, fc,
@@ -2270,7 +2575,8 @@ def main():
         n1 = lv1[0].n_x
 
         def lv1_entry(B):
-            return {"shape": [B, n1], "device_ms": ltimes[B][0],
+            shape = [B if isinstance(B, int) else LV1_LANES, n1]
+            return {"shape": shape, "device_ms": ltimes[B][0],
                     "call_ms": ltimes[B][1], "plain_ms": ltimes[B][2],
                     "bound_ms": lbounds[B][0], "bound_by": lbounds[B][1]}
         kernels = [
@@ -2289,7 +2595,11 @@ def main():
                                    "bound_by": fbounds["B1'"][1]},
                          lv1={"model": "Mos1", "launches": el["fused"],
                               "max_abs_err": labs_err, **lv1_entry(LV1_LANES),
-                              "eight_lanes": lv1_entry(N_LANES)},
+                              "eight_lanes": lv1_entry(N_LANES),
+                              "bdf3": {"launches": bl["bdf3"]["fused"],
+                                       **lv1_entry("bdf3")},
+                              "bdf5": {"launches": bl["bdf5"]["fused"],
+                                       **lv1_entry("bdf5")}},
                          pvt={"model": "BSIM4, W and VDD per lane",
                               "launches": pl["fused"], "max_abs_err": pabs_err,
                               "shape": [PVT_POINTS, pvt_state[0].comp.n_x],
@@ -2302,7 +2612,15 @@ def main():
                               "shape": [CMG_LANES, cmg[0].n_x],
                               "device_ms": ctimes[0], "call_ms": ctimes[1],
                               "plain_ms": ctimes[2], "bound_ms": cbound[0],
-                              "bound_by": cbound[1]}),
+                              "bound_by": cbound[1]},
+                         vbic={"model": "VBIC with self-heating, AREA per "
+                                        "lane",
+                               "launches": vl["fused"]["fused"],
+                               "max_abs_err": vabs_err,
+                               "shape": [vbic_amp.LANES, amp[0].n_x],
+                               "device_ms": vtimes[0], "call_ms": vtimes[1],
+                               "plain_ms": vtimes[2], "bound_ms": vbound[0],
+                               "bound_by": vbound[1]}),
         ]
         design = {
             "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
@@ -2318,7 +2636,8 @@ def main():
                 launches[key], *times[key], bounds[key], abs_err[key],
                 shape=[N_LANES, 25], design=design[key],
                 lv1_launches=dl[key], pvt_xla_launches=xl[key],
-                cmg_xla_launches=gl["xla"][key]))
+                cmg_xla_launches=gl["xla"][key],
+                vbic_xla_launches=vl["xla"][key]))
         for key, name, source, line in (
                 ("gesp", "gesp_solve_f32", src, 164),
                 ("pivot", "pivot_solve_f32",
@@ -2352,5 +2671,7 @@ if __name__ == "__main__":
         sparse_child(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "--cmg-child":
         cmg_child(sys.argv[2], sys.argv[3])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--a14b-child":
+        a14b_child(sys.argv[2])
     else:
         main()

@@ -112,7 +112,7 @@ def test_charge_tangent_is_c_times_v():
 @pytest.mark.parametrize("card, item", [
     ("T1 a 0 b 0 z0=50 td=1n", "A14b"),
     ("O1 a 0 b 0 lmod\n.model lmod ltra r=1 l=1n c=1p len=1", "A14b"),
-    ("Q1 a a 0 qmod\n.model qmod npn level=4", "A14b"),
+    ("U1 a b 0 umod\n.model umod urc k=1", "A14b part 3"),
 ])
 def test_unported_cards_raise(card, item):
     text = f"* unported\nV1 a 0 1.0\nR1 a 0 1k\n{card}\n.end\n"

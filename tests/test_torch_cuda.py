@@ -35,7 +35,9 @@ which sets JAX up for the other files):
   emitted, vto scattered per lane) against its plain version at B in {1,
   8, 37} lanes, as above; on the PVT sweep's plan (the BSIM4 DFF, W
   and the supply per lane) at 16 and 256 lanes; and on the CMG plan (the
-  BSIM-CMG DFF of cell G, NFIN per lane) at 1 and 32 lanes.
+  BSIM-CMG DFF of cell G, NFIN per lane) at 1 and 32 lanes; on the VBIC
+  plan (cell V's amplifier, AREA per lane) at 1 and 32 lanes; on the
+  level-1 plan at a uniform-step BDF3 and BDF5 start.
 - The RC step as one stream under "mixed" takes the exact solve (no GESP
   launch), as the JAX package's unbatched chord pair does.
 - The dense solves B4 (fused GESP, ``gesp_lu.lu_solve_gesp_f32``) and B5
@@ -404,6 +406,31 @@ def test_fused_kernel_matches_plain_cmg(cuda_device, B):
     for h in (1e-12, 1e-10):
         _check_fused_kernel(plan, *kt.fused_args(
             torch, T, plan, cmg, h, opts=kt.CMG_FUSED_OPTS))
+
+
+@pytest.mark.parametrize("B", [1, 32])
+def test_fused_kernel_matches_plain_vbic(cuda_device, B):
+    """B1 on the VBIC plan (cell V's amplifier, AREA per lane, the thermal
+    node on the switched branch) with cell V's fused options, h = 1e-6
+    and 1e-4."""
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt, vbic_amp
+    amp = vbic_amp.setup(lanes=B, device=cuda_device)[0]
+    plan = fused_plan_for(*amp[:3])
+    assert plan.nl_keys == ["VA_vbic"] and plan.n_x == 12
+    for h in (1e-6, 1e-4):
+        _check_fused_kernel(plan, *kt.fused_args(torch, T, plan, amp[:4], h))
+
+
+@pytest.mark.parametrize("order", [3, 5])
+def test_fused_kernel_matches_plain_bdf_start(cuda_device, order):
+    """B1 on the level-1 plan at a uniform-step BDF3/BDF5 start (its
+    leading coefficient and history combination, as cells E-bdf3 and
+    E-bdf5 give it) at 37 lanes."""
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    lv1 = kt.lv1_lanes(torch, T, cuda_device, lanes=37)
+    plan = fused_plan_for(*lv1[:3])
+    _check_fused_kernel(plan, *kt.fused_args(torch, T, plan, lv1, 1e-12,
+                                             order=order))
 
 
 @pytest.mark.parametrize("which", ["diode", "inverter"])

@@ -14,7 +14,7 @@ port's eager model walk.
 - The text and its hash do not depend on the walk's order: emitting twice
   gives the same hash, in this process and under another hash seed.
 - A construct bsim4.va does not use (integer bitwise arithmetic) raises
-  ``NotImplementedError`` naming ROADMAP A14b.
+  ``NotImplementedError`` naming ROADMAP A21.
 - The built-in models' walks (``Mos1`` of the level-1 DFF with vto per
   instance, ``Diode`` and ``Bjt``) emit, build on the host and match the
   eager walk per instance (no scatter) within 1e-12 of each entry, at
@@ -292,7 +292,7 @@ endmodule
     ckt.add(dev, "B1", (a, ckt.gnd), {})
     comp = T.compile_circuit(ckt, device="cpu")
     key = [k for k in comp.group_order if "bits" in k][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A21"):
         emit.emit_group(comp, key, T.SimSpec.make().with_mode("tran"))
 
 

@@ -9,7 +9,7 @@ own model files, never the JAX package's.
   indexed current card.
 - ``cedarsim_tpu_torch.models.MODELS_DIR`` and every entry of
   ``MODEL_SEARCH_PATHS`` lie inside ``cedarsim_tpu_torch/``, and its
-  ``bsim4.va``, every file of ``models/bsimcmg107/`` and of
+  ``bsim4.va``, ``vbic.va``, every file of ``models/bsimcmg107/`` and of
   ``va/stdlib/`` are byte for byte the JAX package's (a fix goes into
   both).
 - ``cuda_lib.build_library`` keeps the compiler's log beside a library it
@@ -127,21 +127,25 @@ def test_bsim4_copy_equals_the_jax_packages():
 #: the directories the port holds byte for byte: the CMC BSIM-CMG 107
 #: sources and the Verilog-A standard headers
 BYTE_COPY_DIRS = ("models/bsimcmg107", "va/stdlib")
+#: single model sources the port holds byte for byte
+BYTE_COPY_FILES = ("models/vbic.va",)
 
 
 @pytest.mark.parametrize("rel", [
     f"{d}/{name}" for d in BYTE_COPY_DIRS
-    for name in sorted(os.listdir(os.path.join(REPO, "cedarsim_tpu", d)))])
+    for name in sorted(os.listdir(os.path.join(REPO, "cedarsim_tpu", d)))]
+    + list(BYTE_COPY_FILES))
 def test_model_sources_equal_the_jax_packages(rel):
-    """Each file of the copied directories is byte for byte the JAX
-    package's, and each directory holds the same files."""
+    """Each copied file is byte for byte the JAX package's, and each
+    copied directory holds the same files."""
     with open(os.path.join(PKG, rel), "rb") as f:
         mine = f.read()
     with open(os.path.join(REPO, "cedarsim_tpu", rel), "rb") as f:
         assert mine == f.read()
     d = os.path.dirname(rel)
-    assert sorted(os.listdir(os.path.join(PKG, d))) == sorted(
-        os.listdir(os.path.join(REPO, "cedarsim_tpu", d)))
+    if d in BYTE_COPY_DIRS:
+        assert sorted(os.listdir(os.path.join(PKG, d))) == sorted(
+            os.listdir(os.path.join(REPO, "cedarsim_tpu", d)))
 
 
 def test_native_planner_copy_equals_the_jax_packages():
