@@ -28,7 +28,8 @@ from cedarsim_tpu_torch.devices import (
     VSource, VSourcePWL, VSourcePULSE, VSourceSIN, VSourceEXP,
     ISource, ISourcePWL, ISourcePULSE, ISourceSIN, ISourceEXP,
     VCVS, VCCS, CCVS, CCCS, VSwitch, ISwitch, Diode,
-    OpenCircuit, ShortCircuit, nonlinear_resistor, nonlinear_capacitor,
+    OpenCircuit, ShortCircuit, TLine, LTRALine, nonlinear_resistor,
+    nonlinear_capacitor,
     Mos1, Bjt, Jfet, Mesfet,
 )
 from cedarsim_tpu_torch.frontend.parser import parse_spice
@@ -53,7 +54,8 @@ __all__ = [
     "VSourcePWL", "VSourcePULSE", "VSourceSIN", "VSourceEXP", "ISource",
     "ISourcePWL", "ISourcePULSE", "ISourceSIN", "ISourceEXP", "VCVS", "VCCS",
     "CCVS", "CCCS", "VSwitch", "ISwitch", "Diode", "OpenCircuit",
-    "ShortCircuit", "nonlinear_resistor", "nonlinear_capacitor", "Mos1",
+    "ShortCircuit", "TLine", "LTRALine", "nonlinear_resistor",
+    "nonlinear_capacitor", "Mos1",
     "Bjt", "Jfet", "Mesfet",
     "parse_spice", "elaborate", "load_spice", "NewtonOptions", "solve_dc",
     "dc_core", "default_newton_options", "TranOptions", "TranSolution",

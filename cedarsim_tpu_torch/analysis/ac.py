@@ -15,9 +15,16 @@ H = yᴴ·(∂S/∂eps); the same y gives the AC drive's gain to the output,
 
 S-parameter blocks (touchstone files, ``frontend/touchstone.py``) add their
 port admittance Y(f), interpolated linearly on their grid and clamped at
-both ends.  The delay and latch stamps of the JAX package's ``_delay_ac``
-serve devices the port does not elaborate yet: a circuit with ring or
-latch sites raises, naming ROADMAP A14b part 3.
+both ends, and the transmission lines their exact two-port Y(f)
+(``ac_admittance``).
+
+Delay and latch sites (:func:`_delay_ac`, the JAX package's stamps): the
+circuit is linearised with its aux slots held at the operating point's
+values, and each ring slot adds (∂S/∂d + jω·∂Q/∂d)·e^{−jωtd}·∂u/∂x, the
+exact delay; each zi_* site adds its sampled transfer H(e^{jωT}), whose
+coefficients come from the Jacobians of its latch update.  The JAX
+package's sparse path skips both stamps and linearises at aux = 0 without
+a word (``cedarsim_tpu/analysis/ac.py:107-109``); here that case raises.
 """
 
 from __future__ import annotations
@@ -30,23 +37,130 @@ import torch
 from cedarsim_tpu_torch import config
 from cedarsim_tpu_torch.analysis.dc import NewtonOptions, solve_dc
 from cedarsim_tpu_torch.analysis.sweeps import as_compiled
-from cedarsim_tpu_torch.core.compile import CompiledCircuit, default_ctx
+from cedarsim_tpu_torch.core.compile import (CompiledCircuit, default_ctx,
+                                             use_sparse_solver)
 from cedarsim_tpu_torch.core.context import Modes, SimSpec
 from cedarsim_tpu_torch.ops import linalg
 
-_A14B = "ROADMAP A14b part 3 (the delay ring and the latch channel)"
-
-
-def _check_no_delay(compiled):
-    """AC and noise have no delay or latch stamps yet (the JAX package's
-    ``_delay_ac``/``_apply_delay_ac``)."""
+def _zi_site_meta(compiled):
+    """Each zi_* site of each instance: (y slot, nb, n_yh, first u_hist
+    slot or None) in aux-vector indices, from the device's ``lat_sites``
+    (kind, offset, n_slots) with the layout [y_held, t_next, u_hist(nb −
+    1), y_hist(na − 2)] and its ``zi_meta`` (nb, na)."""
+    meta = []
     for key in compiled.group_order:
-        m = compiled.groups[key].model
-        if (getattr(m, "n_delay", 0) or getattr(m, "n_latch", 0)
-                or getattr(m, "lat_sites", ())):
-            raise NotImplementedError(
-                f"AC/noise of a circuit with delay or latch sites "
-                f"({key}) — {_A14B}")
+        g = compiled.groups[key]
+        nd = getattr(g.model, "n_delay", 0)
+        sites = getattr(g.model, "lat_sites", ())
+        zim = getattr(g.model, "zi_meta", {})
+        for j in range(len(g.instances)):
+            for kind, loff, nsl in sites:
+                if not kind.startswith("zi"):
+                    continue
+                nb, _na = zim[loff]
+                base = int(g.dly_idx[j, nd + loff])
+                meta.append((base, nb, nsl - 2 - (nb - 1),
+                             base + 2 if nb > 1 else None))
+    return meta
+
+
+def _jacobian(f, x):
+    """∂f/∂x of a tensor function of one tensor (reverse mode)."""
+    return torch.autograd.functional.jacobian(f, x, vectorize=False)
+
+
+def _delay_ac(compiled, x, ctx_ac, params):
+    """The frequency-dependent stamps of the aux channel at the operating
+    point ``x`` [n_x], or None for a circuit with neither ring slots nor
+    zi_* sites:
+
+    - a ring slot (a delay line, a history-mode absdelay): δd =
+      e^{−jωtd}·(∂u/∂x)·δx exactly, so A(ω) += (∂S/∂d + jω·∂Q/∂d)·
+      e^{−jωtd}·∂u/∂x;
+    - a zi_* site: δy = H(e^{jωT})·(∂u/∂x)·δx, H's taps read from the
+      Jacobians of the latch update (∂y_new/∂u_hist the numerator,
+      −∂y_new/∂y_hist the denominator, ∂y_new/∂x the sampled input).
+
+    Returns {"dly0": the aux vector at the op (latches settled, ring
+    slots at u), "ring": (∂S/∂d, ∂Q/∂d, ∂u/∂x, td) or None, "lat": per zi
+    site (y slot, T, denominator taps, numerator taps, β0·∂u/∂x, ∂u/∂x
+    of the first input sample or None, ∂S/∂y, ∂Q/∂y)}.  On the sparse
+    path it raises: the JAX package's returns None there and linearises at
+    aux = 0 without the stamps."""
+    zi_meta = _zi_site_meta(compiled)
+    if compiled.n_ring == 0 and not zi_meta:
+        return None
+    if use_sparse_solver(compiled):
+        raise NotImplementedError(
+            "AC/noise of a circuit with ring or zi_* sites on the sparse "
+            "path: the JAX package linearises it at aux = 0 without the "
+            "delay stamps (a known fault of the reference, "
+            "cedarsim_tpu/analysis/ac.py:107-109), and the port stamps the "
+            "dense path only; compile with sparse=False")
+    dt = compiled.dtype
+    dly0 = compiled.latch_init(x, ctx_ac, params)
+    rs = torch.as_tensor(compiled.ring_slots, device=compiled.device)
+    if compiled.n_ring:
+        u0, td0 = compiled.delay_sources(x, ctx_ac, params)
+        dly0 = dly0.clone()
+        dly0[rs] = u0
+    JdS, JdQ = _jacobian(
+        lambda d: compiled.residuals(x, ctx_ac, params, dly=d), dly0)
+    ring = None
+    if compiled.n_ring:
+        Ux = _jacobian(lambda xx: compiled.delay_sources(
+            xx, ctx_ac, params)[0], x)
+        ring = (JdS[:, rs], JdQ[:, rs], Ux, td0)
+    lat = []
+    if zi_meta:
+        # every site fires once: a time beyond every settled t_next
+        tn = torch.stack([dly0[b + 1] for b, _, _, _ in zi_meta])
+        ctx_f = ctx_ac.at_time(2.0 * float(tn.max()) + 1e-12)
+
+        def up(w_, x_):
+            return compiled.latch_update(x_, ctx_f, w_, params)
+
+        wnew = up(dly0, x)
+        Ju = _jacobian(lambda w_: up(w_, x), dly0)
+        Jxl = _jacobian(lambda x_: up(dly0, x_), x)
+        for base, nb, n_yh, uh0 in zi_meta:
+            T = wnew[base + 1] - dly0[base + 1]
+            yh0 = base + 2 + (nb - 1)
+            alphas = torch.cat([(-Ju[base, base])[None],
+                                -Ju[base, yh0:yh0 + n_yh]])
+            betas = Ju[base, base + 2:base + 2 + (nb - 1)]
+            ux = Jxl[uh0, :] if uh0 is not None else None
+            lat.append((base, T, alphas, betas, Jxl[base, :], ux,
+                        JdS[:, base], JdQ[:, base]))
+    return dict(dly0=dly0.to(dt), ring=ring, lat=lat)
+
+
+def _apply_delay_ac(A, w, dstamp):
+    """A [n_f, n, n] + the stamps of :func:`_delay_ac` at ω = ``w`` [n_f]
+    (the JAX package's ``_apply_delay_ac`` over the frequency axis)."""
+    if dstamp is None:
+        return A
+    cd = A.dtype
+    wc = w.to(cd)[:, None, None]
+    if dstamp["ring"] is not None:
+        JdS, JdQ, Ux, td0 = dstamp["ring"]
+        ph = torch.exp(-1j * wc[:, :, 0] * td0.to(cd)[None])   # [n_f, R]
+        A = A + (JdS.to(cd)[None] + 1j * wc * JdQ.to(cd)[None]) \
+            @ (ph[:, :, None] * Ux.to(cd)[None])
+    for _base, T, alphas, betas, num0, ux, colS, colQ in dstamp["lat"]:
+        zinv = torch.exp(-1j * w.to(cd) * T.to(cd))              # [n_f]
+        na = alphas.shape[0]
+        pw = torch.arange(1, na + 1, device=A.device)
+        den = 1.0 + (alphas.to(cd)[None] * zinv[:, None] ** pw).sum(-1)
+        num_row = num0.to(cd)[None].expand(w.shape[0], -1)
+        if ux is not None and betas.shape[0]:
+            pb = torch.arange(1, betas.shape[0] + 1, device=A.device)
+            taps = (betas.to(cd)[None] * zinv[:, None] ** pb).sum(-1)
+            num_row = num_row + taps[:, None] * ux.to(cd)[None]
+        r = num_row / den[:, None]
+        A = A + (colS.to(cd)[None] + 1j * wc[:, :, 0] * colQ.to(cd)[None]
+                 )[:, :, None] * r[:, None, :]
+    return A
 
 
 def _freq_stamps(compiled):
@@ -119,16 +233,19 @@ def acdec(n_per_decade, fstart, fstop):
 
 
 def _system(compiled, x, ctx_ac, params, freqs):
-    """(A [n_f, n_x, n_x] complex, f [n_f]) at the operating point ``x``:
-    G + jωC with the frequency stamps."""
-    _check_no_delay(compiled)
-    G, C = compiled.jacobians(x, ctx_ac, params)
+    """(A [n_f, n_x, n_x] complex, f [n_f], the aux vector the
+    linearisation held, or None) at the operating point ``x``: G + jωC
+    with the delay, latch and frequency stamps."""
+    dstamp = _delay_ac(compiled, x, ctx_ac, params)
+    dly0 = None if dstamp is None else dstamp["dly0"]
+    G, C = compiled.jacobians(x, ctx_ac, params, dly=dly0)
     cd = config.complex_dtype
     f = torch.as_tensor(freqs, dtype=compiled.dtype, device=compiled.device)
     w = 2.0 * np.pi * f
     A = G.to(cd)[None] + (1j * w.to(cd))[:, None, None] * C.to(cd)[None]
+    A = _apply_delay_ac(A, w, dstamp)
     A = _apply_freq_stamps(A, f, _freq_stamps(compiled), compiled.n_x)
-    return A, f
+    return A, f, dly0
 
 
 def _obs_grads(compiled, name, x, ctx, params):
@@ -193,7 +310,7 @@ def ac(compiled, freqs, params=None, ctx: SimSpec = None,
     x = _bias(compiled, params, ctx, dc_opts, x_op)
     freqs = np.atleast_1d(np.asarray(freqs, np.float64))
     c = ctx.with_mode(Modes.AC)
-    A, _ = _system(compiled, x, c, params, freqs)
+    A, _, _ = _system(compiled, x, c, params, freqs)
     b = compiled.ac_rhs(params)
     v = linalg.solve(A, b.expand(A.shape[0], compiled.n_x))
     return ACSolution(freqs=freqs, v=v, op_x=x, compiled=compiled, ctx=c,
@@ -283,9 +400,9 @@ def noise(compiled, out: str, freqs, params=None, ctx: SimSpec = None,
     x = _bias(compiled, params, ctx, dc_opts, x_op)
     freqs = np.atleast_1d(np.asarray(freqs, np.float64))
     c = ctx.with_mode(Modes.AC)
-    A, f = _system(compiled, x, c, params, freqs)
+    A, f, dly0 = _system(compiled, x, c, params, freqs)
     cd = config.complex_dtype
-    Jeps = compiled.eps_jacobian(x, c, params).to(cd)      # [n_x, n_eps]
+    Jeps = compiled.eps_jacobian(x, c, params, dly=dly0).to(cd)
     pwr, ex = compiled.noise_sources(x, c, params)
     e_out, _ = _obs_grads(compiled, out, x, c, params)
     b_ac = compiled.ac_rhs(params)

@@ -31,6 +31,19 @@ A run stops with its integrator state in a checkpoint (``CHECKPOINT_FIELDS``)
 that a later run resumes (``tran(resume=)``, ``tran_core(init_state=)``),
 so that windows chain; ``TranOptions.store_vars`` keeps only some columns
 of the stored waveforms (the checkpoint keeps the whole state).
+
+Delay and latch channel (``CompiledCircuit.n_dly``): each lane keeps a
+shift register of its last ``delay_history`` accepted times and delayed
+expressions (``t_ring`` [L, KD], ``u_ring`` [L, KD, n_ring]), seeded with
+the operating point; every step attempt reads u(t_new − td) from it
+(:func:`ring_interp`, ``jnp.interp``'s values) and holds it through
+Newton, h stays under min(td)/2, and an accepted step pushes its sample
+and updates the latched states (``CompiledCircuit.latch_update``).  A
+lookup older than the ring's oldest sample reads that sample, as in the
+JAX package; once the ring no longer reaches back to the run's start such
+a lookup is counted (``TranSolution.n_ring_underflow``).  Transient noise
+(``noise_seed``): ε ~ N(0, pwr/(2h)) per white noise source, the unit draw
+fixed by the accepted-step index (row k of :func:`noise_draws`).
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ from cedarsim_tpu_torch.core.compile import (CompiledCircuit, default_ctx,
 from cedarsim_tpu_torch.core.context import SimSpec, Modes
 from cedarsim_tpu_torch.core.sparse_ops import get_sparse_ops
 from cedarsim_tpu_torch.ops import gesp_lu, linalg
+from cedarsim_tpu_torch.ops.rounding import fma_f64
 from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan, split_lanes)
 from cedarsim_tpu_torch.analysis.dc import NewtonOptions, solve_dc
@@ -120,6 +134,15 @@ class TranOptions:
     #: indices, or net names on the public ``tran``; None stores all.  The
     #: final state and the checkpoint always carry the whole x.
     store_vars: tuple = None
+    #: transient noise: the seed of the per-step white-noise draws through
+    #: the devices' noise sources, ε ~ N(0, pwr/(2h)) per source (1/f
+    #: sources excluded); None = no noise
+    noise_seed: int = None
+    #: the history ring's length (accepted samples kept per lane) for the
+    #: delayed values of the delay elements and of VA ``absdelay`` in
+    #: "history" mode; lookups older than its oldest sample read that
+    #: sample
+    delay_history: int = 512
 
 
 def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
@@ -175,13 +198,15 @@ def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
 def auto_newton_impl(compiled: CompiledCircuit, opts: TranOptions, ctx,
                      params=None):
     """"fused" when the corrector is the cap form, ``jac_reuse == 1``, the
-    fused plan builds, the temperature is one value (the plan bakes it)
-    and every per-lane leaf of ``params`` reaches the kernel
-    (``dyn_leaf_safe``); else "xla".  Only
-    :class:`~cedarsim_tpu_torch.ops.fused_chord.FusedEnvelopeError` counts
-    as "outside the envelope": any other failure (an emit, a build)
-    propagates."""
-    if opts.formulation != "cap" or opts.jac_reuse != 1:
+    circuit has no delay or latch slots and no noise is injected (as the
+    JAX package's ``auto_tpu_impl``), the fused plan builds, the
+    temperature is one value (the plan bakes it) and every per-lane leaf
+    of ``params`` reaches the kernel (``dyn_leaf_safe``); else "xla".
+    Only :class:`~cedarsim_tpu_torch.ops.fused_chord.FusedEnvelopeError`
+    counts as "outside the envelope": any other failure (an emit, a
+    build) propagates."""
+    if (opts.formulation != "cap" or opts.jac_reuse != 1
+            or opts.noise_seed is not None or compiled.n_dly):
         return "xla"
     try:
         fused_plan_for(compiled, ctx, params)
@@ -209,6 +234,44 @@ def fused_plan_for(compiled: CompiledCircuit, ctx, params=None):
     return plan
 
 
+def noise_draws(seed, rows, n_eps, device=None):
+    """The unit normal draws of transient noise, [rows, n_eps] float64:
+    row k is what every lane draws at its accepted-step index k.  Drawn on
+    the CPU from a ``torch.Generator`` seeded with ``seed`` and moved to
+    ``device``, so that the card and the CPU inject the same numbers."""
+    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    xi = torch.randn(rows, n_eps, generator=gen, dtype=torch.float64)
+    return xi.to(device) if device is not None else xi
+
+
+def ring_interp(q, t_ring, u_ring):
+    """``jnp.interp(q, t_ring, u_ring[:, j])`` per lane and ring slot,
+    value for value: ``q`` [L, R] queries, ``t_ring`` [L, KD] ascending
+    (repeated abscissae allowed), ``u_ring`` [L, KD, R] → [L, R], with
+    ``jnp.interp``'s operations: the bracket from a right-sided search
+    clipped to [1, KD − 1], a zero-width bracket reading its left sample,
+    queries outside the samples clamped to the first or last, and the
+    interior value f_lo + (Δq/Δt)·Δf rounded once, as XLA's CPU compiler
+    contracts it into an FMA (``ops/rounding.py::fma_f64``)."""
+    KD = t_ring.shape[1]
+    i = torch.searchsorted(t_ring.contiguous(), q.contiguous(),
+                           right=True).clamp(1, KD - 1)
+    x_lo, x_hi = t_ring.gather(1, i - 1), t_ring.gather(1, i)
+    f_lo = u_ring.gather(1, (i - 1)[:, None, :])[:, 0]
+    f_hi = u_ring.gather(1, i[:, None, :])[:, 0]
+    dx = x_hi - x_lo
+    dx0 = dx.abs() <= _INTERP_EPS
+    f = torch.where(dx0, f_lo,
+                    fma_f64((q - x_lo) / torch.where(dx0, 1.0, dx),
+                            f_hi - f_lo, f_lo))
+    f = torch.where(q < t_ring[:, :1], u_ring[:, 0], f)
+    return torch.where(q > t_ring[:, -1:], u_ring[:, -1], f)
+
+
+#: ``jnp.interp``'s zero-width bracket: np.spacing(float64 eps)
+_INTERP_EPS = float(np.spacing(np.finfo(np.float64).eps))
+
+
 @dataclasses.dataclass
 class TranSolution:
     ts: np.ndarray
@@ -230,6 +293,10 @@ class TranSolution:
     #: with ``TranOptions.store_vars``: stored name -> column of ``xs``;
     #: None when ``xs`` holds the whole state
     store_map: dict = None
+    #: delay-ring lookups older than the ring's oldest sample once the ring
+    #: no longer reaches back to the run's start (each read that oldest
+    #: sample instead of the history it needed)
+    n_ring_underflow: int = 0
 
     @property
     def t(self):
@@ -291,10 +358,14 @@ def _differential_mask(compiled, x, ctx, params):
 #: JAX package's layout); per lane, with a leading lane axis.  A bdf5 run
 #: adds its fifth history point (``BDF5_FIELDS``); a checkpoint without it
 #: seeds it at the third and caps the ladder at order 4, as the JAX package
-#: does on every resume
+#: does on every resume.  A circuit with delay or latch slots adds the
+#: latched aux vector and, with ring slots, the history ring
+#: (``DELAY_FIELDS``; ``ring_t0`` is the port's own: the time back to which
+#: the ring held samples when the run began)
 CHECKPOINT_FIELDS = ("t", "h", "x", "xdot", "x1", "x2", "x3", "t1", "t2",
                      "t3", "nhist", "errp")
 BDF5_FIELDS = ("x4", "t4")
+DELAY_FIELDS = ("latw", "t_ring", "u_ring", "dly_td", "ring_t0")
 
 
 def blank_checkpoint(x, xdot, h0):
@@ -379,7 +450,8 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     row 0 is the initial point, rows 1..k-1 the accepted points of each
     lane, the rows after them hold tstop and the lane's final state,
     ``n_attempts`` counts the batched step attempts and ``final`` is the
-    checkpoint (``CHECKPOINT_FIELDS``, [L, ...] tensors) at the end."""
+    checkpoint (``CHECKPOINT_FIELDS``, [L, ...] tensors) at the end; with
+    ring slots it also holds each lane's ``n_ring_underflow``."""
     dt, dev = compiled.dtype, compiled.device
     x0 = torch.as_tensor(x0, dtype=dt, device=dev)
     xdot0 = torch.as_tensor(xdot0, dtype=dt, device=dev)
@@ -412,12 +484,18 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                          "(trap | be | bdf2 | bdf3 | bdf5)")
     if opts.controller not in ("i", "pi"):
         raise ValueError(f"unknown controller {opts.controller!r}")
+    n_dly, n_ring, n_lat = compiled.n_dly, compiled.n_ring, compiled.n_lat
+    noisy = opts.noise_seed is not None and compiled.n_eps > 0
     fused = None
     if opts.newton_impl == "fused":
         # the envelope of the fused chord kernel, checked before any step
         if not cap_form:
             raise ValueError("newton_impl='fused' requires the cap-form "
                              "corrector (formulation='cap')")
+        if noisy or n_dly:
+            raise ValueError("newton_impl='fused': noise injection and "
+                             "delay/latch channels are not supported "
+                             "in-kernel")
         if opts.jac_reuse < 1:
             raise ValueError("newton_impl='fused' requires jac_reuse >= 1")
         fused = fused_plan_for(compiled, ctx, params)
@@ -471,6 +549,14 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     def ctx_at(t):
         return ctx_t.at_time(t)
 
+    # the step attempt's noise inputs and delay/latch slots, held fixed
+    # through its Newton iterations
+    step_aux = dict(eps=None, dly=None)
+
+    def ev(x, cx, **kw):
+        return compiled.evaluate(x, cx, lp, eps=step_aux["eps"],
+                                 dly=step_aux["dly"], **kw)
+
     def fres(x, S, Q, ic, a0, Qhist, Sn, beta, h):
         """Corrector residual and its scale (for the relative test)."""
         if cap_form:
@@ -513,7 +599,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
             J = assemble(G, C, c0, a0, beta, h)
             dx, bad = limit(lin_solve(J, -f))
             xn = x + dx
-            Sn1, Qn1, Gn1, Cn1 = compiled.evaluate(xn, cx, lp, jac=jac_kind)
+            Sn1, Qn1, Gn1, Cn1 = ev(xn, cx, jac=jac_kind)
             icn = c_apply(Cn1, (c0[:, None] * xn + xdh) / h[:, None]) \
                 if cap_form else ic
             f_new, scale = fres(xn, Sn1, Qn1, icn, a0, Qhist, Sn, beta, h)
@@ -529,9 +615,8 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
 
     def fparts(x, cx, c0, xdh, h):
         if cap_form:
-            return compiled.evaluate(
-                x, cx, lp, v=(c0[:, None] * x + xdh) / h[:, None])
-        S, Q = compiled.evaluate(x, cx, lp)
+            return ev(x, cx, v=(c0[:, None] * x + xdh) / h[:, None])
+        S, Q = ev(x, cx)
         return S, Q, torch.zeros_like(S)
 
     def newton_mod(x, t_new, h, a0, Qhist, Sn, beta, c0, xdh, solve_fn,
@@ -566,8 +651,42 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     max_tries = 3 * opts.max_steps
     t_end = tstop - 1e-12 * span
 
-    S0, Q0 = compiled.evaluate(x0, ctx_at(torch.full((L,), t0, dtype=dt,
-                                                     device=dev)), lp)
+    ctx0 = ctx_at(torch.full((L,), t0, dtype=dt, device=dev))
+    rs = torch.as_tensor(compiled.ring_slots, device=dev)
+
+    def with_ring(latw, ring):
+        """The aux vector: the latched slots of ``latw`` and the ring
+        slots' delayed values ``ring``."""
+        if not n_lat:
+            return ring
+        out = latw.clone()
+        out[:, rs] = ring
+        return out
+
+    def restored(f, shape):
+        return torch.as_tensor(init_state[f], dtype=dt, device=dev).expand(
+            shape).clone()
+
+    dly_t0 = None
+    if n_dly:
+        # the ring holds the operating point before t0 (lookups before its
+        # first sample clamp to it); a resumed run reads u(t0 − td) from
+        # its restored ring, and its latched states from the checkpoint
+        latw0 = compiled.latch_init(x0, ctx0, lp=lp)
+        if init_state is not None and "latw" in init_state:
+            latw0 = restored("latw", (L, n_dly))
+        dly_t0 = latw0
+        if n_ring:
+            u0_d, td0_d = compiled.delay_sources(x0, ctx0, lp=lp)
+            if init_state is not None and "t_ring" in init_state:
+                KDr = np.asarray(init_state["t_ring"]).shape[-1]
+                tr0 = restored("t_ring", (L, KDr))
+                ur0 = restored("u_ring", (L, KDr, n_ring))
+                ring0 = ring_interp(t0 - td0_d, tr0, ur0)
+            else:
+                ring0 = u0_d
+            dly_t0 = with_ring(latw0, ring0)
+    S0, Q0 = compiled.evaluate(x0, ctx0, lp, dly=dly_t0)
     zi = torch.zeros(L, dtype=torch.int32, device=dev)
     c = dict(
         t=torch.full((L,), t0, dtype=dt, device=dev),
@@ -586,6 +705,21 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     if method == "bdf5":
         c.update(Qppp=Q0, Qpppp=Q0, x4=x0,
                  t4=torch.full((L,), t0, dtype=dt, device=dev))
+    if n_dly:
+        c.update(latw=latw0)
+    if n_ring:
+        KD = opts.delay_history
+        c.update(t_ring=torch.full((L, KD), t0, dtype=dt, device=dev),
+                 u_ring=u0_d[:, None, :].expand(L, KD, n_ring).clone(),
+                 dly_td=td0_d, ring_t0=torch.full((L,), t0, dtype=dt,
+                                                  device=dev),
+                 nund=zi)
+        if init_state is not None and "t_ring" in init_state:
+            c.update(t_ring=tr0, u_ring=ur0,
+                     dly_td=restored("dly_td", (L, n_ring)))
+            c["ring_t0"] = (restored("ring_t0", (L,))
+                            if "ring_t0" in init_state
+                            else tr0[:, 0].clone())
     if mn_cross:
         # each lane's cached linearization; jage starts past any age so
         # that the first attempt refreshes, jfail forces a refresh at the
@@ -612,19 +746,22 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         def q_at(i):
             return compiled.evaluate(c[f"x{i}"], ctx_at(c[f"t{i}"]), lp)[1]
 
-        c["Qp"] = q_at(1)
-        if method in ("bdf3", "bdf5"):
-            c["Qpp"] = q_at(2)
-        if method == "bdf5":
-            c["Qppp"] = q_at(3)
-            if deep:
-                c["Qpppp"] = q_at(4)
-            else:
-                # no fifth point: seed it at the third and hold the ladder
-                # at order 4 until the history refills
-                c["Qpppp"] = c["Qppp"]
-                c["x4"], c["t4"] = c["x3"].clone(), c["t3"].clone()
-                c["nhist"] = c["nhist"].clamp(max=3)
+        if not n_dly:
+            # (with delay slots the charge history stays at the seam's Q0,
+            # as in the JAX package: Q at t1 would need the ring rewound)
+            c["Qp"] = q_at(1)
+            if method in ("bdf3", "bdf5"):
+                c["Qpp"] = q_at(2)
+            if method == "bdf5":
+                c["Qppp"] = q_at(3)
+                if deep:
+                    c["Qpppp"] = q_at(4)
+        if method == "bdf5" and not deep:
+            # no fifth point: seed it at the third and hold the ladder at
+            # order 4 until the history refills
+            c["Qpppp"] = c["Qppp"]
+            c["x4"], c["t4"] = c["x3"].clone(), c["t3"].clone()
+            c["nhist"] = c["nhist"].clamp(max=3)
     # output rows (accepted points); grown by whole chunks, one spare row
     # at the end receives the masked writes of lanes that did not accept
     rows = 0
@@ -650,6 +787,19 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         return ((c["t"] < t_end) & c["ok"]
                 & (c["k"] + c["nrej"] < max_tries) & (c["k"] < cap_rows))
 
+    if noisy:
+        xi_tab = noise_draws(opts.noise_seed, cap_rows + 1, compiled.n_eps,
+                             dev)
+
+    def draw_eps(x, t, h_real, k):
+        """White noise for the step of length h from (x, t): ε ~ N(0,
+        pwr/(2h)) per source, the unit draw row k of the table (a retry at
+        a smaller h rescales the same draw); 1/f sources excluded."""
+        pwr, ex = compiled.noise_sources(x, ctx_at(t), params)
+        sigma = torch.sqrt(pwr.clamp(min=0.0)
+                           / (2.0 * h_real.clamp(min=1e-300))[:, None])
+        return xi_tab[k.long()] * sigma * (ex == 0.0)
+
     def attempt(c):
         lv = live(c)
         t, h, x = c["t"], c["h"], c["x"]
@@ -659,6 +809,10 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                               torch.full_like(t, float("inf")), bcur)
         h_use = torch.minimum(h.clamp(max=hmax),
                               (next_bp - t).clamp(min=hmin))
+        if n_ring:
+            # h <= min(td)/2: at least two ring samples per delay
+            h_use = torch.minimum(
+                h_use, (0.5 * c["dly_td"].amin(-1)).clamp(min=hmin))
         h_use = torch.where(next_bp - t - h_use < 0.25 * h_use,
                             next_bp - t, h_use)
         hit_bp = t + h_use >= next_bp - 1e-12 * span
@@ -785,6 +939,23 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
             xdh = torch.where(use_be[:, None], -x,
                               -(2.0 * x + h_real[:, None] * c["xdot"]))
 
+        more = {}
+        step_aux["eps"] = draw_eps(x, t, h_real, c["k"]) if noisy else None
+        dly_k = None
+        if n_dly:
+            dly_k = c["latw"]
+            if n_ring:
+                # u(t_new − td) from the ring; a lookup older than its
+                # oldest sample once the ring no longer reaches back to
+                # the run's start is an underflow
+                q = t_new[:, None] - c["dly_td"]
+                oldest = c["t_ring"][:, :1]
+                under = ((q < oldest) & (oldest > c["ring_t0"][:, None]))
+                more.update(nund=c["nund"] + torch.where(
+                    lv, under.sum(-1), 0).to(torch.int32))
+                dly_k = with_ring(c["latw"],
+                                  ring_interp(q, c["t_ring"], c["u_ring"]))
+        step_aux["dly"] = dly_k
         if mn:
             if mn_cross:
                 # the cached (G, C) unless a lane refreshes: the walk runs
@@ -792,12 +963,10 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                 refresh = c["jfail"] | (c["jage"] >= opts.jac_reuse)
                 G, C = c["Gc"], c["Cc"]
                 if bool((refresh & lv).any()):
-                    _, _, Gf, Cf = compiled.evaluate(
-                        x_pred, ctx_at(t_new), lp, jac=True)
+                    _, _, Gf, Cf = ev(x_pred, ctx_at(t_new), jac=True)
                     G, C = _sel(refresh, Gf, G), _sel(refresh, Cf, C)
             else:
-                S0p, Q0p, G, C = compiled.evaluate(x_pred, ctx_at(t_new),
-                                                   lp, jac=jac_kind)
+                S0p, Q0p, G, C = ev(x_pred, ctx_at(t_new), jac=jac_kind)
             J = assemble(G, C, c0, a0, beta, h_real)
             if fused is not None:
                 # one fused chord kernel launch for every lane's chord loop
@@ -852,8 +1021,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                 Qn_new = _sel(res, Qn_r, Qn_new)
                 nok = torch.where(res, nok_r, nok)
         else:
-            S0s, Q0s, G0s, C0s = compiled.evaluate(x_pred, ctx_at(t_new), lp,
-                                                   jac=jac_kind)
+            S0s, Q0s, G0s, C0s = ev(x_pred, ctx_at(t_new), jac=jac_kind)
             xn, Sn_new, Qn_new, nok, nnwt = newton_step(
                 x_pred, t_new, h_real, a0, Qhist, c["Sn"], beta, c0, xdh,
                 (S0s, Q0s, G0s, C0s, ~lv, torch.zeros_like(c["k"])))
@@ -949,7 +1117,27 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         new_nh = torch.where(hit_bp | forced, torch.zeros_like(nh),
                              (nh + 1).clamp(max=5 if method == "bdf5"
                                             else 3))
-        more = {}
+        if n_ring:
+            # push the accepted sample (the times stay ascending) and the
+            # delays of the next lookups
+            u_now, td_new = compiled.delay_sources(xn, ctx_at(t_new), lp=lp)
+            more.update(
+                t_ring=_sel(acc, torch.cat([c["t_ring"][:, 1:],
+                                            t_new[:, None]], 1),
+                            c["t_ring"]),
+                u_ring=_sel(acc, torch.cat([c["u_ring"][:, 1:],
+                                            u_now[:, None]], 1),
+                            c["u_ring"]),
+                dly_td=_sel(acc, td_new, c["dly_td"]),
+                ring_t0=c["ring_t0"])
+        if n_dly:
+            # the latch sites see the accepted solution (transition
+            # re-targets its ramp, zi_* samples on its clock)
+            latw = c["latw"]
+            if n_lat:
+                latw = _sel(acc, compiled.latch_update(
+                    xn, ctx_at(t_new), dly_k, lp=lp), latw)
+            more.update(latw=latw)
         if method in ("bdf3", "bdf5"):
             more.update(Qpp=_sel(acc, c["Qp"], c["Qpp"]))
         if method == "bdf5":
@@ -1024,7 +1212,10 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     xd_all = torch.cat([proj(xdot0)[:, None], xd_all], 1)
     finished = c["ok"] & (c["t"] >= t_end)
     final = {f: c[f] for f in CHECKPOINT_FIELDS
-             + (BDF5_FIELDS if method == "bdf5" else ())}
+             + (BDF5_FIELDS if method == "bdf5" else ())
+             + tuple(f for f in DELAY_FIELDS if f in c)}
+    if n_ring:
+        final["n_ring_underflow"] = c["nund"]
     return (ts_all, xs_all, xd_all, c["k"] + 1, finished, c["nrej"],
             c["nnwt"], n_att, final)
 
@@ -1088,6 +1279,13 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
         if t0 >= tstop:
             raise ValueError(f"checkpoint time {t0} is already past "
                              f"tstop={tstop}")
+        if "t_ring" in resume and \
+                np.asarray(resume["t_ring"]).shape[-1] != opts.delay_history:
+            raise ValueError(
+                f"checkpoint delay-history ring has "
+                f"{np.asarray(resume['t_ring']).shape[-1]} slots but "
+                f"TranOptions.delay_history={opts.delay_history}; resume "
+                "with the delay_history the checkpoint was saved with")
         x0 = resume["x"]
     span = tstop - t0
     bps = compiled.breakpoints(tstop)
@@ -1136,6 +1334,7 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
     k, fin = k.cpu().numpy(), (fin & converged0).cpu().numpy()
     nrej, nnwt = nrej.cpu().numpy(), nnwt.cpu().numpy()
     final = {f: v.cpu().numpy() for f, v in final.items()}
+    nund = final.pop("n_ring_underflow", np.zeros(Lr, np.int64))
     sols = []
     for i in range(Lr):
         pi = params
@@ -1152,5 +1351,5 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
             compiled=compiled, ctx=ctx.with_mode(Modes.TRAN), params=pi,
             n_attempts=n_att,
             checkpoint={f: v[i] for f, v in final.items()},
-            store_map=store_map))
+            store_map=store_map, n_ring_underflow=int(nund[i])))
     return sols if batched else sols[0]

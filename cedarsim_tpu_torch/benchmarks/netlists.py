@@ -32,6 +32,18 @@ the times at which their waveforms are compared.
   (RTH 250 K/W, a TO-92 junction to ambient; CTH 1 mJ/K), which puts the
   thermal node on the switched branch's I side.
 
+- :func:`lossy_link`: the heavy-loss link of the JAX package's
+  ``tests/test_ltra_urc.py`` (a 0→2 V PULSE at 10 ns, RS 50 Ω, an O
+  element on ``LTRA (R=60 L=1.25u G=0 C=0.5n LEN=1)``, six sections, and
+  RL): cell O.
+- ``VA_DELAY_LINE``, ``VA_TRANSITION``, ``VA_ZI_FIR``, ``VA_ZI_IIR``: the
+  Verilog-A modules of the JAX package's ``tests/test_va_delay_history.py``
+  (an ``absdelay`` voltage line), ``tests/test_va_transition_latch.py``
+  (``transition`` with separate rise and fall) and ``tests/test_va_zi.py``
+  (a two-tap FIR and a one-pole IIR on a 1 µs clock), as text, and
+  ``VA_TRANSITION_RAMP``, the transition module with a literal zero
+  delay.
+
 The gf180 decks include files of ``DFF_DIR``: pass it in
 ``include_paths``.
 """
@@ -215,4 +227,72 @@ R1 vcc nb 68k
 Cout1 nc out 10u
 R3 vcc nc 10k
 .end
+"""
+
+
+#: the link's line: Z0 50 Ω and TD 25 ns, L = Z0·TD and C = TD/Z0 per
+#: unit length (the JAX test's floats)
+LINK_Z0, LINK_TD = 50.0, 25e-9
+
+
+def lossy_link(rtot=60.0, rl=50.0, pulse=True):
+    """The LTRA link, the text of the JAX package's ``tests/test_ltra_urc.
+    py::_ltra_netlist``: V1 (``DC 2 AC 1``, with the 0→2 V PULSE at 10 ns
+    when ``pulse``) → RS 50 Ω → O1 (R·LEN = ``rtot``, Z0 50 Ω, TD 25 ns,
+    G = 0) → RL ``rl``."""
+    src = "PULSE(0 2 10n 0.2n 0.2n 400n 1m)" if pulse else ""
+    return f"""* ltra link
+V1 vin 0 DC 2 AC 1 {src}
+RS vin a 50
+O1 a 0 b 0 lossy
+RL b 0 {rl}
+.model lossy LTRA (R={rtot} L={LINK_Z0 * LINK_TD} G=0 C={LINK_TD / LINK_Z0} LEN=1)
+
+.end
+"""
+
+
+VA_DELAY_LINE = """
+module vdelay(p, n, ps, ns);
+  inout p, n, ps, ns;
+  electrical p, n, ps, ns;
+  parameter real td = 1e-6;
+  analog V(p, n) <+ absdelay(V(ps, ns), td);
+endmodule
+"""
+
+VA_TRANSITION = """
+module vatrans(inp, out);
+  inout inp, out;
+  electrical inp, out;
+  parameter real td = 0.0;
+  parameter real tt = 10e-6;
+  parameter real tf = 0.0;
+  analog V(out) <+ transition(V(inp), td, tt, (tf > 0.0) ? tf : tt);
+endmodule
+"""
+
+#: ``VA_TRANSITION`` with its delay argument a literal zero: no Padé block
+#: ahead of the latch (with the parameter ``td``, the block's three states
+#: are kept at any value, as the JAX package keeps them, and at td = 0 its
+#: rows pin z1 and z2 with zeros on the diagonal, which the no-pivot
+#: float32 factor B2 cannot take)
+VA_TRANSITION_RAMP = VA_TRANSITION.replace("transition(V(inp), td, tt",
+                                           "transition(V(inp), 0.0, tt")
+
+VA_ZI_FIR = """
+module vafir(inp, out);
+  inout inp, out;
+  electrical inp, out;
+  analog V(out) <+ zi_nd(V(inp), {0.5, 0.5}, {1.0}, 1e-06);
+endmodule
+"""
+
+VA_ZI_IIR = """
+module vaiir(inp, out);
+  inout inp, out;
+  electrical inp, out;
+  parameter real c = 0.5;
+  analog V(out) <+ zi_nd(V(inp), {1.0 - c}, {1.0, -c}, 1e-06);
+endmodule
 """

@@ -1,8 +1,9 @@
 """Global numeric configuration of the PyTorch port.
 
-Counterpart of ``cedarsim_tpu/config.py``, dtype half only: circuit state,
-model evaluation and the exact solves are float64 (conductances span ~15
-decades), the AC and noise solves complex128.  The port never calls
+Counterpart of ``cedarsim_tpu/config.py``, its dtypes and Verilog-A
+lowering modes: circuit state, model evaluation and the exact solves are
+float64 (conductances span ~15 decades), the AC and noise solves
+complex128.  The port never calls
 ``torch.set_default_dtype``; every tensor it makes names its dtype.  The
 JAX package's XLA-cache settings have no counterpart here (PyTorch runs
 eagerly).
@@ -14,6 +15,18 @@ import torch
 real_dtype = torch.float64
 #: dtype of the AC and noise solves (G + jωC)·v = b
 complex_dtype = torch.complex128
+
+#: how Verilog-A ``absdelay`` lowers by default: "pade" (Padé(3,3) all-pass
+#: companion states, every analysis) or "history" (exact interpolation in
+#: the integrator's ring of accepted samples).  Per model:
+#: ``va.codegen.make_device(module, delay_mode=...)``.
+va_delay_mode = "pade"
+
+#: how Verilog-A ``transition()`` lowers by default: "smooth" (exponential
+#: edge shaping through one companion state, every analysis) or "latch"
+#: (the LRM's linear ramps, latched at accepted steps).  Per model:
+#: ``va.codegen.make_device(module, transition_mode=...)``.
+va_transition_mode = "smooth"
 
 
 def resolve_device(device=None):

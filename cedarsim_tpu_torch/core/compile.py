@@ -35,6 +35,17 @@ the walk is exactly the one without noise; :meth:`eps_jacobian` walks the
 noisy groups once with the inputs as Duals (unit tangents) for ∂S/∂eps,
 :meth:`noise_sources` gathers each source's (power, exponent) and
 :meth:`ac_rhs` the sources' complex AC drive.
+
+Delay and latch channel: a device's aux inputs are ``[n_noise noise
+inputs, n_delay delayed values, n_latch latched states]``
+(``cedarsim_tpu/core/compile.py::_aux``).  The delayed values and latched
+states of every instance have slots of the global aux vector ``dly``
+(``n_dly`` long; ``Group.dly_idx``): the ring slots (``ring_slots``) are
+filled by the transient from its history ring of accepted samples
+(:meth:`delay_sources` gives what it stores, u and td), the latch slots
+(``latch_slots``) hold state that changes only at accepted steps
+(:meth:`latch_init`, :meth:`latch_update`).  Without ``dly`` a group with
+such slots reads zeros, as the JAX package's ``_dly0``.
 """
 
 from __future__ import annotations
@@ -60,6 +71,9 @@ class Group:
     row_idx: np.ndarray      # [n_inst, n_lrow] int, n_x = trash row
     kcl_mask: np.ndarray     # [n_lrow] bool: True for KCL rows (scaled by m)
     eps_idx: np.ndarray      # [n_inst, n_noise] int into the noise inputs
+    #: [n_inst, n_delay + n_latch] int into the aux vector ``dly``: the
+    #: ring-filled delayed values first, then the latched-state slots
+    dly_idx: np.ndarray = None
     #: params uniform across the group and not requested dynamic: Python
     #: floats (or device tensors for point lists) so model conditionals on
     #: them fold on the host while the model is walked
@@ -144,19 +158,29 @@ class CompiledCircuit:
         self._inst_loc: dict[str, tuple[str, int]] = {}
         params0 = {}
         eps_off = 0
+        dly_off = 0
+        ring_slots, latch_slots = [], []
         for key in order:
             insts = buckets[key]
             model = insts[0].model
             nt, ni, nb, nc = (model.n_terms(), model.n_internal,
                               model.n_branch, model.n_control)
+            n_delay, n_latch = _n_delay(model), _n_latch(model)
             var_idx = np.full((len(insts), model.n_lvar()), pad, np.int64)
             row_idx = np.full((len(insts), model.n_lrow()), pad, np.int64)
             eps_idx = np.zeros((len(insts), model.n_noise), np.int64)
+            dly_idx = np.zeros((len(insts), n_delay + n_latch), np.int64)
             for j, inst in enumerate(insts):
                 self._inst_loc[inst.name] = (key, j)
                 if model.n_noise:
                     eps_idx[j] = eps_off + np.arange(model.n_noise)
                     eps_off += model.n_noise
+                if n_delay or n_latch:
+                    dly_idx[j] = dly_off + np.arange(n_delay + n_latch)
+                    ring_slots.extend(range(dly_off, dly_off + n_delay))
+                    latch_slots.extend(range(dly_off + n_delay,
+                                             dly_off + n_delay + n_latch))
+                    dly_off += n_delay + n_latch
                 for k, net in enumerate(inst.nets):
                     if not net.is_ground:
                         var_idx[j, k] = net.index
@@ -186,7 +210,7 @@ class CompiledCircuit:
             kcl_mask = np.zeros(model.n_lrow(), bool)
             kcl_mask[: nt + ni] = True
             grp = Group(key, model, insts, var_idx, row_idx, kcl_mask,
-                        eps_idx)
+                        eps_idx, dly_idx=dly_idx)
             self.groups[key] = grp
             gp = {}
             for pn in insts[0].params.keys():
@@ -206,6 +230,12 @@ class CompiledCircuit:
             gp["$mult"] = self._t([i.mult for i in insts])
             params0[key] = gp
         self.n_eps = eps_off
+        #: the aux vector's width, its ring-filled and its latched slots
+        self.n_dly = dly_off
+        self.n_ring = len(ring_slots)
+        self.n_lat = len(latch_slots)
+        self.ring_slots = np.asarray(ring_slots, np.int64)
+        self.latch_slots = np.asarray(latch_slots, np.int64)
         self.params0 = params0
         self.group_order = order
 
@@ -225,9 +255,10 @@ class CompiledCircuit:
         ``"row"`` into [L·(n_x+1)], ``"mat"`` into [L·(n_x+1)²],
         ``"sparse"`` (each local Jacobian entry's filled-pattern position,
         ``SparseOps.group_pos``) into [L·(nnz_f+1)], ``"src"`` (each noise
-        source) into [L·(n_eps+1)] and ``"eps"`` (each row by noise
-        source) into [L·(n_x+1)·(n_eps+1)]; the padding instances write the
-        trash row and column (the sparse pattern's trash slot)."""
+        source) into [L·(n_eps+1)], ``"eps"`` (each row by noise source)
+        into [L·(n_x+1)·(n_eps+1)] and ``"dly"`` (each delay or latch
+        slot) into [L·(n_dly+1)]; the padding instances write the trash
+        row and column (the sparse pattern's trash slot)."""
         ck = (key, L, kind)
         if ck not in self._idx_cache:
             var_idx, row_idx = self._padded_idx(key)
@@ -242,6 +273,15 @@ class CompiledCircuit:
                     (row_idx.shape[0] - pos.shape[0],) + pos.shape[1:],
                     sops.nnz_f, pos.dtype)]).astype(np.int64)
                 idx = lanes[..., None] * (sops.nnz_f + 1) + pos[None]
+                self._idx_cache[ck] = torch.as_tensor(
+                    idx.reshape(-1), dtype=torch.int64, device=self.device)
+                return self._idx_cache[ck]
+            if kind == "dly":
+                d_idx = self.groups[key].dly_idx
+                d_idx = np.concatenate([d_idx, np.full(
+                    (row_idx.shape[0] - d_idx.shape[0], d_idx.shape[1]),
+                    self.n_dly, d_idx.dtype)])
+                idx = lanes * (self.n_dly + 1) + d_idx[None]
                 self._idx_cache[ck] = torch.as_tensor(
                     idx.reshape(-1), dtype=torch.int64, device=self.device)
                 return self._idx_cache[ck]
@@ -325,7 +365,7 @@ class CompiledCircuit:
         return ctx.replace(**kw) if kw else ctx
 
     def evaluate(self, x, ctx: SimSpec, lp, jac=False, v=None, keys=None,
-                 eps=None):
+                 eps=None, dly=None):
         """Core walk over ``[L, n_x]`` states with prepared lane params
         ``lp`` (:meth:`lane_params`).  Returns (S, Q) [L, n_x]; with
         ``jac=True`` also (G, C) [L, n_x, n_x], with ``jac="sparse"`` (G,
@@ -334,7 +374,8 @@ class CompiledCircuit:
         instead the charge tangent C(x)·v [L, n_x].  ``keys`` restricts the
         walk to those groups (in the compiled order): the fused chord
         plan's linear and nonlinear subsets.  ``eps`` [L, n_eps]: the noise
-        inputs (None: the walk without noise)."""
+        inputs (None: the walk without noise); ``dly`` [L, n_dly]: the
+        delayed values and latched states (None: zeros)."""
         L, n = x.shape
         n1 = n + 1
         dt, dev = self.dtype, self.device
@@ -360,7 +401,7 @@ class CompiledCircuit:
             walk = [k for k in walk if k in keys]
         for key in walk:
             s, q, ds, dq, scale = self._walk_group(key, x_pad, ctx, lp, L,
-                                                   bool(jac), v_pad, eps)
+                                                   bool(jac), v_pad, eps, dly)
             ridx = self._index(key, L, "row")
             _scatter_add(S, ridx, (s * scale).reshape(-1))
             _scatter_add(Q, ridx, (q * scale).reshape(-1))
@@ -383,7 +424,8 @@ class CompiledCircuit:
             return S, Q, Qd.view(L, n1)[:, :n]
         return S, Q
 
-    def _walk_group(self, key, x_pad, ctx, lp, L, jac, v_pad, eps):
+    def _walk_group(self, key, x_pad, ctx, lp, L, jac, v_pad, eps,
+                    dly=None):
         """One group's model walk over its flat eval batch of ``L`` lanes:
         the row values s, q [B, n_lrow], their tangents ds, dq [B, n_lrow,
         K] (K = n_lvar local Jacobian columns with ``jac``, else the one
@@ -405,9 +447,7 @@ class CompiledCircuit:
             lv = [Dual(lvv[:, k], tv[None, :, k]) for k in range(nlv)]
         else:
             lv = [lvv[:, k] for k in range(nlv)]
-        e = None
-        if eps is not None and g.model.n_noise:
-            e = self._group_eps(key, eps, B)
+        e = self._group_aux(key, eps, dly, B)
         s_rows, q_rows = g.model.eval(lv, p, self._eval_ctx(ctx, ni), e)
         K = nlv if jac else 1
         s, ds = _stack_rows(s_rows, B, K, dt, dev)
@@ -445,7 +485,30 @@ class CompiledCircuit:
         le = e_pad[:, idx].reshape(B, nn)
         return [le[:, k] for k in range(nn)]
 
-    def _call(self, x, ctx, params, jac=False, v=None, eps=None):
+    def _group_aux(self, key, eps, dly, B):
+        """A group's aux inputs for its flat eval batch: None for a group
+        with no delay or latch slots and no ``eps``, else the noise inputs
+        (zeros without ``eps``) followed by the delay and latch slots
+        gathered from ``dly`` [L, n_dly] (zeros without it; the padding
+        instances read zero)."""
+        model = self.groups[key].model
+        nd = _n_delay(model) + _n_latch(model)
+        noise = None
+        if eps is not None and model.n_noise:
+            noise = self._group_eps(key, eps, B)
+        if nd == 0:
+            return noise
+        if noise is None:
+            noise = [0.0] * model.n_noise
+        if dly is None:
+            return noise + [0.0] * nd
+        L = dly.shape[0]
+        d_pad = torch.cat([dly, torch.zeros(L, 1, dtype=dly.dtype,
+                                            device=dly.device)], 1)
+        ld = d_pad[:, self._index(key, 1, "dly")].reshape(B, nd)
+        return noise + [ld[:, k] for k in range(nd)]
+
+    def _call(self, x, ctx, params, jac=False, v=None, eps=None, dly=None):
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
         single = x.dim() == 1
         xb = x[None] if single else x
@@ -455,22 +518,26 @@ class CompiledCircuit:
         if eps is not None:
             eps = torch.as_tensor(eps, dtype=self.dtype, device=self.device)
             eps = eps.expand(xb.shape[0], self.n_eps)
+        if dly is not None:
+            dly = torch.as_tensor(dly, dtype=self.dtype, device=self.device)
+            dly = dly.expand(xb.shape[0], self.n_dly)
         out = self.evaluate(xb, ctx, self.lane_params(params, xb.shape[0]),
-                            jac=jac, v=v, eps=eps)
+                            jac=jac, v=v, eps=eps, dly=dly)
         return tuple(o[0] for o in out) if single else out
 
-    def residuals(self, x, ctx: SimSpec, params=None, eps=None):
+    def residuals(self, x, ctx: SimSpec, params=None, eps=None, dly=None):
         """(S, Q): static residual and charge vector, each [..., n_x];
-        ``eps`` [n_eps] (or [L, n_eps]) are the noise inputs."""
-        return self._call(x, ctx, params, eps=eps)
+        ``eps`` [n_eps] (or [L, n_eps]) are the noise inputs, ``dly``
+        [n_dly] (or [L, n_dly]) the delayed values and latched states."""
+        return self._call(x, ctx, params, eps=eps, dly=dly)
 
-    def res_jacs_fwd(self, x, ctx: SimSpec, params=None):
+    def res_jacs_fwd(self, x, ctx: SimSpec, params=None, dly=None):
         """(S, Q, G, C) from one dual-number walk per group."""
-        return self._call(x, ctx, params, jac=True)
+        return self._call(x, ctx, params, jac=True, dly=dly)
 
-    def jacobians(self, x, ctx: SimSpec, params=None):
+    def jacobians(self, x, ctx: SimSpec, params=None, dly=None):
         """Dense (G, C) = (∂S/∂x, ∂Q/∂x), each [..., n_x, n_x]."""
-        return self.res_jacs_fwd(x, ctx, params)[2:]
+        return self.res_jacs_fwd(x, ctx, params, dly=dly)[2:]
 
     def residuals_jvp(self, x, v, ctx: SimSpec, params=None):
         """(S, Q, C(x)·v) from one walk with a single tangent direction."""
@@ -478,21 +545,26 @@ class CompiledCircuit:
 
     # -------------------------------------------------------- noise and AC
 
-    def _noisy_groups(self, x, ctx, params):
-        """The walk inputs of every group with noise sources at ``x``
-        ([n_x] or [L, n_x]): (L, one state?, and per group (key, model,
-        params, multiplier, eval batch B, local values [B] each, eval
-        ctx))."""
+    def _lane_inputs(self, x, params, lp=None):
+        """(x [L, n_x], one state?, lane params) of ``x`` ([n_x] or [L,
+        n_x])."""
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
         single = x.dim() == 1
         xb = x[None] if single else x
+        if lp is None:
+            lp = self.lane_params(params, xb.shape[0])
+        return xb, single, lp
+
+    def _plain_groups(self, xb, ctx, lp, want):
+        """The walk inputs of every group that ``want(model)`` selects at
+        ``xb`` [L, n_x]: per group (key, model, params, multiplier, eval
+        batch B, local values [B] each, eval ctx)."""
         L = xb.shape[0]
-        lp = self.lane_params(params, L)
         x_pad = torch.cat([xb, torch.zeros_like(xb[:, :1])], 1)
         out = []
         for key in self.group_order:
             g = self.groups[key]
-            if g.model.n_noise == 0:
+            if not want(g.model):
                 continue
             p, mult = lp[key]
             ni = _n_pad(len(g.instances))
@@ -501,22 +573,38 @@ class CompiledCircuit:
             out.append((key, g.model, p, mult, L * ni,
                         [lvv[:, k] for k in range(nlv)],
                         self._eval_ctx(ctx, ni)))
-        return L, single, out
+        return out
 
-    def eps_jacobian(self, x, ctx: SimSpec, params=None):
+    def _noisy_groups(self, x, ctx, params):
+        """The walk inputs of every group with noise sources at ``x``
+        ([n_x] or [L, n_x]): (L, one state?, and per group as
+        :meth:`_plain_groups`)."""
+        xb, single, lp = self._lane_inputs(x, params)
+        return xb.shape[0], single, self._plain_groups(
+            xb, ctx, lp, lambda m: m.n_noise > 0)
+
+    def eps_jacobian(self, x, ctx: SimSpec, params=None, dly=None):
         """∂S/∂eps [..., n_x, n_eps] at ``x``: one walk of each noisy group
         with its noise inputs as Duals of value 0 and unit tangents, the
         VA's own scale factors on a noise term carried through; the KCL
-        rows scaled by the multiplier like S."""
+        rows scaled by the multiplier like S.  ``dly`` [..., n_dly]: the
+        aux slots the walk reads (the operating point's, in the noise
+        analysis of a circuit with delay or latch sites)."""
         L, single, groups = self._noisy_groups(x, ctx, params)
         n1, e1 = self.n_x + 1, self.n_eps + 1
         dt, dev = self.dtype, self.device
+        if dly is not None:
+            dly = torch.as_tensor(dly, dtype=dt, device=dev).expand(
+                L, self.n_dly)
         J = torch.zeros(L * n1 * e1, dtype=dt, device=dev)
         for key, model, p, mult, B, lv, ctx_e in groups:
             nn = model.n_noise
             zero = torch.zeros(B, dtype=dt, device=dev)
             eye = torch.eye(nn, dtype=dt, device=dev)
             e = [Dual(zero, eye[:, k:k + 1].expand(nn, B)) for k in range(nn)]
+            aux = self._group_aux(key, None, dly, B)
+            if aux is not None:
+                e = e + aux[nn:]
             s_rows, _ = model.eval(lv, p, ctx_e, e)
             _, ds = _stack_rows(s_rows, B, nn, dt, dev)   # [B, n_lrow, nn]
             scale = torch.where(self._group_consts(key)[1], mult[:, None],
@@ -543,6 +631,74 @@ class CompiledCircuit:
         pwr = pwr.view(L, e1)[:, :self.n_eps]
         ex = ex.view(L, e1)[:, :self.n_eps]
         return (pwr[0], ex[0]) if single else (pwr, ex)
+
+    # ------------------------------------------------ delay and latch slots
+
+    def delay_sources(self, x, ctx: SimSpec, params=None, lp=None):
+        """(u, td) [..., n_ring] at ``x`` ([n_x] or [L, n_x]): each ring
+        slot's delayed expression now (what the transient's history ring
+        stores) and its delay, in the order of ``ring_slots``.  ``lp``:
+        the lane params, where the caller has them."""
+        xb, single, lp = self._lane_inputs(x, params, lp)
+        L = xb.shape[0]
+        d1 = self.n_dly + 1
+        dt, dev = self.dtype, self.device
+        u = torch.zeros(L * d1, dtype=dt, device=dev)
+        td = torch.zeros(L * d1, dtype=dt, device=dev)
+        for key, model, p, _, B, lv, ctx_e in self._plain_groups(
+                xb, ctx, lp, lambda m: _n_delay(m) > 0):
+            nd = _n_delay(model)
+            idx = self._index(key, L, "dly").view(B, -1)[:, :nd].reshape(-1)
+            for dst, rows in zip((u, td), model.delays(lv, p, ctx_e)):
+                vals, _ = _stack_rows(rows, B, 1, dt, dev)     # [B, nd]
+                dst.index_put_((idx,), vals.reshape(-1))
+        rs = torch.as_tensor(self.ring_slots, device=dev)
+        u, td = u.view(L, d1)[:, rs], td.view(L, d1)[:, rs]
+        return (u[0], td[0]) if single else (u, td)
+
+    def latch_init(self, x, ctx: SimSpec, params=None, lp=None):
+        """The aux vector [..., n_dly] with every latch slot settled at the
+        operating point ``x`` (``model.latch0``) and the ring slots zero
+        (the transient fills them from its ring)."""
+        xb, single, lp = self._lane_inputs(x, params, lp)
+        L = xb.shape[0]
+        latw = torch.zeros(L, self.n_dly, dtype=self.dtype,
+                           device=self.device)
+        if self.n_lat:
+            latw = self._latch_walk(xb, ctx, lp, latw, None)
+        return latw[0] if single else latw
+
+    def latch_update(self, x, ctx: SimSpec, latw, params=None, lp=None):
+        """The aux vector after an accepted step at ``ctx.time``: each
+        latch site sees its state in ``latw`` [..., n_dly] and the
+        accepted solution ``x`` and gives its new state (``model.latch``,
+        the event queue's counterpart); the other slots are kept."""
+        xb, single, lp = self._lane_inputs(x, params, lp)
+        latw = torch.as_tensor(latw, dtype=self.dtype, device=self.device)
+        latw = latw.expand(xb.shape[0], self.n_dly)
+        if self.n_lat:
+            latw = self._latch_walk(xb, ctx, lp, latw, True)
+        return latw[0] if single else latw
+
+    def _latch_walk(self, xb, ctx, lp, latw, update):
+        L = xb.shape[0]
+        d1 = self.n_dly + 1
+        dt, dev = self.dtype, self.device
+        w = torch.cat([latw, torch.zeros(L, 1, dtype=dt, device=dev)],
+                      1).reshape(-1).clone()
+        for key, model, p, _, B, lv, ctx_e in self._plain_groups(
+                xb, ctx, lp, lambda m: _n_latch(m) > 0):
+            nd, nl = _n_delay(model), _n_latch(model)
+            idx = self._index(key, L, "dly").view(B, -1)[:, nd:]
+            if update:
+                lat = w[idx]                                    # [B, nl]
+                rows = model.latch(lv, p, ctx_e,
+                                   [lat[:, k] for k in range(nl)])
+            else:
+                rows = model.latch0(lv, p, ctx_e)
+            vals, _ = _stack_rows(rows, B, 1, dt, dev)
+            w.index_put_((idx.reshape(-1),), vals.reshape(-1))
+        return w.view(L, d1)[:, :self.n_dly]
 
     def ac_rhs(self, params=None):
         """Complex AC drive b [n_x] of (G + jωC)·v = b: each source's
@@ -595,6 +751,11 @@ class CompiledCircuit:
                         return xp[..., ia] - xp[..., ib]
                     return volt
 
+                # delay and latch slots read zero here, as in the JAX
+                # package (the solution does not carry the ring)
+                nd = _n_delay(g.model) + _n_latch(g.model)
+                aux0 = [0.0] * (g.model.n_noise + nd) if nd else None
+
                 def curr(x, xd, ctx, params=None):
                     params = self.params0 if params is None else params
                     x2 = x.reshape(-1, self.n_x)
@@ -612,7 +773,7 @@ class CompiledCircuit:
                     xdp = torch.cat([xd2, torch.zeros_like(xd2[:, :1])], 1)
                     lv = [Dual(xp[:, c], xdp[None, :, c])
                           for c in g.var_idx[j]]
-                    s_rows, q_rows = g.model.eval(lv, p, ctx, None)
+                    s_rows, q_rows = g.model.eval(lv, p, ctx, aux0)
                     s, _ = _stack_rows(s_rows[:1], x2.shape[0], 1,
                                        self.dtype, self.device)
                     _, dq = _stack_rows(q_rows[:1], x2.shape[0], 1,
@@ -683,8 +844,9 @@ class CompiledCircuit:
         return new
 
     def breakpoints(self, tstop: float) -> np.ndarray:
-        """All source-waveform discontinuity times in (0, tstop), sorted,
-        with near-duplicates (sub-1e-9·tstop apart) merged."""
+        """All source-waveform discontinuity times in (0, tstop) and their
+        echoes through the delay elements (``echo_delays``), sorted, with
+        near-duplicates (sub-1e-9·tstop apart) merged."""
         pts = [np.asarray([], np.float64)]
         for key in self.group_order:
             g = self.groups[key]
@@ -695,6 +857,29 @@ class CompiledCircuit:
                 pts.append(np.asarray(bp(inst.params, tstop), np.float64))
         out = np.unique(np.concatenate(pts))
         out = out[(out > 0) & (out < tstop)]
+        # delay elements echo every waveform corner, and each echo's
+        # reflections, one line delay later: the closure of the schedule
+        # under those delays (capped at 200 rounds and 20,000 points)
+        tds = []
+        for key in self.group_order:
+            g = self.groups[key]
+            ed = getattr(g.model, "echo_delays", None)
+            if ed is None:
+                continue
+            for inst in g.instances:
+                tds.extend(float(v) for v in ed(inst.params) if v > 0)
+        tds = sorted(set(tds))
+        if tds and len(out):
+            frontier = out
+            acc = [out]
+            for _ in range(min(int(np.ceil(tstop / tds[0])) + 1, 200)):
+                new = np.concatenate([frontier + td for td in tds])
+                new = np.unique(new[new < tstop])
+                if not len(new) or sum(map(len, acc)) > 20000:
+                    break
+                acc.append(new)
+                frontier = new
+            out = np.unique(np.concatenate(acc))
         if len(out) > 1:
             tol = max(tstop * 1e-9, 1e-18)
             keep = np.concatenate([[True], np.diff(out) > tol])
@@ -713,6 +898,16 @@ _LANE_ALIGN = 16
 
 def _n_pad(n_inst):
     return -(-n_inst // _LANE_ALIGN) * _LANE_ALIGN
+
+
+def _n_delay(model):
+    """A device class's ring-filled aux inputs (delayed values)."""
+    return getattr(model, "n_delay", 0)
+
+
+def _n_latch(model):
+    """A device class's latched-state aux inputs."""
+    return getattr(model, "n_latch", 0)
 
 
 def _scatter_add(dst, idx, src):

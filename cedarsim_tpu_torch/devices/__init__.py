@@ -4,7 +4,8 @@ from cedarsim_tpu_torch.devices.simple import (
     VSource, VSourcePWL, VSourcePULSE, VSourceSIN, VSourceEXP,
     ISource, ISourcePWL, ISourcePULSE, ISourceSIN, ISourceEXP,
     VCVS, VCCS, CCVS, CCCS, VSwitch, ISwitch, Diode,
-    OpenCircuit, ShortCircuit, nonlinear_resistor, nonlinear_capacitor,
+    OpenCircuit, ShortCircuit, TLine, LTRALine, nonlinear_resistor,
+    nonlinear_capacitor,
 )
 from cedarsim_tpu_torch.devices.mos import Mos1
 from cedarsim_tpu_torch.devices.bjt import Bjt

@@ -1,9 +1,9 @@
 """Built-in SPICE devices — counterpart of ``cedarsim_tpu/devices/simple.py``:
 R, C, L, coupled L (K), the V and I sources (DC, PWL, PULSE, SIN, EXP), the
 controlled sources (E, G, H, F), the switches (S, W), the junction diode,
-the open and short circuits and the nonlinear R and C factories.  The
-transmission lines (``TLine``, ``LTRALine``) need the integrator's delay
-channel and are ROADMAP A14b part 3.
+the open and short circuits, the nonlinear R and C factories and the
+transmission lines (``TLine``, ``LTRALine``), whose delayed waves ride the
+integrator's delay ring (``n_delay`` aux inputs, ``delays``).
 
 Each ``eval`` is the JAX package's stamp over a batch of instances: ``lv``
 entries are ``[B]`` tensors or Duals, parameters are floats or ``[B]``
@@ -577,3 +577,167 @@ def nonlinear_capacitor(f, name="NonlinearCapacitor"):
 
     _NLC.__name__ = _NLC.__qualname__ = name
     return _NLC
+
+
+# ------------------------------------------------------ transmission lines
+
+def _two_port_stamp(y11, y12):
+    """The 4-terminal (p1, n1, p2, n2) stamp [n_f, 4, 4] of a symmetric
+    two-port's Y11, Y12 [n_f]."""
+    Y2 = torch.stack([torch.stack([y11, y12], -1),
+                      torch.stack([y12, y11], -1)], -2)
+    T = torch.tensor([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]],
+                     dtype=Y2.dtype, device=Y2.device)
+    return T @ Y2 @ T.T
+
+
+class TLine(DeviceModel):
+    """Lossless transmission line (SPICE T element) by Branin's method of
+    characteristics: each port is a Thevenin Z0 source driven by the far
+    port's wave one line delay ago,
+
+        V1 − Z0·I1 = E1,  E1(t) = V2(t−td) + Z0·I2(t−td)
+        V2 − Z0·I2 = E2,  E2(t) = V1(t−td) + Z0·I1(t−td),
+
+    the delayed waves read from the integrator's history ring (``n_delay``
+    aux inputs).  At the operating point the line is a DC short (the E
+    waves read the live far port); in AC the branch rows pin I = 0 and the
+    exact two-port Y(f) (``ac_admittance``) carries the physics."""
+    terminals = ("p1", "n1", "p2", "n2")
+    n_branch = 2
+    n_delay = 2
+    params = dict(z0=50.0, td=1e-9)
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        vp1, vn1, vp2, vn2, i1, i2 = lv[0], lv[1], lv[2], lv[3], lv[4], lv[5]
+        z0 = p["z0"]
+        if ctx.mode == Modes.AC:
+            return [0.0, 0.0, 0.0, 0.0, i1, i2], [0.0] * 6
+        if ctx.mode in (Modes.DCOP, Modes.TRANOP):
+            e1 = (vp2 - vn2) + z0 * i2
+            e2 = (vp1 - vn1) + z0 * i1
+        else:
+            e1, e2 = eps[0], eps[1]
+        return ([i1, -i1, i2, -i2, (vp1 - vn1) - z0 * i1 - e1,
+                 (vp2 - vn2) - z0 * i2 - e2], [0.0] * 6)
+
+    @classmethod
+    def delays(cls, lv, p, ctx):
+        """(u_now, td): the waves the far ports see one delay later."""
+        vp1, vn1, vp2, vn2, i1, i2 = lv[0], lv[1], lv[2], lv[3], lv[4], lv[5]
+        z0 = p["z0"]
+        return ([(vp2 - vn2) + z0 * i2, (vp1 - vn1) + z0 * i1],
+                [p["td"], p["td"]])
+
+    @classmethod
+    def echo_delays(cls, p):
+        """A waveform corner re-emerges (and re-reflects) every line delay:
+        the breakpoint echo period."""
+        return [float(p["td"])]
+
+    @classmethod
+    def ac_admittance(cls, p):
+        """The exact lossless two-port, θ = ω·td: Y11 = Y22 = −j·cot(θ)/Z0,
+        Y12 = Y21 = j/(Z0·sin θ), |sin θ| floored at 1e-9 (a resonance
+        stays finite)."""
+        z0, td = float(p["z0"]), float(p["td"])
+
+        def yfun(f):
+            th = 2.0 * math.pi * f * td
+            sn = torch.sin(th)
+            sn = torch.where(sn.abs() < 1e-9,
+                             torch.where(sn < 0, -1e-9, 1e-9), sn)
+            cd = torch.complex128
+            y11 = (-1j) * (torch.cos(th) / (sn * z0)).to(cd)
+            y12 = 1j * (1.0 / (sn * z0)).to(cd)
+            return _two_port_stamp(y11, y12)
+        return yfun
+
+
+class LTRALine(DeviceModel):
+    """A lossy RLCG transmission-line section (SPICE O element, LTRA
+    model), with series totals R = rtot, L = ltot and shunt totals G =
+    gtot, C = ctot; the elaborator cascades sections of a lossy line.  The
+    transient is Branin's waves (as :class:`TLine`) with the attenuation
+    α = exp(−R/(2·Z0) − G·Z0/2), a −gc shunt at each wave node and a series
+    lump ρ at each port sized so that the DC path resistance is exactly R,
+    and G/2 across each port.  AC stamps the exact RLCG two-port, Y11 =
+    coth(γ)/Zc, Y12 = −1/(Zc·sinh γ)."""
+    terminals = ("p1", "n1", "p2", "n2")
+    n_branch = 2
+    n_delay = 2
+    params = dict(rtot=0.0, ltot=250e-9, gtot=0.0, ctot=100e-12)
+
+    @staticmethod
+    def _derived(p):
+        z0 = D.sqrt(p["ltot"] / p["ctot"])
+        alpha = D.exp(-p["rtot"] / (2.0 * z0) - p["gtot"] * z0 / 2.0)
+        # the attenuated wave pair's DC π-equivalent
+        rs_w = z0 * (1.0 - alpha * alpha) / (2.0 * alpha)
+        gc = (1.0 - alpha) / (z0 * (1.0 + alpha))
+        rho = D.maximum(0.0, (p["rtot"] - rs_w) / 2.0)
+        return z0, alpha, rho, gc
+
+    @staticmethod
+    def _waves(lv, p):
+        """z0, α, the wave-node voltages U_k behind the ρ lumps and the
+        line currents iL_k with the −gc compensation shunt."""
+        vp1, vn1, vp2, vn2, i1, i2 = lv[0], lv[1], lv[2], lv[3], lv[4], lv[5]
+        z0, alpha, rho, gc = LTRALine._derived(p)
+        u1 = (vp1 - vn1) - rho * i1
+        u2 = (vp2 - vn2) - rho * i2
+        return z0, alpha, u1, u2, i1 + gc * u1, i2 + gc * u2
+
+    @staticmethod
+    def eval(lv, p, ctx, eps):
+        i1, i2 = lv[4], lv[5]
+        if ctx.mode == Modes.AC:
+            return [0.0, 0.0, 0.0, 0.0, i1, i2], [0.0] * 6
+        z0, alpha, u1, u2, il1, il2 = LTRALine._waves(lv, p)
+        g2 = p["gtot"] / 2.0
+        if ctx.mode in (Modes.DCOP, Modes.TRANOP):
+            e1 = alpha * (u2 + z0 * il2)
+            e2 = alpha * (u1 + z0 * il1)
+        else:
+            e1, e2 = alpha * eps[0], alpha * eps[1]
+        vd1 = lv[0] - lv[1]
+        vd2 = lv[2] - lv[3]
+        return ([i1 + g2 * vd1, -(i1 + g2 * vd1), i2 + g2 * vd2,
+                 -(i2 + g2 * vd2), u1 - z0 * il1 - e1, u2 - z0 * il2 - e2],
+                [0.0] * 6)
+
+    @classmethod
+    def delays(cls, lv, p, ctx):
+        """(u_now, td): the outgoing waves at each wave node, before the
+        attenuation (``eval`` applies α)."""
+        z0, _alpha, u1, u2, il1, il2 = cls._waves(lv, p)
+        td = D.sqrt(p["ltot"] * p["ctot"])
+        return [u2 + z0 * il2, u1 + z0 * il1], [td, td]
+
+    @classmethod
+    def echo_delays(cls, p):
+        return [math.sqrt(float(p["ltot"]) * float(p["ctot"]))]
+
+    @classmethod
+    def ac_admittance(cls, p):
+        """The exact RLCG two-port Y(f) (4-terminal stamp), Re γ clipped to
+        [0, 300] and |sinh|, |tanh| floored at 1e-12."""
+        r, l = float(p["rtot"]), float(p["ltot"])
+        g, c = float(p["gtot"]), float(p["ctot"])
+
+        def yfun(f):
+            s = 2j * math.pi * f.to(torch.complex128)
+            zs = r + s * l
+            yp = g + s * c
+            gl = torch.sqrt(zs * yp)
+            gl = torch.complex(gl.real.clamp(0.0, 300.0), gl.imag)
+            sh = torch.sinh(gl)
+            sh = torch.where(sh.abs() < 1e-12,
+                             torch.full_like(sh, 1e-12), sh)
+            th = torch.tanh(gl)
+            th = torch.where(th.abs() < 1e-12,
+                             torch.full_like(th, 1e-12), th)
+            yc = torch.sqrt(yp / zs)
+            return _two_port_stamp(yc / th, -yc / sh)
+        return yfun

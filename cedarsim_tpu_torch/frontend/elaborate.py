@@ -5,10 +5,11 @@ The walk is the JAX package's: subcircuits flatten with dotted prefixes,
 parameters resolve through lexically scoped lazy environments, models merge
 into device parameter dicts and ``m=`` multipliers compose down the
 hierarchy.  Every card binds a device class of the port, as the JAX
-elaborator binds it (``cedarsim_tpu/frontend/elaborate.py``).  A card whose
-device has no PyTorch counterpart yet (T/O/U lines, VBIC) raises
-``NotImplementedError`` naming its ROADMAP item; nothing is bound in its
-place.  ``.scs`` includes (Spectre model decks such as ASAP7's) parse with
+elaborator binds it (``cedarsim_tpu/frontend/elaborate.py``), the
+transmission lines included (T: ``TLine``; O: a cascade of ``LTRALine``
+sections, or a lumped ladder; U: a graded R-C or R-diode ladder).  A
+directive the port does not take yet raises ``NotImplementedError`` naming
+its ROADMAP item.  ``.scs`` includes (Spectre model decks such as ASAP7's) parse with
 the Spectre grammar of ``frontend/spectre.py``.  S-parameter elements
 (HSPICE ``S``) read their touchstone file into ``circuit.sparam_blocks``,
 which only the AC and noise analyses stamp, and ``.meas``/``.measure``
@@ -28,20 +29,13 @@ from cedarsim_tpu_torch.devices import (
     Resistor, Capacitor, Inductor, CoupledInductors, VSource, VSourcePWL,
     VSourcePULSE, VSourceSIN, VSourceEXP, ISource, ISourcePWL,
     ISourcePULSE, ISourceSIN, ISourceEXP, VCVS, VCCS, CCVS, CCCS, VSwitch,
-    ISwitch, Diode, Mos1, Bjt, Jfet, Mesfet,
+    ISwitch, Diode, Mos1, Bjt, Jfet, Mesfet, TLine, LTRALine,
 )
 from cedarsim_tpu_torch.frontend import parser as P
 from cedarsim_tpu_torch.frontend.expr import eval_expr, ExprError
 
-_A14B = ("ROADMAP A14b part 3 (transmission lines, the VA delay ring and "
-        "latch channel)")
 _A19 = "ROADMAP A19 (utilities and API)"
 _A19_STATS = "ROADMAP A19 (Spectre statistics blocks)"
-
-
-def _unported(what, item):
-    return NotImplementedError(
-        f"{what} has no PyTorch device yet — {item}")
 
 
 class ElabError(ValueError):
@@ -551,9 +545,33 @@ class Elaborator:
         if letter == "g":
             self.ckt.add(VCCS, name, nets, dict(gm=kw.get("gm", val(0))), m=m)
             return
-        if letter in ("t", "o", "u"):
-            raise _unported(f"{el.name}: {letter.upper()} transmission line",
-                            _A14B)
+        if letter == "t":
+            # lossless transmission line: Tname p1 n1 p2 n2 Z0= TD= (or F=
+            # [NL=], td = nl/f; the ngspice/hspice card)
+            z0 = kw.get("z0", kw.get("zo", 50.0))
+            td = kw.get("td")
+            if td is None:
+                f = kw.get("f")
+                if f is None:
+                    raise ElabError(
+                        f"{el.name}: transmission line needs TD= or F= "
+                        "(+ optional NL=)", el.loc)
+                if f <= 0:
+                    raise ElabError(f"{el.name}: F={f} must be positive",
+                                    el.loc)
+                td = kw.get("nl", 0.25) / f
+            if td <= 0 or z0 <= 0:
+                raise ElabError(
+                    f"{el.name}: transmission line needs TD > 0 and Z0 > 0 "
+                    f"(got td={td}, z0={z0})", el.loc)
+            self.ckt.add(TLine, name, nets, dict(z0=z0, td=td), m=m)
+            return
+        if letter == "o":
+            self._instantiate_ltra(el, name, nets, scope, env, m)
+            return
+        if letter == "u":
+            self._instantiate_urc(el, name, nets, scope, env, kw, m)
+            return
         if letter == "s":
             mdl = self._model(el.model, scope, el.loc)
             pr = self._map_params(VSwitch, mdl.params, env, el.loc)
@@ -592,6 +610,150 @@ class Elaborator:
         raise ElabError(
             f"device type {el.letter.upper()!r} not implemented yet "
             f"({el.name})", el.loc)
+
+    def _instantiate_ltra(self, el, name, nets, scope, env, m):
+        """O element, a lossy line on an LTRA card (``.model mname LTRA R=
+        L= G= C= LEN=``), by which per-length constants are given, as
+        ngspice's LTRA cases:
+
+        * L > 0 and C > 0: a cascade of K ``LTRALine`` sections, K sized
+          so that each carries at most ~0.1 of the loss R/(2·Z0) + G·Z0/2
+          (K = 1 lossless: exact Branin);
+        * C > 0 or G > 0 with L = 0: a lumped RC/RG ladder;
+        * R only: a series resistor.
+        """
+        if el.model is None:
+            raise ElabError(f"{el.name}: O element needs an LTRA model",
+                            el.loc)
+        mdl = self._model(el.model, scope, el.loc)
+        mp = {k: self.vres(v, env, el.loc) for k, v in mdl.params.items()}
+        r = float(mp.get("r", 0.0))
+        l = float(mp.get("l", 0.0))
+        g = float(mp.get("g", 0.0))
+        c = float(mp.get("c", 0.0))
+        length = float(mp.get("len", mp.get("length", 1.0)))
+        if length <= 0:
+            raise ElabError(f"{el.name}: LTRA LEN must be positive", el.loc)
+        rtot, ltot, gtot, ctot = (r * length, l * length,
+                                  g * length, c * length)
+        p1, n1, p2, n2 = nets
+        if ltot > 0.0 and ctot > 0.0:
+            z0 = math.sqrt(ltot / ctot)
+            loss = rtot / (2.0 * z0) + gtot * z0 / 2.0
+            k = max(1, min(32, math.ceil(loss / 0.1)))
+            # the interior junctions' reference is port 1's: the reference
+            # conductor is ideal, and a chain of separate reference nets
+            # would leave each junction's common mode floating
+            xa = p1
+            for i in range(k):
+                last = i == k - 1
+                xb = p2 if last else self.ckt.net(f"{name}#x{i + 1}")
+                self.ckt.add(LTRALine, f"{name}#s{i + 1}" if k > 1 else name,
+                             [xa, n1, xb, n2 if last else n1],
+                             dict(rtot=rtot / k, ltot=ltot / k,
+                                  gtot=gtot / k, ctot=ctot / k), m=m)
+                xa = xb
+            return
+        if ctot > 0.0 or gtot > 0.0:
+            nseg = max(3, min(50, math.ceil(10.0 * max(
+                1.0, math.log10(max(rtot * ctot * 1e9, 1.0) + 1.0)))))
+            self._ladder(name, nets, rtot, ctot, gtot, nseg, m)
+            return
+        self.ckt.add(Resistor, name, [p1, p2], dict(r=max(rtot, 1e-12)),
+                     m=m)
+        if not (n1.is_ground and n2.is_ground) and n1.name != n2.name:
+            self.warn(f"{el.name}: R-only LTRA ignores the reference "
+                      "conductor terminals", el.loc)
+
+    def _ladder(self, name, nets, rtot, ctot, gtot, nseg, m,
+                weights=None, shunt=None):
+        """A lumped ladder between nets (p1, n1, p2, n2) or (n1, n2,
+        ncommon): series R split by ``weights`` (uniform by default), shunt
+        C and/or G at the junctions with half lumps at the ends, so that
+        the total series R and shunt C, G are exact; ``shunt(i, node, ref,
+        frac)`` makes a custom shunt element (URC's diodes)."""
+        if len(nets) == 4:
+            p1, n1, p2, n2 = nets
+            ref = lambda i: n1 if (i <= nseg // 2) else n2  # noqa: E731
+        else:
+            p1, p2, ncom = nets
+            ref = lambda i: ncom  # noqa: E731
+        w = list(weights) if weights is not None else [1.0 / nseg] * nseg
+        tot = sum(w)
+        w = [x / tot for x in w]
+        prev = p1
+        for i in range(nseg + 1):
+            frac = ((w[i - 1] if i > 0 else 0.0)
+                    + (w[i] if i < nseg else 0.0)) / 2.0
+            node = prev
+            if shunt is not None:
+                shunt(i, node, ref(i), frac)
+            else:
+                if ctot > 0.0:
+                    self.ckt.add(Capacitor, f"{name}#c{i}", [node, ref(i)],
+                                 dict(c=ctot * frac), m=m)
+                if gtot > 0.0:
+                    self.ckt.add(Resistor, f"{name}#g{i}", [node, ref(i)],
+                                 dict(r=1.0 / (gtot * frac)), m=m)
+            if i < nseg:
+                nxt = (self.ckt.net(f"{name}#j{i + 1}") if i < nseg - 1
+                       else p2)
+                self.ckt.add(Resistor, f"{name}#r{i}", [prev, nxt],
+                             dict(r=max(rtot * w[i], 1e-12)), m=m)
+                prev = nxt
+
+    def _instantiate_urc(self, el, name, nets, scope, env, kw, m):
+        """U element, a uniform distributed RC line (``Uname n1 n2 ncommon
+        mname L=len [N=segs]`` on ``.model mname URC (K= FMAX= RPERL=
+        CPERL= ISPERL= RSPERL=)``): a ladder of N segments whose widths
+        grade geometrically (ratio K) toward the middle; with ISPERL the
+        shunt capacitors become reverse-biased junction diodes of
+        proportional saturation current and junction capacitance (ngspice
+        semantics)."""
+        if el.model is None:
+            raise ElabError(f"{el.name}: U element needs a URC model",
+                            el.loc)
+        mdl = self._model(el.model, scope, el.loc)
+        mp = {kk: self.vres(v, env, el.loc) for kk, v in mdl.params.items()}
+        kfac = float(mp.get("k", 2.0))
+        fmax = float(mp.get("fmax", 1e9))
+        rperl = float(mp.get("rperl", 1000.0))
+        cperl = float(mp.get("cperl", 1e-12))
+        isperl = float(mp.get("isperl", 0.0))
+        rsperl = float(mp.get("rsperl", 0.0))
+        length = float(kw.get("l", 0.0) or 0.0)
+        if length <= 0:
+            raise ElabError(f"{el.name}: URC needs L= (line length)", el.loc)
+        rtot, ctot = rperl * length, cperl * length
+        nseg = kw.get("n")
+        if nseg is None:
+            # ngspice's rule: enough segments that the smallest (end) lump
+            # resolves FMAX
+            arg = (fmax * rtot * ctot * 2.0 * math.pi
+                   * ((kfac - 1.0) / kfac) ** 2)
+            nseg = max(3, min(64, math.ceil(math.log(max(arg, 2.0))
+                                            / math.log(max(kfac, 1.1)))))
+        else:
+            nseg = max(1, min(64, int(nseg)))
+        w = [kfac ** min(i, nseg - 1 - i) for i in range(nseg)]
+        if isperl <= 0.0:
+            self._ladder(name, nets, rtot, ctot, 0.0, nseg, m, weights=w)
+            return
+
+        def shunt(i, node, ref, frac):
+            if frac <= 0.0:
+                return
+            p = {"is": isperl * length * frac, "cj0": ctot * frac}
+            if rsperl > 0.0:
+                mid = self.ckt.net(f"{name}#d{i}m")
+                self.ckt.add(Resistor, f"{name}#rs{i}", [node, mid],
+                             dict(r=rsperl / (length * frac)), m=m)
+                node = mid
+            # anode at the common node: reverse-biased for a positive line
+            self.ckt.add(Diode, f"{name}#d{i}", [ref, node], p, m=m)
+
+        self._ladder(name, nets, rtot, ctot, 0.0, nseg, m, weights=w,
+                     shunt=shunt)
 
     def _instantiate_bsource(self, el, name, nets, env, m, prefix,
                              nodemap):

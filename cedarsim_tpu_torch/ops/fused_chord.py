@@ -110,6 +110,9 @@ class FusedChordPlan:
 
     def __init__(self, compiled, ctx, params=None):
         params = compiled.params0 if params is None else params
+        if compiled.n_dly:
+            raise FusedEnvelopeError("fused chord: delay/latch aux channels "
+                                     "are not supported in-kernel")
         self.compiled = compiled
         self.n_x = compiled.n_x
         self.ctx = ctx

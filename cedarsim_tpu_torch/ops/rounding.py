@@ -1,10 +1,12 @@
-"""Float32 arithmetic that rounds as the card's kernels do, for their plain
-PyTorch versions.
+"""Fused multiply-adds computed exactly on any device.
 
 The GESP kernels update with fused multiply-adds (``__fmaf_rn``, or
 ``a -= b * c`` contracted by nvcc): one rounding of the exact ``a·b + c``.
 PyTorch has no float32 FMA on the CPU, and ``a·b`` then ``+ c`` rounds
 twice.  :func:`fma_f32` computes the single rounding exactly on any device.
+XLA's CPU compiler contracts float64 ``c + a·b`` into an FMA too, so
+``jnp.interp``'s interior value is one rounding of it; :func:`fma_f64`
+gives that rounding, for the ring lookups that must equal ``jnp.interp``.
 """
 
 from __future__ import annotations
@@ -35,3 +37,45 @@ def fma_f32(a, b, c):
     toward = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
     s = torch.where(fix, torch.nextafter(s, toward), s)
     return s.float()
+
+
+def _two_sum(a, b):
+    """Knuth's TwoSum: s = a + b rounded and the exact error e."""
+    s = a + b
+    bv = s - a
+    av = s - bv
+    return s, (a - av) + (b - bv)
+
+
+_SPLIT = 134217729.0          # 2**27 + 1, Veltkamp's splitter for float64
+
+
+def _two_prod(a, b):
+    """Dekker's product: p = a·b rounded and the exact error e (no FMA;
+    exact unless a·b overflows or its error underflows)."""
+    p = a * b
+
+    def split(x):
+        t = _SPLIT * x
+        hi = t - (t - x)
+        return hi, x - hi
+
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def fma_f64(a, b, c):
+    """The correctly rounded float64 ``a·b + c`` of float64 tensors (they
+    broadcast; finite and away from overflow), bitwise C's ``fma``: the
+    exact product as uh + ul (Dekker), th + tl = c + uh exactly (TwoSum),
+    v = tl + ul rounded to odd, and th + v rounded to nearest (Boldo and
+    Melquiond's emulated FMA)."""
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(v.dtype)
+    v = torch.where((e != 0) & even, torch.nextafter(v, toward), v)
+    return th + v

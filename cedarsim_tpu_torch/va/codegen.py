@@ -43,10 +43,20 @@ Semantics kept from the JAX interpreter:
 - ``idt(arg, ic)``: one state unknown per site after the branch currents;
   its row pins the state to ``ic`` at the operating point and is
   −arg + d/dt(y) otherwise.
-
-The analog filters and delay operators (laplace, absdelay, transition,
-slew, idtmod, zi) need the integrator's delay ring and latch channel and
-raise ``NotImplementedError`` naming ROADMAP item A14b part 3.
+- The analog filters and event operators (``laplace_nd/np/zd/zp``,
+  ``absdelay`` in "pade" mode, ``transition`` in "smooth" mode, ``slew``,
+  ``idtmod``): a block of state unknowns per site after the idt states,
+  whose rows the call site writes (``("LFROW", site, i)``), so that every
+  analysis takes them as ordinary rows.  ``absdelay`` is a Padé(3,3)
+  all-pass, ``transition`` an exponential follower (behind a Padé block
+  when its delay is not zero).
+- The aux channel (``eps`` after the noise inputs): ``absdelay`` in
+  "history" mode reads its delayed value from a ring slot (``delays``
+  gives what the transient's ring stores); ``transition`` in "latch" mode
+  (the LRM's linear ramp) and ``zi_nd/np/zd/zp`` (sampled IIR filters on
+  the clock t0 + n·T, which ``breakpoints`` schedules) keep their state in
+  latch slots that change only at accepted steps (``latch0``,
+  ``latch``).  The AC analysis stamps them exactly (``analysis/ac.py``).
 """
 
 from __future__ import annotations
@@ -68,14 +78,6 @@ from cedarsim_tpu_torch.va.parser import parse_va
 class VACodegenError(ValueError):
     pass
 
-
-_A14 = ("ROADMAP A14b part 3 (the VA filter and delay operators, with "
-        "the integrator's delay ring and latch channel)")
-
-#: VA calls the port does not interpret yet
-_UNPORTED_CALLS = frozenset((
-    "laplace_nd", "laplace_np", "laplace_zd", "laplace_zp", "absdelay",
-    "transition", "slew", "idtmod", "zi_nd", "zi_np", "zi_zd", "zi_zp"))
 
 
 # ------------------------------------------- (static, charge, ddx) values
@@ -267,10 +269,18 @@ _DMATH1 = {
 def _where(cond, a, b, dtype):
     """Select between two interpreter values on a tensor condition; two
     host floats become a tensor of ``dtype`` (``torch.where`` of two Python
-    scalars would give float32)."""
+    scalars would give float32).  A condition that is no tensor picks its
+    side on the host."""
+    if not isinstance(cond, torch.Tensor):
+        return a if cond else b
     if _concrete(a, b):
         a = torch.full(cond.shape, a, dtype=dtype, device=cond.device)
     return D.where(cond, a, b)
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: max(lo, x) then min(hi, ·), with ``lax``'s tie rule."""
+    return D.minimum(hi, D.maximum(lo, x))
 
 
 # -------------------------------------------------------------- static prepass
@@ -345,20 +355,219 @@ def _all_exprs(module):
     return out
 
 
+# ------------------------------------------------- filter and event operators
+
+#: analog filter and event operators lowered to a block of state unknowns
+#: per site (LRM 4.5.13 laplace_*, 4.5.14 absdelay, 4.5.16 transition,
+#: 4.5.17 slew, 4.5.10 idtmod), as in the JAX interpreter
+_LF_OPS = frozenset(("laplace_nd", "laplace_np", "laplace_zd", "laplace_zp",
+                     "absdelay", "transition", "slew", "idtmod"))
+_ZI_OPS = frozenset(("zi_nd", "zi_np", "zi_zd", "zi_zp"))
+
+#: order of the Padé(N, N) all-pass standing for e^{−s·td}
+_PADE_ORDER = 3
+
+
+def _arr_elems(module, e, what):
+    if not (isinstance(e, tuple) and e[0] == "array"):
+        raise VACodegenError(
+            f"module {module.name}: {what} must be an array literal "
+            "{c0, c1, ...}")
+    return e[1]
+
+
+def _try_const(e, module):
+    """The host value of a constant expression, else None."""
+    try:
+        return _const_expr(e, module)
+    except Exception:
+        return None
+
+
+def _zi_coeff_counts(module, e):
+    """(nb, na): the z⁻¹-ascending numerator and denominator coefficient
+    counts of a zi_* site (static; the values may be parameter
+    expressions)."""
+    name, args = e[1], e[2]
+    if len(args) < 4:
+        raise VACodegenError(
+            f"module {module.name}: {name}(expr, num, den, T[, tau[, t0]])")
+
+    def arr_len(a, what):
+        if not (isinstance(a, tuple) and a[0] in ("arr", "array")):
+            raise VACodegenError(
+                f"module {module.name}: {name}() {what} must be a "
+                "{...} coefficient array")
+        return len(a[1])
+
+    if name in ("zi_nd", "zi_np"):
+        nb = arr_len(args[1], "numerator")
+    else:
+        z = arr_len(args[1], "zeros")
+        if z % 2:
+            raise VACodegenError(
+                f"module {module.name}: {name}() zeros must be (re, im) "
+                "pairs")
+        nb = z // 2 + 1
+    if name in ("zi_nd", "zi_zd"):
+        na = arr_len(args[2], "denominator")
+    else:
+        pz = arr_len(args[2], "poles")
+        if pz % 2:
+            raise VACodegenError(
+                f"module {module.name}: {name}() poles must be (re, im) "
+                "pairs")
+        na = pz // 2 + 1
+    if name in ("zi_zd", "zi_zp"):
+        if nb > na:
+            raise VACodegenError(
+                f"module {module.name}: {name}() has more zeros than the "
+                "denominator order")
+        nb = na      # the zero-root numerator is padded to the pole count
+    if na < 1:
+        raise VACodegenError(
+            f"module {module.name}: {name}() needs a denominator")
+    return nb, na
+
+
+def _host_eval(e, module, params):
+    """The host value of a parameter expression (the zi_* sample clock,
+    which the LRM makes independent of the unknowns)."""
+    if isinstance(e, (int, float)):
+        return float(e)
+    if e[0] == "num":
+        return float(e[1])
+    if e[0] == "ref":
+        if e[1] in params:
+            return float(params[e[1]])
+        return float(_const_expr(e, module))
+    if e[0] == "un":
+        v = _host_eval(e[2], module, params)
+        return {"-": -v, "+": v}[e[1]]
+    if e[0] == "bin":
+        a = _host_eval(e[2], module, params)
+        b = _host_eval(e[3], module, params)
+        return {"+": a + b, "-": a - b, "*": a * b, "/": a / b,
+                "**": a ** b}[e[1]]
+    raise VACodegenError(
+        f"module {module.name}: zi_* sample period/offset must be a "
+        "constant or parameter expression")
+
+
+def _lf_n_states(module, e):
+    """The static state count of a filter or event operator site."""
+    name, args = e[1], e[2]
+    if name in ("laplace_nd", "laplace_np", "laplace_zd", "laplace_zp"):
+        if len(args) != 3:
+            raise VACodegenError(
+                f"module {module.name}: {name}() takes (expr, num, den)")
+        if name in ("laplace_nd", "laplace_zd"):
+            nd = len(_arr_elems(module, args[2],
+                                f"{name}() denominator")) - 1
+        else:
+            pl = len(_arr_elems(module, args[2], f"{name}() poles"))
+            if pl % 2:
+                raise VACodegenError(
+                    f"module {module.name}: {name}() poles must be "
+                    "(re, im) pairs (conjugates listed explicitly, LRM)")
+            nd = pl // 2
+        if name in ("laplace_nd", "laplace_np"):
+            dn = len(_arr_elems(module, args[1],
+                                f"{name}() numerator")) - 1
+        else:
+            zl = len(_arr_elems(module, args[1], f"{name}() zeros"))
+            if zl % 2:
+                raise VACodegenError(
+                    f"module {module.name}: {name}() zeros must be "
+                    "(re, im) pairs")
+            dn = zl // 2
+        if nd < 1:
+            raise VACodegenError(
+                f"module {module.name}: {name}() needs at least one pole")
+        if dn > nd:
+            raise VACodegenError(
+                f"module {module.name}: {name}() transfer function is "
+                f"improper (numerator degree {dn} > denominator {nd})")
+        return nd
+    if name == "absdelay":
+        if not 2 <= len(args) <= 3:
+            raise VACodegenError(
+                f"module {module.name}: absdelay(expr, td[, maxdelay])")
+        return 0 if _try_const(args[1], module) == 0.0 else _PADE_ORDER
+    if name == "transition":
+        extra = 0
+        if len(args) >= 2 and _try_const(args[1], module) != 0.0:
+            extra = _PADE_ORDER
+        return 1 + extra
+    if name == "slew":
+        return 1 if len(args) >= 2 else 0      # no rate bound: identity
+    if name == "idtmod":
+        return 1
+    raise VACodegenError(f"unknown filter operator {name}")
+
+
+def _poly_from_pairs(roots):
+    """Real polynomial coefficients (ascending powers) from a flat (re, im,
+    re, im, ...) root list, conjugates listed explicitly as the LRM asks;
+    the imaginary residue is dropped."""
+    cr, ci = [1.0], [0.0]
+    for j in range(0, len(roots), 2):
+        a, b = roots[j], roots[j + 1]          # root = a + i·b
+        nr = [0.0] * (len(cr) + 1)
+        ni = [0.0] * (len(cr) + 1)
+        for t in range(len(cr)):
+            nr[t + 1] = nr[t + 1] + cr[t]      # s · c_t
+            ni[t + 1] = ni[t + 1] + ci[t]
+            nr[t] = nr[t] - (a * cr[t] - b * ci[t])   # −root · c_t
+            ni[t] = ni[t] - (a * ci[t] + b * cr[t])
+        cr, ci = nr, ni
+    return cr
+
+
+def _degen_td(td):
+    """td == 0 for a Padé delay block: True for a host zero, None for a
+    host nonzero (no masking), else a bool tensor."""
+    if isinstance(td, float):
+        return True if td == 0.0 else None
+    return val(td) == 0
+
+
+def _pade_coeffs(td):
+    """Padé(3,3) of e^{−s·td}: P(−s·td)/P(s·td), P(u) = 1 + u/2 + u²/10 +
+    u³/120 (all-pass, exact DC gain)."""
+    c = (1.0, 0.5, 0.1, 1.0 / 120.0)
+    den = [c[i] * td ** i if i else 1.0 for i in range(4)]
+    num = [den[0], -den[1], den[2], -den[3]]
+    return num, den
+
+
 # ------------------------------------------------------------------ the device
 
-def make_device(module: Module, strict_ranges=False):
-    """Compile a parsed VA Module into a DeviceModel subclass."""
+def make_device(module: Module, strict_ranges=False, delay_mode=None,
+                transition_mode=None):
+    """Compile a parsed VA Module into a DeviceModel subclass.
+
+    ``delay_mode`` (default ``config.va_delay_mode``): "pade" lowers
+    ``absdelay`` to a Padé(3,3) all-pass block of states (every analysis);
+    "history" reads u(t − td) from the transient's ring of accepted samples
+    (exact in the transient; AC stamps e^{−jωtd}).  ``transition_mode``
+    (default ``config.va_transition_mode``): "smooth", an exponential edge
+    through one state (every analysis), or "latch", the LRM's linear ramps
+    re-latched at accepted steps (a nonzero delay keeps its Padé block
+    ahead of the latch; AC reads it as unity gain)."""
+    from cedarsim_tpu_torch import config as _cfg
+    if delay_mode is None:
+        delay_mode = _cfg.va_delay_mode
+    if delay_mode not in ("pade", "history"):
+        raise VACodegenError(f"unknown delay_mode {delay_mode!r}")
+    if transition_mode is None:
+        transition_mode = _cfg.va_transition_mode
+    if transition_mode not in ("smooth", "latch"):
+        raise VACodegenError(f"unknown transition_mode {transition_mode!r}")
     ports = list(module.ports)
     grounds = set(module.ground_nets)
     internal = [n for n in module.nets if n not in ports and n not in grounds]
     named_branch = {b.name: (b.pos, b.neg) for b in module.branches}
-
-    for e in _all_exprs(module):
-        if e[0] == "call" and e[1] in _UNPORTED_CALLS:
-            raise NotImplementedError(
-                f"module {module.name}: {e[1]}() is not ported to the "
-                f"PyTorch VA interpreter yet — {_A14}")
 
     ddx_probes = []        # node names probed by ddx(expr, V(node))
     for e in _all_exprs(module):
@@ -376,6 +585,9 @@ def make_device(module: Module, strict_ranges=False):
     i_branches = set()
     noise_sites = []
     idt_sites = []
+    lf_sites = []        # (expr, kind, n_states): state blocks, in order
+    dly_sites = []       # history-mode absdelay sites (ring slots)
+    lat_sites = []       # (expr, kind, n_slots): latch-mode transition, zi_*
     for st in _walk_stmts(module.analog):
         if st[0] == "contrib":
             kind, a, b = st[1]
@@ -398,6 +610,28 @@ def make_device(module: Module, strict_ranges=False):
         if e[0] == "call" and e[1] == "idt":
             if not any(x is e for x in idt_sites):
                 idt_sites.append(e)
+        if e[0] == "call" and e[1] in _LF_OPS:
+            if (e[1] == "absdelay" and delay_mode == "history"
+                    and 2 <= len(e[2]) <= 3
+                    and _try_const(e[2][1], module) != 0.0):
+                # the exact history: a delayed-value input, no states
+                if not any(x is e for x in dly_sites):
+                    dly_sites.append(e)
+            elif e[1] == "transition" and transition_mode == "latch":
+                # the LRM ramp in latch slots; a nonzero delay keeps its
+                # Padé block
+                if not any(x is e for x, _, _ in lat_sites):
+                    lat_sites.append((e, "transition", 3))
+                    if (len(e[2]) >= 2
+                            and _try_const(e[2][1], module) != 0.0):
+                        lf_sites.append((e, "transition", _PADE_ORDER))
+            elif not any(x is e for x, _, _ in lf_sites):
+                lf_sites.append((e, e[1], _lf_n_states(module, e)))
+        if e[0] == "call" and e[1] in _ZI_OPS:
+            if not any(x is e for x, _, _ in lat_sites):
+                nb, na = _zi_coeff_counts(module, e)
+                # [y_held, t_next, u_hist(nb − 1), y_hist(max(0, na − 2))]
+                lat_sites.append((e, e[1], 2 + (nb - 1) + max(0, na - 2)))
 
     pdefaults = {}
     porder = []
@@ -422,14 +656,21 @@ def make_device(module: Module, strict_ranges=False):
 
     interp = _Interp(module, node_index, branch_index, named_branch,
                      n_nodes_local, len(v_branches), noise_sites,
-                     ddx_probes, idt_sites, switch_branches)
+                     ddx_probes, idt_sites, switch_branches, lf_sites,
+                     dly_sites, lat_sites)
 
     class VADevice(DeviceModel):
         terminals = tuple(ports)
         n_internal = len(internal)
-        #: a current unknown per V branch, then a state per idt site
-        n_branch = len(v_branches) + len(idt_sites)
+        #: a current unknown per V branch, a state per idt site, then the
+        #: filter and event operators' state blocks
+        n_branch = (len(v_branches) + len(idt_sites)
+                    + sum(n for _, _, n in lf_sites))
         n_noise = len(noise_sites)
+        #: ring-filled delayed values (history-mode absdelay sites)
+        n_delay = len(dly_sites)
+        #: latched-state slots (latch-mode transition, zi_*)
+        n_latch = interp.n_lat_slots
         params = {}
         given_params = ()
         va_module = module
@@ -462,12 +703,68 @@ def make_device(module: Module, strict_ranges=False):
 
         @classmethod
         def noise(cls, lv, p, ctx):
-            return interp.run(lv, p, ctx, [0.0] * cls.n_noise,
-                              collect_noise=True)
+            return interp.run(lv, p, ctx, cls._aux0(), collect_noise=True)
+
+        @classmethod
+        def delays(cls, lv, p, ctx):
+            """(u_now, td) of every history-mode absdelay site: what the
+            transient's ring stores, and the delay of its lookups."""
+            return interp.run(lv, p, ctx, cls._aux0(), collect_delay=True)
+
+        @classmethod
+        def latch0(cls, lv, p, ctx):
+            """The latch slots settled at the operating point."""
+            return interp.run(lv, p, ctx, cls._aux0(), collect_latch="init")
+
+        @classmethod
+        def latch(cls, lv, p, ctx, lat):
+            """The latch slots after an accepted step at ``ctx.time``, from
+            their state ``lat`` (a list of n_latch entries): transition
+            sites re-latch their ramp when the input moved, zi_* sites
+            fire on their clock."""
+            return interp.run(lv, p, ctx,
+                              [0.0] * (cls.n_noise + cls.n_delay) + list(lat),
+                              collect_latch="update")
+
+        @classmethod
+        def _aux0(cls):
+            return [0.0] * (cls.n_noise + cls.n_delay + cls.n_latch)
 
     VADevice.params = {n: None for n in porder}
     VADevice.__name__ = f"VA_{module.name}"
     VADevice.__qualname__ = VADevice.__name__
+    #: each latch site's (kind, slot offset, n_slots), and each zi_* site's
+    #: (nb, na) by slot offset: the AC analysis's sampled-system stamps
+    VADevice.lat_sites = [tuple(x) for x in interp.lat_sites]
+    VADevice.zi_meta = {
+        loff: _zi_coeff_counts(module, e)
+        for (e, kind, _n), (_k, loff, _n2) in zip(lat_sites,
+                                                  interp.lat_sites)
+        if kind.startswith("zi")}
+    zi_clock = [e for (e, kind, _n) in lat_sites if kind.startswith("zi")]
+    if zi_clock:
+        def _zi_breakpoints(params, tstop):
+            """The sample clock t0 + n·T of every zi_* site, so that
+            accepted steps land on the samples."""
+            pts = []
+            for e in zi_clock:
+                T = _host_eval(e[2][3], module, params)
+                t0a = (_host_eval(e[2][5], module, params)
+                       if len(e[2]) > 5 else 0.0)
+                if T <= 0.0:
+                    raise VACodegenError(
+                        f"module {module.name}: zi_* sample period must "
+                        f"be positive (got {T})")
+                n = int(np.floor((tstop - t0a) / T))
+                if n > 200_000:
+                    raise VACodegenError(
+                        f"module {module.name}: zi_* clock would need {n} "
+                        f"sample breakpoints in ({t0a}, {tstop}): period "
+                        "too small for this time span")
+                if n > 0:
+                    pts.append(t0a + T * np.arange(1, n + 1))
+            return np.concatenate(pts) if pts else np.zeros(0, np.float64)
+        VADevice.breakpoints = staticmethod(_zi_breakpoints)
     return VADevice
 
 
@@ -612,8 +909,32 @@ _CONSTS = {"M_PI": math.pi, "M_E": math.e, "M_SQRT2": math.sqrt(2),
 class _Interp:
     def __init__(self, module, node_index, branch_index, named_branch,
                  n_nodes_local, n_vbranch, noise_sites, ddx_probes=(),
-                 idt_sites=(), switch_branches=frozenset()):
+                 idt_sites=(), switch_branches=frozenset(), lf_sites=(),
+                 dly_sites=(), lat_sites=()):
         self.module = module
+        # history-mode absdelay site k reads aux input n_noise + k
+        self.dly_site_ids = {id(e): k for k, e in enumerate(dly_sites)}
+        self.n_dly = len(dly_sites)
+        # latch sites: id(expr) → index, and per site (kind, slot offset,
+        # n_slots) into the latch block at n_noise + n_dly
+        self.lat_site_ids = {}
+        self.lat_sites = []
+        loff = 0
+        for k, (e, kind, n_sl) in enumerate(lat_sites):
+            self.lat_site_ids[id(e)] = k
+            self.lat_sites.append((kind, loff, n_sl))
+            loff += n_sl
+        self.n_lat_slots = loff
+        # filter and event operator sites: id(expr) → index, and per site
+        # (kind, state offset after the idt states, n_states)
+        self.lf_site_ids = {}
+        self.lf_sites = []
+        off = 0
+        for k, (e, kind, n_st) in enumerate(lf_sites):
+            self.lf_site_ids[id(e)] = k
+            self.lf_sites.append((kind, off, n_st))
+            off += n_st
+        self.n_lf = off
         self.noise_site_ids = {id(e): k for k, e in enumerate(noise_sites)}
         self.ddx_probes = tuple(ddx_probes)
         self.idt_site_ids = {id(e): k for k, e in enumerate(idt_sites)}
@@ -626,15 +947,31 @@ class _Interp:
         self.n_vbranch = n_vbranch
         self.n_noise = len(noise_sites)
 
-    def run(self, lv, p, ctx, eps=None, collect_noise=False):
+    def run(self, lv, p, ctx, eps=None, collect_noise=False,
+            collect_delay=False, collect_latch=None):
         """(static, dynamic): two lists of ``n_rows`` row contributions;
         with ``collect_noise`` instead (power, exponent), two lists of
-        ``n_noise`` entries."""
-        st = _State(self, lv, p, ctx, eps, collect_noise)
+        ``n_noise`` entries; with ``collect_delay`` (u_now, td) of the
+        history-mode absdelay sites; with ``collect_latch`` ("init" or
+        "update") the ``n_lat_slots`` latch slots."""
+        st = _State(self, lv, p, ctx, eps, collect_noise, collect_delay,
+                    collect_latch)
         env = {}
         for stmt in self.module.analog:
             st.stmt(stmt, env)
-        n_rows = self.n_nodes + self.n_vbranch + self.n_idt
+        if collect_delay:
+            u, td = [0.0] * self.n_dly, [0.0] * self.n_dly
+            for k, (uv, tv) in st.dly_rec.items():
+                u[k], td[k] = uv, tv
+            return u, td
+        if collect_latch is not None:
+            out = [0.0] * self.n_lat_slots
+            for k, vals in st.lat_rec.items():
+                off = self.lat_sites[k][1]
+                for i, v in enumerate(vals):
+                    out[off + i] = v
+            return out
+        n_rows = self.n_nodes + self.n_vbranch + self.n_idt + self.n_lf
         static = [0.0] * n_rows
         dynamic = [0.0] * n_rows
 
@@ -645,8 +982,20 @@ class _Interp:
             if q is not None:
                 dynamic[idx] = dynamic[idx] + q
 
+        # the operators' state rows, as their call sites wrote them; a
+        # site no walk reached pins its states to zero
+        lf_base = self.n_nodes + self.n_vbranch + self.n_idt
+        for k, (_kind, off, n_st) in enumerate(self.lf_sites):
+            for i in range(n_st):
+                row = lf_base + off + i
+                v = env.get(("LFROW", k, i))
+                if v is None:
+                    add_row(row, lv[row], None)
+                else:
+                    add_row(row, v[0], v[1])
+
         for key, value in env.items():
-            if not isinstance(key, tuple):
+            if not isinstance(key, tuple) or key[0] == "LFROW":
                 continue
             if key[0] == "IDT":
                 # idt state y: pinned to its ic at the operating point (an
@@ -707,7 +1056,8 @@ class _Interp:
 
 
 class _State:
-    def __init__(self, interp, lv, p, ctx, eps=None, collect_noise=False):
+    def __init__(self, interp, lv, p, ctx, eps=None, collect_noise=False,
+                 collect_delay=False, collect_latch=None):
         self.it = interp
         self.lv = lv
         self.dtype = val(lv[0]).dtype
@@ -715,6 +1065,10 @@ class _State:
         self.ctx = ctx
         self.eps = eps
         self.collect = collect_noise
+        self.collect_delay = collect_delay
+        self.collect_latch = collect_latch     # None | "init" | "update"
+        self.dly_rec = {}          # site k -> (u_now, td)
+        self.lat_rec = {}          # site k -> its latch slots
         self.noise_pwr = []
         self.noise_exp = []
         self.zero = 0.0
@@ -1056,6 +1410,268 @@ class _State:
                 f"{self.it.module.name}: unknown node {name!r}")
         return self.lv[idx] if idx >= 0 else self.zero
 
+    # ------------------------------------------- filter and event operators
+
+    def _lf_laplace(self, k, base, n_st, x, num, den, env, degen=None):
+        """y = N(s)/D(s)·x through phase variables z_i = w⁽ⁱ⁾, D(s)·w = x,
+        y = N(s)·w: rows ż_i − z_{i+1} (i < n − 1) and d_n·ż_{n−1} + Σ d_i
+        z_i − x, which at DC leave z_0 = x/d_0.  ``degen`` (host or tensor
+        td == 0 of a Padé delay): pin the higher states instead, so that
+        the last row makes z_0 = x algebraically."""
+        z = [self.lv[base + i] for i in range(n_st)]
+        for i in range(n_st - 1):
+            if degen is None:
+                env[("LFROW", k, i)] = (-z[i + 1], z[i], None)
+            else:
+                env[("LFROW", k, i)] = (
+                    _where(degen, z[i + 1], -z[i + 1], self.dtype),
+                    _where(degen, 0.0, z[i], self.dtype), None)
+        acc = self.zero
+        for i in range(n_st):
+            acc = acc + den[i] * z[i]
+        env[("LFROW", k, n_st - 1)] = (acc - x, den[n_st] * z[n_st - 1],
+                                       None)
+        w = list(z)
+        if len(num) - 1 == n_st:
+            # w⁽ⁿ⁾ = ż_{n−1} = (x − Σ d_i z_i)/d_n; a zero d_n (a delay of
+            # td = 0 at run time) has a zero numerator term too
+            dn = den[n_st]
+            if _concrete(dn):
+                w.append((x - acc) / dn if dn != 0.0 else self.zero)
+            else:
+                nz = val(dn) != 0
+                w.append(_where(nz, (x - acc) / _where(nz, dn, 1.0,
+                                                        self.dtype),
+                                0.0, self.dtype))
+        y = self.zero
+        for i, c in enumerate(num):
+            y = y + c * w[i]
+        return y
+
+    def _transition_latch(self, kl, args, env, node):
+        """The LRM's transition() ramp: the latch slots hold (target,
+        y_start, t_start), re-latched at accepted steps when the (possibly
+        Padé-delayed) input moved; the output is y_start + (target −
+        y_start)·min(1, (t − t_start)/rise_or_fall)."""
+        it = self.it
+
+        def ev(e_, what):
+            return _scalar(self.expr(e_, env), what)
+
+        x = ev(args[0], "transition")
+        xd = x
+        k = it.lf_site_ids.get(id(node))
+        if k is not None:          # a nonzero delay: the Padé block first
+            _kind, off, _n_st = it.lf_sites[k]
+            base = it.n_nodes + it.n_vbranch + it.n_idt + off
+            td = ev(args[1], "transition delay")
+            num, den = _pade_coeffs(td)
+            xd = self._lf_laplace(k, base, _PADE_ORDER, x, num, den, env,
+                                  degen=_degen_td(td))
+        mode = self.ctx.mode
+        if self.collect_latch is None and mode in (Modes.DCOP, Modes.TRANOP,
+                                                   Modes.AC):
+            return xd              # settled at the input; unity in AC
+        rise = ev(args[2], "transition rise") if len(args) > 2 else 1e-9
+        fall = ev(args[3], "transition fall") if len(args) > 3 else rise
+        t = self.ctx.time
+        if self.collect_latch == "init":
+            # settled at the op: the ramp finished well before t0
+            t0i = t - D.maximum(D.maximum(rise, fall), 0.0) - 1.0
+            self.lat_rec[kl] = (xd, xd, t0i)
+            return xd
+        a0 = it.n_noise + it.n_dly + it.lat_sites[kl][1]
+        target, y0, t0 = self.eps[a0], self.eps[a0 + 1], self.eps[a0 + 2]
+        dur = _where(val(target) >= val(y0), D.maximum(rise, 1e-15),
+                     D.maximum(fall, 1e-15), self.dtype)
+        frac = _clip((t - t0) / dur, 0.0, 1.0)
+        y = y0 + (target - y0) * frac
+        if self.collect_latch == "update":
+            # the input moved: the running ramp's value is the new start
+            # (the LRM's interrupted-ramp rule)
+            tol = 1e-12 + 1e-9 * abs(val(xd))
+            changed = abs(val(xd) - val(target)) > tol
+            self.lat_rec[kl] = (_where(changed, xd, target, self.dtype),
+                                _where(changed, y, y0, self.dtype),
+                                _where(changed, t, t0, self.dtype))
+        return y
+
+    def _zi_coeffs(self, name, args, env):
+        """(b, a): z⁻¹-ascending numerator and denominator coefficients
+        (root forms expanded in z and reversed, the numerator zero-padded
+        to the pole count)."""
+        def ev(e_):
+            return _scalar(self.expr(e_, env), name)
+
+        if name in ("zi_nd", "zi_np"):
+            b = [ev(c) for c in args[1][1]]
+        else:
+            b = list(reversed(_poly_from_pairs([ev(c)
+                                                for c in args[1][1]])))
+        if name in ("zi_nd", "zi_zd"):
+            a = [ev(c) for c in args[2][1]]
+        else:
+            a = list(reversed(_poly_from_pairs([ev(c)
+                                                for c in args[2][1]])))
+        if name in ("zi_zd", "zi_zp"):
+            b = [0.0] * (len(a) - len(b)) + b
+        return b, a
+
+    def _zi_latch(self, name, args, env, node):
+        """A z-domain IIR filter (LRM 4.5.15): the input sampled on the
+        clock t0 + n·T (scheduled as breakpoints, so accepted steps land
+        on the samples), the difference equation updated in the latch
+        slots [y_held, t_next, u_hist, y_hist], the output the zero-order
+        hold of y_n; DC gives the steady gain H(1)·u, AC reads the held
+        output as an aux input (``analysis/ac.py`` stamps H(e^{jωT}))."""
+        it = self.it
+        kl = it.lat_site_ids.get(id(node))
+        if kl is None:
+            raise VACodegenError(f"{name}() site not registered")
+        loff = it.lat_sites[kl][1]
+
+        def ev(e_, what):
+            return _scalar(self.expr(e_, env), what)
+
+        x = ev(args[0], name)
+        b, a = self._zi_coeffs(name, args, env)
+        nb, na = len(b), len(a)
+        mode = self.ctx.mode
+        if self.collect_latch is None and mode in (Modes.DCOP, Modes.TRANOP):
+            return x * sum(b) / sum(a)
+        a0v = it.n_noise + it.n_dly + loff
+        if self.collect_latch is None:
+            return self.eps[a0v]          # the zero-order hold (and AC)
+        t = self.ctx.time
+        if self.collect_latch == "init":
+            T = ev(args[3], "zi sample period")
+            t0a = ev(args[5], "zi t0") if len(args) > 5 else 0.0
+            y = x * sum(b) / sum(a)
+            tn = t0a + T * (D.floor((t - t0a) / T + 1e-9) + 1.0)
+            self.lat_rec[kl] = tuple([y, tn] + [x] * (nb - 1)
+                                     + [y] * max(0, na - 2))
+            return y
+        y_held = self.eps[a0v]
+        T = ev(args[3], "zi sample period")
+        t_next = self.eps[a0v + 1]
+        u_hist = [self.eps[a0v + 2 + i] for i in range(nb - 1)]
+        y_hist = [self.eps[a0v + 2 + (nb - 1) + i]
+                  for i in range(max(0, na - 2))]
+        yfull = [y_held] + y_hist        # y_n, y_{n−1}, ...
+        u_all = [x] + u_hist             # u_{n+1}, u_n, ...
+        fire = val(t) >= val(t_next) - 1e-9 * T
+        y_new = (sum(b[i] * u_all[i] for i in range(nb))
+                 - sum(a[i + 1] * yfull[i] for i in range(na - 1))) / a[0]
+
+        def sel(nv, ov):
+            return _where(fire, nv, ov, self.dtype)
+
+        self.lat_rec[kl] = tuple(
+            [sel(y_new, y_held), sel(t_next + T, t_next)]
+            + [sel(u_all[i], u_hist[i]) for i in range(nb - 1)]
+            + [sel(yfull[i], y_hist[i]) for i in range(max(0, na - 2))])
+        return sel(y_new, y_held)
+
+    def _lf_call(self, name, args, env, node):
+        """The analog filter and event operators (LRM 4.5.10-17): the
+        history-mode absdelay's ring slot, the latch-mode transition, or
+        the site's state rows."""
+        it = self.it
+        kd = it.dly_site_ids.get(id(node))
+        if kd is not None:
+            x = _scalar(self.expr(args[0], env), name)
+            td = _scalar(self.expr(args[1], env), "absdelay delay")
+            if self.collect_delay:
+                self.dly_rec[kd] = (x, td)
+                return x
+            if self.ctx.mode in (Modes.DCOP, Modes.TRANOP):
+                return x            # steady state: u(t − td) = u
+            # the transient fills the slot from its ring; AC holds it at
+            # the op and stamps e^{−jωtd}
+            return self.eps[it.n_noise + kd]
+        kl = it.lat_site_ids.get(id(node))
+        if kl is not None:
+            return self._transition_latch(kl, args, env, node)
+        k = it.lf_site_ids.get(id(node))
+        if k is None:
+            raise VACodegenError(f"{name}() site not registered")
+        _kind, off, n_st = it.lf_sites[k]
+        base = it.n_nodes + it.n_vbranch + it.n_idt + off
+        x = _scalar(self.expr(args[0], env), name)
+        dc = self.ctx.mode in (Modes.DCOP, Modes.TRANOP)
+
+        def ev(e_, what):
+            return _scalar(self.expr(e_, env), what)
+
+        if name in ("laplace_nd", "laplace_np", "laplace_zd", "laplace_zp"):
+            if name in ("laplace_nd", "laplace_np"):
+                num = [ev(c, name) for c in args[1][1]]
+            else:
+                num = _poly_from_pairs([ev(c, name) for c in args[1][1]])
+            if name in ("laplace_nd", "laplace_zd"):
+                den = [ev(c, name) for c in args[2][1]]
+            else:
+                den = _poly_from_pairs([ev(c, name) for c in args[2][1]])
+            return self._lf_laplace(k, base, n_st, x, num, den, env)
+        if name == "absdelay":
+            if n_st == 0:            # a static zero delay: identity
+                return x
+            td = ev(args[1], "absdelay delay")
+            num, den = _pade_coeffs(td)
+            return self._lf_laplace(k, base, n_st, x, num, den, env,
+                                    degen=_degen_td(td))
+        if name == "transition":
+            i0, xd = 0, x
+            if n_st > 1:             # the Padé-delayed input block first
+                td = ev(args[1], "transition delay")
+                num, den = _pade_coeffs(td)
+                xd = self._lf_laplace(k, base, _PADE_ORDER, x, num, den,
+                                      env, degen=_degen_td(td))
+                i0 = _PADE_ORDER
+            rise = (ev(args[2], "transition rise") if len(args) > 2
+                    else 1e-9)
+            fall = (ev(args[3], "transition fall") if len(args) > 3
+                    else rise)
+            y = self.lv[base + i0]
+            if dc:
+                env[("LFROW", k, i0)] = (y - xd, None, None)
+            else:
+                # exponential edge: τ = t_edge/ln(100), within 1 % of the
+                # target after the rise or fall time
+                tau = _where(val(xd) > val(y), D.maximum(rise, 1e-15),
+                             D.maximum(fall, 1e-15), self.dtype) / 4.6051702
+                env[("LFROW", k, i0)] = (-(xd - y) / tau, y, None)
+            return y
+        if name == "slew":
+            if n_st == 0:            # no rate bounds: identity
+                return x
+            rp = ev(args[1], "slew rate")
+            rn = ev(args[2], "slew rate") if len(args) > 2 else -rp
+            y = self.lv[base]
+            if dc:
+                env[("LFROW", k, 0)] = (y - x, None, None)
+            else:
+                # a bounded follower: tracks x within ~1 µV, slews at the
+                # rate bound otherwise
+                kgain = D.maximum(rp, -rn) * 1e6
+                rate = _clip(kgain * (x - y), rn, rp)
+                env[("LFROW", k, 0)] = (-rate, y, None)
+            return y
+        if name == "idtmod":
+            icval = ev(args[1], "idtmod ic") if len(args) > 1 else self.zero
+            y = self.lv[base]
+            if dc:
+                env[("LFROW", k, 0)] = (y - icval, None, None)
+            else:
+                env[("LFROW", k, 0)] = (-x, y, None)
+            if len(args) > 2:
+                modulus = ev(args[2], "idtmod modulus")
+                offset = (ev(args[3], "idtmod offset") if len(args) > 3
+                          else self.zero)
+                return y - modulus * D.floor((y - offset) / modulus)
+            return y
+        raise VACodegenError(f"unhandled filter operator {name}")
+
     def _callexpr(self, name, args, env, node=None):
         it = self.it
         if name == "V":
@@ -1109,6 +1725,10 @@ class _State:
             if k < len(self.eps):
                 return self.eps[k]
             return self.zero
+        if name in _LF_OPS:
+            return self._lf_call(name, args, env, node)
+        if name in _ZI_OPS:
+            return self._zi_latch(name, args, env, node)
         if name == "noise_table":
             return self.zero
         if name == "analysis":

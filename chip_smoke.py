@@ -247,14 +247,44 @@ card says so.
    side of their count comparisons, from the CPU's own lanes, then the
    card's runs) started after phase 8 beside cell G's; their lines are
    printed from its record once it has ended.
+30. lossy_link (cell O) — the JAX package's heavy-loss LTRA link
+   (``benchmarks/lossy_link.py``: six ``LTRALine`` sections, 21 unknowns,
+   12 ring slots) at 32 lanes, RL × ``linspace(0.9, 1.1)``, over 0-360 ns
+   through ``dense_lu="auto"`` (B2/B3, ``jac_shunt=1e-6``): on every lane
+   the first transit at 37 ns within 2 % of its closed form, b at 350 ns
+   within 0.01 V of the divider, no ring underflow; B2/B3 launched, B1
+   not; the counts ``CELL_O`` and the CPU's (``dense_lu="mixed"``).
+   lossy_link_ac — the link's AC (R·LEN = 30 Ω, RL = 75 Ω) on the card
+   within 2·cond·eps of the CPU and within 2e-6 of the exact two-port.
+31. delay_history (phase H) — the JAX test's history-mode ``absdelay``
+   line (``benchmarks/delay_latch.py``: a 1 MHz sine, td = 2 µs) at 8
+   lanes over 0-8 µs through B2/B3: every lane within 0.02 of the
+   delayed sine over 3-7.5 µs, no underflow, the counts ``CELL_H``, and
+   the CPU's over 0-``H_CPU_TSTOP`` (ROADMAP C13); the same line driven by
+   a pulse, its top and base one delay later within 1e-9 V and the CPU's
+   counts over the whole window.  delay_history_ac — its AC, e^{−jωtd}
+   within 1e-9, on the card within 2·cond·eps of the CPU.  c12_witness —
+   the line at td = 1.9 µs, one stream, on the card and the CPU: neither
+   may end converged with no ring underflow (ROADMAP C12).
+32. latch (phase Z) — the LRM ``transition`` ramp, linear and
+   interrupted (``netlists.VA_TRANSITION_RAMP``), and the ``zi_nd`` FIR
+   and IIR on their 1 µs clock, 8 lanes each through B2/B3: the JAX
+   tests' gates on every lane and the CPU's counts.
+33. transient_noise (phase N) — kT/C (100 kΩ, 100 fF, h = τ/8,
+   ``noise_seed=7``), one stream: the variance over t > 20τ within
+   0.6-1.4·kT/C, the CPU's accepted steps and its waveform within 1e-12 V
+   over the first 500 (the same draws).
+   Phases 30-33 run in one child process (``a14b3_child``: first the
+   CPU's side of every comparison) started after phase 8 beside the
+   others; their lines are printed from its record once it has ended.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
 the TPU kernel it replaces, launches on its path (B1 in phase 7 and, on
 the level-1 plan, in phase 12 and at bdf3/bdf5 in phases 28-29, on the
 PVT plan in phase 15, on the CMG plan in phase 21, on the VBIC plan in
-phase 25; B2/B3 in phase 5, in phase 10, in phase 17, in phase 22 and in
-phase 26; B4/B5 in phase 8; S1/S2 in phase 19,
+phase 25; B2/B3 in phase 5, in phase 10, in phase 17, in phase 22, in
+phase 26 and in phases 30-32; B4/B5 in phase 8; S1/S2 in phase 19,
 which name no TPU kernel: ``replaces`` is null and ``jax_counterpart`` the
 XLA function they take the place of), error, times and its bound: the
 larger of the
@@ -1326,7 +1356,7 @@ def phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev):
         comp.eps_jacobian(op.x, c_ac)
         torch.cuda.synchronize()
         eps_s.append(time.perf_counter() - te)
-    A, _ = _system(comp, op.x, c_ac, comp.params0, freqs)
+    A, _, _ = _system(comp, op.x, c_ac, comp.params0, freqs)
     b = comp.ac_rhs().expand(A.shape[0], comp.n_x).contiguous()
     solve = kt.library_times(lambda: torch.linalg.solve(A, b), 10)
     n = comp.n_x
@@ -1870,6 +1900,279 @@ def phase_a14b(child):
         log(phase, **rec[phase], ran_in_child=True)
     return ({e: rec["vbic_" + e]["launches"] for e in ("fused", "xla")},
             {m: rec["lv1_" + m]["launches"] for m in ("bdf3", "bdf5")})
+
+
+#: phases 30-33: the delay ring and the latch channel (cell O,
+#: ``benchmarks/lossy_link.py``; the history line, the latch cases and kT/C,
+#: ``benchmarks/delay_latch.py``); the cells' recorded counts (accepted,
+#: rejected, Newton, attempts over all lanes) and the lanes of phases
+#: 31-32
+CELL_O = (27328, 0, 28443, 856)
+CELL_H = (9680, 6232, 31352, 1988)
+DL_LANES = 8
+#: phase 31: the sine-driven history line's card and CPU counts are held
+#: equal over 0-``H_CPU_TSTOP``: its LTE is pure cancellation (no
+#: capacitance, a sine drive), so the last bits in which CUDA's pow and sin
+#: round apart from the CPU's (``benchmarks/card_rounding.py``) part the
+#: grids at step 32, 0.327 µs (ROADMAP C13); the pulsed line is held equal
+#: over its whole window
+H_CPU_TSTOP = 3e-7
+#: the link's AC sweep (``tests/test_ltra_urc.py::test_ltra_ac_exact_two_
+#: port``: R·LEN = 30 Ω, RL = 75 Ω) and the history line's
+LINK_AC_FREQS = np.array([1e6, 1e7, 2e7, 123.4e6])
+LINE_AC_FREQS = np.array([1e3, 1e5, 1e6, 5e6])
+#: phase 33: the card's and the CPU's kT/C waveforms over their first
+#: accepted steps
+KTC_STEPS, KTC_WAVE_ATOL = 500, 1e-12
+
+
+def _tot(sols):
+    """[accepted, rejected, Newton, attempts] over all lanes."""
+    return [sum(s.n_accepted for s in sols), sum(s.n_rejected for s in sols),
+            sum(s.n_newton for s in sols), sols[0].n_attempts]
+
+
+def _gesp_path(what, la):
+    """B2 and B3 launched, B1 not."""
+    if la["fused"] or min(la["factor"], la["subst"]) <= 0:
+        raise AssertionError(f"{what}: launches {la}")
+
+
+def _same_counts(what, card, cpu):
+    if list(card) != list(cpu):
+        raise AssertionError(f"{what}: counts {card} on the card, {cpu} "
+                             "on the CPU")
+
+
+def _ac_card_cpu(torch, T, what, make, freqs, probe, closed, closed_tol):
+    """``ac`` of the circuit ``make(device)`` on the card and on the CPU:
+    the card's solution within 2·cond·eps of the CPU's (cond: the largest
+    condition number of the CPU's system over the frequencies, each
+    frequency's error relative to its largest entry), and ``probe``'s value
+    within ``closed_tol`` of ``closed(freqs)``.  Returns its record."""
+    from cedarsim_tpu_torch.analysis import ac as tac
+    out = []
+    for d in ("cuda", "cpu"):
+        comp = make(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = T.ac(comp, freqs)
+        torch.cuda.synchronize()
+        out.append((sol, time.perf_counter() - t0, comp))
+    (sc, card_s, _), (sp, cpu_s, comp) = out
+    A, _, _ = tac._system(comp, sp.op_x, T.SimSpec.make().with_mode("ac"),
+                          comp.params0, freqs)
+    cond = float(torch.linalg.cond(A).abs().max())
+    vc, vp = sc.v.cpu().numpy(), sp.v.numpy()
+    err = float(np.max(np.abs(vc - vp).max(1) / np.abs(vp).max(1)))
+    rtol = 2.0 * cond * 2.0 ** -53
+    if not err <= rtol:
+        raise AssertionError(f"{what} AC: card vs CPU {err:.3g} (bound "
+                             f"{rtol:.3g})")
+    cerr = float(np.max(np.abs(sc[probe] - closed(freqs))))
+    if not cerr <= closed_tol:
+        raise AssertionError(f"{what} AC: {cerr:.3g} from the closed form")
+    return dict(frequencies=len(freqs), cpu_rel_err=err, rtol=rtol,
+                cond=cond, closed_form_err=cerr, card_s=card_s, cpu_s=cpu_s)
+
+
+def link_ac_closed(freqs, rtot=30.0, rl=75.0):
+    """V(b) of the link by the exact RLCG two-port and the node equations
+    (``tests/test_ltra_urc.py::test_ltra_ac_exact_two_port``)."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    z0, td = netlists.LINK_Z0, netlists.LINK_TD
+    out = []
+    for f in freqs:
+        s = 2j * np.pi * f
+        zs, yp = rtot + s * z0 * td, s * td / z0
+        gl, zc = np.sqrt(zs * yp), np.sqrt(zs / yp)
+        y11, y12 = 1.0 / (zc * np.tanh(gl)), -1.0 / (zc * np.sinh(gl))
+        out.append(np.linalg.solve(np.array([[1 / 50.0 + y11, y12],
+                                             [y12, y11 + 1 / rl]]),
+                                   np.array([1 / 50.0, 0.0]))[1])
+    return np.asarray(out)
+
+
+def a14b3_child(out):
+    """``--a14b3-child OUT``: phases 30-33 in a process of its own (two
+    torch threads), started after phase 8 beside cell G's and the A14b
+    child.  First the CPU's side of every comparison (``dense_lu="mixed"``
+    where the card takes B2/B3: the kernels' plain versions), then the
+    card's runs, every kernel count from 0 just before each run and read
+    just after: cell O, the link's AC, the history line at 8 lanes and its
+    AC, the C12 witness (one stream), the four latch cases at 8 lanes and
+    kT/C (one stream).  Each phase's record saved to OUT (JSON); a line to
+    stderr at each step."""
+    import torch
+    import cedarsim_tpu_torch as T
+    from cedarsim_tpu_torch.benchmarks import delay_latch as dl
+    from cedarsim_tpu_torch.benchmarks import lossy_link, netlists
+    from cedarsim_tpu_torch.ops import gesp_lu
+    from cedarsim_tpu_torch.ops import fused_chord as fc
+    torch.set_num_threads(2)
+    dev = torch.device("cuda", 0)
+    counters = (fc.fused_chord, gesp_lu.lu_factor_gesp_f32,
+                gesp_lu.lu_subst_gesp_f32)
+
+    def say(what):
+        print(f"a14b3: {what}", file=sys.stderr, flush=True)
+
+    def launched(fn):
+        for k in counters:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(zip(
+            ("fused", "factor", "subst"), (k.launches for k in counters)))
+
+    def line_run(comp, lanes, tstop=dl.LINE_TSTOP, dense_lu="auto"):
+        kw = dict(params=dl.rl_lanes(comp, lanes)) if lanes else {}
+        return T.tran(comp, (0.0, tstop), **kw, opts=T.TranOptions(
+            **dl.LINE_OPTS, dense_lu=dense_lu))
+
+    def latch_run(case, device, dense_lu="auto"):
+        comp, tstop = dl.latch_case(case, device)
+        return T.tran(comp, (0.0, tstop), params=dl.rl_lanes(comp, DL_LANES),
+                      opts=T.TranOptions(**dl.LATCH_OPTS, dense_lu=dense_lu))
+
+    def witness(sol):
+        if sol.converged and not sol.n_ring_underflow:
+            raise AssertionError("C12: the short-ring line converged with "
+                                 "no underflow")
+        return dict(converged=sol.converged, t_end=float(sol.ts[-1]),
+                    accepted=sol.n_accepted, rejected=sol.n_rejected,
+                    newton=sol.n_newton, ring_underflow=sol.n_ring_underflow)
+
+    t0 = time.perf_counter()
+    cpu = {}
+    link_cpu = lossy_link.run(device="cpu", dense_lu="mixed")
+    cpu["O"] = [link_cpu[k] for k in ("accepted", "rejected", "newton",
+                                      "attempts")]
+    cpu["H"] = _tot(line_run(dl.delay_line("cpu"), DL_LANES,
+                             tstop=H_CPU_TSTOP, dense_lu="mixed"))
+    cpu["H_pulse"] = _tot(line_run(dl.delay_line("cpu", source="pulse"),
+                                   DL_LANES, dense_lu="mixed"))
+    cpu["C12"] = witness(line_run(dl.delay_line("cpu", td=dl.C12_TD), 0))
+    for case in dl.LATCH_CASES:
+        cpu[case] = _tot(latch_run(case, "cpu", "mixed"))
+    kc, kctx, kopts = dl.ktc("cpu")
+    ktc_cpu = T.tran(kc, (0.0, dl.KTC_SPAN), ctx=kctx, opts=kopts)
+    rec = dict(cpu_counts=cpu, cpu_s=time.perf_counter() - t0)
+    say(f"CPU side in {rec['cpu_s']:.1f} s")
+
+    # phase 30: cell O, and the link's AC
+    link, setup_s = lossy_link.setup(device=dev)
+    res, _, _ = launched(lambda: lossy_link.run(link=link))
+    res.pop("sols")
+    res["setup_s"] = setup_s
+    _gesp_path("cell O", res["launches"])
+    got = [res[k] for k in ("accepted", "rejected", "newton", "attempts")]
+    _same_counts("cell O", got, cpu["O"])
+    _same_counts("cell O (recorded)", got, CELL_O)
+    rec["lossy_link"] = dict(res, card_equals_cpu_counts=True, card=smi())
+    rec["lossy_link_ac"] = _ac_card_cpu(
+        torch, T, "link",
+        lambda d: T.compile_circuit(T.elaborate(T.parse_spice(
+            netlists.lossy_link(30.0, 75.0, pulse=False))), device=d),
+        LINK_AC_FREQS, "b", link_ac_closed, 2e-6)
+    say("cell O done")
+
+    # phase 31: the history line at 8 lanes (sine and pulse), its AC and
+    # the C12 witness
+    comp = dl.delay_line(dev)
+    sols, wall, la = launched(lambda: line_run(comp, DL_LANES))
+    _gesp_path("history line", la)
+    worst = dl.sine_gate(sols)
+    got = _tot(sols)
+    _same_counts("history line (recorded)", got, CELL_H)
+    early = _tot(line_run(comp, DL_LANES, tstop=H_CPU_TSTOP))
+    _same_counts(f"history line over 0-{H_CPU_TSTOP:g} s", early, cpu["H"])
+    pcomp = dl.delay_line(dev, source="pulse")
+    psols, pwall, pla = launched(lambda: line_run(pcomp, DL_LANES))
+    _gesp_path("pulsed history line", pla)
+    pworst = dl.pulse_gate(psols)
+    pgot = _tot(psols)
+    _same_counts("pulsed history line", pgot, cpu["H_pulse"])
+    rec["delay_history"] = dict(
+        lanes=DL_LANES, tstop=dl.LINE_TSTOP, wall_s=wall,
+        transients_per_s=DL_LANES / wall, worst_sine_err=worst,
+        counts=got, ring_underflow=sum(s.n_ring_underflow for s in sols),
+        launches=la, card_equals_cpu_counts=dict(tstop=H_CPU_TSTOP,
+                                                 counts=early),
+        pulse=dict(wall_s=pwall, counts=pgot, worst_err=pworst,
+                   launches=pla, card_equals_cpu_counts=True), card=smi())
+    rec["delay_history_ac"] = _ac_card_cpu(
+        torch, T, "history line", lambda d: dl.delay_line(d, source=0.0),
+        LINE_AC_FREQS, "out",
+        lambda f: np.exp(-2j * np.pi * f * dl.LINE_TD), 1e-9)
+    sol, wall, la = launched(lambda: line_run(
+        dl.delay_line(dev, td=dl.C12_TD), 0))
+    if any(la.values()):
+        raise AssertionError(f"C12 (one stream): launches {la}")
+    rec["c12_witness"] = dict(card=witness(sol), cpu=cpu["C12"], wall_s=wall,
+                              delay_history=T.TranOptions().delay_history)
+    say("history line done")
+
+    # phase 32: the latch cases at 8 lanes
+    rec["latch"] = {}
+    for case in dl.LATCH_CASES:
+        sols, wall, la = launched(lambda: latch_run(case, dev))
+        _gesp_path(f"latch {case}", la)
+        worst = dl.latch_gate(case, sols)
+        got = _tot(sols)
+        _same_counts(f"latch {case}", got, cpu[case])
+        rec["latch"][case] = dict(lanes=DL_LANES, wall_s=wall, counts=got,
+                                  worst_gate_err=worst, launches=la)
+    rec["latch"]["card"] = smi()
+    say("latch cases done")
+
+    # phase 33: kT/C, one stream, card against CPU
+    kc, kctx, kopts = dl.ktc(dev)
+    sol, wall, la = launched(lambda: T.tran(kc, (0.0, dl.KTC_SPAN),
+                                            ctx=kctx, opts=kopts))
+    ratio = dl.ktc_ratio(sol)
+    if not 0.6 < ratio < 1.4:
+        raise AssertionError(f"kT/C: variance {ratio:.3g}·kT/C")
+    if sol.n_accepted != ktc_cpu.n_accepted or any(la.values()):
+        raise AssertionError(f"kT/C: {sol.n_accepted} accepted steps on "
+                             f"the card, {ktc_cpu.n_accepted} on the CPU; "
+                             f"launches {la}")
+    n = KTC_STEPS + 1
+    werr = float(np.max(np.abs(sol.xs[:n] - ktc_cpu.xs[:n])))
+    if not werr <= KTC_WAVE_ATOL:
+        raise AssertionError(f"kT/C: the card's waveform {werr:.3g} V from "
+                             "the CPU's")
+    rec["transient_noise"] = dict(
+        wall_s=wall, accepted=sol.n_accepted, rejected=sol.n_rejected,
+        newton=sol.n_newton, var_over_ktc=ratio,
+        cpu_var_over_ktc=dl.ktc_ratio(ktc_cpu), wave_err=werr,
+        wave_steps=KTC_STEPS, card=smi())
+    say("kT/C done")
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
+def phase_a14b3(child):
+    """Phases 30-33's lines, from their child's record (``a14b3_child``);
+    returns B2/B3's launches in cell O, the history line and the latch
+    cases."""
+    out, waited = join_child(child)
+    with open(out) as f:
+        rec = json.load(f)
+    log("a14b3_setup", cpu_counts=rec["cpu_counts"], cpu_s=rec["cpu_s"],
+        ran_in_child=True, waited_s=waited)
+    for phase in ("lossy_link", "lossy_link_ac", "delay_history",
+                  "delay_history_ac", "c12_witness", "latch",
+                  "transient_noise"):
+        log(phase, **rec[phase], ran_in_child=True)
+    latch = {k: sum(v["launches"][k] for c, v in rec["latch"].items()
+                    if c != "card") for k in ("factor", "subst")}
+    dh = rec["delay_history"]
+    return dict(link=rec["lossy_link"]["launches"],
+                delay={k: dh["launches"][k] + dh["pulse"]["launches"][k]
+                       for k in ("factor", "subst")}, latch=latch)
 
 
 #: phase 19: the JAX package's large-circuit transient, the 40-cell BSIM4
@@ -2499,7 +2802,7 @@ def main():
         path=[os.path.relpath(b["path"], REPO),
               os.path.relpath(built["pivot"]["path"], REPO)],
         ptxas=ptxas, cmg_setup_s=cmg_setup_s, vbic_setup_s=amp_setup_s)
-    children = [None, None, None, None, None]
+    children = [None, None, None, None, None, None]
     try:
         abs_err, times, bounds = phase_kernels(torch, gesp_lu, linalg, dev)
         # the repeat phase's children run beside phases 4-5 from here on,
@@ -2539,6 +2842,7 @@ def main():
             if isinstance(built[name], BaseException):
                 raise built[name]
         children[4] = start_child("a14b")
+        children[5] = start_child("a14b3")
         phase_lv1_single(torch, T, gesp_lu, dev)
         dl = phase_lv1(torch, T, gesp_lu, fc, lv1, "D", CELL_D,
                        LV1_SHORT_TSTOP,
@@ -2558,6 +2862,7 @@ def main():
         phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
         phase_cmg_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
         vl, bl = phase_a14b(children[4])
+        dl3 = phase_a14b3(children[5])
         main19 = join_sparse_child(children[1])
         gl = {"fused": phase_cmg("fused", children[2]),
               "xla": phase_cmg("xla", children[3])}
@@ -2637,7 +2942,10 @@ def main():
                 shape=[N_LANES, 25], design=design[key],
                 lv1_launches=dl[key], pvt_xla_launches=xl[key],
                 cmg_xla_launches=gl["xla"][key],
-                vbic_xla_launches=vl["xla"][key]))
+                vbic_xla_launches=vl["xla"][key],
+                link_launches=dl3["link"][key],
+                delay_launches=dl3["delay"][key],
+                latch_launches=dl3["latch"][key]))
         for key, name, source, line in (
                 ("gesp", "gesp_solve_f32", src, 164),
                 ("pivot", "pivot_solve_f32",
@@ -2673,5 +2981,7 @@ if __name__ == "__main__":
         cmg_child(sys.argv[2], sys.argv[3])
     elif len(sys.argv) == 3 and sys.argv[1] == "--a14b-child":
         a14b_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--a14b3-child":
+        a14b3_child(sys.argv[2])
     else:
         main()

@@ -18,8 +18,11 @@ the JAX package's on the CPU, the same circuits through both.
   ``.meas`` values within 1e-6 relative, ``.four``
   harmonics of a SIN-driven RC within 1e-4 relative on transients with the
   same accepted steps.
-- The analysis runs on the compiled circuit's device; a circuit with delay
-  or latch sites raises naming ROADMAP A14b.
+- The analysis runs on the compiled circuit's device; the AC of a
+  history-mode ``absdelay`` site is stamped exactly (e^{−jωtd}) on the
+  dense path, and on the sparse path, where the JAX package linearises it
+  at aux = 0 without a word (``cedarsim_tpu/analysis/ac.py:107-109``), it
+  raises naming that fault.
 
 The JAX package's netlist-keyed operating-point cache is off in this
 module, so its operating points are cold solves whatever ran before.
@@ -274,17 +277,24 @@ def test_acdec_matches_jax():
 
 
 def test_delay_sites_raise_naming_a14b():
-    from cedarsim_tpu_torch.devices.simple import Resistor
+    """A delay site's AC: exact on the dense path; on the sparse path it
+    raises, naming the JAX package's silent linearisation at aux = 0."""
+    from cedarsim_tpu_torch.va.codegen import load_va
+    from tests.test_va_delay_history import VA
 
-    class Delayed(Resistor):
-        n_delay = 1
-
+    td = 2e-6
+    dly = load_va(VA, delay_mode="history")["vdelay"]
     ckt = T.Circuit()
-    a = ckt.net("a")
-    ckt.add(T.VSource, "V1", (a, ckt.gnd), dict(dc=1.0, ac=1.0))
-    ckt.add(Delayed, "R1", (a, ckt.gnd), dict(r=1e3))
-    comp = T.compile_circuit(ckt, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
-        T.ac(comp, [1e3])
-    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
-        T.noise(comp, "a", [1e3])
+    vin, out = ckt.net("vin"), ckt.net("out")
+    ckt.add(T.VSource, "V1", (vin, ckt.gnd), dict(dc=0.0, ac=1.0))
+    ckt.add(dly, "X1", (out, ckt.gnd, vin, ckt.gnd), dict(td=td))
+    ckt.add(T.Resistor, "RL", (out, ckt.gnd), dict(r=1e4))
+    freqs = np.array([1e3, 1e6])
+    h = T.ac(T.compile_circuit(ckt, device="cpu"), freqs)["out"]
+    np.testing.assert_allclose(h, np.exp(-2j * np.pi * freqs * td),
+                               rtol=0.0, atol=1e-9)
+    sp = T.compile_circuit(ckt, device="cpu", sparse=True)
+    with pytest.raises(NotImplementedError, match="ac.py:107-109"):
+        T.ac(sp, [1e3])
+    with pytest.raises(NotImplementedError, match="ac.py:107-109"):
+        T.noise(sp, "out", [1e3])

@@ -109,12 +109,19 @@ def test_charge_tangent_is_c_times_v():
                                atol=1e-30)
 
 
-@pytest.mark.parametrize("card, item", [
-    ("T1 a 0 b 0 z0=50 td=1n", "A14b"),
-    ("O1 a 0 b 0 lmod\n.model lmod ltra r=1 l=1n c=1p len=1", "A14b"),
-    ("U1 a b 0 umod\n.model umod urc k=1", "A14b part 3"),
-])
-def test_unported_cards_raise(card, item):
-    text = f"* unported\nV1 a 0 1.0\nR1 a 0 1k\n{card}\n.end\n"
-    with pytest.raises(NotImplementedError, match=item):
-        T.elaborate(T.parse_spice(text))
+@pytest.mark.parametrize("card, n_ring", [
+    ("T1 a 0 b 0 z0=50 td=1n", 2),
+    ("O1 a 0 b 0 lmod\n.model lmod ltra r=60 l=1n c=1p len=1", 20),
+    ("U1 a b 0 umod l=0.01\n.model umod urc k=2 rperl=1e5 cperl=1e-7", 0),
+], ids=["T", "O", "U"])
+def test_unported_cards_raise(card, n_ring):
+    """The T, O and U cards, which the port once refused, elaborate and
+    compile to the JAX package's instances, unknowns and ring slots."""
+    text = f"* lines\nV1 a 0 1.0\nR1 a 0 1k\nR2 b 0 1k\n{card}\n.end\n"
+    ct = T.compile_circuit(T.elaborate(T.parse_spice(text)), device="cpu")
+    cj = J.compile_circuit(J.elaborate(J.parse_spice(text)))
+    assert [i.name for i in ct.circuit.instances] == \
+        [i.name for i in cj.circuit.instances]
+    assert (ct.n_x, ct.n_dly, ct.n_ring, ct.n_lat) == \
+        (cj.n_x, cj.n_dly, cj.n_ring, cj.n_lat)
+    assert ct.n_ring == n_ring

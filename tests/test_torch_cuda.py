@@ -14,7 +14,9 @@ which sets JAX up for the other files):
   from 1 to 240 (1, 2, 4 and 8 rows per lane) and the same B, each with its
   two launches bitwise equal; the factor's zero and tiny negative pivots
   boosted to +-1e-20 on the diagonal, as on the CPU.
-- ``rounding.fma_f32`` on CUDA tensors bitwise C's ``fmaf``.
+- ``rounding.fma_f32`` on CUDA tensors bitwise C's ``fmaf``;
+  ``rounding.fma_f64`` and the history ring's lookup (``tran.ring_interp``)
+  on CUDA tensors bitwise the CPU's.
 - The wrappers refuse what the kernels do not take, n = 241 before any
   launch.
 - The mixed chord solve (kernels + two float64 refinement passes) against
@@ -186,6 +188,25 @@ def test_fma_f32_on_the_card_is_libm_fmaf(cuda_device):
         same = (got.view(np.uint32) == ref.view(np.uint32)) | (
             np.isnan(got) & np.isnan(ref))
         assert same.all(), (kind, int((~same).sum()))
+
+
+def test_fma_f64_and_ring_lookup_on_the_card_are_the_cpus(cuda_device):
+    """``rounding.fma_f64`` and ``tran.ring_interp`` (seeded rings of 512
+    samples, queries inside, before and after them) give the CPU's bits
+    on CUDA tensors."""
+    from cedarsim_tpu_torch.analysis.tran import ring_interp
+    from cedarsim_tpu_torch.ops.rounding import fma_f64
+    rng = np.random.default_rng(3)
+    a, b, c = (torch.as_tensor(rng.standard_normal(100_000))
+               for _ in range(3))
+    got = fma_f64(a.to(cuda_device), b.to(cuda_device), c.to(cuda_device))
+    assert torch.equal(got.cpu(), fma_f64(a, b, c))
+    tr = torch.as_tensor(np.sort(rng.uniform(0.0, 1.0, (8, 512)), 1))
+    ur = torch.as_tensor(rng.standard_normal((8, 512, 12)))
+    q = torch.as_tensor(rng.uniform(-0.1, 1.1, (8, 12)))
+    got = ring_interp(q.to(cuda_device), tr.to(cuda_device),
+                      ur.to(cuda_device))
+    assert torch.equal(got.cpu(), ring_interp(q, tr, ur))
 
 
 @pytest.mark.parametrize("n", [1, 25, 31, 32, 33, 64, 85, 96, 122, 240])

@@ -1,7 +1,10 @@
 """``cedarsim_tpu_torch.ops.rounding.fma_f32`` against C's ``fmaf`` (glibc's
 is correctly rounded), bitwise, on seeded float32 triples of several
 kinds, and on constructed cases where a float64 sum cast to float32 rounds
-twice and misses.
+twice and misses; ``fma_f64`` (the one rounding of XLA's contracted
+multiply-add, which the history ring's lookups share with ``jnp.interp``)
+against C's ``fma`` on seeded float64 triples, near-cancelling ones and
+exact ties of the two roundings.
 
 The plain versions of the GESP kernels round their multiply-adds with it,
 so that they give the kernels' bits (``tests/test_torch_gesp_lu.py``);
@@ -14,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from cedarsim_tpu_torch.ops.rounding import fma_f32
+from cedarsim_tpu_torch.ops.rounding import fma_f32, fma_f64
 
 #: seeded triples per kind (five kinds: 125,000 in all)
 N = 25_000
@@ -121,3 +124,48 @@ def test_fma_f32_broadcasts_and_keeps_zero_signs():
     assert np.signbit(got[1]) and not np.signbit(got[4])
     row = fma_f32(torch.ones(3, 1), torch.arange(4.0), torch.zeros(4))
     assert row.shape == (3, 4) and row.dtype == torch.float32
+
+
+def libm_fma(a, b, c):
+    """C's ``fma`` on each triple of three float64 numpy arrays."""
+    f = ctypes.CDLL("libm.so.6").fma
+    f.restype = ctypes.c_double
+    f.argtypes = [ctypes.c_double] * 3
+    return np.array([f(x, y, z) for x, y, z in
+                     zip(a.tolist(), b.tolist(), c.tolist())], np.float64)
+
+
+def f64_triples(kind, n, seed):
+    """n float64 triples (a, b, c): "normal" (magnitudes 2^-40 to 2^40),
+    "cancelling" (c within a few ulps of −a·b) or "ties" (odd integers
+    whose product needs 55 bits, so that rounding it to 53 drops two bits,
+    a tie in a quarter of them, and c = ±1 or ±0.5 moves the exact sum on
+    or off a tie: where the product rounded first and c added after would
+    round twice)."""
+    rng = np.random.default_rng(seed)
+
+    def mag(lo, hi):
+        return rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(lo, hi, n) \
+            * rng.choice([-1.0, 1.0], n)
+
+    a, b = mag(-20, 20), mag(-20, 20)
+    if kind == "normal":
+        c = mag(-40, 40)
+    elif kind == "cancelling":
+        c = -(a * b)
+        steps = rng.integers(-3, 4, n)
+        for s_ in range(1, 4):
+            c = np.where(steps >= s_, np.nextafter(c, np.inf), c)
+            c = np.where(steps <= -s_, np.nextafter(c, -np.inf), c)
+    else:
+        a = rng.integers(2 ** 26, 2 ** 27, n).astype(np.float64) * 2 + 1
+        b = rng.integers(2 ** 26, 2 ** 27, n).astype(np.float64) * 2 + 1
+        c = rng.choice([-1.0, 1.0, 0.5, -0.5], n)
+    return a, b, c
+
+
+@pytest.mark.parametrize("kind", ["normal", "cancelling", "ties"])
+def test_fma_f64_is_libm_fma(kind):
+    a, b, c = f64_triples(kind, 20_000, seed=7)
+    got = fma_f64(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    np.testing.assert_array_equal(got, libm_fma(a, b, c))

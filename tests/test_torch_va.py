@@ -137,6 +137,10 @@ def test_bsim4_per_lane_width_takes_the_merge_path():
 
 
 def test_unported_va_operator_raises():
+    """``laplace_nd``, which the interpreter once refused, compiles to the
+    JAX interpreter's layout: one state row after the terminals, no aux
+    slot (``tests/test_torch_va_filters.py`` holds its walk)."""
+    from cedarsim_tpu.va.codegen import load_va as j_load_va
     src = """
 module valp(inp, out);
   inout inp, out;
@@ -145,8 +149,10 @@ module valp(inp, out);
   analog V(out) <+ laplace_nd(V(inp), {1.0}, {1.0, tau});
 endmodule
 """
-    with pytest.raises(NotImplementedError, match="A14"):
-        load_va(src)
+    dev, jdev = load_va(src)["valp"], j_load_va(src)["valp"]
+    assert (dev.n_branch, dev.n_noise, dev.n_delay, dev.n_latch) == \
+        (jdev.n_branch, jdev.n_noise, jdev.n_delay, jdev.n_latch) == \
+        (2, 0, 0, 0)
 
 
 def test_walk_bits_do_not_depend_on_the_hash_seed():
