@@ -11,7 +11,12 @@ complex solves over the frequencies (``ac``, ``noise``; S-parameter
 blocks), batched DC sweeps over parameters and temperature and
 Monte-Carlo DC (``dc_sweep``, ``mc_dc``, ``mc_statistics``);
 ``simulate`` runs a netlist's own ``.op``/``.tran``/``.dc``/``.ac``/
-``.noise``/``.meas``/``.four``.  The transient runs
+``.noise``/``.meas``/``.four``; periodic steady state by shooting
+(``pss``, its monodromy by forward-mode AD through the transient) and by
+harmonic balance (``hb``, ``hb_autonomous``) with periodic AC, periodic
+noise and oscillator phase noise around the orbit; parameter sensitivities
+and ``.TF`` (``analysis/sensitivity.py``) and the DC-initialisation probe
+(``analysis/fragility.py``).  The transient runs
 the mixed-precision chord solves on the hand-written CUDA GESP LU kernels
 (``ops/gesp_lu.py``), or with every chord iteration of a step attempt in one
 launch of the fused chord kernel (``ops/fused_chord.py``, the BSIM4 walk
@@ -43,6 +48,9 @@ from cedarsim_tpu_torch.analysis.sweeps import (
 from cedarsim_tpu_torch.analysis.montecarlo import mc_dc, mc_statistics
 from cedarsim_tpu_torch.analysis.ac import (ac, acdec, noise, ACSolution,
                                             NoiseSolution)
+from cedarsim_tpu_torch.analysis.pss import pss
+from cedarsim_tpu_torch.analysis.hb import (hb, hb_autonomous, pac, pnoise,
+                                            oscillator_phase_noise)
 from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan)
 from cedarsim_tpu_torch.api import (simulate, find_tran_directive,
@@ -62,6 +70,7 @@ __all__ = [
     "tran", "Sweep", "ProductSweep",
     "TandemSweep", "SerialSweep", "sweepify", "dc_sweep", "mc_dc",
     "mc_statistics", "ac", "acdec", "noise", "ACSolution", "NoiseSolution",
+    "pss", "hb", "hb_autonomous", "pac", "pnoise", "oscillator_phase_noise",
     "FusedEnvelopeError", "get_fused_plan", "simulate",
     "find_tran_directive", "find_ac_directive",
 ]

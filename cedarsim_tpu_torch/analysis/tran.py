@@ -58,6 +58,7 @@ from cedarsim_tpu_torch.core.compile import (CompiledCircuit, default_ctx,
 from cedarsim_tpu_torch.core.context import SimSpec, Modes
 from cedarsim_tpu_torch.core.sparse_ops import get_sparse_ops
 from cedarsim_tpu_torch.ops import gesp_lu, linalg
+from cedarsim_tpu_torch.ops.ad import any_tangent
 from cedarsim_tpu_torch.ops.rounding import fma_f64
 from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan, split_lanes)
@@ -146,7 +147,7 @@ class TranOptions:
 
 
 def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
-                 params=None, batched=True):
+                 params=None, batched=True, ad=False):
     """Resolve ``dense_lu``/``newton_impl`` per device, as the JAX package's
     ``auto_tpu_impl`` and its chord pair do, with "on TPU" read as "on
     CUDA".  ``dense_lu``: an unbatched call (one stream, ``batched=False``)
@@ -165,8 +166,31 @@ def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
     (``use_sparse_solver``) solves with ``SparseOps`` at any lane count on
     any device: "jax" and "xla" ("mixed" is ignored, as the JAX package's
     sparse ``lin_solve`` ignores it), and an explicit "fused" raises, as
-    the JAX package's does."""
+    the JAX package's does.
+    ``ad``: an input carries a forward tangent or requires grad.  Then
+    "auto" is the exact float64 solve in the chord loop ("jax", "xla"),
+    the path the JAX package's sensitivities and monodromy differentiate
+    (its unbatched exact solve), and an explicit "mixed" or "fused"
+    raises: those kernels have no derivative rule.  A sparse circuit
+    raises too: S1/S2 have none yet (ROADMAP A16b)."""
     dl, ni = opts.dense_lu, opts.newton_impl
+    if ad:
+        if use_sparse_solver(compiled):
+            raise NotImplementedError(
+                "differentiating the transient of a sparse circuit needs a "
+                "derivative rule around the sparse LU kernels S1/S2 (ROADMAP "
+                "A16b); compile the circuit with sparse=False to "
+                "differentiate it through the dense exact solve")
+        if ni == "fused" or dl == "mixed":
+            raise ValueError(
+                f"newton_impl={ni!r} / dense_lu={dl!r} under automatic "
+                "differentiation: the fused chord kernel and the float32 "
+                "GESP kernels have no derivative rule, so a tangent would "
+                "be dropped; use 'auto' (the exact float64 solve) or "
+                "newton_impl='xla', dense_lu='jax'")
+        if ni not in ("xla", "auto") or dl not in ("jax", "auto"):
+            raise ValueError(f"unknown newton_impl={ni!r} / dense_lu={dl!r}")
+        return dataclasses.replace(opts, dense_lu="jax", newton_impl="xla")
     if use_sparse_solver(compiled):
         if ni == "fused":
             raise ValueError("newton_impl='fused' is dense-path only")
@@ -322,6 +346,14 @@ class TranSolution:
     def interp(self, name, t_eval):
         return np.interp(t_eval, self.ts, self[name])
 
+    def interp_state(self, t_eval):
+        """The whole state linearly interpolated at time(s) ``t_eval``:
+        [n_x] for a scalar, [len(t), n_x] for a vector."""
+        t = np.asarray(t_eval, dtype=float)
+        xs = np.asarray(self.xs)
+        return np.stack([np.interp(t, self.ts, xs[:, i])
+                         for i in range(xs.shape[1])], axis=-1)
+
 
 def xdot0_and_mask(compiled, x, ctx, params):
     """(ẋ0, lte_mask) from one model walk at the operating point, per lane:
@@ -455,7 +487,8 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     dt, dev = compiled.dtype, compiled.device
     x0 = torch.as_tensor(x0, dtype=dt, device=dev)
     xdot0 = torch.as_tensor(xdot0, dtype=dt, device=dev)
-    opts = resolve_impl(compiled, opts, ctx, params, batched=x0.dim() == 2)
+    opts = resolve_impl(compiled, opts, ctx, params, batched=x0.dim() == 2,
+                        ad=any_tangent(x0, xdot0, params))
     if x0.dim() == 1:
         x0, xdot0 = x0[None], xdot0[None]
     L, n = x0.shape
@@ -1049,7 +1082,11 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                                            min(opts.grow, 1.5) * one))
         else:
             grow = opts.grow * one
-        err_ctl = err
+        # the controller is detached from AD, as in the JAX package: a
+        # sensitivity differentiates the realised discretisation, and a
+        # tangent through h (via err(x)) would add spurious step-sequence
+        # derivatives and put a tangent on ts
+        err_ctl = err.detach()
         # order + 1 of the error estimate: h³ with the quadratic predictor,
         # h⁴ / h⁵ once the cubic / quartic one is active
         if method == "bdf3":
@@ -1303,7 +1340,8 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
             if torch.as_tensor(v).dim() == compiled.params0[key][pn].dim() + 1:
                 L = torch.as_tensor(v).shape[0]
     batched = L is not None
-    opts = resolve_impl(compiled, opts, ctx, params, batched=batched)
+    opts = resolve_impl(compiled, opts, ctx, params, batched=batched,
+                        ad=any_tangent(params, x0))
     Lr = L if batched else 1
     converged0 = torch.ones(Lr, dtype=torch.bool, device=dev)
     if x0 is None:

@@ -843,6 +843,12 @@ class CompiledCircuit:
         new[key] = grp
         return new
 
+    def get_param(self, params, dotted: str):
+        """One instance parameter's value in ``params`` (``"inst.param"``;
+        the inverse of :meth:`set_param`)."""
+        key, j, pname = self.param_loc(dotted)
+        return params[key][pname][j]
+
     def breakpoints(self, tstop: float) -> np.ndarray:
         """All source-waveform discontinuity times in (0, tstop) and their
         echoes through the delay elements (``echo_delays``), sorted, with

@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -47,18 +48,33 @@ def nvcc():
                        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+#: one lock a library (its path stem): threads that build the same library
+#: at once (two fused plans that emit the same source) share one nvcc run
+#: and its temporary files
+_BUILD_LOCKS = {}
+_BUILD_LOCKS_GUARD = threading.Lock()
+
+
 def build_library(prefix, source, flags=NVCC_FLAGS, header=None):
     """Compile ``source`` (if not built yet) and load it.  ``header``, if
     given, is ``(macro, text)``: the text is written beside the library and
     its path passed to nvcc as ``-D<macro>="<path>"``.  Returns a dict with
     the loaded ``lib``, the shared object's ``path``, nvcc's ``seconds``
     (0.0 when it was already built) and its ``log`` (kept beside the
-    library, so a library built earlier still reports ptxas's lines)."""
+    library, so a library built earlier still reports ptxas's lines).
+    Threads of one process build a library once."""
     src = _source_bytes(source)
     hdr = header[1].encode() if header else b""
     tag = hashlib.sha256(src + b"\0" + hdr + b"\0"
                          + " ".join(flags).encode()).hexdigest()
     stem = os.path.join(BUILD_DIR, f"{prefix}_{tag[:16]}")
+    with _BUILD_LOCKS_GUARD:
+        lock = _BUILD_LOCKS.setdefault(stem, threading.Lock())
+    with lock:
+        return _build_locked(stem, source, flags, header, hdr)
+
+
+def _build_locked(stem, source, flags, header, hdr):
     path, log_path = stem + ".so", stem + ".log"
     seconds = 0.0
     if os.path.isfile(path):

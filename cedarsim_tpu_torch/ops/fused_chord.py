@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from cedarsim_tpu_torch.ops import cuda_lib, linalg
+from cedarsim_tpu_torch.ops.ad import refuse_tangent
 from cedarsim_tpu_torch.va import emit
 
 SOURCE = os.path.join(cuda_lib.CSRC, "fused_chord.cu")
@@ -533,6 +534,7 @@ def fused_chord(plan, x0, MT, rinv, soff, vanch, coef, live, lanes, opts):
     if x0.dim() != 2:
         raise ValueError(f"fused_chord: x0 must be [B, n], got "
                          f"{tuple(x0.shape)}")
+    refuse_tangent("fused_chord", x0, MT, rinv, soff, vanch, coef)
     B, n = x0.shape
     if n != plan.n_x:
         raise ValueError(f"fused_chord: n={n}, the plan has {plan.n_x}")

@@ -20,6 +20,7 @@ import os
 import torch
 
 from cedarsim_tpu_torch.ops import cuda_lib
+from cedarsim_tpu_torch.ops.ad import refuse_tangent
 from cedarsim_tpu_torch.ops.rounding import fma_f32
 
 #: pivot magnitude below which GESP boosts the pivot to ±TAU
@@ -107,6 +108,7 @@ def lu_factor_gesp_f32(A):
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"lu_factor_gesp_f32: expected [B, n, n], got "
                          f"{tuple(A.shape)}")
+    refuse_tangent("lu_factor_gesp_f32", A)
     if A.device.type == "cpu":
         return lu_factor_gesp_f32_plain(A)
     if A.device.type != "cuda":
@@ -157,6 +159,7 @@ def lu_subst_gesp_f32(LU, b):
     launch ``gesp_subst_f32`` (one warp per system, the system staged in
     shared memory at row stride n | 1, so n <= 241 on an H100) or raise."""
     B, n = cuda_lib.check_system("lu_subst_gesp_f32", LU, b)
+    refuse_tangent("lu_subst_gesp_f32", LU, b)
     if LU.device.type == "cpu":
         return lu_subst_gesp_f32_plain(LU, b)
     cuda_lib.check_f32("LU", LU, (B, n, n))
@@ -230,6 +233,7 @@ def lu_solve_gesp_f32(A, b):
     registers at n <= 32, one thread block per system with [A | b] in
     shared memory above (so n <= 240 on an H100)."""
     B, n = cuda_lib.check_system("lu_solve_gesp_f32", A, b)
+    refuse_tangent("lu_solve_gesp_f32", A, b)
     if A.device.type == "cpu":
         return lu_solve_gesp_f32_plain(A, b)
     cuda_lib.check_f32("A", A, (B, n, n))

@@ -75,11 +75,9 @@ def normal_matrix(C):
     device, and the memory is the sum and one product, 2·L·n² values, where
     a one-line broadcast product and reduction would hold L·n³."""
     acc = torch.zeros_like(C)
-    outer = torch.empty_like(C)
     for k in range(C.shape[-2]):
         row = C[..., k, :]
-        torch.mul(row[..., :, None], row[..., None, :], out=outer)
-        acc.add_(outer)
+        acc.add_(row[..., :, None] * row[..., None, :])
     return acc
 
 

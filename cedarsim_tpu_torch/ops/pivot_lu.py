@@ -23,6 +23,7 @@ import os
 import torch
 
 from cedarsim_tpu_torch.ops import cuda_lib
+from cedarsim_tpu_torch.ops.ad import refuse_tangent
 from cedarsim_tpu_torch.ops.gesp_lu import back_substitute
 from cedarsim_tpu_torch.ops.rounding import fma_f32
 
@@ -93,6 +94,7 @@ def lu_solve_pivot_f32(A, b):
     the system in registers at n <= 32, one thread block per system with
     [A | b] in shared memory above (so n <= 240 on an H100)."""
     B, n = cuda_lib.check_system("lu_solve_pivot_f32", A, b)
+    refuse_tangent("lu_solve_pivot_f32", A, b)
     if A.device.type == "cpu":
         return lu_solve_pivot_f32_plain(A, b)
     cuda_lib.check_f32("A", A, (B, n, n))

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from cedarsim_tpu_torch.ops.ad import any_tangent
+
 
 def fma_f32(a, b, c):
     """The correctly rounded float32 ``a·b + c`` of float32 tensors (they
@@ -70,7 +72,12 @@ def fma_f64(a, b, c):
     broadcast; finite and away from overflow), bitwise C's ``fma``: the
     exact product as uh + ul (Dekker), th + tl = c + uh exactly (TwoSum),
     v = tl + ul rounded to odd, and th + v rounded to nearest (Boldo and
-    Melquiond's emulated FMA)."""
+    Melquiond's emulated FMA).  Its bit operations carry no tangent, so an
+    input with AD state raises instead of losing it."""
+    if any_tangent(a, b, c):
+        raise ValueError(
+            "fma_f64: an input carries an autograd tangent, which its bit "
+            "operations (view as int64, nextafter) would drop")
     a, b, c = torch.broadcast_tensors(a, b, c)
     uh, ul = _two_prod(a, b)
     th, tl = _two_sum(c, uh)

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from cedarsim_tpu_torch.ops import cuda_lib
+from cedarsim_tpu_torch.ops.ad import refuse_tangent
 
 
 # ---------------------------------------------------------------- host plan
@@ -884,6 +885,7 @@ def factor(plan: SparsePlan, vals, boost: float = 0.0):
     written back, so factor and solve agree, and refinement recovers the
     perturbed digits).  CPU tensors take :func:`factor_plain`; CUDA tensors
     launch S1 (its regime from :func:`shared_regime`) or raise."""
+    refuse_tangent("sparse factor (S1)", vals)
     if _device_of("factor", vals) == "cpu":
         return factor_plain(plan, vals, boost)
     vals, single = _lanes(vals)
@@ -914,6 +916,7 @@ def solve_factored(plan: SparsePlan, f, b):
     [L, n] float64 (L unit-diagonal).  CPU tensors take
     :func:`solve_factored_plain`; CUDA tensors launch S2 (its regime from
     :func:`shared_regime`) or raise."""
+    refuse_tangent("sparse solve (S2)", f, b)
     if _device_of("solve_factored", f) == "cpu":
         return solve_factored_plain(plan, f, b)
     f, single = _lanes(f)

@@ -277,13 +277,54 @@ card says so.
    Phases 30-33 run in one child process (``a14b3_child``: first the
    CPU's side of every comparison) started after phase 8 beside the
    others; their lines are printed from its record once it has ended.
+34. a16_sensitivity — on the card, no hand-written kernel launched
+   (AD takes the exact float64 solve): the BSIM4 DFF's
+   ``dc_sensitivity`` of d_neg at the transient operating point to
+   x_tp10's W and VDD's dc (the adjoint solve and two vector-Jacobian
+   products) and ``tf`` from VDD; the level-1 DFF's ``tran_sensitivity``
+   of d_neg at 200.6 ns (mid-fall after D's edge) to x_tn10's W by
+   forward-mode AD through the transient over 200-200.7 ns.  Each
+   within ``A16_CPU_RTOL`` of the CPU's, the DC ones within
+   ``A16_FD_RTOL`` of central differences of the card's ``solve_dc``
+   (±1 %, warm from the operating point), the transient's within
+   ``A16_LV1_FD_RTOL`` of one of the card's ``tran`` (±0.1 %, two
+   lanes).
+35. a17_driven — cell V's amplifier, one stream, nominal AREA, on the
+   card: ``pss`` over its 2 ms period (the monodromy from one forward-AD
+   run of 12 lanes) and ``hb`` at 7 harmonics, both converged, HB's
+   warm-up through B1 on the VBIC plan at B = 1 (its only kernel); the
+   output's fundamental from HB within 25 % of |AC gain| × 1 mV (the
+   reference's check) and within 1 % of the PSS orbit's; ``pac`` (k = 0)
+   against ``ac`` and ``pnoise`` against ``noise`` within 1 %; all of it
+   against the CPU's.
+36. a17_autonomous — ``test_hb.py``'s level-1 ring oscillator on the card
+   by ``hb_autonomous`` (13 harmonics, its warm-up through B1 on the
+   ring's level-1 plan at B = 1): its period against the CPU's and within
+   2 % of a kicked transient's crossings, its swing, and
+   ``oscillator_phase_noise`` (the PPV's biorthogonality spread under
+   0.05); ``init_fragility``'s solve of the level-1 DFF from 256 starts
+   drawn with numpy from a fixed seed, the same starts on the card and
+   the CPU: the distinct operating points and their counts, every lane
+   within 1e-9 V of the CPU's.
+   Before them, B1 at B = 1 on the amplifier's and the ring's plans
+   against its plain version (``one_stream_fused_kernel``, as phases 11
+   and 24: two step sizes under each option set those transients use),
+   the source of the ``ring`` and ``hb_warmup`` entries' ``max_abs_err``.
+   The CPU's side of phases 34-36 runs in one child process
+   (``a16a17_cpu``, one intra-op thread, no card) started once cell G's
+   children have ended; the card's side starts after phase 19's end, once
+   every other child has ended and every kernel is timed: phases 34 and
+   36 in a child each (``--a16a17-card-child``), phase 35 in the main
+   process, the three beside each other; the children's lines are printed
+   from their records.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
 the TPU kernel it replaces, launches on its path (B1 in phase 7 and, on
 the level-1 plan, in phase 12 and at bdf3/bdf5 in phases 28-29, on the
 PVT plan in phase 15, on the CMG plan in phase 21, on the VBIC plan in
-phase 25; B2/B3 in phase 5, in phase 10, in phase 17, in phase 22, in
+phase 25 and at B = 1 in phase 35's HB warm-up, on the ring's level-1
+plan in phase 36's; B2/B3 in phase 5, in phase 10, in phase 17, in phase 22, in
 phase 26 and in phases 30-32; B4/B5 in phase 8; S1/S2 in phase 19,
 which name no TPU kernel: ``replaces`` is null and ``jax_counterpart`` the
 XLA function they take the place of), error, times and its bound: the
@@ -820,11 +861,13 @@ def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
                               kt.call_ms(lambda a=a: fc.fused_chord_plain(
                                   plan, *a, opts), 5))
                 bounds[key], counted = fused_bound(plan, a, run())
+            check_us = refuse_tangent_us(args[:6])
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if any(w in ln for w in ("Function properties", "registers",
                                       "spill"))]
     log("fused_kernel", worst_rel_err=worst,
         s_rel_to_final_s=s_final_rel, ok_nnwt=nnwt,
+        refuse_tangent_us=check_us,
         ms_device_call_plain={k: list(v) for k, v in times.items()},
         shape=list(dff[3].shape), bound_ms=bounds, nodes=counted,
         n_inst=plan.n_inst, fc_max_hoist=plan.max_hoist,
@@ -833,6 +876,17 @@ def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
         emit_s=info["emit_seconds"], nvcc_s=info["nvcc_seconds"],
         ptxas=ptxas, header=os.path.relpath(info["path"], REPO))
     return abs_err, times, info, bounds
+
+
+def refuse_tangent_us(tensors, reps=20000):
+    """Host µs of one ``refuse_tangent`` on ``tensors`` (B1's six tensor
+    inputs on the card): the AD check that every kernel wrapper makes on
+    every launch, outside any dual level or ``torch.func`` transform."""
+    from cedarsim_tpu_torch.ops.ad import refuse_tangent
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        refuse_tangent("fused_chord", *tensors)
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 def fused_vs_plain(torch, fc, plan, args, opts, what, worst):
@@ -2405,10 +2459,12 @@ def start_child(kind, *args):
     engine in ARGS, ``cmg_child``, each started after phase 8),
     host-bound on its own core beside the main process's phases.  Returns
     (scratch directory, {name: (output path, stderr file, process)}), the
-    name ``kind`` joined to ARGS by "_", as ``start_repeat_children``;
+    name ``kind`` joined by "_" to the ARGS that are not absolute paths
+    (a record that the child reads), as ``start_repeat_children``;
     ``stop_children`` ends it."""
     import tempfile
-    name = "_".join((kind,) + args)
+    name = "_".join((kind,) + tuple(a for a in args
+                                    if not os.path.isabs(a)))
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
     out = os.path.join(tmp, f"{name}.out")
     err = open(os.path.join(tmp, "stderr.txt"), "w")
@@ -2714,6 +2770,589 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
     return launches, per_shape
 
 
+# ------------------------------------------------- phases 34-36 (A16, A17)
+
+#: phase 34: d_neg of the BSIM4 DFF (D's inverted copy, 5 V at the
+#: transient operating point) against the W of its pull-up x_tp10 and
+#: VDD's dc; the central differences step each by 1 % (at 0.1 % a W step
+#: moves d_neg by ~3e-13 V, under the DC Newton's stopping tolerance)
+A16_NODE = "d_neg"
+A16_WRT = ("x_tp10.mp.W", "vvdd.dc")
+A16_FD_REL = 1e-2
+#: the central difference's truncation error at a 1 % step (5.4e-5 for W
+#: on the CPU) with room
+A16_FD_RTOL = 2e-3
+#: the DC solves' options: the update limited to 0.5 V and 20 iterations a
+#: rung reach the BSIM4 DFF's operating point in 87 Newton iterations
+#: from zeros, the defaults (5 V, 60) in 316, at ~60 ms an iteration on
+#: the card (one stream, the eager walk); the same point to the last bit
+#: on the CPU
+A16_DC_OPTS = dict(max_step=0.5, max_iter=20)
+#: the level-1 DFF's d_neg mid-way down its fall after D's rise at 200 ns
+#: (4.3 V at 200.5 ns, 0.9 V at 200.75 ns), against x_tn10's W (the
+#: pull-down), over 200-200.7 ns from the operating point at 200 ns (68
+#: accepted steps)
+A16_LV1 = dict(node="d_neg", wrt="x_tn10.mn.w", window=(2.0e-7, 2.007e-7),
+               t_eval=2.006e-7)
+#: its transients' options: the per-step chord (one exact factor a step
+#: attempt) gives the full Newton's derivative to 1e-10 in 0.76 of its
+#: time on the CPU
+A16_LV1_OPTS = dict(max_steps=4096, jac_reuse=1)
+#: its central difference moves W by ±0.1 % in one ``tran`` of two lanes
+#: (the exact solve): each lane takes its own steps, so the difference
+#: carries the step sequence's change (0.73 % on the CPU); the bound is
+#: that with room
+A16_LV1_FD_REL = 1e-3
+A16_LV1_FD_RTOL = 0.03
+#: card against CPU: the same float64 walks and solves, apart in the last
+#: bits of the card's libm and its row sums (ROADMAP C13), which the
+#: leakage-set d_neg and the transient's Newton loops carry into these
+#: derivatives at far below this bound
+A16_CPU_RTOL = 1e-6
+#: phase 35: cell V's amplifier, one stream, nominal AREA, its 500 Hz
+#: drive: shooting over T = 2 ms, HB at 7 harmonics (its warm-up 2
+#: periods through B1), PAC and PNOISE at four frequencies
+A17_PERIOD = 2e-3
+A17_HARMONICS = 7
+#: the shooting tolerance (relative to max|x0| + 1 = 6 V): the 10 µF
+#: couplings give M eigenvalues near 1, so M − I amplifies the transient's
+#: own error (rtol 1e-3) and at pss's default 1e-9 the Newton takes 8
+#: iterations to 2 at this tolerance on the CPU; the per-step chord
+#: (``jac_reuse=1``, one factor a step attempt) gives the same orbit to
+#: 1e-13 V in 0.65 of the full Newton's time
+A17_PSS_TOL = 1e-6
+A17_PSS_OPTS = dict(jac_reuse=1)
+A17_PAC_FREQS = np.array([100.0, 500.0, 2e3, 1e4])
+A17_NOISE_FREQS = np.array([100.0, 1e3, 1e4, 1e5])
+#: the reference's cross-method check (tests/test_bipolar_amplifier.py):
+#: the fundamental within 25 % of |AC gain| × 1 mV
+A17_AC_RTOL = 0.25
+#: HB's fundamental against the PSS orbit's: two steady-state solutions
+#: of one circuit, the orbit from an adaptive transient at rtol 1e-3
+A17_PSS_HB_RTOL = 1e-2
+#: PAC (k = 0) against AC and PNOISE against noise(): at a 1 mV drive the
+#: transistor's gm swings ±4 % (1 mV/V_T) about the operating point, and
+#: the averages about the orbit part from the operating point's values by
+#: a few 1e-4 (test_hb.py's LTI cases hold 1e-9 with no swing)
+A17_LTI_RTOL = 1e-2
+#: card against CPU: both Newton loops stop at tol·scale (PSS 1e-9·6 V,
+#: HB 1e-9·6 V) from starts that part in the last bits (the card's libm,
+#: B1 against its plain version in the warm-up)
+A17_CPU_ATOL = 1e-7
+A17_CPU_RTOL = 1e-6
+#: phase 36: test_hb.py's level-1 ring oscillator at its 13 harmonics;
+#: its warm-up through B1 is 5 guessed periods (the JAX test's 20 cost
+#: ~2,100 step attempts; 8, 952 attempts) and the kicked transient's
+#: crossings are taken over guessed periods 2-4 (the JAX test's 20-30;
+#: 1.4e-3 from HB's period on the CPU, 708 attempts), within that test's
+#: 2 %
+RING_NETLIST = """ring3
+.param wp=20u wn=10u
+VDD vdd 0 3.3
+M1p n2 n1 vdd vdd pmos W='wp' L=1u
+M1n n2 n1 0   0   nmos W='wn' L=1u
+M2p n3 n2 vdd vdd pmos W='wp' L=1u
+M2n n3 n2 0   0   nmos W='wn' L=1u
+M3p n1 n3 vdd vdd pmos W='wp' L=1u
+M3n n1 n3 0   0   nmos W='wn' L=1u
+C1 n1 0 0.5p
+C2 n2 0 0.5p
+C3 n3 0 0.5p
+.model nmos nmos level=1 vto=0.7 kp=100u gamma=0.4 lambda=0.05 cgso=1n cgdo=1n
+.model pmos pmos level=1 vto=-0.8 kp=40u gamma=0.5 lambda=0.05 cgso=1n cgdo=1n
+.end
+"""
+RING_T_GUESS = 6e-9
+RING_KICK = 0.3 * 3.3
+RING_HARMONICS = 13
+RING_WARMUP = 5.0
+RING_TRAN_SPAN = (2, 4)
+#: the kicked transient through B1 at the default tolerances (the
+#: exact-solve chord loop over guessed periods 4-8, 1,448 attempts, took
+#: 34 s on the card)
+RING_TRAN_OPTS = dict(max_steps=16384, jac_reuse=1, formulation="cap",
+                      newton_impl="fused")
+RING_TRAN_RTOL = 0.02
+#: the PPV's biorthogonality spread along the orbit (test_hb.py's bound)
+RING_SPREAD = 0.05
+#: init_fragility on the level-1 DFF: 256 starts, each node voltage
+#: FRAG_CENTER + FRAG_SIGMA·N(0, 1) from numpy's default_rng(FRAG_SEED),
+#: each branch current 0, with phase 34's Newton options (with the
+#: defaults 225 of 256 reach an operating point on the CPU and the other
+#: 31 run every rung, 1,204 iterations; with these all 256 do, in at most
+#: 295)
+FRAG_STARTS = 256
+FRAG_CENTER = 2.5
+FRAG_SIGMA = 0.5
+FRAG_SEED = 34
+#: a lane's operating point on the card against the CPU's: the DC Newton
+#: stops at |dx| <= 1e-4·|x| + 1e-9 and its last step is quadratic
+FRAG_ATOL = 1e-9
+
+
+def kernel_counters():
+    """Every hand-written kernel's wrapper (its ``launches`` count)."""
+    from cedarsim_tpu_torch.ops import fused_chord as fc
+    from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu, sparse_lu
+    return {"fused": fc.fused_chord,
+            "factor": gesp_lu.lu_factor_gesp_f32,
+            "subst": gesp_lu.lu_subst_gesp_f32,
+            "gesp_solve": gesp_lu.lu_solve_gesp_f32,
+            "pivot_solve": pivot_lu.lu_solve_pivot_f32,
+            "sparse_factor": sparse_lu.factor,
+            "sparse_solve": sparse_lu.solve_factored}
+
+
+def counted(fn):
+    """(fn(), {kernel: launches during it}): every count set to 0 just
+    before the call and read just after."""
+    ks = kernel_counters()
+    for k in ks.values():
+        k.launches = 0
+    out = fn()
+    return out, {name: k.launches for name, k in ks.items()}
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, dtype=complex), np.asarray(b, dtype=complex)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+
+def a16_run(T, dev):
+    """Phase 34's analyses on ``dev``: the BSIM4 DFF's ``dc_sensitivity``
+    and ``tf`` at the transient operating point, and the level-1 DFF's
+    ``tran_sensitivity``; each with its wall."""
+    from cedarsim_tpu_torch.analysis import sensitivity as sens
+    from cedarsim_tpu_torch.core.context import Modes
+    out = {}
+    nl = T.parse_spice(open(os.path.join(DFF_DIR, "dff_tb_bsim4.cir")).read(),
+                       file="dff_tb_bsim4.cir")
+    comp = T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]),
+                             device=dev)
+    ctx = T.SimSpec.make(gmin=1e-15)
+    t0 = time.perf_counter()
+    opts = T.NewtonOptions(**A16_DC_OPTS)
+    val, g = sens.dc_sensitivity(comp, A16_NODE, list(A16_WRT), ctx=ctx,
+                                 opts=opts, mode=Modes.TRANOP)
+    out["dc"] = dict(value=float(val), grad={k: float(v) for k, v in
+                                             g.items()},
+                     wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    r = sens.tf(comp, A16_NODE, "vvdd", ctx=ctx, opts=opts)
+    out["tf"] = dict(gain=float(r["gain"]), rout=float(r["rout"]),
+                     value=float(r["value"]),
+                     wall_s=time.perf_counter() - t0)
+    nl = T.parse_spice(open(os.path.join(DFF_DIR, "dff_tb.cir")).read(),
+                       file="dff_tb.cir")
+    lv1 = T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]),
+                            device=dev)
+    t0 = time.perf_counter()
+    v, dv = sens.tran_sensitivity(lv1, A16_LV1["node"], A16_LV1["wrt"],
+                                  A16_LV1["window"], A16_LV1["t_eval"],
+                                  ctx=ctx, opts=T.TranOptions(**A16_LV1_OPTS))
+    out["tran"] = dict(value=float(v), deriv=float(dv),
+                       wall_s=time.perf_counter() - t0)
+    return out, (comp, ctx, lv1)
+
+
+def a16_fd(torch, T, comp, ctx, lv1):
+    """Phase 34's central differences on the card: ``solve_dc`` from the
+    operating point at each param ± 1 %, and the public ``tran`` with the
+    level-1 W ± 0.1 % as two lanes."""
+    from cedarsim_tpu_torch.core.compile import ensure_dynamic
+    from cedarsim_tpu_torch.core.context import Modes
+    c2 = ensure_dynamic(comp, A16_WRT)
+    opts = T.NewtonOptions(**A16_DC_OPTS)
+    op = T.solve_dc(c2, ctx=ctx, opts=opts, mode=Modes.TRANOP)
+    i = c2.circuit._nets[A16_NODE].index
+    fd = {}
+    for name in A16_WRT:
+        p0 = float(c2.get_param(c2.params0, name))
+        h = abs(p0) * A16_FD_REL
+        v = [float(T.solve_dc(c2, c2.set_param(c2.params0, name, p0 + s * h),
+                              ctx, x0=op.x, opts=opts,
+                              mode=Modes.TRANOP).x[i])
+             for s in (1.0, -1.0)]
+        fd[name] = (v[0] - v[1]) / (2.0 * h)
+    c3 = ensure_dynamic(lv1, [A16_LV1["wrt"]])
+    key, j, pn = c3.param_loc(A16_LV1["wrt"])
+    w = torch.as_tensor(c3.params0[key][pn])
+    h = float(w[j]) * A16_LV1_FD_REL
+    pb = {k: dict(g) for k, g in c3.params0.items()}
+    pb[key][pn] = w.expand(2, -1).clone()
+    pb[key][pn][:, j] += torch.tensor([h, -h], dtype=w.dtype,
+                                      device=w.device)
+    sols = T.tran(c3, A16_LV1["window"], params=pb, ctx=ctx,
+                  opts=T.TranOptions(**A16_LV1_OPTS, dense_lu="jax"))
+    if not all(sol.converged for sol in sols):
+        raise AssertionError("phase 34: a central-difference lane did not "
+                             "finish")
+    v = [float(sol.interp(A16_LV1["node"], A16_LV1["t_eval"]))
+         for sol in sols]
+    fd["tran"] = (v[0] - v[1]) / (2.0 * h)
+    return fd
+
+
+def phase_a16(torch, T, dev, cpu, emit=log):
+    """Phase 34 (A16): the BSIM4 DFF's ``dc_sensitivity`` of d_neg to a
+    W and to VDD's dc and ``tf`` from VDD, and the level-1 DFF's
+    ``tran_sensitivity`` by forward-mode AD through the transient, on the
+    card against the CPU's (``cpu``, from the A16/A17 child) and against
+    central differences of the card's ``solve_dc`` and ``tran``; no
+    hand-written kernel may launch (AD takes the exact solve)."""
+    t0 = time.perf_counter()
+    (card, objs), la = counted(lambda: a16_run(T, dev))
+    t_ad = time.perf_counter() - t0
+    if any(la.values()):
+        raise AssertionError(f"phase 34: kernels launched under AD: {la}")
+    t1 = time.perf_counter()
+    fd = a16_fd(torch, T, *objs)
+    t_fd = time.perf_counter() - t1
+    err = {}
+    for name in A16_WRT:
+        got = card["dc"]["grad"][name]
+        err[f"cpu {name}"] = _rel(got, cpu["dc"]["grad"][name])
+        err[f"fd {name}"] = _rel(got, fd[name])
+    err["cpu value"] = _rel(card["dc"]["value"], cpu["dc"]["value"])
+    for k in ("gain", "rout"):
+        err[f"cpu tf {k}"] = _rel(card["tf"][k], cpu["tf"][k])
+    err["cpu tran value"] = _rel(card["tran"]["value"],
+                                 cpu["tran"]["value"])
+    err["cpu tran"] = _rel(card["tran"]["deriv"], cpu["tran"]["deriv"])
+    err["fd tran"] = _rel(card["tran"]["deriv"], fd["tran"])
+    bad = {k: v for k, v in err.items()
+           if not v <= (A16_LV1_FD_RTOL if k == "fd tran" else
+                        A16_FD_RTOL if k.startswith("fd") else
+                        A16_CPU_RTOL)}
+    if bad or not abs(card["tran"]["deriv"]) > 0:
+        raise AssertionError(f"phase 34: {bad}; card {card}, cpu {cpu}, "
+                             f"fd {fd}")
+    emit("a16_sensitivity", card=card, cpu=cpu, fd=fd, rel_err=err,
+        tol=dict(cpu=A16_CPU_RTOL, fd_dc=A16_FD_RTOL,
+                 fd_tran=A16_LV1_FD_RTOL), launches=la, ad_wall_s=t_ad,
+        fd_wall_s=t_fd, card_name=smi())
+
+
+def phase_one_stream_fused_kernel(torch, T, fc, circuits):
+    """B1 at B = 1 on the plans of phases 35-36's one-stream transients
+    (the amplifier at nominal AREA, the ring oscillator) against its plain
+    version, as phases 11 and 24: from the operating point with the node
+    unknowns perturbed, at two step sizes under each option set that
+    those transients launch it with.  ``circuits``: (name, compiled,
+    context, step sizes, option sets).  Returns {name: max |xn − plain|}."""
+    from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+    from cedarsim_tpu_torch.core.context import Modes
+    worst = dict(xn=0.0, S=0.0, Q=0.0)
+    abs_err, nnwt = {}, {}
+    for name, comp, ctx, hs, option_sets in circuits:
+        plan = fused_plan_for(comp, ctx, comp.params0)
+        x0 = T.solve_dc(comp, ctx=ctx, mode=Modes.TRANOP).x[None]
+        abs_err[name], nnwt[name] = 0.0, []
+        for which, o in option_sets.items():
+            for h in hs:
+                args, opts = kt.fused_args(
+                    torch, T, plan, (comp, ctx, comp.params0, x0), h, opts=o)
+                k1, err = fused_vs_plain(torch, fc, plan, args, opts,
+                                         f"{name} {which} h={h}", worst)
+                abs_err[name] = max(abs_err[name], err["xn_abs"])
+                nnwt[name].append(int(k1[3][0, 1]))
+    log("one_stream_fused_kernel", worst_rel_err=worst, max_abs_err=abs_err,
+        nnwt=nnwt, steps={name: list(hs) for name, _, _, hs, _ in circuits},
+        option_sets={name: list(o) for name, *_, o in circuits},
+        tol=FUSED_RTOL)
+    return abs_err
+
+
+def _fundamental(sol, name, period):
+    """2|X_1| of one period of a transient's signal (256 uniform samples
+    of its linear interpolant, from sol.ts[0])."""
+    tg = sol.ts[0] + np.arange(256) * (period / 256)
+    y = np.interp(tg, sol.ts, sol[name])
+    return 2.0 * abs(np.fft.fft(y)[1] / 256)
+
+
+def a17_driven_run(T, dev):
+    """Phase 35's analyses on ``dev``: the VBIC amplifier (one stream,
+    nominal AREA; compiled with AREA dynamic, as cell V, so that its
+    fused plan is cell V's walk) by shooting, by HB (its warm-up through
+    the fused configuration), AC, PAC and PNOISE about the HB orbit,
+    ``noise``."""
+    from cedarsim_tpu_torch.benchmarks import netlists, vbic_amp
+    comp = T.compile_circuit(T.elaborate(T.parse_spice(netlists.VBIC_AMP)),
+                             device=dev, dynamic_params=("area",))
+    ctx = T.SimSpec.make(gmin=vbic_amp.GMIN)
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    ps = T.pss(comp, A17_PERIOD, ctx=ctx, opts=T.TranOptions(**A17_PSS_OPTS),
+               tol=A17_PSS_TOL)
+    walls["pss"] = time.perf_counter() - t0
+    out["pss"] = dict(converged=ps.converged, iters=ps.iters,
+                      resnorm=ps.resnorm, x0=ps.x0.tolist(),
+                      fundamental=_fundamental(ps.solution, "out",
+                                               A17_PERIOD))
+    t0 = time.perf_counter()
+    hr, la = counted(lambda: T.hb(
+        comp, A17_PERIOD, ctx=ctx, n_harmonics=A17_HARMONICS,
+        tran_opts=T.TranOptions(**FUSED_OPTS)))
+    walls["hb"] = time.perf_counter() - t0
+    X = hr.spectrum("out")
+    out["hb"] = dict(converged=hr.converged, iters=hr.iters,
+                     resnorm=hr.resnorm, x=hr.x_samples.tolist(),
+                     fundamental=2.0 * abs(X[1]), thd=hr.thd("out"))
+    t0 = time.perf_counter()
+    g = T.ac(comp, [vbic_amp.DRIVE_HZ], ctx=ctx)["out"]
+    out["ac_fundamental"] = abs(complex(np.asarray(g)[0])) * vbic_amp.DRIVE_V
+    p = T.pac(hr, A17_PAC_FREQS).gain("out", 0)
+    a = T.ac(comp, A17_PAC_FREQS, ctx=ctx)["out"]
+    out["pac"] = dict(re=np.real(p).tolist(), im=np.imag(p).tolist())
+    out["ac"] = dict(re=np.real(a).tolist(), im=np.imag(a).tolist())
+    out["pnoise"] = T.pnoise(hr, "out", A17_NOISE_FREQS).psd.tolist()
+    out["noise"] = T.noise(comp, "out", A17_NOISE_FREQS, ctx=ctx).psd.tolist()
+    walls["ac_pac_pnoise"] = time.perf_counter() - t0
+    out["walls_s"] = walls
+    return out, la
+
+
+def phase_a17_driven(torch, T, dev, cpu, emit=log):
+    """Phase 35 (A17, driven): cell V's amplifier, one stream, by
+    ``pss`` and ``hb`` (converged; HB's warm-up through B1 on the VBIC
+    plan), its fundamental from HB, from the PSS orbit and from |AC gain|
+    × 1 mV (the reference's 25 %), PAC (k = 0) against ``ac`` and PNOISE
+    against ``noise`` (near-LTI at 1 mV), everything on the card against
+    the CPU's (``cpu``)."""
+    t0 = time.perf_counter()
+    card, la = a17_driven_run(T, dev)
+    wall = time.perf_counter() - t0
+    ps, hr = card["pss"], card["hb"]
+    if not (ps["converged"] and hr["converged"]):
+        raise AssertionError(f"phase 35: pss {ps['converged']}, hb "
+                             f"{hr['converged']}")
+    if la["fused"] <= 0 or any(v for k, v in la.items() if k != "fused"):
+        raise AssertionError(f"phase 35: HB's warm-up launches {la}")
+    fund = dict(hb=hr["fundamental"], pss=ps["fundamental"],
+                ac=card["ac_fundamental"])
+    pac = np.array(card["pac"]["re"]) + 1j * np.array(card["pac"]["im"])
+    ac = np.array(card["ac"]["re"]) + 1j * np.array(card["ac"]["im"])
+    err = dict(hb_vs_ac=_rel(fund["hb"], fund["ac"]),
+               hb_vs_pss=_rel(fund["hb"], fund["pss"]),
+               pac_vs_ac=_rel(pac, ac),
+               pnoise_vs_noise=_rel(card["pnoise"], card["noise"]))
+    cpu_err = dict(
+        pss_x0=float(np.max(np.abs(np.subtract(ps["x0"], cpu["pss"]["x0"])))),
+        hb_x=float(np.max(np.abs(np.subtract(hr["x"], cpu["hb"]["x"])))),
+        fundamentals=max(_rel(card[k]["fundamental"], cpu[k]["fundamental"])
+                         for k in ("pss", "hb")),
+        pac=_rel(pac, np.array(cpu["pac"]["re"])
+                 + 1j * np.array(cpu["pac"]["im"])),
+        pnoise=_rel(card["pnoise"], cpu["pnoise"]),
+        noise=_rel(card["noise"], cpu["noise"]))
+    bad = [k for k, v in err.items() if not v <= (
+        A17_AC_RTOL if k == "hb_vs_ac" else A17_PSS_HB_RTOL
+        if k == "hb_vs_pss" else A17_LTI_RTOL)]
+    bad += [k for k, v in cpu_err.items() if not v <= (
+        A17_CPU_ATOL if k in ("pss_x0", "hb_x") else A17_CPU_RTOL)]
+    if ps["iters"] != cpu["pss"]["iters"]:
+        bad.append("pss iters")
+    if bad:
+        raise AssertionError(f"phase 35: {bad}: {err}, card vs cpu "
+                             f"{cpu_err}; card {card}; cpu {cpu}")
+    emit("a17_driven", fundamental=fund, rel_err=err, card_vs_cpu=cpu_err,
+        pss=dict(iters=ps["iters"], resnorm=ps["resnorm"]),
+        hb=dict(iters=hr["iters"], resnorm=hr["resnorm"], thd=hr["thd"],
+                n_harmonics=A17_HARMONICS),
+        tol=dict(ac=A17_AC_RTOL, pss_hb=A17_PSS_HB_RTOL, lti=A17_LTI_RTOL,
+                 cpu_atol=A17_CPU_ATOL, cpu_rtol=A17_CPU_RTOL),
+        launches=la, walls_s=card["walls_s"], wall_s=wall,
+        cpu_walls_s=cpu["walls_s"], card_name=smi())
+    return la
+
+
+def _crossing_period(ts, y, t_lo, t_hi):
+    """The mean spacing of a signal's rising mid-level crossings over
+    [t_lo, t_hi] (test_hb.py's ring check)."""
+    tq = np.linspace(t_lo, t_hi, 4096)
+    v = np.interp(tq, ts, y)
+    mid = 0.5 * (v.max() + v.min())
+    up = np.where((v[:-1] < mid) & (v[1:] >= mid))[0]
+    tc = tq[up] + (mid - v[up]) / (v[up + 1] - v[up]) * (tq[1] - tq[0])
+    return float(np.mean(np.diff(tc)))
+
+
+def a17_auto_run(T, dev, starts):
+    """Phase 36's analyses on ``dev``: the ring oscillator by
+    ``hb_autonomous`` (its warm-up through the fused configuration) and
+    its phase noise, and ``init_fragility``'s solve of the level-1 DFF
+    from ``starts``."""
+    from cedarsim_tpu_torch.analysis import fragility
+    walls = {}
+    ring = T.compile_circuit(T.load_spice(RING_NETLIST), device=dev)
+    t0 = time.perf_counter()
+    res, la = counted(lambda: T.hb_autonomous(
+        ring, RING_T_GUESS, anchor="n1", n_harmonics=RING_HARMONICS,
+        kick=RING_KICK, warmup_periods=RING_WARMUP, tol=1e-8,
+        tran_opts=T.TranOptions(**FUSED_OPTS)))
+    walls["hb_autonomous"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pn = T.oscillator_phase_noise(res)
+    walls["phase_noise"] = time.perf_counter() - t0
+    v = res.samples("n1")
+    out = dict(converged=res.converged, iters=res.iters, period=res.period,
+               resnorm=res.resnorm, n1_min=float(v.min()),
+               n1_max=float(v.max()), c=pn.c, norm_spread=pn.norm_spread,
+               null_resid=pn.null_resid, x=res.x_samples.tolist())
+    nl = T.parse_spice(open(os.path.join(DFF_DIR, "dff_tb.cir")).read(),
+                       file="dff_tb.cir")
+    dff = T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]),
+                            device=dev)
+    t0 = time.perf_counter()
+    rep = fragility._fragility_from_starts(
+        dff, starts, opts=T.NewtonOptions(**A16_DC_OPTS))
+    walls["fragility"] = time.perf_counter() - t0
+    frag = dict(converged=rep.converged.tolist(), x=rep.x.tolist(),
+                iters=rep.iters.tolist(), counts=rep.counts.tolist(),
+                solutions=rep.solutions.tolist())
+    return dict(ring=out, fragility=frag, walls_s=walls), la, ring
+
+
+def frag_starts(comp):
+    """Phase 36's DC starts [FRAG_STARTS, n_x] for the level-1 DFF
+    ``comp``: each node voltage FRAG_CENTER + FRAG_SIGMA·N(0, 1) from
+    numpy's ``default_rng(FRAG_SEED)``, each branch current 0."""
+    x = FRAG_CENTER + FRAG_SIGMA * np.random.default_rng(
+        FRAG_SEED).standard_normal((FRAG_STARTS, comp.n_x))
+    x[:, comp.n_nodes + comp.n_internal:] = 0.0
+    return x
+
+
+def phase_a17_auto(torch, T, dev, cpu, emit=log):
+    """Phase 36 (A17, autonomous and DC): the ring oscillator's HB period
+    (its warm-up through B1 on the ring's level-1 plan) against the CPU's
+    and against a kicked transient's crossings, its phase noise; the
+    level-1 DFF's DC from the same 256 starts on the card and the CPU,
+    lane by lane."""
+    from cedarsim_tpu_torch.core.context import Modes
+    starts = np.asarray(cpu["starts"])
+    t0 = time.perf_counter()
+    card, la, ring = a17_auto_run(T, dev, starts)
+    r, rc = card["ring"], cpu["ring"]
+    if not (r["converged"] and rc["converged"]):
+        raise AssertionError(f"phase 36: ring HB converged card "
+                             f"{r['converged']}, cpu {rc['converged']}")
+    # the kicked transient's own crossings
+    t1 = time.perf_counter()
+    op = T.solve_dc(ring, mode=Modes.TRANOP)
+    x0 = op.x.clone()
+    x0[ring.circuit._nets["n1"].index] += RING_KICK
+    lo, hi = RING_TRAN_SPAN
+    sol, la_tran = counted(lambda: T.tran(
+        ring, (0.0, hi * RING_T_GUESS), x0=x0,
+        opts=T.TranOptions(**RING_TRAN_OPTS)))
+    t_meas = _crossing_period(sol.ts, sol["n1"], lo * RING_T_GUESS,
+                              hi * RING_T_GUESS)
+    walls = dict(card["walls_s"], kicked_tran=time.perf_counter() - t1)
+    for what, c in (("warm-up", la), ("kicked transient", la_tran)):
+        if c["fused"] <= 0 or any(v for k, v in c.items() if k != "fused"):
+            raise AssertionError(f"phase 36: the ring's {what} launches {c}")
+    f, fc_ = card["fragility"], cpu["fragility"]
+    conv, conv_c = np.array(f["converged"]), np.array(fc_["converged"])
+    xs, xs_c = np.array(f["x"]), np.array(fc_["x"])
+    # a lane that reaches no operating point ends wherever its ladder
+    # left it: its state is compared only where both sides converged
+    both = conv & conv_c
+    lane_err = np.where(both, np.abs(xs - xs_c).max(-1), 0.0)
+    apart = np.nonzero((conv != conv_c) | (lane_err > FRAG_ATOL))[0]
+    err = dict(period_vs_cpu=_rel(r["period"], rc["period"]),
+               period_vs_tran=_rel(r["period"], t_meas),
+               ring_x_vs_cpu=float(np.max(np.abs(np.subtract(r["x"],
+                                                             rc["x"])))),
+               c_vs_cpu=_rel(r["c"], rc["c"]))
+    bad = []
+    if not err["period_vs_tran"] <= RING_TRAN_RTOL:
+        bad.append("period against the kicked transient")
+    if not (err["period_vs_cpu"] <= A17_CPU_RTOL
+            and err["ring_x_vs_cpu"] <= A17_CPU_ATOL
+            and err["c_vs_cpu"] <= A17_CPU_RTOL):
+        bad.append("ring against the CPU")
+    if not (r["n1_min"] > -0.1 and r["n1_max"] < 3.4
+            and r["n1_max"] - r["n1_min"] > 0.6 * 3.3):
+        bad.append("ring swing")
+    if not r["norm_spread"] < RING_SPREAD:
+        bad.append("the PPV's biorthogonality spread")
+    if len(apart):
+        bad.append(f"fragility lanes apart from the CPU: {apart.tolist()}")
+    if bad:
+        raise AssertionError(f"phase 36: {bad}: {err}; card {r}, cpu {rc}; "
+                             f"fragility card {f['counts']}, cpu "
+                             f"{fc_['counts']}")
+    emit("a17_autonomous", ring=dict(
+            period=r["period"], period_cpu=rc["period"],
+            period_kicked_tran=t_meas, iters=r["iters"],
+            resnorm=r["resnorm"], swing=[r["n1_min"], r["n1_max"]],
+            phase_noise_c=r["c"], norm_spread=r["norm_spread"],
+            null_resid=r["null_resid"], n_harmonics=RING_HARMONICS),
+        fragility=dict(starts=FRAG_STARTS, center=FRAG_CENTER,
+                       sigma=FRAG_SIGMA, seed=FRAG_SEED,
+                       converged=int(conv.sum()),
+                       distinct=len(f["counts"]), counts=f["counts"],
+                       counts_cpu=fc_["counts"],
+                       worst_lane_err=float(lane_err.max()),
+                       unconverged_lanes=np.nonzero(~conv)[0].tolist(),
+                       iters_max=int(max(f["iters"]))),
+        rel_err=err, tol=dict(tran=RING_TRAN_RTOL, cpu_rtol=A17_CPU_RTOL,
+                              cpu_atol=A17_CPU_ATOL, frag_atol=FRAG_ATOL),
+        launches=la, kicked_tran_launches=la_tran, walls_s=walls,
+        wall_s=time.perf_counter() - t0, cpu_walls_s=cpu["walls_s"],
+        card_name=smi())
+    return la, la_tran
+
+
+#: the phases whose card side runs in a child of its own (phase 35 stays
+#: in the main process), by their key in the CPU's record
+A16A17_CARD_CHILDREN = ("a16", "a17_auto")
+
+
+def a16a17_card_child(which, cpu_out, out):
+    """Phase 34 (``which`` "a16") or 36 ("a17_auto") on the card in a
+    child process, against the CPU's record in ``cpu_out``: its line and
+    its return value written to ``out`` as JSON for the main process to
+    print."""
+    import torch
+    import cedarsim_tpu_torch as T
+    with open(cpu_out) as f:
+        cpu = json.load(f)
+    lines = []
+    phase = {"a16": phase_a16, "a17_auto": phase_a17_auto}[which]
+    ret = phase(
+        torch, T, torch.device("cuda", 0), cpu[which],
+        emit=lambda phase, **kw: lines.append([phase, kw]))
+    with open(out, "w") as f:
+        json.dump({"lines": lines, "ret": ret}, f)
+
+
+def a16a17_cpu(out=None):
+    """The CPU's side of phases 34-36 (one intra-op thread, so that it
+    takes one core beside the card's processes); written to ``out`` as
+    JSON when given, else returned."""
+    import torch
+    import cedarsim_tpu_torch as T
+    torch.set_num_threads(1)
+    rec = {}
+    t0 = time.perf_counter()
+    rec["a16"] = a16_run(T, "cpu")[0]
+    rec["a17_driven"] = a17_driven_run(T, "cpu")[0]
+    nl = T.parse_spice(open(os.path.join(DFF_DIR, "dff_tb.cir")).read(),
+                       file="dff_tb.cir")
+    starts = frag_starts(T.compile_circuit(
+        T.elaborate(nl, include_paths=[DFF_DIR]), device="cpu"))
+    auto = a17_auto_run(T, "cpu", starts)[0]
+    rec["a17_auto"] = dict(auto, starts=starts.tolist())
+    rec["wall_s"] = time.perf_counter() - t0
+    if out is None:
+        return rec
+    with open(out, "w") as f:
+        json.dump(rec, f)
+
+
 def kernel_entry(name, source, replaces, launches, device, call, plain_ms,
                  library, library_device, library_device_by, bnd,
                  max_abs_err, **extra):
@@ -2787,6 +3426,17 @@ def main():
     from cedarsim_tpu_torch.benchmarks import vbic_amp
     amp, amp_setup_s, plan_vbic, t_plan_vbic = vbic_setup(torch, T, dev)
     th_vbic = build_in_thread("fused_vbic", plan_vbic.build)
+    # the one-stream plans of phases 35-36's warm-ups (the amplifier at
+    # nominal AREA, the ring oscillator), built now so that those phases
+    # find their libraries
+    from cedarsim_tpu_torch.benchmarks import netlists
+    amp1 = T.compile_circuit(T.elaborate(T.parse_spice(netlists.VBIC_AMP)),
+                             device=dev, dynamic_params=("area",))
+    ring = T.compile_circuit(T.load_spice(RING_NETLIST), device=dev)
+    th_one = [build_in_thread(name, fused_plan_for(
+        c, ctx, c.params0).build) for name, c, ctx in (
+            ("fused_vbic1", amp1, T.SimSpec.make(gmin=vbic_amp.GMIN)),
+            ("fused_ring", ring, T.SimSpec.make()))]
     th_gesp.join()
     if isinstance(built["gesp"], BaseException):
         raise built["gesp"]
@@ -2802,7 +3452,7 @@ def main():
         path=[os.path.relpath(b["path"], REPO),
               os.path.relpath(built["pivot"]["path"], REPO)],
         ptxas=ptxas, cmg_setup_s=cmg_setup_s, vbic_setup_s=amp_setup_s)
-    children = [None, None, None, None, None, None]
+    children = [None] * 7
     try:
         abs_err, times, bounds = phase_kernels(torch, gesp_lu, linalg, dev)
         # the repeat phase's children run beside phases 4-5 from here on,
@@ -2866,6 +3516,10 @@ def main():
         main19 = join_sparse_child(children[1])
         gl = {"fused": phase_cmg("fused", children[2]),
               "xla": phase_cmg("xla", children[3])}
+        # the CPU's side of phases 34-36 (no card, one core) in a child
+        # from here, once cell G's children have ended, beside phases 20,
+        # 24, 11, 16 and 19's end
+        children[6] = start_child("a16a17")
         cabs_err, ctimes, cbound = phase_cmg_fused_kernel(
             torch, T, fc, cmg[:4], plan_cmg, t_plan_cmg)
         vabs_err, vtimes, vbound = phase_vbic_fused_kernel(
@@ -2875,6 +3529,35 @@ def main():
         pabs_err, ptimes, pbound = phase_pvt_fused_kernel(torch, T, fc,
                                                           pvt_state, plan_pvt)
         sparse_entries = phase_sparse(torch, T, dev, main19)
+        # phases 34-36 once every other child has ended and every kernel
+        # is timed, against the CPU's side from its child: 34 and 36 in a
+        # child each, 35 here, the three beside each other (each host-
+        # bound on its own core)
+        for th, name in zip(th_one, ("fused_vbic1", "fused_ring")):
+            th.join()
+            if isinstance(built[name], BaseException):
+                raise built[name]
+        one_err = phase_one_stream_fused_kernel(torch, T, fc, (
+            ("amp1", amp1, T.SimSpec.make(gmin=vbic_amp.GMIN), (1e-6, 1e-4),
+             {"hb_warmup": FUSED_OPTS}),
+            ("ring", ring, T.SimSpec.make(), (1e-12, 1e-10),
+             {"hb_warmup": FUSED_OPTS, "kicked_tran": RING_TRAN_OPTS})))
+        cpu_out, _ = join_child(children[6])
+        with open(cpu_out) as f:
+            cpu = json.load(f)
+        card_children = {which: start_child("a16a17-card", which, cpu_out)
+                         for which in A16A17_CARD_CHILDREN}
+        children.extend(card_children.values())
+        la35 = phase_a17_driven(torch, T, dev, cpu["a17_driven"])
+        rets = {}
+        for which, child in card_children.items():
+            out, _ = join_child(child)
+            with open(out) as f:
+                rec = json.load(f)
+            for phase, kw in rec["lines"]:
+                log(phase, **kw)
+            rets[which] = rec["ret"]
+        la36, la36_tran = rets["a17_auto"]
         src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
         b1p = ftimes["B1'"]
         n1 = lv1[0].n_x
@@ -2901,6 +3584,12 @@ def main():
                          lv1={"model": "Mos1", "launches": el["fused"],
                               "max_abs_err": labs_err, **lv1_entry(LV1_LANES),
                               "eight_lanes": lv1_entry(N_LANES),
+                              "ring": {
+                                  "shape": [1, ring.n_x],
+                                  "max_abs_err": one_err["ring"],
+                                  "hb_warmup_launches": la36["fused"],
+                                  "kicked_tran_launches":
+                                      la36_tran["fused"]},
                               "bdf3": {"launches": bl["bdf3"]["fused"],
                                        **lv1_entry("bdf3")},
                               "bdf5": {"launches": bl["bdf5"]["fused"],
@@ -2925,7 +3614,10 @@ def main():
                                "shape": [vbic_amp.LANES, amp[0].n_x],
                                "device_ms": vtimes[0], "call_ms": vtimes[1],
                                "plain_ms": vtimes[2], "bound_ms": vbound[0],
-                               "bound_by": vbound[1]}),
+                               "bound_by": vbound[1],
+                               "hb_warmup": {"shape": [1, amp1.n_x],
+                                             "launches": la35["fused"],
+                                             "max_abs_err": one_err["amp1"]}}),
         ]
         design = {
             "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
@@ -2983,5 +3675,9 @@ if __name__ == "__main__":
         a14b_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--a14b3-child":
         a14b3_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--a16a17-child":
+        a16a17_cpu(sys.argv[2])
+    elif len(sys.argv) == 5 and sys.argv[1] == "--a16a17-card-child":
+        a16a17_card_child(*sys.argv[2:])
     else:
         main()

@@ -14,7 +14,8 @@ own model files, never the JAX package's.
   both).
 - ``cuda_lib.build_library`` keeps the compiler's log beside a library it
   builds, so a library loaded without a compile still reports ptxas's
-  registers and spills.
+  registers and spills, and threads that build one library at once run
+  the compiler once.
 - Every module copied from the JAX package (the modules that need no JAX)
   equals its original but for the import lines, the docstring's "Copy
   of" paragraph and the citations' machine-specific path prefix;
@@ -212,6 +213,51 @@ def test_build_library_keeps_the_compiler_log(tmp_path, monkeypatch):
     assert again["lib"].answer() == 42
 
 
+def test_build_library_builds_once_across_threads(tmp_path, monkeypatch):
+    """Two threads that build the same library at once (two fused plans
+    that emit one source) share one compiler run: the second waits for
+    the first and loads its library.  The stand-in ``nvcc`` records each
+    run and sleeps before ``g++``, so both threads ask before either
+    build ends."""
+    import shutil
+    import threading
+    from cedarsim_tpu_torch.ops import cuda_lib
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to stand in for nvcc")
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    runs = tmp_path / "runs.txt"
+    fake = bindir / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo run >> '{runs}'\n"
+                    "sleep 0.5\n"
+                    "exec g++ \"$@\"\n")
+    fake.chmod(0o755)
+    src = tmp_path / "k.cpp"
+    src.write_text('extern "C" int answer(void) { return 42; }\n')
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", str(tmp_path / "build"))
+    out = [None, None]
+
+    def build(i):
+        try:
+            out[i] = cuda_lib.build_library("k", str(src),
+                                            ("-shared", "-fPIC"))
+        except BaseException as e:      # re-raised below
+            out[i] = e
+    threads = [threading.Thread(target=build, args=(i,)) for i in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for r in out:
+        if isinstance(r, BaseException):
+            raise r
+    assert runs.read_text().splitlines() == ["run"]
+    assert sorted(r["seconds"] > 0.0 for r in out) == [False, True]
+    assert all(r["lib"].answer() == 42 for r in out)
+
+
 #: the port's copies of JAX-free modules of the JAX package
 COPIES = ("core/circuit.py", "frontend/parser.py", "frontend/expr.py",
           "frontend/numbers.py", "frontend/touchstone.py",
@@ -248,3 +294,33 @@ def test_simulate_runs_the_ac_noise_and_measure_directives():
     for card in (".save v(b)", ".probe v(b)", ".data d1 r1 1k 2k\n.enddata"):
         with pytest.raises(NotImplementedError, match="ROADMAP A19"):
             T.simulate(base + ".tran 10n 3u\n" + card + "\n", device="cpu")
+
+
+#: the AD and RF analyses (ROADMAP A16, A17): scanned by
+#: ``test_the_port_imports_no_jax`` like every module of the port
+AD_RF_MODULES = ("analysis/sensitivity.py", "analysis/pss.py",
+                 "analysis/hb.py", "analysis/fragility.py")
+
+
+def test_the_ad_and_rf_modules_are_scanned_and_exported():
+    srcs = _port_sources()
+    assert all(os.path.join(PKG, rel) in srcs for rel in AD_RF_MODULES)
+    for name in ("pss", "hb", "hb_autonomous", "pac", "pnoise",
+                 "oscillator_phase_noise"):
+        assert name in T.__all__ and callable(getattr(T, name))
+
+
+def test_the_ad_and_rf_entry_points_run_where_the_circuit_lives():
+    """Each takes a compiled circuit, so it runs on the device the circuit
+    was compiled on (the card by default; here the CPU, as asked)."""
+    from cedarsim_tpu_torch.analysis import fragility, sensitivity
+    comp = T.compile_circuit(_rc(), device="cpu")
+    val, g = sensitivity.dc_sensitivity(comp, "vout", ["R1.r"])
+    assert val.device == g["R1.r"].device == torch.device("cpu")
+    assert float(sensitivity.tf(comp, "vout", "V1")["gain"]) == \
+        pytest.approx(1.0)
+    assert T.pss(comp, 1e-6).converged
+    res = T.hb(comp, 1e-6, n_harmonics=2, init="dc")
+    assert res.converged and res.samples("vout").shape == (5,)
+    rep = fragility.init_fragility(comp, n=4)
+    assert rep.n_solutions == 1
