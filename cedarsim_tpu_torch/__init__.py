@@ -10,13 +10,19 @@ Verilog-A) → compiled batched residuals and Jacobians → DC operating point
 complex solves over the frequencies (``ac``, ``noise``; S-parameter
 blocks), batched DC sweeps over parameters and temperature and
 Monte-Carlo DC (``dc_sweep``, ``mc_dc``, ``mc_statistics``);
-``simulate`` runs a netlist's own ``.op``/``.tran``/``.dc``/``.ac``/
-``.noise``/``.meas``/``.four``; periodic steady state by shooting
+``simulate`` runs a SPICE or Spectre netlist's own ``.op``/``.tran``/
+``.dc``/``.ac``/``.noise``/``.meas``/``.four``, its ``alter`` segments,
+``.save`` projections and ``statistics`` draws (``.data`` tables through
+``data_sweep``); periodic steady state by shooting
 (``pss``, its monodromy by forward-mode AD through the transient) and by
 harmonic balance (``hb``, ``hb_autonomous``) with periodic AC, periodic
 noise and oscillator phase noise around the orbit; parameter sensitivities
 and ``.TF`` (``analysis/sensitivity.py``) and the DC-initialisation probe
-(``analysis/fragility.py``).  The transient runs
+(``analysis/fragility.py``).  ``utils/`` holds the CSV/HTML export, the
+parameter-tree inspection, the slider-grid ``explore`` (one lane-batched
+transient), ``profiling`` and the opt-in operating-point cache;
+``tools/convert.py`` converts between SPICE, Spectre and Verilog-A;
+``va/reload.py`` reloads a ``.va`` file that changed.  The transient runs
 the mixed-precision chord solves on the hand-written CUDA GESP LU kernels
 (``ops/gesp_lu.py``), or with every chord iteration of a step attempt in one
 launch of the fused chord kernel (``ops/fused_chord.py``, the BSIM4 walk
@@ -27,7 +33,7 @@ is listed in ROADMAP.md.
 from cedarsim_tpu_torch.core.circuit import Circuit
 from cedarsim_tpu_torch.core.context import SimSpec, Modes
 from cedarsim_tpu_torch.core.compile import (CompiledCircuit,
-                                             compile_circuit)
+                                             compile_circuit, ensure_dynamic)
 from cedarsim_tpu_torch.devices import (
     Resistor, Capacitor, Inductor, CoupledInductors,
     VSource, VSourcePWL, VSourcePULSE, VSourceSIN, VSourceEXP,
@@ -44,7 +50,8 @@ from cedarsim_tpu_torch.analysis.dc import (NewtonOptions, solve_dc,
 from cedarsim_tpu_torch.analysis.tran import (TranOptions, TranSolution,
                                               tran)
 from cedarsim_tpu_torch.analysis.sweeps import (
-    Sweep, ProductSweep, TandemSweep, SerialSweep, sweepify, dc_sweep)
+    Sweep, ProductSweep, TandemSweep, SerialSweep, sweepify, dc_sweep,
+    data_sweep)
 from cedarsim_tpu_torch.analysis.montecarlo import mc_dc, mc_statistics
 from cedarsim_tpu_torch.analysis.ac import (ac, acdec, noise, ACSolution,
                                             NoiseSolution)
@@ -58,6 +65,7 @@ from cedarsim_tpu_torch.api import (simulate, find_tran_directive,
 
 __all__ = [
     "Circuit", "SimSpec", "Modes", "CompiledCircuit", "compile_circuit",
+    "ensure_dynamic",
     "Resistor", "Capacitor", "Inductor", "CoupledInductors", "VSource",
     "VSourcePWL", "VSourcePULSE", "VSourceSIN", "VSourceEXP", "ISource",
     "ISourcePWL", "ISourcePULSE", "ISourceSIN", "ISourceEXP", "VCVS", "VCCS",
@@ -68,7 +76,8 @@ __all__ = [
     "parse_spice", "elaborate", "load_spice", "NewtonOptions", "solve_dc",
     "dc_core", "default_newton_options", "TranOptions", "TranSolution",
     "tran", "Sweep", "ProductSweep",
-    "TandemSweep", "SerialSweep", "sweepify", "dc_sweep", "mc_dc",
+    "TandemSweep", "SerialSweep", "sweepify", "dc_sweep", "data_sweep",
+    "mc_dc",
     "mc_statistics", "ac", "acdec", "noise", "ACSolution", "NoiseSolution",
     "pss", "hb", "hb_autonomous", "pac", "pnoise", "oscillator_phase_noise",
     "FusedEnvelopeError", "get_fused_plan", "simulate",

@@ -23,6 +23,7 @@ from cedarsim_tpu_torch.core.compile import (CompiledCircuit, default_ctx,
 from cedarsim_tpu_torch.core.context import SimSpec, Modes
 from cedarsim_tpu_torch.core.sparse_ops import get_sparse_ops
 from cedarsim_tpu_torch.ops import linalg
+from cedarsim_tpu_torch.utils import artifacts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,10 +237,16 @@ def ic_arrays(compiled: CompiledCircuit):
 
 def solve_dc(compiled: CompiledCircuit, params=None, ctx: SimSpec = None,
              x0=None, opts: NewtonOptions = None, mode=Modes.DCOP,
-             use_ics=None) -> DCResult:
+             use_ics=None, artifact_cache=None) -> DCResult:
     """Solve the DC operating point.  ``params`` defaults to the compiled
     nominal values.  ``use_ics``: pin ``.ic``'d nodes during the solve
-    (default: only for the transient operating point)."""
+    (default: only for the transient operating point).
+    ``artifact_cache``: warm-start from the operating-point cache
+    (``utils/artifacts.py``) when no ``x0`` is given, and store the result
+    when every lane converged; True or False decide, None (the default)
+    leaves it to ``CEDARSIM_TPU_TORCH_ARTIFACTS``, so that the cache is
+    off unless asked for (the JAX package's is on by default).  A warm
+    start is a hint: Newton still verifies the point."""
     opts = opts or default_newton_options(compiled)
     params = compiled.params0 if params is None else params
     ctx = (default_ctx(compiled) if ctx is None else ctx).with_mode(mode)
@@ -247,6 +254,7 @@ def solve_dc(compiled: CompiledCircuit, params=None, ctx: SimSpec = None,
         use_ics = mode == Modes.TRANOP
     use_ics = use_ics and bool(compiled.circuit.ics)
     mask, vals = ic_arrays(compiled)
+    akey = None
     if x0 is None:
         x0 = torch.zeros(compiled.n_x, dtype=compiled.dtype,
                          device=compiled.device)
@@ -255,7 +263,15 @@ def solve_dc(compiled: CompiledCircuit, params=None, ctx: SimSpec = None,
             if net is not None and not net.is_ground:
                 x0[net.index] = v
         x0 = torch.where(mask > 0, vals, x0) if use_ics else x0
+        if artifacts.cache_dir(artifact_cache) is not None:
+            akey = artifacts.op_key(compiled, params, ctx, mode)
+            warm = artifacts.load_op(akey, artifact_cache)
+            if warm is not None and warm.shape == (compiled.n_x,):
+                x0 = torch.as_tensor(warm, dtype=compiled.dtype,
+                                     device=compiled.device)
     res = dc_core(compiled, params, ctx, x0, opts,
                   ic_mask=mask if use_ics else None, ic_vals=vals)
+    if akey is not None and bool(res.converged.all()):
+        artifacts.store_op(akey, res.x, artifact_cache)
     res.compiled, res.ctx, res.params = compiled, ctx, params
     return res

@@ -28,9 +28,6 @@ from cedarsim_tpu_torch.core.context import SimSpec, Modes
 from cedarsim_tpu_torch.analysis.dc import (NewtonOptions, DCResult,
                                             dc_core, default_newton_options)
 
-_A19 = "ROADMAP A19 (the .data directive)"
-
-
 class AbstractSweep:
     def __iter__(self):
         raise NotImplementedError
@@ -238,9 +235,17 @@ def split_axes(sweep, outer_names):
 
 
 def data_sweep(circuit, name=None):
-    """A TandemSweep over a netlist ``.data`` block's rows: the elaborator
-    does not take ``.data`` yet, so this raises."""
-    raise NotImplementedError(f".data sweeps are not ported yet — {_A19}")
+    """A TandemSweep over the rows of the netlist ``.data`` block ``name``
+    (the first block when None), as the elaborator recorded them.  Its
+    columns address netlist ``.param`` names: run each point by
+    re-elaboration (``simulate(..., params=point)``)."""
+    for cmd, args, kw in circuit.directives:
+        if cmd == "data" and (name is None
+                              or args[0].lower() == str(name).lower()):
+            _, cols, rows = args
+            return TandemSweep(*[
+                Sweep(c, [r[i] for r in rows]) for i, c in enumerate(cols)])
+    raise KeyError(f".data block {name!r} not found")
 
 
 def find_param_ranges(sweep):

@@ -7,10 +7,15 @@ into device parameter dicts and ``m=`` multipliers compose down the
 hierarchy.  Every card binds a device class of the port, as the JAX
 elaborator binds it (``cedarsim_tpu/frontend/elaborate.py``), the
 transmission lines included (T: ``TLine``; O: a cascade of ``LTRALine``
-sections, or a lumped ladder; U: a graded R-C or R-diode ladder).  A
-directive the port does not take yet raises ``NotImplementedError`` naming
-its ROADMAP item.  ``.scs`` includes (Spectre model decks such as ASAP7's) parse with
-the Spectre grammar of ``frontend/spectre.py``.  S-parameter elements
+sections, or a lumped ladder; U: a graded R-C or R-diode ladder).
+Device ``alter`` statements, ``.data`` tables and ``.save``/``.probe``
+targets are recorded as directives for ``api.simulate`` and
+``analysis/sweeps.py::data_sweep``; a Spectre ``statistics`` block varies
+its parameters when ``mc_seed`` is given (process draws from the
+elaboration's generator, mismatch draws per instance keyed on the seed,
+the instance path and the name, as the JAX package draws them).
+``.scs`` includes (Spectre model decks such as ASAP7's) parse with the
+Spectre grammar of ``frontend/spectre.py``.  S-parameter elements
 (HSPICE ``S``) read their touchstone file into ``circuit.sparam_blocks``,
 which only the AC and noise analyses stamp, and ``.meas``/``.measure``
 cards are recorded for ``analysis/measure.py``.
@@ -32,10 +37,7 @@ from cedarsim_tpu_torch.devices import (
     ISwitch, Diode, Mos1, Bjt, Jfet, Mesfet, TLine, LTRALine,
 )
 from cedarsim_tpu_torch.frontend import parser as P
-from cedarsim_tpu_torch.frontend.expr import eval_expr, ExprError
-
-_A19 = "ROADMAP A19 (utilities and API)"
-_A19_STATS = "ROADMAP A19 (Spectre statistics blocks)"
+from cedarsim_tpu_torch.frontend.expr import eval_expr, expr_refs, ExprError
 
 
 class ElabError(ValueError):
@@ -96,6 +98,50 @@ class ParamEnv:
         return self[name] if name in self else default
 
 
+class _MismatchEnv(ParamEnv):
+    """Per-instance parameter overlay for ``statistics { mismatch }``.
+
+    A lookup of a mismatch-varied parameter returns a draw keyed on
+    (mc_seed, instance path, parameter name); a lookup of any parameter
+    whose definition *transitively references* a mismatch parameter pulls
+    that definition down and re-evaluates it in this overlay, so derived
+    parameters (``vth = vth0 + dvthmm``) decorrelate per instance too.
+    Everything else delegates to the shared environment (keeping its
+    global cache warm).  Reference role: per-instance ``agauss`` sampling
+    from ``spec.rng`` (reference/src/spectre_env.jl:178-187)."""
+
+    def __init__(self, parent, elab, inst_name):
+        super().__init__(parent=parent)
+        self._elab = elab
+        self._inst = inst_name
+
+    def __getitem__(self, name):
+        n = name.lower()
+        if n in self.cache:
+            return self.cache[n]
+        if n not in self.exprs:
+            el = self._elab
+            if n in el.mismatch_vars and el.rng is not None:
+                v = el._mismatch_draw(n, self._inst, self.parent)
+                self.cache[n] = v
+                return v
+            if el.rng is not None and el._mismatch_dependent(n, self.parent):
+                e = _find_param_expr(n, self.parent)
+                if e is not None:
+                    self.exprs[n] = e   # re-evaluate locally (below)
+        return super().__getitem__(n)
+
+
+def _find_param_expr(name, env):
+    """Defining expression of ``name`` in the closest enclosing scope."""
+    e = env
+    while e is not None:
+        if name in e.exprs:
+            return e.exprs[name]
+        e = e.parent
+    return None
+
+
 def _tiny_default(v, d):
     return d if v is None else v
 
@@ -115,6 +161,12 @@ class Elaborator:
         self.temp = temp
         self.param_overrides = {
             k.lower(): v for k, v in (param_overrides or {}).items()}
+        self.mc_seed = mc_seed
+        #: statistics-block mismatch registrations:
+        #: name -> (dist, std_expr, percent, loc); consumed per instance
+        #: by _MismatchEnv
+        self.mismatch_vars = {}
+        self._mm_dep_cache = {}
 
     # ---------------------------------------------------------------- utils
 
@@ -148,6 +200,62 @@ class Elaborator:
             return float(eval_expr(v, env, self.rng))
         except ExprError as e:
             raise ElabError(str(e), loc)
+
+    # -------------------------------------------------- mismatch statistics
+
+    def _mismatch_draw(self, var, inst, env):
+        """One per-instance draw for a ``statistics mismatch`` parameter,
+        keyed deterministically on (mc_seed, instance path, name) so the
+        same seed reproduces lane-for-lane while matched instances
+        decorrelate."""
+        import zlib
+        dist, std_expr, percent, loc = self.mismatch_vars[var]
+        nominal = float(env[var])     # process draws already applied here
+        std = self.vres(std_expr, env, loc)
+        if percent:
+            std = abs(nominal) * std / 100.0
+        seed = [0 if self.mc_seed is None else int(self.mc_seed) & 0xffffffff,
+                zlib.crc32(inst.encode()), zlib.crc32(var.encode())]
+        rng = np.random.default_rng(seed)
+        if dist == "lnorm":
+            return nominal * float(np.exp(rng.normal(0.0, std)))
+        if dist in ("unif", "uniform"):
+            return nominal + float(rng.uniform(-std, std))
+        return nominal + float(rng.normal(0.0, std))
+
+    def _mismatch_dependent(self, name, env, _seen=None):
+        """Does ``name``'s definition transitively reference a mismatch-
+        varied parameter?  Memoized on (defining scope, name)."""
+        if not self.mismatch_vars:
+            return False
+        e = env
+        while e is not None and name not in e.exprs:
+            e = e.parent
+        if e is None:
+            return False
+        key = (id(e), name)
+        hit = self._mm_dep_cache.get(key)
+        if hit is not None:
+            return hit
+        expr = e.exprs[name]
+        if isinstance(expr, (int, float)) or (
+                isinstance(expr, tuple) and expr and expr[0] == "funcdef"):
+            self._mm_dep_cache[key] = False
+            return False
+        _seen = _seen or set()
+        if key in _seen:
+            return False                      # cycle guard
+        _seen.add(key)
+        dep = False
+        for r in expr_refs(expr):
+            if r in self.mismatch_vars:
+                dep = True
+                break
+            if self._mismatch_dependent(r, e, _seen):
+                dep = True
+                break
+        self._mm_dep_cache[key] = dep
+        return dep
 
     # ------------------------------------------------------------ main walk
 
@@ -229,8 +337,8 @@ class Elaborator:
     def _do_control(self, st: P.Control, scope):
         env = scope["env"]
         if st.cmd == "statistics":
-            raise NotImplementedError(
-                f"statistics blocks are not ported yet — {_A19_STATS}")
+            self._do_statistics(st, scope)
+            return
         if st.cmd == "funcdecl":
             name, args, body = st.args
             env.define(name.lower() + "()", ("funcdef", list(args), body))
@@ -283,6 +391,21 @@ class Elaborator:
                     if not isinstance(v, (int, float)) else float(v))
                 for k, v in st.kwargs.items()}))
             return
+        if st.cmd == "alterstmt":
+            # device-targeted alter (a1 alter dev=r1 param=r value=2k):
+            # recorded as a directive, applied per analysis segment in
+            # api.simulate via set_param
+            kw = {}
+            for k, v in st.kwargs.items():
+                if k in ("dev", "param"):
+                    kw[k] = (v[1] if isinstance(v, tuple) and v
+                             and v[0] == "ref" else str(v))
+                else:
+                    kw[k] = (self.vres(v, env, st.loc)
+                             if not isinstance(v, (int, float))
+                             else float(v))
+            self.ckt.directives.append(("alterstmt", list(st.args), kw))
+            return
         if st.cmd in ("hdl", "va"):
             from cedarsim_tpu_torch.va.codegen import load_va
             path = self._resolve_file(st.args[0].strip('"'), st.loc)
@@ -293,12 +416,36 @@ class Elaborator:
             for name, cls in mods.items():
                 vam[name.lower()] = cls
             return
+        if st.cmd == "data":
+            name, cols, vals = st.args
+            ncol = max(len(cols), 1)
+            rows = [vals[i:i + ncol] for i in range(0, len(vals), ncol)
+                    if len(vals[i:i + ncol]) == ncol]
+            self.ckt.directives.append(
+                ("data", [name, cols, rows], {}))
+            return
         if st.cmd in ("meas", "measure"):
             self.ckt.directives.append(("meas", [st.loc.src], {}))
             return
-        if st.cmd in ("alterstmt", "data", "save", "probe"):
-            raise NotImplementedError(
-                f".{st.cmd} is not ported yet — {_A19}")
+        if st.cmd in ("save", "probe"):
+            # waveform projection (ngspice .save/.probe): record the probe
+            # targets; api.simulate turns them into TranOptions.store_vars.
+            # The card lexer splits "v(q)" into ["v", "q"], so a bare
+            # v/i token prefixes its target.
+            targets = []
+            toks = [a for a in st.args if isinstance(a, str)]
+            i = 0
+            while i < len(toks):
+                t = toks[i].lower()
+                if t in ("v", "i") and i + 1 < len(toks):
+                    tgt = toks[i + 1].lower()
+                    targets.append(tgt if t == "v" else tgt + ".i")
+                    i += 2
+                    continue
+                targets.append(t)
+                i += 1
+            self.ckt.directives.append(("save", targets, {}))
+            return
         if st.cmd in ("print", "plot", "width", "end", "backanno"):
             return
         self.warn(f"unhandled directive .{st.cmd}", st.loc)
@@ -390,6 +537,12 @@ class Elaborator:
     def _instantiate(self, el: P.Element, scope, prefix, nodemap, mfac):
         env = scope["env"]
         name = prefix + el.name.lower()
+        if self.mismatch_vars and self.rng is not None:
+            # per-instance mismatch overlay: this instance's parameter
+            # expressions see instance-keyed draws for mismatch-varied
+            # params (and re-evaluate anything derived from them)
+            env = _MismatchEnv(env, self, name)
+            scope = dict(scope, env=env)
         nets = [self._net(n, prefix, nodemap) for n in el.nodes]
         letter = el.letter
         if letter == "b":
@@ -901,6 +1054,58 @@ class Elaborator:
         while len(nets) < 4:
             nets.append(nets[-1])
         self.ckt.add(cls, name, nets[:4], p, m=m)
+
+    def _do_statistics(self, st: P.Control, scope):
+        """Spectre ``statistics { process/mismatch { vary ... } }`` — apply
+        Monte-Carlo parameter variations when elaborating with ``mc_seed``
+        (beyond the reference, whose parser has no statistics form).
+
+        Semantics: each ``process vary`` perturbs the named parameter with
+        one draw from the seeded elaboration RNG — ``dist=gauss`` adds
+        N(0, std), ``dist=unif`` adds U(-std, std), ``dist=lnorm``
+        multiplies by exp(N(0, std)); ``percent=yes`` scales std by
+        |nominal|/100.  ``mismatch vary`` draws are per-*instance*
+        (Spectre semantics; the reference's per-instance ``agauss``
+        sampling role, reference/src/spectre_env.jl:178-187): the
+        parameter is registered in ``self.mismatch_vars`` and every
+        device/subckt instantiation evaluates it — and anything derived
+        from it — under a per-instance overlay with a draw keyed
+        deterministically on (mc_seed, instance path, parameter), so two
+        matched devices decorrelate while the same lane reproduces."""
+        env = scope["env"]
+        entries = st.args[0]
+        for ent in entries:
+            if ent.get("kind") == "unsupported":
+                self.warn("statistics: unsupported clause ignored: "
+                          + ent.get("src", ""), st.loc)
+                continue
+            name = ent["param"]
+            if name not in env:
+                raise ElabError(
+                    f"statistics vary references undefined parameter "
+                    f"{name!r}", st.loc)
+            if ent["kind"] == "mismatch":
+                self.mismatch_vars[name.lower()] = (
+                    str(ent.get("dist", "gauss")).lower(),
+                    ent.get("std", 0.0),
+                    str(ent.get("percent", "no")).lower() in
+                    ("yes", "1", "true"),
+                    st.loc)
+                continue
+            if self.rng is None:
+                continue                      # nominal elaboration
+            nominal = float(env[name])
+            dist = str(ent.get("dist", "gauss")).lower()
+            std = self.vres(ent.get("std", 0.0), env, st.loc)
+            if str(ent.get("percent", "no")).lower() in ("yes", "1", "true"):
+                std = abs(nominal) * std / 100.0
+            if dist == "lnorm":
+                new = nominal * float(np.exp(self.rng.normal(0.0, std)))
+            elif dist in ("unif", "uniform"):
+                new = nominal + float(self.rng.uniform(-std, std))
+            else:                             # gauss (default)
+                new = nominal + float(self.rng.normal(0.0, std))
+            env.define(name, float(new))
 
     def _instantiate_vbic(self, el, name, nets, kw, mdl, env, m, val):
         """VBIC BJT from a ``.model level=4/9`` card or a Spectre ``vbic``

@@ -10,6 +10,19 @@ the smoke ran, or after one ran since the line before, gives
 during which it ran, so that a wall taken beside another process on the
 card says so.
 
+The schedule (ROADMAP C15): G-xla's child (phase 22, the longest run)
+starts right after the device line, so that its set-up runs beside the
+build; phases 3-10, 12-18 and 37 run in the main process beside it and
+beside the other children (phase 19's, G-fused's and phases 25-33's,
+started after phase 8's checking half; phases 34-36's, started after
+phase 12); every phase that times a kernel runs only after all those
+children have ended, so that no other process shares the card while it
+times: phases 3, 6, 8 and 19 check their kernels early and time them
+there (``kernel_times``, ``fused_kernel_times``, ``lu_bench``,
+``sparse``), with phases 20, 24, 11 and 16.  A ``children`` line before
+the timing phases gives every child's start and end on the smoke's
+clock.
+
 1. device  — requires CUDA; prints the card's name and power limit; full
    float32 matmuls (no TF32).
 2. build   — compiles every CUDA source of the checkout at once, one nvcc
@@ -25,8 +38,9 @@ card says so.
    run's shapes) and B = 32 at n = 85 (cell G's), n = 32 and 33
    on both sides of the factor's one-warp regime and n = 32, 33, 64, 96
    and 122 reaching each of the substitution's rows-per-lane paths; each kernel's two launches bitwise equal); the
-   mixed chord solve against float64 ``torch.linalg.solve``; kernel, plain
-   and library-call times at the DFF transient's shape.
+   mixed chord solve against float64 ``torch.linalg.solve``.  Its timing
+   half (``kernel_times``, after the children): kernel, plain and
+   library-call times at the DFF transient's shape.
 4. rc      — the RC step circuit against its closed form.
 5. slice   — the gf180 DFF BSIM4 testbench (parse → elaborate → compile
    on the card → transient operating point → per-lane warm DC) as an 8-lane
@@ -44,18 +58,20 @@ card says so.
 6. fused_kernel — the fused chord kernel against its plain version on the
    DFF's lanes (seeded 0.05 V perturbation, BE start, two step sizes):
    equal (ok, Newton count), xn/S/Q within 1e-9, two launches bitwise
-   equal; kernel and plain times at 8 lanes and at one (B1'), emit and
-   nvcc seconds, ptxas registers and spills, the model walk's hoisted and
+   equal; emit and nvcc seconds, ptxas registers and spills.  Its timing
+   half (``fused_kernel_times``, after the children): kernel and plain
+   times at 8 lanes and at one (B1'), the model walk's hoisted and
    per-evaluation node counts.
 7. fused_slice — the DFF through the public ``tran()`` with
    ``newton_impl="fused"`` (the JAX package's fused configuration), gated
    like phase 5; one fused launch per batched step attempt; the step
    counts must be cell B's (``CELL_B``).
-8. lu_bench — the dense solve kernels B4 (fused GESP) and B5 (partial
+8. lu_check — the dense solve kernels B4 (fused GESP) and B5 (partial
    pivoting) bitwise equal to their plain versions at (B, n) in {(1, 25),
    (37, 11), (512, 25), (8, 32), (8, 33), (64, 122), (4, 240)} (both sides
    of the edge between the one-warp and the one-block regime) and a
-   pivot-forcing case (two launches bitwise equal); then the dense-LU bench
+   pivot-forcing case (two launches bitwise equal).  lu_bench, its
+   timing half (after the children): the dense-LU bench
    (``cedarsim_tpu_torch.
    benchmarks.lu_bench``) at full width, every gate passing, with both
    kernels launched; then each kernel's, its plain version's, its library
@@ -78,7 +94,7 @@ card says so.
    19): every lane passes the gate at 150 and 250 ns, both GESP kernels
    launch and the fused kernel does not; the counts must be cell D's
    (``CELL_D``).
-11. lv1_fused_kernel — (run after phase 18, once phase 19's child has
+11. lv1_fused_kernel — (run after phase 37, once every child has
    ended, so that no other process shares the card while it times) the
    fused chord kernel on the level-1 plan (``Mos1``
    emitted) against its plain version on the 256 lanes, as phase 6;
@@ -135,9 +151,9 @@ card says so.
 19. sparse — the JAX package's large-circuit transient on the card
    through its entry point (``cedarsim_tpu_torch/benchmarks/
    chain_transient.py::run``), in a child process started after phase 8
-   that runs beside phases 9-18 (each process host-bound on its own core;
-   the walls of both include the sharing, which each of those phases'
-   lines gives as ``beside_children_s``), every kernel count from 0 in
+   that runs beside phases 9-18 and 37 (each process host-bound on its
+   own core; the walls of both include the sharing, which each of those
+   phases' lines gives as ``beside_children_s``), every kernel count from 0 in
    that process just before it and read just after: the 40-cell
    gf180 BSIM4 shift register, 452 unknowns, compiled with
    ``sparse="auto"``, which must take the sparse Newton path; its
@@ -148,8 +164,8 @@ card says so.
    ``CELL_F`` (the JAX package's CPU run's), at least one
    S1 launch per step attempt (the rescue adds its own), no GESP,
    dense-solve or fused launch; set-up, wall, counts and launches
-   printed.  Then, in the main process after phase 16: its plan (built
-   on the card, the probe on the CPU)
+   printed.  Then, in the main process (``sparse_check``, after phase 37):
+   its plan (built on the card, the probe on the CPU)
    bitwise the plan of the same circuit compiled on the CPU, its levels
    and filled values printed; the operating point against the dense DC on
    the card within 1e-9 V; ẋ0 of the chain at that point (``tran.
@@ -163,7 +179,8 @@ card says so.
    within 1e-9 V of the CPU from the same operating point); the chain
    with a lane axis (2 lanes from the
    operating point over 0-1 ns: S1/S2 at 2 lanes, no dense kernel), each
-   lane bitwise the one stream; and the sparse factor (S1,
+   lane bitwise the one stream; and, in the timing half (``sparse``, after
+   phase 16), the sparse factor (S1,
    ``sparse_lu.factor``) and solve (S2, ``sparse_lu.solve_factored``) on
    the chain's equilibrated Jacobian at that operating point, at 1 and 8
    lanes: bitwise their plain versions, two launches bitwise equal; each
@@ -172,7 +189,7 @@ card says so.
    (``torch.linalg.lu_factor``/``lu_solve``, float64 [L, 452, 452]) and
    the bound.
 
-20. cmg_fused_kernel — (run after phase 23, once the children have
+20. cmg_fused_kernel — (run after phase 37, once the children have
    ended) B1 on the CMG plan (the BSIM-CMG 107 walk emitted: 449 hoisted,
    3,131 walk nodes) against its plain version on cell G's 32 lanes, as
    phase 6 with the leg's fused options; its device, call and plain times
@@ -200,10 +217,12 @@ card says so.
    0-``G_CPU_TSTOP`` the counts equal to the same call's on the CPU
    (``dense_lu="mixed"``, the kernels' plain versions).
    Phases 21 and 22 run in two child processes (one an engine, each
-   setting its lanes up on the card) started after phase 8, beside
-   phases 9-18 as phase 19's (every kernel count from 0 in that process
-   just before its run and read just after); their lines are printed
-   from their records once they have ended.
+   setting its lanes up on the card): 22 from the start, beside the
+   build and phases 3-18 and 37, 21 from phase 8 on, beside phases 9-18
+   and 37, as
+   phase 19's (every kernel count from 0 in that process just before its
+   run and read just after); their lines are printed from their records
+   once they have ended.
 23. cmg_noise — the reference's BSIM-CMG inverter on the ASAP7 TT Spectre
    deck (``netlists.CMG_INVERTER_NOISE``) compiled on the card, its noise
    at q: √PSD within 1e-6 of the ngspice table, the PSD within
@@ -243,10 +262,11 @@ card says so.
    counts of the same call on the CPU.  Phase 11 also holds B1 at a
    uniform-step BDF3 and BDF5 start (its leading coefficient and history
    combination) against its plain version and times it at [256, 25].
-   Phases 25-29 run in one child process (``a14b_child``: first the CPU's
-   side of their count comparisons, from the CPU's own lanes, then the
-   card's runs) started after phase 8 beside cell G's; their lines are
-   printed from its record once it has ended.
+   Phases 25-29 run first in the A14b child (``--a14b-both-child``,
+   ``a14b_vbic_bdf``: first the CPU's side of their count comparisons,
+   from the CPU's own lanes, then the card's runs) started after phase 8
+   beside cell G's; their lines are printed from its record once it has
+   ended.
 30. lossy_link (cell O) — the JAX package's heavy-loss LTRA link
    (``benchmarks/lossy_link.py``: six ``LTRALine`` sections, 21 unknowns,
    12 ring slots) at 32 lanes, RL × ``linspace(0.9, 1.1)``, over 0-360 ns
@@ -274,9 +294,10 @@ card says so.
    ``noise_seed=7``), one stream: the variance over t > 20τ within
    0.6-1.4·kT/C, the CPU's accepted steps and its waveform within 1e-12 V
    over the first 500 (the same draws).
-   Phases 30-33 run in one child process (``a14b3_child``: first the
-   CPU's side of every comparison) started after phase 8 beside the
-   others; their lines are printed from its record once it has ended.
+   Phases 30-33 (``a14b3_delay_latch``: first the CPU's side of every
+   comparison) run in the A14b child after phases 25-29, one card
+   process beside cell G's; their lines are printed from its record once
+   it has ended.
 34. a16_sensitivity — on the card, no hand-written kernel launched
    (AD takes the exact float64 solve): the BSIM4 DFF's
    ``dc_sensitivity`` of d_neg at the transient operating point to
@@ -306,17 +327,35 @@ card says so.
    drawn with numpy from a fixed seed, the same starts on the card and
    the CPU: the distinct operating points and their counts, every lane
    within 1e-9 V of the CPU's.
-   Before them, B1 at B = 1 on the amplifier's and the ring's plans
-   against its plain version (``one_stream_fused_kernel``, as phases 11
-   and 24: two step sizes under each option set those transients use),
-   the source of the ``ring`` and ``hb_warmup`` entries' ``max_abs_err``.
+   After the timing phases, B1 at B = 1 on the amplifier's and the ring's
+   plans against its plain version (``one_stream_fused_kernel``, as
+   phases 11 and 24: two step sizes under each option set those
+   transients use), the source of the ``ring`` and ``hb_warmup`` entries'
+   ``max_abs_err``.
    The CPU's side of phases 34-36 runs in one child process
-   (``a16a17_cpu``, one intra-op thread, no card) started once cell G's
-   children have ended; the card's side starts after phase 19's end, once
-   every other child has ended and every kernel is timed: phases 34 and
-   36 in a child each (``--a16a17-card-child``), phase 35 in the main
-   process, the three beside each other; the children's lines are printed
-   from their records.
+   (``a16a17_cpu``, one intra-op thread, no card) started after phase 8
+   beside the others; the card's side starts after phase 12, once it has
+   ended: phases 34, 35 and 36 in a child each (``--a16a17-card-child``),
+   beside each other and the main process's phases 13-18 and 37; their
+   lines are printed from their records once they have ended.
+37. a19 — ROADMAP A19 on the card, in the main process after phase 18
+   (beside the children), each item against the same call with
+   ``device="cpu"`` at phase 13's tolerances: Spectre text through
+   ``simulate`` (``test_spectre.py``'s subcircuit transient; the ASAP7
+   BSIM-CMG inverter's operating point); an altergroup and a device
+   ``alter`` (every segment's operating point and transient); ``.save``
+   through ``simulate`` (one stream) and ``store_vars`` on cell A's 8
+   lanes over 0-30 ns through B2/B3 and through B1, each bit for bit the
+   same run without the projection in the saved columns, with the same
+   counts and launches; a ``.data`` table swept by re-elaboration; a
+   ``statistics`` Monte-Carlo at ``mc_seed=7`` (every draw equal as a
+   float to numpy's ``default_rng`` under the JAX package's keys);
+   ``explore`` on a 64-lane (R, C) grid of phase 4's RC (B1 alone or
+   B2/B3 alone launched, every sampled series within 1e-6 V);
+   the operating-point cache in a fresh directory (the second solve warm,
+   fewer Newton iterations, within 1e-9 V); ``profile_compile`` and
+   ``profile_run`` on the card (their keys printed).  Its launches are
+   counted in the ``kernels`` line (``a19_launches``).
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
@@ -324,8 +363,9 @@ the TPU kernel it replaces, launches on its path (B1 in phase 7 and, on
 the level-1 plan, in phase 12 and at bdf3/bdf5 in phases 28-29, on the
 PVT plan in phase 15, on the CMG plan in phase 21, on the VBIC plan in
 phase 25 and at B = 1 in phase 35's HB warm-up, on the ring's level-1
-plan in phase 36's; B2/B3 in phase 5, in phase 10, in phase 17, in phase 22, in
-phase 26 and in phases 30-32; B4/B5 in phase 8; S1/S2 in phase 19,
+plan in phase 36's, and phase 37's; B2/B3 in phase 5, in phase 10, in
+phase 17, in phase 22, in phase 26, in phases 30-32 and in phase 37;
+B4/B5 in phase 8; S1/S2 in phase 19,
 which name no TPU kernel: ``replaces`` is null and ``jax_counterpart`` the
 XLA function they take the place of), error, times and its bound: the
 larger of the
@@ -541,11 +581,20 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
         if rel > CHORD_RTOL:
             raise AssertionError(f"chord solve B={B} n={n}: relative error "
                                  f"{rel:.3g} > {CHORD_RTOL}")
-    # times at the transient's shape: B = lanes, n = 25 unknowns; beside
-    # each kernel, one PyTorch call computing the same function (timed
-    # here only: the port never calls it)
+    log("kernels", bitwise_equal_to_plain=checked,
+        max_abs_err_dff_shape=abs_err)
+    # the timing half's systems, drawn here as before the split
+    return abs_err, kt.dominant_systems(rng, N_LANES, 25)
+
+
+def phase_kernel_times(torch, gesp_lu, dev, systems):
+    """Phase 3's timing half, run once no other process shares the card:
+    B2 and B3 at the transient's shape (B = lanes, n = 25 unknowns) on
+    ``systems`` from the checking half; beside each kernel, one PyTorch
+    call computing the same function (timed here only: the port never
+    calls it)."""
     B, n = N_LANES, 25
-    A, b = kt.dominant_systems(rng, B, n)
+    A, b = systems
     A32 = torch.as_tensor(A, dtype=torch.float32, device=dev)
     b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
     LU = gesp_lu.lu_factor_gesp_f32(A32)
@@ -576,12 +625,10 @@ def phase_kernels(torch, gesp_lu, linalg, dev):
                               "float32"),
               "subst": bound(4 * B * n * (n + 2), lu_ops(n, B, "subst"),
                              "float32")}
-    log("kernels", bitwise_equal_to_plain=checked,
-        max_abs_err_dff_shape=abs_err,
-        ms_device_call_plain_library_call_device_by={
+    log("kernel_times", ms_device_call_plain_library_call_device_by={
             k: list(v) for k, v in times.items()},
         bound_ms=bounds, shape=[B, n, n])
-    return abs_err, times, bounds
+    return times, bounds
 
 
 def library_ms(fn, reps):
@@ -835,13 +882,14 @@ def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
     predictor): the converged S cancels to ~1e-11 A from device currents
     of ~0.1 A, so its round-off relative to itself is ~1e-7 even where the
     model walks agree to 1e-19.  Times and bounds at 8 lanes (B1) and at
-    the nominal lane alone (B1')."""
+    the nominal lane alone (B1') in the timing half
+    (``phase_fused_kernel_times``), on the inputs this half returns."""
     info = plan.build()
     worst = dict(xn=0.0, S=0.0, Q=0.0)
     s_final_rel = 0.0
     abs_err = 0.0
     nnwt = []
-    times = None
+    timing = None
     for h in (1e-12, 1e-10):
         args, opts = kt.fused_args(torch, T, plan, dff[:4], h)
         k1, err = fused_vs_plain(torch, fc, plan, args, opts, f"h={h}",
@@ -849,33 +897,44 @@ def phase_fused_kernel(torch, T, fc, dev, dff, plan, t_plan):
         s_final_rel = max(s_final_rel, err["s_final_rel"])
         abs_err = max(abs_err, err["xn_abs"])
         nnwt.append(k1[3].tolist())
-        if times is None:
-            # (device ms, call ms, plain ms) at 8 lanes and, B1', at one
+        if timing is None:
+            # the timing half's inputs: 8 lanes and, B1', the nominal one
             one = slice(N_LANES // 2, N_LANES // 2 + 1)
             args1, _ = kt.fused_args(torch, T, plan, dff[:4], h, lanes=one)
-            times, bounds = {}, {}
-            for key, a in (("B1", args), ("B1'", args1)):
-                def run(a=a):
-                    return fc.fused_chord(plan, *a, opts)
-                times[key] = (kt.device_ms(run), kt.call_ms(run, 50),
-                              kt.call_ms(lambda a=a: fc.fused_chord_plain(
-                                  plan, *a, opts), 5))
-                bounds[key], counted = fused_bound(plan, a, run())
-            check_us = refuse_tangent_us(args[:6])
+            timing = ((("B1", args), ("B1'", args1)), opts)
     ptxas = [ln.strip() for ln in info["log"].splitlines()
              if any(w in ln for w in ("Function properties", "registers",
                                       "spill"))]
     log("fused_kernel", worst_rel_err=worst,
         s_rel_to_final_s=s_final_rel, ok_nnwt=nnwt,
-        refuse_tangent_us=check_us,
-        ms_device_call_plain={k: list(v) for k, v in times.items()},
-        shape=list(dff[3].shape), bound_ms=bounds, nodes=counted,
+        shape=list(dff[3].shape),
         n_inst=plan.n_inst, fc_max_hoist=plan.max_hoist,
         threads=plan.threads, smem_bytes=plan.smem_bytes,
         smem_limit=plan.smem_limit, plan_s=t_plan,
         emit_s=info["emit_seconds"], nvcc_s=info["nvcc_seconds"],
         ptxas=ptxas, header=os.path.relpath(info["path"], REPO))
-    return abs_err, times, info, bounds
+    return abs_err, info, timing
+
+
+def phase_fused_kernel_times(fc, plan, timing):
+    """Phase 6's timing half, run once no other process shares the card:
+    B1's (device ms, call ms, plain ms) and bound at 8 lanes and, B1', at
+    the nominal lane, and the host cost of the AD check on B1's inputs.
+    Returns (times, bounds)."""
+    runs, opts = timing
+    times, bounds = {}, {}
+    for key, a in runs:
+        def run(a=a):
+            return fc.fused_chord(plan, *a, opts)
+        times[key] = (kt.device_ms(run), kt.call_ms(run, 50),
+                      kt.call_ms(lambda a=a: fc.fused_chord_plain(
+                          plan, *a, opts), 5))
+        bounds[key], nodes = fused_bound(plan, a, run())
+    check_us = refuse_tangent_us(runs[0][1][:6])
+    log("fused_kernel_times", refuse_tangent_us=check_us,
+        ms_device_call_plain={k: list(v) for k, v in times.items()},
+        bound_ms=bounds, nodes=nodes)
+    return times, bounds
 
 
 def refuse_tangent_us(tensors, reps=20000):
@@ -1888,14 +1947,13 @@ def lv1_bdf_path(torch, T, gesp_lu, fc, lv1, cpu_counts, method, want):
                                             counts=got), card=smi())
 
 
-def a14b_child(out):
-    """``--a14b-child OUT``: phases 25-29 in a process of its own (two
-    torch threads), started after phase 8 as cell G's are.  First the
-    CPU's side of their count comparisons, from the CPU's own lanes: cell
-    V's counts over 0-``V_CPU_TSTOP`` through each engine
-    (``dense_lu="mixed"`` for V-xla: the kernels' plain versions) and
-    cells E-bdf3/E-bdf5's over 0-``E_BDF_CPU_TSTOP``; then on the card
-    cell V's lanes and plan (its library built by the main process
+def a14b_vbic_bdf(out):
+    """Phases 25-29, the first half of ``a14b_both_child`` (two torch
+    threads).  First the CPU's side of their count comparisons, from the
+    CPU's own lanes: cell V's counts over 0-``V_CPU_TSTOP`` through each
+    engine (``dense_lu="mixed"`` for V-xla: the kernels' plain versions)
+    and cells E-bdf3/E-bdf5's over 0-``E_BDF_CPU_TSTOP``; then on the
+    card cell V's lanes and plan (its library built by the main process
     before), V-fused, V-xla, the amplifier's noise, and cells E-bdf3 and
     E-bdf5 on the level-1 lanes.  Each phase's record, with the seconds
     the set-ups took, saved to OUT (JSON); a line to stderr at each
@@ -1940,10 +1998,18 @@ def a14b_child(out):
         json.dump(rec, f)
 
 
-def phase_a14b(child):
-    """Phases 25-29's lines, from their child's record (``a14b_child``);
-    returns (V's launches by engine, E-bdf's by method)."""
-    out, waited = join_child(child)
+def a14b_both_child(out):
+    """``--a14b-both-child OUT``: the A14b child, started after phase 8
+    beside cell G's: phases 25-29 (``a14b_vbic_bdf``, record to OUT) then
+    phases 30-33 (``a14b3_delay_latch``, record to OUT.a14b3), one after
+    the other in one card process."""
+    a14b_vbic_bdf(out)
+    a14b3_delay_latch(out + ".a14b3")
+
+
+def phase_a14b(out, waited):
+    """Phases 25-29's lines, from their record (``a14b_vbic_bdf``)
+    at ``out``; returns (V's launches by engine, E-bdf's by method)."""
     with open(out) as f:
         rec = json.load(f)
     log("a14b_setup", cpu_counts=rec["cpu_counts"], cpu_s=rec["cpu_s"],
@@ -2047,16 +2113,15 @@ def link_ac_closed(freqs, rtot=30.0, rl=75.0):
     return np.asarray(out)
 
 
-def a14b3_child(out):
-    """``--a14b3-child OUT``: phases 30-33 in a process of its own (two
-    torch threads), started after phase 8 beside cell G's and the A14b
-    child.  First the CPU's side of every comparison (``dense_lu="mixed"``
-    where the card takes B2/B3: the kernels' plain versions), then the
-    card's runs, every kernel count from 0 just before each run and read
-    just after: cell O, the link's AC, the history line at 8 lanes and its
-    AC, the C12 witness (one stream), the four latch cases at 8 lanes and
-    kT/C (one stream).  Each phase's record saved to OUT (JSON); a line to
-    stderr at each step."""
+def a14b3_delay_latch(out):
+    """Phases 30-33, the second half of ``a14b_both_child`` (two torch
+    threads).  First the CPU's side of every comparison
+    (``dense_lu="mixed"`` where the card takes B2/B3: the kernels' plain
+    versions), then the card's runs, every kernel count from 0 just before
+    each run and read just after: cell O, the link's AC, the history line
+    at 8 lanes and its AC, the C12 witness (one stream), the four latch
+    cases at 8 lanes and kT/C (one stream).  Each phase's record saved to
+    OUT (JSON); a line to stderr at each step."""
     import torch
     import cedarsim_tpu_torch as T
     from cedarsim_tpu_torch.benchmarks import delay_latch as dl
@@ -2208,11 +2273,10 @@ def a14b3_child(out):
         json.dump(rec, f)
 
 
-def phase_a14b3(child):
-    """Phases 30-33's lines, from their child's record (``a14b3_child``);
-    returns B2/B3's launches in cell O, the history line and the latch
-    cases."""
-    out, waited = join_child(child)
+def phase_a14b3(out, waited):
+    """Phases 30-33's lines, from their record (``a14b3_delay_latch``)
+    at ``out``; returns B2/B3's launches in cell O, the history line and
+    the latch cases."""
     with open(out) as f:
         rec = json.load(f)
     log("a14b3_setup", cpu_counts=rec["cpu_counts"], cpu_s=rec["cpu_s"],
@@ -2498,18 +2562,17 @@ def join_sparse_child(child):
             z["x_op"], waited)
 
 
-def phase_sparse(torch, T, dev, main):
-    """Phase 19 on what its main path (``sparse_main_path``) returned: the
-    plan, the dense DC, the chain with lanes, S1 and S2 against their plain
-    versions (see the module docstring).  Returns S1's and S2's kernel
-    entries."""
+def phase_sparse_check(torch, T, dev, main):
+    """Phase 19's checks on what its main path (``sparse_main_path``)
+    returned: the plan, the dense DC, ẋ0's memory, C6's witness and the
+    chain with lanes (see the module docstring).  Returns what the timing
+    half (``phase_sparse``) needs."""
     from cedarsim_tpu_torch.benchmarks import chain_transient as ct
     from cedarsim_tpu_torch.benchmarks import netlists
-    from cedarsim_tpu_torch.core.sparse_ops import TAU, get_sparse_ops
+    from cedarsim_tpu_torch.core.sparse_ops import get_sparse_ops
     from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu, sparse_lu
     from cedarsim_tpu_torch.ops import fused_chord as fc
     rec, launches, x_op, waited_s = main
-    b = sparse_lu.build()
     comp = netlists.chain(CHAIN_CELLS, models="bsim4", device=dev)
     counters = (gesp_lu.lu_factor_gesp_f32, gesp_lu.lu_subst_gesp_f32,
                 gesp_lu.lu_solve_gesp_f32, pivot_lu.lu_solve_pivot_f32,
@@ -2562,6 +2625,30 @@ def phase_sparse(torch, T, dev, main):
             n for k, n in batch_launches.items()
             if k not in ("factor", "solve_factored")):
         raise AssertionError(f"chain lanes: launches {batch_launches}")
+    log("sparse_check", n_x=comp.n_x, n_levels=plan.n_levels, nnz=plan.nnz,
+        nnz_f=plan.nnz_f, forward_levels=len(plan.f_lev),
+        backward_levels=len(plan.b_lev), plan_equal_cpu=True,
+        dense_dc_s=dense_dc_s, dc_sparse_vs_dense_v=dc_err,
+        lanes=dict(lanes=SPARSE_BATCH, tstop=CHAIN_LANES_TSTOP,
+                   wall_s=batch_s, attempts=batch[0].n_attempts,
+                   accepted=batch[0].n_accepted, bitwise_one_stream=True),
+        xdot0_memory=xdot0, c6=c6, transient=rec, launches=launches,
+        waited_for_child_s=waited_s,
+        wall_per_attempt_ms=1e3 * rec["wall_s"] / rec["attempts"])
+    return comp, sops, ctx, x_op, launches
+
+
+def phase_sparse(torch, T, dev, state):
+    """Phase 19's timing half, run once no other process shares the card:
+    S1 and S2 on the chain's equilibrated Jacobian at its operating point
+    at 1 and 8 lanes, bitwise their plain versions, with their times,
+    the dense library call's and the bound.  Returns S1's and S2's kernel
+    entries."""
+    from cedarsim_tpu_torch.core.sparse_ops import TAU
+    from cedarsim_tpu_torch.ops import sparse_lu
+    comp, sops, ctx, x_op, launches = state
+    plan = sops.plan
+    b = sparse_lu.build()
     # S1 and S2 on the equilibrated J at the operating point
     c_op = ctx.with_mode("tranop")
     S, _, Gv, _ = sops.res_jacs_sparse(x_op, c_op)
@@ -2621,21 +2708,11 @@ def phase_sparse(torch, T, dev, main):
                           LU, piv, rhs[..., None]), 20),
                       sparse_bound(plan, L, "solve")),
             "dense_lu_rel_diff": lib_err}
-    log("sparse", n_x=comp.n_x, n_levels=plan.n_levels, nnz=plan.nnz,
-        nnz_f=plan.nnz_f, forward_levels=len(plan.f_lev),
-        backward_levels=len(plan.b_lev), plan_equal_cpu=True,
-        dense_dc_s=dense_dc_s, dc_sparse_vs_dense_v=dc_err,
-        lanes=dict(lanes=SPARSE_BATCH, tstop=CHAIN_LANES_TSTOP,
-                   wall_s=batch_s, attempts=batch[0].n_attempts,
-                   accepted=batch[0].n_accepted, bitwise_one_stream=True),
-        kernel_times={f"L{L}": {k: (list(v) if isinstance(v, tuple) else v)
-                                for k, v in e.items()}
-                      for L, e in entries.items()},
+    log("sparse", kernel_times={
+            f"L{L}": {k: (list(v) if isinstance(v, tuple) else v)
+                      for k, v in e.items()} for L, e in entries.items()},
         nvcc_s=b["seconds"], ptxas=[ln.strip() for ln in b["log"]
                                     .splitlines() if "registers" in ln],
-        xdot0_memory=xdot0, c6=c6,
-        transient=rec, launches=launches, waited_for_child_s=waited_s,
-        wall_per_attempt_ms=1e3 * rec["wall_s"] / rec["attempts"],
         card=smi())
     out = {}
     for key, name, line in (("factor", "sparse_factor_f64", 493),
@@ -2687,15 +2764,18 @@ def check_solve(torch, name, fn, plain, A32, b32):
     return float((x1[fin] - xp[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
-def phase_lu(torch, gesp_lu, pivot_lu, dev):
-    """Phase 8: B4 and B5 against their plain versions, the dense-LU
-    bench at full width (both kernels must launch), and per-launch times
-    at the bench's shapes.  Returns (launches, per-shape numbers)."""
-    from cedarsim_tpu_torch.benchmarks import lu_bench
-    solves = {"gesp": (gesp_lu.lu_solve_gesp_f32,
-                       gesp_lu.lu_solve_gesp_f32_plain),
-              "pivot": (pivot_lu.lu_solve_pivot_f32,
-                        pivot_lu.lu_solve_pivot_f32_plain)}
+def lu_solves(gesp_lu, pivot_lu):
+    """B4 and B5 with their plain versions."""
+    return {"gesp": (gesp_lu.lu_solve_gesp_f32,
+                     gesp_lu.lu_solve_gesp_f32_plain),
+            "pivot": (pivot_lu.lu_solve_pivot_f32,
+                      pivot_lu.lu_solve_pivot_f32_plain)}
+
+
+def phase_lu_check(torch, gesp_lu, pivot_lu, dev):
+    """Phase 8's checking half: B4 and B5 against their plain versions
+    at ``LU_CHECK_SHAPES`` and at a pivot-forcing [16, 25]."""
+    solves = lu_solves(gesp_lu, pivot_lu)
     rng = np.random.default_rng(0)
     checked = []
     for B, n in LU_CHECK_SHAPES + [(16, 25)]:
@@ -2717,6 +2797,16 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
             b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
             check_solve(torch, f"{key} B={B} n={n}", fn, plain, A32, b32)
             checked.append([key, B, n])
+    log("lu_check", bitwise_equal_to_plain=checked)
+
+
+def phase_lu(torch, gesp_lu, pivot_lu, dev):
+    """Phase 8's timing half, run once no other process shares the card:
+    the dense-LU bench at full width (its gates; both kernels must
+    launch), and B4's and B5's per-launch times at the bench's shapes
+    beside their checks there.  Returns (launches, per-shape numbers)."""
+    from cedarsim_tpu_torch.benchmarks import lu_bench
+    solves = lu_solves(gesp_lu, pivot_lu)
     # the bench, at full width, through its entry point
     gesp_lu.lu_solve_gesp_f32.launches = 0
     pivot_lu.lu_solve_pivot_f32.launches = 0
@@ -2759,8 +2849,7 @@ def phase_lu(torch, gesp_lu, pivot_lu, dev):
             lambda: gesp_lu.lu_subst_gesp_f32(
                 gesp_lu.lu_factor_gesp_f32(A32), b32), 200)
         per_shape[(B, n)] = ent
-    log("lu_bench", bitwise_equal_to_plain=checked,
-        bench_wall_s=wall, launches=launches,
+    log("lu_bench", bench_wall_s=wall, launches=launches,
         bench_us_per_solve={f"{r['variant']} {r['B']}x{r['n']}":
                             r["us_per_solve"] for r in rows},
         bench_rel_err={f"{r['variant']} {r['B']}x{r['n']}": r["rel_err"]
@@ -3308,20 +3397,21 @@ def phase_a17_auto(torch, T, dev, cpu, emit=log):
 
 #: the phases whose card side runs in a child of its own (phase 35 stays
 #: in the main process), by their key in the CPU's record
-A16A17_CARD_CHILDREN = ("a16", "a17_auto")
+A16A17_CARD_CHILDREN = ("a16", "a17_driven", "a17_auto")
 
 
 def a16a17_card_child(which, cpu_out, out):
-    """Phase 34 (``which`` "a16") or 36 ("a17_auto") on the card in a
-    child process, against the CPU's record in ``cpu_out``: its line and
-    its return value written to ``out`` as JSON for the main process to
-    print."""
+    """Phase 34 (``which`` "a16"), 35 ("a17_driven") or 36 ("a17_auto")
+    on the card in a child process, against the CPU's record in
+    ``cpu_out``: its line and its return value written to ``out`` as JSON
+    for the main process to print."""
     import torch
     import cedarsim_tpu_torch as T
     with open(cpu_out) as f:
         cpu = json.load(f)
     lines = []
-    phase = {"a16": phase_a16, "a17_auto": phase_a17_auto}[which]
+    phase = {"a16": phase_a16, "a17_driven": phase_a17_driven,
+             "a17_auto": phase_a17_auto}[which]
     ret = phase(
         torch, T, torch.device("cuda", 0), cpu[which],
         emit=lambda phase, **kw: lines.append([phase, kw]))
@@ -3353,6 +3443,424 @@ def a16a17_cpu(out=None):
         json.dump(rec, f)
 
 
+# ---------------------------------------------------------- phase 37 (A19)
+
+#: phase 37: the front-end breadth of ROADMAP A19 on the card, each item
+#: against the same call with ``device="cpu"`` at phase 13's tolerances
+#: (SIM_DC_TOL, SIM_WAVE_TOL).  ``test_spectre.py``'s subcircuit transient
+#: (tau = 2 ms), and its sample times
+A19_SPECTRE_RC = """// spectre rc
+simulator lang=spectre
+subckt lowpass (in out)
+parameters r=1k c=1u
+r1 (in out) resistor r=r
+c1 (out 0) capacitor c=c
+ends lowpass
+v1 (vin 0) vsource type=pulse val0=0 val1=1 delay=1m rise=1u fall=1u width=10m
+x1 (vin vout) lowpass r=2k
+tran1 tran stop=5m
+"""
+A19_SPECTRE_RC_TIMES = (1.5e-3, 2e-3, 3e-3, 4e-3, 5e-3)
+#: the ASAP7 TT deck's BSIM-CMG inverter at its switching point, in
+#: Spectre text (include path ASAP7_DIR)
+A19_SPECTRE_CMG = """// CMG inverter op, ASAP7 TT
+simulator lang=spectre
+include "7nm_TT.scs"
+vvdd (vdd 0) vsource dc=0.7
+vvss (vss 0) vsource dc=0
+vd (d 0) vsource dc=0.3
+mneg (q d vss vss) nmos_lvt
+mpos (q d vdd vdd) pmos_lvt
+op1 dc
+"""
+#: an altergroup, then a device alter: three segments (op and tran each)
+A19_ALTER = """// alter segments
+simulator lang=spectre
+parameters rr=1k
+v1 (in 0) vsource type=pulse val0=0 val1=1 delay=10n rise=1n fall=1n width=1u
+r1 (in out) resistor r=rr
+r2 (out 0) resistor r=1k
+c1 (out 0) capacitor c=1p
+op1 op
+tran1 tran stop=40n
+ag1 altergroup {
+parameters rr=3k
+}
+op2 op
+tran2 tran stop=40n
+a1 alter dev=r2 param=r value=3k
+op3 op
+tran3 tran stop=40n
+"""
+A19_ALTER_TIMES = (5e-9, 12e-9, 20e-9, 30e-9, 40e-9)
+#: ``.save`` through ``simulate`` (one stream, the exact solve) and a
+#: ``.data`` table swept by re-elaboration
+A19_SAVE = """* rc ladder, .save
+V1 a 0 PULSE(0 1 1n 0.1n 0.1n 10n 20n)
+R1 a b 1k
+C1 b 0 1p
+R2 b c 2k
+C2 c 0 2p
+.tran 0.1n 40n
+"""
+A19_DATA = """* divider swept by a .data table
+.param ra=1k rb=1k
+V1 in 0 2
+R1 in mid {ra}
+R2 mid 0 {rb}
+.data tbl ra rb
+1k 1k 2k 1k 1k 3k 5k 5k
+.enddata
+.op
+"""
+#: ``test_spectre.py``'s statistics deck: process and mismatch draws of
+#: r0 at a fixed ``mc_seed``
+A19_STATS = """// stats
+simulator lang=spectre
+parameters r0=1k
+statistics {
+   process {
+      vary r0 dist=gauss std=100
+   }
+   mismatch {
+      vary r0 dist=gauss std=10
+   }
+}
+i1 (0 a) isource dc=1m
+r1 (a 0) resistor r=r0
+r2 (a b) resistor r=r0
+r3 (b 0) resistor r=r0
+"""
+A19_MC_SEED = 7
+#: cell A's lanes through ``store_vars`` over 0-30 ns, and what is stored
+A19_SAVE_TSTOP = 3e-8
+A19_STORE = ("q", "clkn", "d")
+#: ``explore``'s slider grid: the RC of phase 4 at 8 x 8 (R, C)
+A19_EXPLORE_GRID = {"R1.r": np.linspace(500.0, 4000.0, 8),
+                    "C1.c": np.linspace(0.5e-9, 4e-9, 8)}
+A19_EXPLORE_TSPAN = (0.0, 2e-5)
+
+
+def on_card(comp, what):
+    """Raise unless ``comp`` was compiled on the CUDA card."""
+    if comp.device.type != "cuda":
+        raise AssertionError(f"{what}: compiled on {comp.device}")
+
+
+def a19_spectre(T, dev):
+    """Spectre text through ``simulate``: the subcircuit RC's transient
+    (operating point, waveform at its times, counts) and the ASAP7 CMG
+    inverter's operating point, card against CPU."""
+    out = {}
+    rc, rp = (T.simulate(A19_SPECTRE_RC, device=d) for d in (dev, "cpu"))
+    sc, sp = rc["tran"], rp["tran"]
+    on_card(rc["compiled"], "Spectre RC")
+    if not (sc.converged and sp.converged):
+        raise AssertionError("Spectre RC did not converge")
+    want = 1.0 - np.exp(-1.0)
+    got = float(sc.interp("vout", 3e-3))
+    if abs(got - want) > 0.02:
+        raise AssertionError(f"Spectre RC: vout(3 ms) {got}, want {want}")
+    out["rc"] = dict(
+        dc_err=float(np.abs(sc.xs[0] - sp.xs[0]).max()),
+        wave_err=max(abs(float(sc.interp("vout", t))
+                         - float(sp.interp("vout", t)))
+                     for t in A19_SPECTRE_RC_TIMES),
+        card=[sc.n_accepted, sc.n_rejected, sc.n_newton],
+        cpu=[sp.n_accepted, sp.n_rejected, sp.n_newton], vout_3ms=got)
+    rc, rp = (T.simulate(A19_SPECTRE_CMG, include_paths=[ASAP7_DIR],
+                         device=d) for d in (dev, "cpu"))
+    if not (bool(rc["op"].converged) and bool(rp["op"].converged)):
+        raise AssertionError("Spectre CMG inverter: no operating point")
+    out["cmg_op"] = dict(
+        dc_err=float((rc["op"].x.cpu() - rp["op"].x).abs().max()),
+        q=float(rc["op"].x[rc["compiled"].node_names.index("q")]))
+    for name, r in out.items():
+        if not (r["dc_err"] <= SIM_DC_TOL
+                and r.get("wave_err", 0.0) <= SIM_WAVE_TOL):
+            raise AssertionError(f"Spectre {name}: card vs CPU {r}")
+    return out
+
+
+def a19_alter(T, dev):
+    """Every segment of an altergroup and a device alter, card against
+    CPU: the operating points and the transients (their own operating
+    point and the waveform at ``A19_ALTER_TIMES``); the segments' dividers
+    as stated (1/2, 1/4, 3/4 of the 1 V step)."""
+    rc, rp = (T.simulate(A19_ALTER, device=d) for d in (dev, "cpu"))
+    out = {}
+    for sfx, ratio in (("", 0.5), ("@ag1", 0.25), ("@a1", 0.5)):
+        comp = rc["compiled" + sfx]
+        on_card(comp, f"alter{sfx}")
+        sc, sp = rc["tran" + sfx], rp["tran" + sfx]
+        i = comp.node_names.index("out")
+        dc_err = float((rc["op" + sfx].x.cpu() - rp["op" + sfx].x)
+                       .abs().max())
+        wave_err = max(abs(float(sc.interp("out", t))
+                           - float(sp.interp("out", t)))
+                       for t in A19_ALTER_TIMES)
+        settled = float(sc.interp("out", 40e-9))
+        if not (sc.converged and dc_err <= SIM_DC_TOL
+                and wave_err <= SIM_WAVE_TOL
+                and abs(settled - ratio) < 1e-3
+                and abs(float(rc["op" + sfx].x[i])) < 1e-9):
+            raise AssertionError(f"alter segment {sfx or 'base'}: dc_err "
+                                 f"{dc_err:.3g}, wave_err {wave_err:.3g}, "
+                                 f"out(40 ns) {settled} (want {ratio})")
+        out[sfx or "base"] = dict(dc_err=dc_err, wave_err=wave_err,
+                                  out_40ns=settled,
+                                  card=[sc.n_accepted, sc.n_rejected],
+                                  cpu=[sp.n_accepted, sp.n_rejected])
+    return out
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype \
+        and bool((a.view(np.uint8) == b.view(np.uint8)).all())
+
+
+def a19_save(torch, T, dev, dff):
+    """``.save`` on the card: through ``simulate`` (one stream, the exact
+    solve) the projected waveform against the same deck without
+    ``.save``; then ``tran`` with ``store_vars`` on cell A's 8 lanes over
+    0-30 ns through B2/B3 (cell A's options) and through B1 (cell B's),
+    each against the same call without the projection.  Bit for bit in
+    the saved columns, the same counts and the same launches."""
+    out = {}
+    full = T.simulate(A19_SAVE, device=dev)["tran"]
+    proj = T.simulate(A19_SAVE + ".save v(c) v(b)\n", device=dev)["tran"]
+    cols = [full.compiled.node_names.index(n) for n in ("c", "b")]
+    same = _same_bits(proj.xs, np.ascontiguousarray(full.xs[:, cols])) \
+        and _same_bits(proj.ts, full.ts)
+    cnt = [[s.n_accepted, s.n_rejected, s.n_newton] for s in (full, proj)]
+    if not same or cnt[0] != cnt[1] or proj.xs.shape[1] != 2:
+        raise AssertionError(f".save through simulate: bitwise {same}, "
+                             f"counts {cnt}, columns {proj.xs.shape}")
+    try:
+        proj["a"]
+    except KeyError:
+        pass
+    else:
+        raise AssertionError(".save: an unsaved net was readable")
+    out["simulate"] = dict(bitwise=same, counts=cnt[0],
+                           store_map=proj.store_map)
+    comp, ctx, pb, x0 = dff[:4]
+    cols = [comp.node_names.index(n) for n in A19_STORE]
+    for engine, base in (("mixed", XLA_OPTS), ("fused", FUSED_OPTS)):
+        runs = []
+        for store in (None, A19_STORE):
+            opts = T.TranOptions(**base, store_vars=store)
+            sols, la = counted(lambda opts=opts: T.tran(
+                comp, (0.0, A19_SAVE_TSTOP), params=pb, ctx=ctx, opts=opts,
+                x0=x0))
+            runs.append((sols, la))
+        (fs, fl), (ps, pl) = runs
+        same = all(_same_bits(p.xs, np.ascontiguousarray(f.xs[:, cols]))
+                   and _same_bits(p.ts, f.ts) for f, p in zip(fs, ps))
+        cf = [(s.n_accepted, s.n_rejected, s.n_newton) for s in fs]
+        cp = [(s.n_accepted, s.n_rejected, s.n_newton) for s in ps]
+        key = ("fused",) if engine == "fused" else ("factor", "subst")
+        if not same or cf != cp or fl != pl or min(fl[k] for k in key) <= 0:
+            raise AssertionError(f"store_vars through {engine}: bitwise "
+                                 f"{same}, counts {cf} vs {cp}, launches "
+                                 f"{fl} vs {pl}")
+        out[engine] = dict(bitwise=same, lanes=len(fs), **counts(fs),
+                           attempts=fs[0].n_attempts,
+                           launches={k: fl[k] for k in key},
+                           stored_bytes=int(sum(p.xs.nbytes for p in ps)),
+                           full_bytes=int(sum(f.xs.nbytes for f in fs)))
+    return out
+
+
+def a19_data_stats(T, dev):
+    """A ``.data`` table swept by re-elaboration (each row's operating
+    point, card against CPU, and its divider), and the ``statistics``
+    Monte-Carlo at ``A19_MC_SEED``: each instance's draw equal as a float
+    to the JAX package's rule (numpy's ``default_rng``: the process draw
+    from the seed, the mismatch draw from (seed, crc32 of the instance,
+    crc32 of the name)), and the operating point card against CPU."""
+    import zlib
+    from cedarsim_tpu_torch.frontend.spectre import parse_spectre
+    ckt = T.load_spice(A19_DATA)
+    sweep = T.data_sweep(ckt, "tbl")
+    rows = []
+    for point in sweep:
+        rc, rp = (T.simulate(A19_DATA, params=point, device=d)
+                  for d in (dev, "cpu"))
+        i = rc["compiled"].node_names.index("mid")
+        v = float(rc["op"].x[i])
+        want = 2.0 * point["rb"] / (point["ra"] + point["rb"])
+        err = float((rc["op"].x.cpu() - rp["op"].x).abs().max())
+        if not (err <= SIM_DC_TOL and abs(v - want) < 1e-6):
+            raise AssertionError(f".data row {point}: mid {v} (want {want}), "
+                                 f"card vs CPU {err:.3g}")
+        rows.append(dict(point=point, mid=v, dc_err=err))
+    rng = np.random.default_rng(A19_MC_SEED)
+    nominal = 1000.0 + rng.normal(0, 100)
+    want = {}
+    for inst in ("r1", "r2", "r3"):
+        mm = np.random.default_rng([A19_MC_SEED, zlib.crc32(inst.encode()),
+                                    zlib.crc32(b"r0")])
+        want[inst] = nominal + mm.normal(0, 10)
+    circuit = T.elaborate(parse_spectre(A19_STATS), mc_seed=A19_MC_SEED)
+    got = {i.name: float(i.params["r"]) for i in circuit.instances
+           if i.name.startswith("r")}
+    if got != want:
+        raise AssertionError(f"statistics draws {got}, want {want}")
+    rc, rp = (T.simulate(A19_STATS, mc_seed=A19_MC_SEED, device=d)
+              for d in (dev, "cpu"))
+    err = float((rc["op"].x.cpu() - rp["op"].x).abs().max())
+    if err > SIM_DC_TOL:
+        raise AssertionError(f"statistics op: card vs CPU {err:.3g}")
+    return dict(data=rows, stats=dict(draws=got, dc_err=err))
+
+
+def a19_explore(torch, T, dev):
+    """``explore`` on the 64-lane (R, C) grid of phase 4's RC (0-20 µs,
+    ``dense_lu="mixed"``) on the card and on the CPU (the kernels' plain
+    versions): B1 alone or B2 and B3 alone launched (whichever the
+    lane-batched call resolved to; read from the counts, not resolved a
+    second time here), and every sampled series within SIM_WAVE_TOL of
+    the CPU's.  Returns the record and the launches."""
+    import json as _json
+    import re
+    import shutil
+    import tempfile
+    from cedarsim_tpu_torch.utils.explore import explore
+
+    def rc(d):
+        ckt = T.Circuit()
+        vin, vout = ckt.net("vin"), ckt.net("vout")
+        ckt.add(T.VSourcePULSE, "Vin", (vin, ckt.gnd),
+                dict(v1=0.0, v2=3.3, td=1e-6, tr=1e-9, tf=1e-9, pw=4e-6,
+                     per=10e-6))
+        ckt.add(T.Resistor, "R1", (vin, vout), dict(r=1000.0))
+        ckt.add(T.Capacitor, "C1", (vout, ckt.gnd), dict(c=1e-9))
+        return T.compile_circuit(ckt, device=d)
+
+    opts = T.TranOptions(dense_lu="mixed")
+    series, wall = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_explore_")
+    try:
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            comp = rc(d)
+            path = os.path.join(tmp, f"{where}.html")
+            t0 = time.perf_counter()
+            if where == "card":
+                on_card(comp, "explore")
+                _, la = counted(lambda: explore(
+                    comp, A19_EXPLORE_TSPAN, A19_EXPLORE_GRID, ["vout"],
+                    path=path, opts=opts))
+            else:
+                explore(comp, A19_EXPLORE_TSPAN, A19_EXPLORE_GRID, ["vout"],
+                        path=path, opts=opts)
+            wall[where] = time.perf_counter() - t0
+            with open(path) as f:
+                payload = _json.loads(re.search(
+                    r"const D = (\{.*?\});\n", f.read(), re.S).group(1))
+            series[where] = np.asarray(
+                payload["series"]["vout"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths = {"B1": ("fused",), "B2/B3": ("factor", "subst")}
+    took = [name for name, key in paths.items()
+            if min(la[k] for k in key) > 0
+            and not any(n for k, n in la.items() if k not in key)]
+    lanes = series["card"].shape[0]
+    err = float(np.abs(series["card"] - series["cpu"]).max())
+    if len(took) != 1 or lanes != 64 or err > SIM_WAVE_TOL:
+        raise AssertionError(f"explore: {lanes} lanes, launches {la}, card "
+                             f"vs CPU {err:.3g} V")
+    return dict(lanes=lanes, path=took[0],
+                launches={k: la[k] for k in paths[took[0]]}, wave_err=err,
+                wall_s=wall), la
+
+
+def a19_cache_profile(torch, T, dev):
+    """The operating-point cache in a fresh directory: two ``solve_dc``
+    calls of phase 4's RC with a diode load on the card, the second warm
+    started (fewer Newton iterations, x within SIM_DC_TOL of the first);
+    then ``profile_compile``/``profile_run`` of one RC Newton step on the
+    card, their keys printed."""
+    import shutil
+    import tempfile
+    from cedarsim_tpu_torch.utils import artifacts
+    from cedarsim_tpu_torch.utils.profiling import (profile_compile,
+                                                    profile_run)
+    ckt = T.Circuit()
+    vin, vout = ckt.net("vin"), ckt.net("vout")
+    ckt.add(T.VSource, "V1", (vin, ckt.gnd), dict(dc=2.0))
+    ckt.add(T.Resistor, "R1", (vin, vout), dict(r=1000.0))
+    ckt.add(T.Diode, "D1", (vout, ckt.gnd), {"is": 1e-14, "n": 1.0})
+    comp = T.compile_circuit(ckt, device=dev)
+    on_card(comp, "op cache")
+    ctx = T.SimSpec.make(gmin=1e-12)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
+    saved = os.environ.get(artifacts.ENV)
+    os.environ[artifacts.ENV] = tmp
+    try:
+        r1, r2 = (T.solve_dc(comp, ctx=ctx) for _ in range(2))
+        stored = len(os.listdir(tmp))
+    finally:
+        if saved is None:
+            os.environ.pop(artifacts.ENV)
+        else:
+            os.environ[artifacts.ENV] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    it = [int(r1.iters), int(r2.iters)]
+    dx = float((r1.x - r2.x).abs().max())
+    if not (it[1] < it[0] and dx <= SIM_DC_TOL and stored == 1
+            and bool(r2.converged)):
+        raise AssertionError(f"op cache: iterations {it}, |dx| {dx:.3g}, "
+                             f"{stored} entries")
+    rc = T.Circuit()
+    a, b = rc.net("vin"), rc.net("vout")
+    rc.add(T.VSource, "V1", (a, rc.gnd), dict(dc=1.0))
+    rc.add(T.Resistor, "R1", (a, b), dict(r=1000.0))
+    rc.add(T.Capacitor, "C1", (b, rc.gnd), dict(c=1e-9))
+    c = T.compile_circuit(rc, device=dev)
+    cdc = T.SimSpec.make(mode="dcop")
+    eye = 1e-12 * torch.eye(c.n_x, dtype=c.dtype, device=dev)
+
+    def step(x):
+        S, _, G, _ = c.res_jacs_fwd(x, cdc, c.params0)
+        return x + torch.linalg.solve(G + eye, -S)
+    x0 = torch.zeros(c.n_x, dtype=c.dtype, device=dev)
+    rep = profile_compile(step, x0)
+    run = profile_run(rep.pop("compiled"), x0, iters=20)
+    if rep["aten_ops"] != sum(rep["aten_histogram"].values()) \
+            or not rep.get("cuda_launches"):
+        raise AssertionError(f"profile_compile on the card: {rep}")
+    return dict(op_cache=dict(iters=it, dx=dx),
+                profile=dict(keys=sorted(rep) + sorted(run),
+                             first_call_s=rep["first_call_s"],
+                             aten_ops=rep["aten_ops"],
+                             cuda_launches=rep["cuda_launches"],
+                             cuda_device_s=rep["cuda_device_s"],
+                             mean_s=run["mean_s"]))
+
+
+def phase_a19(torch, T, dev, dff):
+    """Phase 37 (A19): Spectre text and alter segments through
+    ``simulate``, ``.save`` (one stream and cell A's lanes through B2/B3
+    and B1), ``.data``, ``statistics``, ``explore`` on 64 lanes, the
+    operating-point cache and the profiler on the card, each against the
+    CPU or its unprojected twin.  Returns the launches of B1 and of B2/B3
+    that phase 37 made (the ``kernels`` line counts them)."""
+    t0 = time.perf_counter()
+    rec = dict(spectre=a19_spectre(T, dev), alter=a19_alter(T, dev))
+    rec["save"] = a19_save(torch, T, dev, dff)
+    rec.update(a19_data_stats(T, dev))
+    rec["explore"], la = a19_explore(torch, T, dev)
+    rec.update(a19_cache_profile(torch, T, dev))
+    # each store_vars run twice (projected and not), then explore's
+    launches = {k: 2 * rec["save"]["fused" if k == "fused" else "mixed"][
+        "launches"].get(k, 0) + la[k] for k in ("fused", "factor", "subst")}
+    log("a19", **rec, launches=launches, wall_s=time.perf_counter() - t0,
+        card=smi())
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, device, call, plain_ms,
                  library, library_device, library_device_by, bnd,
                  max_abs_err, **extra):
@@ -3370,6 +3878,19 @@ def kernel_entry(name, source, replaces, launches, device, call, plain_ms,
 
 
 def main():
+    """Run the smoke; every child process it started is ended (if still
+    running) and reaped on the way out, whatever happened."""
+    children = []
+    try:
+        run(children)
+    finally:
+        for c in children:
+            stop_children(c)
+
+
+def run(children):
+    """The smoke's phases in order (the module docstring); each child
+    process is appended to ``children`` as it starts."""
     import threading
     import torch
     if not torch.cuda.is_available():
@@ -3385,6 +3906,12 @@ def main():
         raise AssertionError("TF32 matmuls are enabled")
     log("device", card=card, torch=torch.__version__,
         cuda=torch.version.cuda, count=torch.cuda.device_count())
+    # G-xla's child (phase 22, the longest run) from here: it sets its
+    # lanes up beside this process's set-up and build, and launches only
+    # B2/B3 (it loads the GESP library, or builds it if it finds none
+    # yet); every kernel-timing phase waits for it (ROADMAP C15)
+    child_xla = start_child("cmg", "xla")
+    children.append(child_xla)
     dff = dff_setup(torch, T, dev)
     t_lv1 = time.perf_counter()
     lv1 = kt.lv1_lanes(torch, T, dev)
@@ -3452,216 +3979,213 @@ def main():
         path=[os.path.relpath(b["path"], REPO),
               os.path.relpath(built["pivot"]["path"], REPO)],
         ptxas=ptxas, cmg_setup_s=cmg_setup_s, vbic_setup_s=amp_setup_s)
-    children = [None] * 7
-    try:
-        abs_err, times, bounds = phase_kernels(torch, gesp_lu, linalg, dev)
-        # the repeat phase's children run beside phases 4-5 from here on,
-        # after phase 3's kernel timings
-        children[0] = start_repeat_children()
-        phase_rc(T, dev)
-        launches = phase_slice(torch, T, gesp_lu, linalg, dev, dff)
-        phase_repeat(torch, T, dev, dff, children[0])
-        th_fused.join()
-        if isinstance(built["fused"], BaseException):
-            raise built["fused"]
-        fabs_err, ftimes, info, fbounds = phase_fused_kernel(
-            torch, T, fc, dev, dff, plan, t_plan)
-        flaunches = phase_fused_slice(
-            torch, T, gesp_lu, fc, dev, dff,
-            dict(plan_s=t_plan, emit_s=info["emit_seconds"],
-                 nvcc_s=info["nvcc_seconds"]))
-        lu_launches, per_shape = phase_lu(torch, gesp_lu, pivot_lu, dev)
-        # phase 19's main path (the chain's transient) runs from here in a
-        # child process beside phases 9-18; the kernel-timing phases 11
-        # and 16 wait until it has ended, so that no other process shares
-        # the card while they time
-        th_sparse.join()
-        if isinstance(built["sparse"], BaseException):
-            raise built["sparse"]
-        children[1] = start_child("sparse")
-        # cell G's children (phases 21-22) too, once its fused library is
-        # built (they load it), after phase 8's timings
-        th_cmg.join()
-        if isinstance(built["fused_cmg"], BaseException):
-            raise built["fused_cmg"]
-        children[2] = start_child("cmg", "fused")
-        children[3] = start_child("cmg", "xla")
-        # phases 25-29 too, once the VBIC and level-1 libraries are built
-        for th, name in ((th_vbic, "fused_vbic"), (th_lv1, "fused_lv1")):
-            th.join()
-            if isinstance(built[name], BaseException):
-                raise built[name]
-        children[4] = start_child("a14b")
-        children[5] = start_child("a14b3")
-        phase_lv1_single(torch, T, gesp_lu, dev)
-        dl = phase_lv1(torch, T, gesp_lu, fc, lv1, "D", CELL_D,
-                       LV1_SHORT_TSTOP,
-                       extra=dict(jac_shunt=kt.LV1_XLA_OPTS["jac_shunt"]))
-        th_lv1.join()
-        if isinstance(built["fused_lv1"], BaseException):
-            raise built["fused_lv1"]
-        el = phase_lv1(torch, T, gesp_lu, fc, lv1, "E", CELL_E, LV1_TSTOP)
-        phase_lv1_repeat(torch, T, gesp_lu, fc, lv1)
-        phase_simulate(torch, T, dev)
-        phase_sweeps(torch, T, dev)
-        th_pvt.join()
-        if isinstance(built["fused_pvt"], BaseException):
-            raise built["fused_pvt"]
-        _, pl = phase_pvt(torch, gesp_lu, fc, dev, pvt_state, plan_pvt)
-        xl = phase_pvt_xla(torch, gesp_lu, fc, dev)
-        phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
-        phase_cmg_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
-        vl, bl = phase_a14b(children[4])
-        dl3 = phase_a14b3(children[5])
-        main19 = join_sparse_child(children[1])
-        gl = {"fused": phase_cmg("fused", children[2]),
-              "xla": phase_cmg("xla", children[3])}
-        # the CPU's side of phases 34-36 (no card, one core) in a child
-        # from here, once cell G's children have ended, beside phases 20,
-        # 24, 11, 16 and 19's end
-        children[6] = start_child("a16a17")
-        cabs_err, ctimes, cbound = phase_cmg_fused_kernel(
-            torch, T, fc, cmg[:4], plan_cmg, t_plan_cmg)
-        vabs_err, vtimes, vbound = phase_vbic_fused_kernel(
-            torch, T, fc, amp, plan_vbic, t_plan_vbic)
-        labs_err, ltimes, lbounds = phase_lv1_fused_kernel(torch, T, fc, lv1,
-                                                           plan_lv1)
-        pabs_err, ptimes, pbound = phase_pvt_fused_kernel(torch, T, fc,
-                                                          pvt_state, plan_pvt)
-        sparse_entries = phase_sparse(torch, T, dev, main19)
-        # phases 34-36 once every other child has ended and every kernel
-        # is timed, against the CPU's side from its child: 34 and 36 in a
-        # child each, 35 here, the three beside each other (each host-
-        # bound on its own core)
-        for th, name in zip(th_one, ("fused_vbic1", "fused_ring")):
-            th.join()
-            if isinstance(built[name], BaseException):
-                raise built[name]
-        one_err = phase_one_stream_fused_kernel(torch, T, fc, (
-            ("amp1", amp1, T.SimSpec.make(gmin=vbic_amp.GMIN), (1e-6, 1e-4),
-             {"hb_warmup": FUSED_OPTS}),
-            ("ring", ring, T.SimSpec.make(), (1e-12, 1e-10),
-             {"hb_warmup": FUSED_OPTS, "kicked_tran": RING_TRAN_OPTS})))
-        cpu_out, _ = join_child(children[6])
-        with open(cpu_out) as f:
-            cpu = json.load(f)
-        card_children = {which: start_child("a16a17-card", which, cpu_out)
-                         for which in A16A17_CARD_CHILDREN}
-        children.extend(card_children.values())
-        la35 = phase_a17_driven(torch, T, dev, cpu["a17_driven"])
-        rets = {}
-        for which, child in card_children.items():
-            out, _ = join_child(child)
-            with open(out) as f:
-                rec = json.load(f)
-            for phase, kw in rec["lines"]:
-                log(phase, **kw)
-            rets[which] = rec["ret"]
-        la36, la36_tran = rets["a17_auto"]
-        src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
-        b1p = ftimes["B1'"]
-        n1 = lv1[0].n_x
+    abs_err, systems = phase_kernels(torch, gesp_lu, linalg, dev)
+    # the repeat phase's children run beside phases 4-5
+    children.append(start_repeat_children())
+    phase_rc(T, dev)
+    launches = phase_slice(torch, T, gesp_lu, linalg, dev, dff)
+    phase_repeat(torch, T, dev, dff, children[-1])
+    th_fused.join()
+    if isinstance(built["fused"], BaseException):
+        raise built["fused"]
+    fabs_err, info, ftiming = phase_fused_kernel(
+        torch, T, fc, dev, dff, plan, t_plan)
+    flaunches = phase_fused_slice(
+        torch, T, gesp_lu, fc, dev, dff,
+        dict(plan_s=t_plan, emit_s=info["emit_seconds"],
+             nvcc_s=info["nvcc_seconds"]))
+    phase_lu_check(torch, gesp_lu, pivot_lu, dev)
+    # phase 19's main path (the chain's transient), G-fused (once its
+    # library is built), phases 25-33 (one child, once the VBIC and
+    # level-1 libraries are built) and the CPU's side of phases 34-36
+    # run from here in children beside phases 9-18 and 37; every
+    # kernel-timing phase waits until every child has ended, so that no
+    # other process shares the card while it times
+    th_sparse.join()
+    if isinstance(built["sparse"], BaseException):
+        raise built["sparse"]
+    child_sparse = start_child("sparse")
+    children.append(child_sparse)
+    th_cmg.join()
+    if isinstance(built["fused_cmg"], BaseException):
+        raise built["fused_cmg"]
+    child_cmg = start_child("cmg", "fused")
+    children.append(child_cmg)
+    for th, name in ((th_vbic, "fused_vbic"), (th_lv1, "fused_lv1")):
+        th.join()
+        if isinstance(built[name], BaseException):
+            raise built[name]
+    child_a14b = start_child("a14b-both")
+    children.append(child_a14b)
+    child_cpu = start_child("a16a17")
+    children.append(child_cpu)
+    phase_lv1_single(torch, T, gesp_lu, dev)
+    dl = phase_lv1(torch, T, gesp_lu, fc, lv1, "D", CELL_D,
+                   LV1_SHORT_TSTOP,
+                   extra=dict(jac_shunt=kt.LV1_XLA_OPTS["jac_shunt"]))
+    el = phase_lv1(torch, T, gesp_lu, fc, lv1, "E", CELL_E, LV1_TSTOP)
+    # phases 34-36 on the card from here, each in a child against the
+    # CPU's record (its child has ended by now), beside phases 12-18 and
+    # 37; their libraries (the one-stream plans) were built with the rest
+    for th, name in zip(th_one, ("fused_vbic1", "fused_ring")):
+        th.join()
+        if isinstance(built[name], BaseException):
+            raise built[name]
+    cpu_out, _ = join_child(child_cpu)
+    card_children = {which: start_child("a16a17-card", which, cpu_out)
+                     for which in A16A17_CARD_CHILDREN}
+    children.extend(card_children.values())
+    phase_lv1_repeat(torch, T, gesp_lu, fc, lv1)
+    phase_simulate(torch, T, dev)
+    phase_sweeps(torch, T, dev)
+    th_pvt.join()
+    if isinstance(built["fused_pvt"], BaseException):
+        raise built["fused_pvt"]
+    _, pl = phase_pvt(torch, gesp_lu, fc, dev, pvt_state, plan_pvt)
+    xl = phase_pvt_xla(torch, gesp_lu, fc, dev)
+    phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
+    phase_cmg_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
+    la37 = phase_a19(torch, T, dev, dff)
+    out, waited = join_child(child_a14b)
+    vl, bl = phase_a14b(out, waited)
+    dl3 = phase_a14b3(out + ".a14b3", waited)
+    sparse_state = phase_sparse_check(torch, T, dev,
+                                      join_sparse_child(child_sparse))
+    rets = {}
+    for which, child in card_children.items():
+        out, _ = join_child(child)
+        with open(out) as f:
+            rec = json.load(f)
+        for phase, kw in rec["lines"]:
+            log(phase, **kw)
+        rets[which] = rec["ret"]
+    la35 = rets["a17_driven"]
+    la36, la36_tran = rets["a17_auto"]
+    gl = {"fused": phase_cmg("fused", child_cmg),
+          "xla": phase_cmg("xla", child_xla)}
+    log("children", spans={name: [t0, t1]
+                           for name, t0, t1 in CHILD_SPANS})
+    # the timing phases, alone on the card: 3, 6 and 8's timing
+    # halves, then 20, 24, 11, 16 and 19's
+    times, bounds = phase_kernel_times(torch, gesp_lu, dev, systems)
+    ftimes, fbounds = phase_fused_kernel_times(fc, plan, ftiming)
+    lu_launches, per_shape = phase_lu(torch, gesp_lu, pivot_lu, dev)
+    cabs_err, ctimes, cbound = phase_cmg_fused_kernel(
+        torch, T, fc, cmg[:4], plan_cmg, t_plan_cmg)
+    vabs_err, vtimes, vbound = phase_vbic_fused_kernel(
+        torch, T, fc, amp, plan_vbic, t_plan_vbic)
+    labs_err, ltimes, lbounds = phase_lv1_fused_kernel(torch, T, fc, lv1,
+                                                       plan_lv1)
+    pabs_err, ptimes, pbound = phase_pvt_fused_kernel(torch, T, fc,
+                                                      pvt_state, plan_pvt)
+    sparse_entries = phase_sparse(torch, T, dev, sparse_state)
+    one_err = phase_one_stream_fused_kernel(torch, T, fc, (
+        ("amp1", amp1, T.SimSpec.make(gmin=vbic_amp.GMIN), (1e-6, 1e-4),
+         {"hb_warmup": FUSED_OPTS}),
+        ("ring", ring, T.SimSpec.make(), (1e-12, 1e-10),
+         {"hb_warmup": FUSED_OPTS, "kicked_tran": RING_TRAN_OPTS})))
+    src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
+    b1p = ftimes["B1'"]
+    n1 = lv1[0].n_x
 
-        def lv1_entry(B):
-            shape = [B if isinstance(B, int) else LV1_LANES, n1]
-            return {"shape": shape, "device_ms": ltimes[B][0],
-                    "call_ms": ltimes[B][1], "plain_ms": ltimes[B][2],
-                    "bound_ms": lbounds[B][0], "bound_by": lbounds[B][1]}
-        kernels = [
-            kernel_entry("fused_chord_f64",
-                         "cedarsim_tpu_torch/csrc/fused_chord.cu",
-                         "cedarsim_tpu/ops/fused_chord.py:632",
-                         flaunches["fused"], *ftimes["B1"], None, None, None,
-                         fbounds["B1"], fabs_err,
-                         also_replaces="cedarsim_tpu/ops/fused_chord.py:526",
-                         shape=[N_LANES, dff[0].n_x],
-                         one_lane={"shape": [1, dff[0].n_x],
-                                   "launches": flaunches["fused_one_lane"],
-                                   "device_ms": b1p[0], "call_ms": b1p[1],
-                                   "plain_ms": b1p[2],
-                                   "bound_ms": fbounds["B1'"][0],
-                                   "bound_by": fbounds["B1'"][1]},
-                         lv1={"model": "Mos1", "launches": el["fused"],
-                              "max_abs_err": labs_err, **lv1_entry(LV1_LANES),
-                              "eight_lanes": lv1_entry(N_LANES),
-                              "ring": {
-                                  "shape": [1, ring.n_x],
-                                  "max_abs_err": one_err["ring"],
-                                  "hb_warmup_launches": la36["fused"],
-                                  "kicked_tran_launches":
-                                      la36_tran["fused"]},
-                              "bdf3": {"launches": bl["bdf3"]["fused"],
-                                       **lv1_entry("bdf3")},
-                              "bdf5": {"launches": bl["bdf5"]["fused"],
-                                       **lv1_entry("bdf5")}},
-                         pvt={"model": "BSIM4, W and VDD per lane",
-                              "launches": pl["fused"], "max_abs_err": pabs_err,
-                              "shape": [PVT_POINTS, pvt_state[0].comp.n_x],
-                              "device_ms": ptimes[0], "call_ms": ptimes[1],
-                              "plain_ms": ptimes[2], "bound_ms": pbound[0],
-                              "bound_by": pbound[1]},
-                         cmg={"model": "BSIM-CMG 107, NFIN per lane",
-                              "launches": gl["fused"]["fused"],
-                              "max_abs_err": cabs_err,
-                              "shape": [CMG_LANES, cmg[0].n_x],
-                              "device_ms": ctimes[0], "call_ms": ctimes[1],
-                              "plain_ms": ctimes[2], "bound_ms": cbound[0],
-                              "bound_by": cbound[1]},
-                         vbic={"model": "VBIC with self-heating, AREA per "
-                                        "lane",
-                               "launches": vl["fused"]["fused"],
-                               "max_abs_err": vabs_err,
-                               "shape": [vbic_amp.LANES, amp[0].n_x],
-                               "device_ms": vtimes[0], "call_ms": vtimes[1],
-                               "plain_ms": vtimes[2], "bound_ms": vbound[0],
-                               "bound_by": vbound[1],
-                               "hb_warmup": {"shape": [1, amp1.n_x],
-                                             "launches": la35["fused"],
-                                             "max_abs_err": one_err["amp1"]}}),
-        ]
-        design = {
-            "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
-                      "system, rows in registers, steps in panels of 4 "
-                      "(factor_panels), at n <= 32; one block per system, "
-                      "steps in pairs, above",
-            "subst": "one warp per system, column order, system staged in "
-                     "shared memory"}
-        for key, line in (("factor", 313), ("subst", 354)):
-            kernels.append(kernel_entry(
-                f"gesp_{key}_f32", src,
-                f"cedarsim_tpu/ops/pallas_lu.py:{line}",
-                launches[key], *times[key], bounds[key], abs_err[key],
-                shape=[N_LANES, 25], design=design[key],
-                lv1_launches=dl[key], pvt_xla_launches=xl[key],
-                cmg_xla_launches=gl["xla"][key],
-                vbic_xla_launches=vl["xla"][key],
-                link_launches=dl3["link"][key],
-                delay_launches=dl3["delay"][key],
-                latch_launches=dl3["latch"][key]))
-        for key, name, source, line in (
-                ("gesp", "gesp_solve_f32", src, 164),
-                ("pivot", "pivot_solve_f32",
-                 "cedarsim_tpu_torch/csrc/pivot_lu.cu", 50)):
-            (B, n), *rest = list(per_shape)
-            e = per_shape[(B, n)][key]
-            kernels.append(kernel_entry(
-                name, source, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
-                lu_launches[key], e["device_ms"], e["call_ms"], e["plain_ms"],
-                e["library_ms"], e["library_device_ms"],
-                e["library_device_by"],
-                (e["bound_ms"], e["bound_by"]), e["max_abs_err"], shape=[B, n],
-                other_shapes=[{"shape": list(s), **per_shape[s][key]}
-                              for s in rest]))
-        kernels += [sparse_entries["factor"], sparse_entries["solve"]]
-        print(json.dumps({"kernels": kernels}))
-        print(smi())
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-    finally:
-        for c in children:
-            if c is not None:
-                stop_children(c)
+    def lv1_entry(B):
+        shape = [B if isinstance(B, int) else LV1_LANES, n1]
+        return {"shape": shape, "device_ms": ltimes[B][0],
+                "call_ms": ltimes[B][1], "plain_ms": ltimes[B][2],
+                "bound_ms": lbounds[B][0], "bound_by": lbounds[B][1]}
+    kernels = [
+        kernel_entry("fused_chord_f64",
+                     "cedarsim_tpu_torch/csrc/fused_chord.cu",
+                     "cedarsim_tpu/ops/fused_chord.py:632",
+                     flaunches["fused"], *ftimes["B1"], None, None, None,
+                     fbounds["B1"], fabs_err,
+                     also_replaces="cedarsim_tpu/ops/fused_chord.py:526",
+                     shape=[N_LANES, dff[0].n_x],
+                     one_lane={"shape": [1, dff[0].n_x],
+                               "launches": flaunches["fused_one_lane"],
+                               "device_ms": b1p[0], "call_ms": b1p[1],
+                               "plain_ms": b1p[2],
+                               "bound_ms": fbounds["B1'"][0],
+                               "bound_by": fbounds["B1'"][1]},
+                     lv1={"model": "Mos1", "launches": el["fused"],
+                          "max_abs_err": labs_err, **lv1_entry(LV1_LANES),
+                          "eight_lanes": lv1_entry(N_LANES),
+                          "ring": {
+                              "shape": [1, ring.n_x],
+                              "max_abs_err": one_err["ring"],
+                              "hb_warmup_launches": la36["fused"],
+                              "kicked_tran_launches":
+                                  la36_tran["fused"]},
+                          "bdf3": {"launches": bl["bdf3"]["fused"],
+                                   **lv1_entry("bdf3")},
+                          "bdf5": {"launches": bl["bdf5"]["fused"],
+                                   **lv1_entry("bdf5")}},
+                     pvt={"model": "BSIM4, W and VDD per lane",
+                          "launches": pl["fused"], "max_abs_err": pabs_err,
+                          "shape": [PVT_POINTS, pvt_state[0].comp.n_x],
+                          "device_ms": ptimes[0], "call_ms": ptimes[1],
+                          "plain_ms": ptimes[2], "bound_ms": pbound[0],
+                          "bound_by": pbound[1]},
+                     cmg={"model": "BSIM-CMG 107, NFIN per lane",
+                          "launches": gl["fused"]["fused"],
+                          "max_abs_err": cabs_err,
+                          "shape": [CMG_LANES, cmg[0].n_x],
+                          "device_ms": ctimes[0], "call_ms": ctimes[1],
+                          "plain_ms": ctimes[2], "bound_ms": cbound[0],
+                          "bound_by": cbound[1]},
+                     a19_launches=la37["fused"],
+                     vbic={"model": "VBIC with self-heating, AREA per "
+                                    "lane",
+                           "launches": vl["fused"]["fused"],
+                           "max_abs_err": vabs_err,
+                           "shape": [vbic_amp.LANES, amp[0].n_x],
+                           "device_ms": vtimes[0], "call_ms": vtimes[1],
+                           "plain_ms": vtimes[2], "bound_ms": vbound[0],
+                           "bound_by": vbound[1],
+                           "hb_warmup": {"shape": [1, amp1.n_x],
+                                         "launches": la35["fused"],
+                                         "max_abs_err": one_err["amp1"]}}),
+    ]
+    design = {
+        "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
+                  "system, rows in registers, steps in panels of 4 "
+                  "(factor_panels), at n <= 32; one block per system, "
+                  "steps in pairs, above",
+        "subst": "one warp per system, column order, system staged in "
+                 "shared memory"}
+    for key, line in (("factor", 313), ("subst", 354)):
+        kernels.append(kernel_entry(
+            f"gesp_{key}_f32", src,
+            f"cedarsim_tpu/ops/pallas_lu.py:{line}",
+            launches[key], *times[key], bounds[key], abs_err[key],
+            shape=[N_LANES, 25], design=design[key],
+            lv1_launches=dl[key], pvt_xla_launches=xl[key],
+            cmg_xla_launches=gl["xla"][key],
+            vbic_xla_launches=vl["xla"][key],
+            link_launches=dl3["link"][key],
+            delay_launches=dl3["delay"][key],
+            latch_launches=dl3["latch"][key],
+            a19_launches=la37[key]))
+    for key, name, source, line in (
+            ("gesp", "gesp_solve_f32", src, 164),
+            ("pivot", "pivot_solve_f32",
+             "cedarsim_tpu_torch/csrc/pivot_lu.cu", 50)):
+        (B, n), *rest = list(per_shape)
+        e = per_shape[(B, n)][key]
+        kernels.append(kernel_entry(
+            name, source, f"cedarsim_tpu/ops/pallas_lu.py:{line}",
+            lu_launches[key], e["device_ms"], e["call_ms"], e["plain_ms"],
+            e["library_ms"], e["library_device_ms"],
+            e["library_device_by"],
+            (e["bound_ms"], e["bound_by"]), e["max_abs_err"], shape=[B, n],
+            other_shapes=[{"shape": list(s), **per_shape[s][key]}
+                          for s in rest]))
+    kernels += [sparse_entries["factor"], sparse_entries["solve"]]
+    print(json.dumps({"kernels": kernels}))
+    print(smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
@@ -3671,10 +4195,8 @@ if __name__ == "__main__":
         sparse_child(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "--cmg-child":
         cmg_child(sys.argv[2], sys.argv[3])
-    elif len(sys.argv) == 3 and sys.argv[1] == "--a14b-child":
-        a14b_child(sys.argv[2])
-    elif len(sys.argv) == 3 and sys.argv[1] == "--a14b3-child":
-        a14b3_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--a14b-both-child":
+        a14b_both_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--a16a17-child":
         a16a17_cpu(sys.argv[2])
     elif len(sys.argv) == 5 and sys.argv[1] == "--a16a17-card-child":

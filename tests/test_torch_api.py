@@ -10,9 +10,9 @@ the JAX package's ``simulate`` on the CPU in float64.
   no analysis (an operating point), ``tmax``, ``uic``, ``.options
   method=trap`` and ``method=gear`` (BDF2 up to ``maxord=2``, BDF3 at
   3, the order-5 ladder above).
-- What is not ported raises ``NotImplementedError`` naming its ROADMAP
-  item, and nothing is skipped: Spectre text and ``alter`` (A19),
-  ``.save``, ``.probe`` and ``.data`` (A19, in the elaborator).  ``.dc`` runs (its tests are in
+- Spectre text, however it is asked for, runs as in the JAX package
+  (``tests/test_torch_spectre.py`` holds the Spectre decks, ``alter`` and
+  ``statistics``).  ``.dc`` runs (its tests are in
   ``tests/test_torch_sweeps.py``), and so do ``.ac``, ``.noise``,
   ``.four`` and ``.measure`` (``tests/test_torch_ac.py``; here: the keys
   they add).
@@ -95,14 +95,24 @@ def test_tran_directive_options(extra, want):
             <= 1e-6
 
 
-@pytest.mark.parametrize("extra, item", [
-    (".tran 1n 40n\n.save v(b)", "A19"),
-    (".tran 1n 40n\n.probe v(b)", "A19"),
-    (".tran 1n 40n\n.data d1 r1 1k 2k\n.enddata", "A19"),
+@pytest.mark.parametrize("extra, stored", [
+    (".tran 1n 40n\n.save v(b)", ("b",)),
+    (".tran 1n 40n\n.probe v(b)", ("b",)),
+    (".tran 1n 40n\n.data d1 r1 1k 2k\n.enddata", None),
 ])
-def test_unported_directives_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        T.simulate(_rc(extra), device="cpu")
+def test_save_probe_data_directives_match_jax(extra, stored):
+    """``.save``/``.probe`` project the transient onto their nets, as the
+    JAX package's ``simulate`` does (the same stored columns and steps,
+    the values within 1e-9 V); a ``.data`` table leaves the run whole and
+    is recorded as the JAX package records it."""
+    rj, rt = _both(_rc(extra))
+    sj, st = rj["tran"], rt["tran"]
+    assert tran_options(rt["circuit"]).store_vars == stored
+    assert st.store_map == sj.store_map
+    assert (st.n_accepted, st.n_rejected) == (sj.n_accepted, sj.n_rejected)
+    np.testing.assert_allclose(st.xs, np.asarray(sj.xs), rtol=0, atol=1e-9)
+    assert [d for d in rt["circuit"].directives if d[0] == "data"] == \
+        [d for d in rj["circuit"].directives if d[0] == "data"]
 
 
 @pytest.mark.parametrize("extra, keys", [
@@ -118,10 +128,27 @@ def test_ported_directives_run(extra, keys):
 
 
 @pytest.mark.parametrize("text, kw", [
-    ("simulator lang=spectre\nv1 (a 0) vsource dc=1\n", {}),
-    ("* rc\nV1 a 0 1\nR1 a 0 1k\n", {"dialect": "spectre"}),
-    ("* rc\nV1 a 0 1\nR1 a 0 1k\n", {"file": "rc.scs"}),
+    ("simulator lang=spectre\nv1 (a b) vsource dc=1\nr1 (b 0) resistor "
+     "r=1k\n", {}),
+    ("// rc\nv1 (a b) vsource dc=1\nr1 (b 0) resistor r=1k\n",
+     {"dialect": "spectre"}),
+    ("// rc\nv1 (a b) vsource dc=1\nr1 (b 0) resistor r=1k\n",
+     {"file": "rc.scs"}),
 ])
-def test_spectre_raises(text, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        T.simulate(text, device="cpu", **kw)
+def test_spectre_runs(text, kw):
+    """Each way of asking for Spectre (``simulator lang=``, ``dialect=``,
+    a ``.scs`` file name) parses the Spectre grammar, as the JAX package's
+    ``simulate`` does: the same operating point (a = 1 V above b = 0)."""
+    rj, rt = _both_kw(text, **kw)
+    assert rt["compiled"].node_names == rj["compiled"].node_names
+    np.testing.assert_allclose(rt["op"].x.numpy(), np.asarray(rj["op"].x),
+                               rtol=0, atol=1e-12)
+    c = rt["compiled"]
+    assert float(rt["op"].x[c.node_names.index("a")]) == pytest.approx(1.0)
+
+
+def _both_kw(text, **kw):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return (J.simulate(text, **kw),
+                T.simulate(text, device="cpu", **kw))

@@ -22,9 +22,9 @@ own model files, never the JAX package's.
   ``native/symbolic.cpp`` is byte for byte the JAX package's.
 - No module of the port, and not ``chip_smoke.py``, imports ``jax`` or
   ``cedarsim_tpu`` (an AST scan of every import).
-- ``simulate`` runs ``.ac``, ``.noise``, ``.four`` and ``.meas`` and
-  still raises, naming ROADMAP A19, on ``.save``, ``.probe`` and
-  ``.data``.
+- ``simulate`` runs ``.ac``, ``.noise``, ``.four`` and ``.meas``;
+  ``.save`` and ``.probe`` keep only their nets' columns (the same bits)
+  and ``.data`` records its table for ``data_sweep``.
 """
 
 import os
@@ -263,7 +263,8 @@ COPIES = ("core/circuit.py", "frontend/parser.py", "frontend/expr.py",
           "frontend/numbers.py", "frontend/touchstone.py",
           "analysis/measure.py", "va/ast.py", "va/diagnostics.py",
           "va/lexer.py", "va/parser.py", "va/preproc.py", "ops/sparse.py",
-          "frontend/spectre.py")
+          "frontend/spectre.py", "frontend/alter.py", "tools/convert.py",
+          "utils/export.py", "utils/inspect.py")
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -291,9 +292,22 @@ def test_simulate_runs_the_ac_noise_and_measure_directives():
                      ".meas ac g find vm(b) at=1k\n", device="cpu")
     assert {"ac", "noise", "tran", "fourier", "measures"} <= set(out)
     assert out["measures"]["g"] == pytest.approx(1.0, rel=1e-3)
+    full = T.simulate(base + ".tran 10n 3u\n", device="cpu")["tran"]
     for card in (".save v(b)", ".probe v(b)", ".data d1 r1 1k 2k\n.enddata"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-            T.simulate(base + ".tran 10n 3u\n" + card + "\n", device="cpu")
+        out = T.simulate(base + ".tran 10n 3u\n" + card + "\n", device="cpu")
+        sol = out["tran"]
+        if card.startswith(".data"):
+            # a table is recorded for data_sweep; the run keeps every column
+            assert list(T.data_sweep(out["circuit"])) == [
+                {"r1": 1000.0}, {"r1": 2000.0}]
+            assert sol.store_map is None and sol.xs.shape == full.xs.shape
+            continue
+        # .save/.probe keep only b, the same bits as the whole state's column
+        assert sol.store_map == {"b": 0} and sol.xs.shape[1] == 1
+        i = full.compiled.node_names.index("b")
+        assert np.array_equal(sol.xs[:, 0], full.xs[:, i])
+        with pytest.raises(KeyError, match="not stored"):
+            sol["a"]
 
 
 #: the AD and RF analyses (ROADMAP A16, A17): scanned by
@@ -308,6 +322,25 @@ def test_the_ad_and_rf_modules_are_scanned_and_exported():
     for name in ("pss", "hb", "hb_autonomous", "pac", "pnoise",
                  "oscillator_phase_noise"):
         assert name in T.__all__ and callable(getattr(T, name))
+
+
+#: the front end's breadth, the tools and the utilities (ROADMAP A19)
+A19_MODULES = ("frontend/alter.py", "tools/__init__.py", "tools/convert.py",
+               "utils/artifacts.py", "utils/explore.py", "utils/export.py",
+               "utils/inspect.py", "utils/profiling.py", "va/reload.py")
+
+
+def test_the_a19_modules_are_scanned_and_exported():
+    """Every A19 module is one that ``test_the_port_imports_no_jax``
+    scans; ``data_sweep`` and ``ensure_dynamic`` are exported; and no
+    ``NotImplementedError`` of the port names A19 any more."""
+    srcs = _port_sources()
+    assert all(os.path.join(PKG, rel) in srcs for rel in A19_MODULES)
+    for name in ("data_sweep", "ensure_dynamic"):
+        assert name in T.__all__ and callable(getattr(T, name))
+    for path in srcs:
+        with open(path) as f:
+            assert "A19" not in f.read() or path.endswith("chip_smoke.py")
 
 
 def test_the_ad_and_rf_entry_points_run_where_the_circuit_lives():

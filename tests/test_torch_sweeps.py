@@ -9,8 +9,9 @@ elaborator) against the JAX package on the CPU in float64.
   inverter, of a Verilog-A diode and of the netlist with every built-in
   card (the diode, BJT, JFET and MESFET read the temperature).  Every operating point within 1e-9 V
   of the JAX package's, as ``tests/test_torch_dc.py`` holds them.
-- The combinators, ``split_axes`` and ``find_param_ranges`` give what the
-  JAX package's give.
+- The combinators, ``split_axes``, ``find_param_ranges`` and
+  ``data_sweep`` (over a ``.data`` table) give what the JAX package's
+  give.
 - Monte-Carlo: ``mc_solve`` on the JAX package's own draws (its
   ``scatter_params``, carried across as numpy) lane by lane within 1e-9 V;
   the port's own draws (a ``torch.Generator``) meet the JAX test's mean
@@ -129,8 +130,14 @@ def test_combinators_match_jax():
     assert (o.name, i.name) == ("a", "b")
     with pytest.raises(ValueError, match="ProductSweep"):
         tsw.split_axes(tand, ["a"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        tsw.data_sweep(tload(DIVIDER))
+    data = DIVIDER + ".data tbl r1 r2\n1k 1k 1k 3k 3k 1k\n.enddata\n"
+    tpts, jpts = (list(m.data_sweep(load(data), "tbl"))
+                  for m, load in ((tsw, tload), (jsw, jload)))
+    assert tpts == jpts == [{"r1": 1000.0, "r2": 1000.0},
+                            {"r1": 1000.0, "r2": 3000.0},
+                            {"r1": 3000.0, "r2": 1000.0}]
+    with pytest.raises(KeyError, match="nope"):
+        tsw.data_sweep(tload(data), "nope")
 
 
 @pytest.mark.parametrize("case", ["divider", "product", "temp_tc1"])
