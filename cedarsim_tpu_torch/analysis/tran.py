@@ -58,7 +58,7 @@ from cedarsim_tpu_torch.core.compile import (CompiledCircuit, default_ctx,
 from cedarsim_tpu_torch.core.context import SimSpec, Modes
 from cedarsim_tpu_torch.core.sparse_ops import get_sparse_ops
 from cedarsim_tpu_torch.ops import gesp_lu, linalg
-from cedarsim_tpu_torch.ops.ad import any_tangent
+from cedarsim_tpu_torch.ops.ad import ad_state
 from cedarsim_tpu_torch.ops.rounding import fma_f64
 from cedarsim_tpu_torch.ops.fused_chord import (FusedEnvelopeError,
                                                 get_fused_plan, split_lanes)
@@ -167,20 +167,25 @@ def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
     any device: "jax" and "xla" ("mixed" is ignored, as the JAX package's
     sparse ``lin_solve`` ignores it), and an explicit "fused" raises, as
     the JAX package's does.
-    ``ad``: an input carries a forward tangent or requires grad.  Then
+    ``ad``: an input carries AD state (``ops/ad.py::ad_state``:
+    "forward" for forward tangents, "grad" when one requires grad).  Then
     "auto" is the exact float64 solve in the chord loop ("jax", "xla"),
     the path the JAX package's sensitivities and monodromy differentiate
     (its unbatched exact solve), and an explicit "mixed" or "fused"
     raises: those kernels have no derivative rule.  A sparse circuit
-    raises too: S1/S2 have none yet (ROADMAP A16b)."""
+    takes forward tangents through S1/S2 (``core/sparse_ops.py::
+    SparseSolve``) and raises under "grad": the sparse solve has no
+    reverse-mode rule, as the transient has none in either package."""
     dl, ni = opts.dense_lu, opts.newton_impl
     if ad:
-        if use_sparse_solver(compiled):
+        if use_sparse_solver(compiled) and ad == "grad":
             raise NotImplementedError(
-                "differentiating the transient of a sparse circuit needs a "
-                "derivative rule around the sparse LU kernels S1/S2 (ROADMAP "
-                "A16b); compile the circuit with sparse=False to "
-                "differentiate it through the dense exact solve")
+                "reverse-mode AD (requires_grad) through the transient of a "
+                "sparse circuit: the sparse LU (S1/S2) has a forward-mode "
+                "rule only, as the transient is differentiated in forward "
+                "mode (torch.autograd.forward_ad; the JAX package's jax.jvp "
+                "through its while_loop); use forward_ad, or compile with "
+                "sparse=False")
         if ni == "fused" or dl == "mixed":
             raise ValueError(
                 f"newton_impl={ni!r} / dense_lu={dl!r} under automatic "
@@ -488,7 +493,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
     x0 = torch.as_tensor(x0, dtype=dt, device=dev)
     xdot0 = torch.as_tensor(xdot0, dtype=dt, device=dev)
     opts = resolve_impl(compiled, opts, ctx, params, batched=x0.dim() == 2,
-                        ad=any_tangent(x0, xdot0, params))
+                        ad=ad_state(x0, xdot0, params))
     if x0.dim() == 1:
         x0, xdot0 = x0[None], xdot0[None]
     L, n = x0.shape
@@ -1341,7 +1346,7 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
                 L = torch.as_tensor(v).shape[0]
     batched = L is not None
     opts = resolve_impl(compiled, opts, ctx, params, batched=batched,
-                        ad=any_tangent(params, x0))
+                        ad=ad_state(params, x0))
     Lr = L if batched else 1
     converged0 = torch.ones(Lr, dtype=torch.bool, device=dev)
     if x0 is None:

@@ -314,11 +314,12 @@ def gate_golden(sols, gold, n_x, tstop=float("inf")):
     return worst
 
 
-def lv1_lanes(torch, T, dev, lanes=LV1_LANES):
+def lv1_lanes(torch, T, dev, lanes=LV1_LANES, op=True):
     """The level-1 DFF testbench (``dff_tb.cir``, ``models_lv1.spice``)
     compiled on ``dev`` with ``vto`` dynamic, its lanes' vto scaled by
-    ``linspace(0.99, 1.01)``, and each lane's transient operating point.
-    Returns (compiled, ctx, per-lane params, per-lane initial states)."""
+    ``linspace(0.99, 1.01)``, and each lane's transient operating point
+    (solved from zeros; None without ``op``).  Returns (compiled, ctx,
+    per-lane params, per-lane initial states)."""
     dff_dir = os.path.join(_repo(T), "benchmarks", "gf180_dff")
     with open(os.path.join(dff_dir, "dff_tb.cir")) as f:
         nl = T.parse_spice(f.read(), file="dff_tb.cir")
@@ -330,6 +331,8 @@ def lv1_lanes(torch, T, dev, lanes=LV1_LANES):
               for pn, v in grp.items()} for k, grp in comp.params0.items()}
     pb["Mos1"] = dict(pb["Mos1"])
     pb["Mos1"]["vto"] = comp.params0["Mos1"]["vto"][None, :] * sc[:, None]
+    if not op:
+        return comp, ctx, pb, None
     op = T.solve_dc(comp, pb, ctx, mode="tranop",
                     x0=torch.zeros(lanes, comp.n_x, dtype=comp.dtype,
                                    device=dev))

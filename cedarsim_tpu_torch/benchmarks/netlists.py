@@ -16,6 +16,11 @@ the times at which their waveforms are compared.
   reference's ``inverter_noise.jl`` topology on ``models_bsim4.spice``),
   ``.noise v(q) vd`` on the ngspice table's grid, ``dec 5`` over 1 kHz-1
   PHz.
+- :func:`diode_ladder`: RC ladders with diode clamps, 259 unknowns at
+  its default size (a sparse circuit), the sensitivities' sparse case.
+- :func:`a21_circuit` / :func:`a21_lanes`: the emitter's integer, bitwise
+  and point-list constructs (``VA_A21``, :class:`PwlConductance`) in one
+  circuit, four lanes of ``code``.
 - ``CMG_INVERTER_NOISE``: the reference's BSIM-CMG inverter noise circuit
   on the ASAP7 TT Spectre deck ``7nm_TT.scs``: pass the deck's directory
   in ``include_paths``.
@@ -211,6 +216,35 @@ def chain(n_cells: int, models="lv1", sparse="auto", device=None, **kw):
     return compile_circuit(ckt, sparse=sparse, device=device, **kw)
 
 
+def diode_ladder(n_branches=16, n_sections=16, tstop=20e-9):
+    """A 2 V pulse through ``R0`` into node ``a``, which feeds
+    ``n_branches`` RC ladders of ``n_sections`` sections each (1 pF a
+    node; branch b's resistors 100·(1 + b/n_branches) Ω), with a diode to
+    ground at every 4th node of every branch.  That is ``n_branches ·
+    n_sections + 3`` unknowns, 259 at the default size, so the compiler
+    takes the sparse Newton path by itself (``SPARSE_AUTO_THRESHOLD``);
+    the branches keep the sparse LU's elimination levels at about one
+    branch's length.  The sensitivities' sparse circuit: a cheap
+    nonlinearity on a ladder.  Node ``b<b>_<k>`` is branch b's k-th."""
+    lines = [f"* {n_branches} RC ladders of {n_sections} sections with "
+             "diode clamps",
+             ".model dclamp d is=1e-14 n=1.0",
+             "V1 in 0 PULSE(0 2 1n 1n 1n 40n 100n)",
+             "R0 in a 100"]
+    for b in range(n_branches):
+        r = 100.0 * (1 + b / n_branches)
+        prev = "a"
+        for k in range(1, n_sections + 1):
+            node = f"b{b}_{k}"
+            lines.append(f"R{b}_{k} {prev} {node} {r:g}")
+            lines.append(f"C{b}_{k} {node} 0 1p")
+            if k % 4 == 0:
+                lines.append(f"D{b}_{k} {node} 0 dclamp")
+            prev = node
+    lines += [f".tran 0.1n {tstop}", ".end"]
+    return "\n".join(lines) + "\n"
+
+
 VBIC_AMP = """* bipolar common-emitter amplifier, Q1 on VBIC with self-heating
 .model qv npn level=4 is=7.59e-15 ibei=1.581e-17 nei=1 iben=3.278e-15
 + nen=1.2665 ibci=1.518e-15 ibcn=2e-13 ncn=1.2 ikf=0.0962 ikr=0.03
@@ -296,3 +330,103 @@ module vaiir(inp, out);
   analog V(out) <+ zi_nd(V(inp), {1.0 - c}, {1.0, -c}, 1e-06);
 endmodule
 """
+
+#: the emitter's integer and bitwise constructs in one Verilog-A diode:
+#: its saturation current scaled by integer arithmetic on the dynamic
+#: param ``code`` (an ``integer`` assigned ``code / 2``, ``& | ^ ~ << >>``
+#: and ``%``) and a piecewise-constant term ``(V·8) & 15`` of the walk's
+#: own value
+VA_A21 = """
+module a21(a, c);
+  inout a, c;
+  electrical a, c;
+  parameter real is_ = 1e-14;
+  parameter real code = 5;
+  integer m, k, q;
+  real vd, scale;
+  analog begin
+    vd = V(a, c);
+    m = code / 2;
+    k = ((m & 3) | (code ^ 6)) << 1;
+    q = (k >> 1) % 5;
+    scale = 1.0 + 0.05 * (~k & 7) + 0.01 * q + 0.001 * (m % 3);
+    I(a, c) <+ is_ * scale * (limexp(vd / $vt) - 1.0)
+               + 1e-12 * ((vd * 8) & 15);
+    I(a, c) <+ ddt(1e-13 * vd);
+  end
+endmodule
+"""
+
+#: the point list of :class:`PwlConductance`
+PWL_XS = (-1.0, 0.0, 0.3, 0.6, 1.0, 2.0)
+PWL_YS = (-1e-4, 0.0, 2e-5, 1e-4, 4e-4, 1.5e-3)
+#: the ``code`` of each lane of :func:`a21_lanes`
+A21_CODES = (3.0, 5.0, 6.0, 9.0)
+
+
+_PWL = []
+
+
+def _pwl_class():
+    """:class:`PwlConductance`, made once (the module imports no torch)."""
+    if _PWL:
+        return _PWL[0]
+    from cedarsim_tpu_torch.core.dual import val
+    from cedarsim_tpu_torch.devices.base import DeviceModel
+    import torch
+
+    class PwlConductance(DeviceModel):
+        """I(p, n) = the piecewise-linear table (``xs``, ``ys``, point-list
+        params) at V(p, n), its ends extended along their end segments,
+        read through ``searchsorted`` and indexing."""
+        terminals = ("p", "n")
+        params = {"xs": PWL_XS, "ys": PWL_YS}
+
+        @staticmethod
+        def eval(lv, p, ctx, eps):
+            v = lv[0] - lv[1]
+            xs, ys = p["xs"], p["ys"]
+            n = xs.shape[-1]
+            i = torch.searchsorted(xs, val(v).contiguous(), right=True) \
+                .clamp(1, n - 1)
+            x0, x1, y0, y1 = xs[i - 1], xs[i], ys[i - 1], ys[i]
+            cur = y0 + (v - x0) * ((y1 - y0) / (x1 - x0))
+            return [cur, -cur], [0.0, 0.0]
+    _PWL.append(PwlConductance)
+    return PwlConductance
+
+
+def a21_circuit(with_pwl=True):
+    """A pulse through 1 kΩ into node ``a`` (1 pF), with the ``a21``
+    diode (``VA_A21``, instance X1) and a :class:`PwlConductance` (P1,
+    unless ``with_pwl`` is False) to ground: the emitter's integer,
+    bitwise and point-list constructs in one circuit (a ``Circuit``)."""
+    from cedarsim_tpu_torch import Circuit, Capacitor, Resistor, VSourcePULSE
+    from cedarsim_tpu_torch.va.codegen import load_va
+    ckt = Circuit()
+    vin, a = ckt.net("in"), ckt.net("a")
+    ckt.add(VSourcePULSE, "V1", (vin, ckt.gnd),
+            dict(v1=0.0, v2=1.2, td=1e-9, tr=1e-9, tf=1e-9, pw=5e-9,
+                 per=20e-9))
+    ckt.add(Resistor, "R1", (vin, a), dict(r=1000.0))
+    ckt.add(Capacitor, "C1", (a, ckt.gnd), dict(c=1e-12))
+    ckt.add(load_va(VA_A21)["a21"], "X1", (a, ckt.gnd),
+            dict(is_=1e-14, code=5.0))
+    if with_pwl:
+        ckt.add(_pwl_class(), "P1", (a, ckt.gnd), {})
+    return ckt
+
+
+def a21_lanes(device=None, with_pwl=True):
+    """:func:`a21_circuit` compiled on ``device`` with ``code`` dynamic,
+    and its lanes, one a code of ``A21_CODES``: (compiled, ctx, per-lane
+    params)."""
+    import torch
+    from cedarsim_tpu_torch import SimSpec, compile_circuit
+    comp = compile_circuit(a21_circuit(with_pwl), device=device,
+                           dynamic_params=["code"])
+    key = next(k for k in comp.group_order if "a21" in k)
+    pb = {k: dict(g) for k, g in comp.params0.items()}
+    pb[key]["code"] = torch.as_tensor(A21_CODES, dtype=comp.dtype,
+                                      device=comp.device)[:, None]
+    return comp, SimSpec.make(), pb

@@ -13,15 +13,23 @@ one system without it); every lane shares the plan.
 The plan does not depend on the device: the probe weights that guide its
 pivot matching are computed on the CPU, by a CPU compile of the same
 circuit, wherever the circuit itself was compiled.
+
+Forward-mode AD (the sensitivities and the shooting monodromy, as the JAX
+package's ``jax.jvp`` through its XLA sparse LU) goes through
+:class:`SparseSolve`: the factorization is of the primal values, and a
+tangent (dA, db) is solved with the same factors and refinement as
+dx = A⁻¹(db − dA·x), so on a card the tangent solve launches S2 again.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from cedarsim_tpu_torch.core.context import SimSpec
 from cedarsim_tpu_torch.ops import sparse_lu
+from cedarsim_tpu_torch.ops.ad import any_tangent
 
 #: the boost threshold of the equilibrated factor: √ε of float64
 TAU = float(np.sqrt(np.finfo(np.float64).eps))
@@ -182,14 +190,23 @@ class SparseOps:
         klu_factor/klu_solve).  The GESP static-pivoted recipe: the
         equilibration (:meth:`equilibrate`; MNA entries span ~20 decades),
         then the factor with pivots below τ = √ε(float64) boosted
-        (``ops/sparse_lu.py::factor``; ‖A′‖∞ = 1 by the scaling)."""
-        vs, dr, dc = self.equilibrate(vals)
+        (``ops/sparse_lu.py::factor``; ‖A′‖∞ = 1 by the scaling).  Under
+        AD the factors are of the primal values (see :class:`SparseSolve`)."""
+        vs, dr, dc = self.equilibrate(_primal(vals))
         return sparse_lu.factor(self.plan, vs, boost=TAU), dr, dc
 
     def solve_factorized(self, fct, vals, rhs, refine: int = 1):
         """Solve A x = rhs with a factorization from ``factorize(vals)``;
         ``refine`` iterative-refinement passes against the unfactored
-        values recover the digits the boosted static pivots perturbed."""
+        values recover the digits the boosted static pivots perturbed.
+        When ``vals`` or ``rhs`` carries AD state the solve is
+        :class:`SparseSolve`'s, with the same primal result."""
+        if any_tangent(vals, rhs):
+            f, dr, dc = fct
+            return SparseSolve.apply(vals, rhs, f, dr, dc, self, refine)
+        return self._solve_primal(fct, vals, rhs, refine)
+
+    def _solve_primal(self, fct, vals, rhs, refine):
         f, dr, dc = fct
 
         def solve_scaled(b):
@@ -224,6 +241,53 @@ class SparseOps:
         out[..., self._a_diag] = out[..., self._a_diag] \
             + d[..., self._a_diag_ok]
         return out
+
+
+def _primal(v):
+    """``v`` without its forward tangent and detached: what the kernels
+    factor."""
+    if fwAD._current_level >= 0:
+        v = fwAD.unpack_dual(v).primal
+    return v.detach()
+
+
+class SparseSolve(torch.autograd.Function):
+    """x = A⁻¹·rhs through the sparse LU (``SparseOps.solve_factorized``)
+    with a forward-mode rule: the forward is the primal solve (S1's
+    factors ``f``, ``dr``, ``dc`` of the primal ``vals``, S2 and the
+    refinement passes, the same operations as without AD), and
+    :meth:`jvp` solves the tangent dx = A⁻¹(d_rhs − dA·x) with the same
+    factors and refinement.  Reverse mode is not provided: neither
+    package's transient takes it (the JAX package's ``tran_core`` is a
+    ``while_loop``), and the DC sensitivities solve their adjoint densely
+    in both (``analysis/sensitivity.py``)."""
+
+    @staticmethod
+    def forward(vals, rhs, f, dr, dc, ops, refine):
+        return ops._solve_primal((f, dr, dc), vals, rhs, refine)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        vals, rhs, f, dr, dc, ops, refine = inputs
+        ctx.save_for_forward(vals, f, dr, dc, output)
+        ctx.ops, ctx.refine = ops, refine
+
+    @staticmethod
+    def jvp(ctx, dvals, drhs, df, ddr, ddc, dops, drefine):
+        vals, f, dr, dc, x = ctx.saved_tensors
+        b = torch.zeros_like(x) if drhs is None else drhs
+        if dvals is not None:
+            b = b - ctx.ops.matvec(dvals, x)
+        return ctx.ops._solve_primal((f, dr, dc), vals, b, ctx.refine)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "reverse-mode AD through the sparse LU (S1/S2) is not provided: "
+            "the transient is differentiated in forward mode "
+            "(torch.autograd.forward_ad), as the JAX package's jax.jvp "
+            "through its while_loop, and DC sensitivities solve their "
+            "adjoint densely (analysis/sensitivity.py)")
 
 
 def get_sparse_ops(compiled) -> SparseOps:

@@ -55,6 +55,22 @@ def any_tangent(*objs) -> bool:
     return any(walk(o) for o in objs)
 
 
+def ad_state(*objs):
+    """False when no tensor nested in ``objs`` carries AD state (see
+    :func:`any_tangent`), "grad" when one requires grad (reverse mode),
+    else "forward" (forward tangents or a ``torch.func`` transform)."""
+    if not any_tangent(*objs):
+        return False
+
+    def grad(o):
+        if isinstance(o, dict):
+            return any(grad(v) for v in o.values())
+        if isinstance(o, (list, tuple)):
+            return any(grad(v) for v in o)
+        return isinstance(o, torch.Tensor) and o.requires_grad
+    return "grad" if any(grad(o) for o in objs) else "forward"
+
+
 def refuse_tangent(what: str, *tensors):
     """Raise when any of ``tensors`` carries AD state: ``what`` has no
     derivative rule and would drop the tangent.  With no dual level open

@@ -40,6 +40,18 @@ The recording is hash-consed (equal operations on equal operands are one
 node), pruned to what the outputs need and numbered in depth-first order
 from the outputs, so the text, and its hash, do not depend on the order the
 walk visited the model's variables in.
+
+Integer and bitwise Verilog-A arithmetic take the JAX interpreter's meaning
+(``cedarsim_tpu/va/codegen.py:1532-1546``): a cast to ``int32`` (``int``
+in C, saturating, NaN to 0, as XLA converts), ``& | ^ ~ << >>`` on the
+``int32`` values (a shift by 32 or more, or by a negative count, gives 0,
+or the sign for ``>>``, as XLA's shifts), and the result back to the
+model's float type; ``%`` is ``fmod``.  A constant tensor whose entries
+differ (a point-list param, such as a piecewise-linear table) becomes a
+``static const double`` table in the walk, named by the hash of its
+values; the walk reads it through ``searchsorted`` and indexing.  Headers
+that use none of these are the bytes they were before they were taken
+(their helper block is emitted only where one is used).
 """
 
 from __future__ import annotations
@@ -52,8 +64,6 @@ import torch
 
 from cedarsim_tpu_torch.core.dual import Dual
 
-_A21 = ("ROADMAP A21 (constructs the emitted walk does not take yet: "
-        "integer and bitwise arithmetic, point-list params)")
 
 #: C preamble of every emitted header: ``__host__ __device__`` compile away
 #: off nvcc (the host build of the tests), and NaN-propagating min/max
@@ -76,6 +86,30 @@ __host__ __device__ static inline double cs_sign(double a) {
 #endif
 """
 
+#: C helpers of the integer, bitwise and table nodes, emitted (once a
+#: translation unit) only in a header that uses one
+INT_HELPERS = """\
+#ifndef CS_EMIT_INT_HELPERS
+#define CS_EMIT_INT_HELPERS
+__host__ __device__ static inline int cs_i32(double a) {
+  return a != a ? 0 : a >= 2147483647.0 ? 2147483647
+       : a <= -2147483648.0 ? (-2147483647 - 1) : (int)a; }
+__host__ __device__ static inline int cs_shl(int a, int b) {
+  return (b < 0 || b >= 32) ? 0 : (int)((unsigned)a << b); }
+__host__ __device__ static inline int cs_shr(int a, int b) {
+  return (b < 0 || b >= 32) ? (a < 0 ? -1 : 0) : (a >> b); }
+__host__ __device__ static inline int cs_imax(int a, int b) {
+  return a > b ? a : b; }
+__host__ __device__ static inline int cs_imin(int a, int b) {
+  return a < b ? a : b; }
+__host__ __device__ static inline int cs_search(const double* t, int n,
+                                                double x, bool right) {
+  int i = 0;
+  while (i < n && (right ? t[i] <= x : t[i] < x)) ++i;
+  return i; }
+#endif
+"""
+
 _BIN = {"add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
         "div": "({0} / {1})", "lt": "({0} < {1})", "le": "({0} <= {1})",
         "gt": "({0} > {1})", "ge": "({0} >= {1})", "eq": "({0} == {1})",
@@ -83,6 +117,12 @@ _BIN = {"add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
         "max": "cs_max({0}, {1})", "min": "cs_min({0}, {1})",
         "atan2": "atan2({0}, {1})", "hypot": "hypot({0}, {1})",
         "fmod": "fmod({0}, {1})", "pow": "pow({0}, {1})"}
+#: integer nodes (kind "i"): operands are ``int``
+_IBIN = {"add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
+         "iand": "({0} & {1})", "ior": "({0} | {1})", "ixor": "({0} ^ {1})",
+         "ishl": "cs_shl({0}, {1})", "ishr": "cs_shr({0}, {1})",
+         "max": "cs_imax({0}, {1})", "min": "cs_imin({0}, {1})"}
+_IUN = {"neg": "(-{0})", "inot": "(~{0})", "toint": "cs_i32({0})"}
 _UN = {"neg": "(-{0})", "not": "(!{0})", "exp": "exp({0})",
        "log": "log({0})", "sqrt": "sqrt({0})", "abs": "fabs({0})",
        "sign": "cs_sign({0})", "floor": "floor({0})", "ceil": "ceil({0})",
@@ -91,7 +131,9 @@ _UN = {"neg": "(-{0})", "not": "(!{0})", "exp": "exp({0})",
        "atan": "atan({0})", "sinh": "sinh({0})", "cosh": "cosh({0})",
        "tanh": "tanh({0})", "asinh": "asinh({0})", "acosh": "acosh({0})",
        "atanh": "atanh({0})", "tobool": "({0} != 0.0)",
-       "todouble": "({0} ? 1.0 : 0.0)"}
+       "todouble": "({0} ? 1.0 : 0.0)", "itodouble": "((double){0})",
+       "itobool": "({0} != 0)", "trunc": "trunc({0})",
+       "round": "rint({0})"}
 _BOOL_OPS = frozenset(("lt", "le", "gt", "ge", "eq", "ne", "and", "or",
                        "not", "tobool"))
 #: torch names → recorded op (reflected forms swap their operands)
@@ -108,7 +150,11 @@ _TORCH_BIN = {"add": "add", "__add__": "add", "__radd__": "radd",
               "logical_or": "or", "__ror__": "ror", "maximum": "max",
               "minimum": "min", "atan2": "atan2", "hypot": "hypot",
               "fmod": "fmod", "pow": "pow", "__pow__": "pow",
-              "__rpow__": "rpow"}
+              "__rpow__": "rpow", "__xor__": "xor", "bitwise_xor": "xor",
+              "__rxor__": "rxor", "__lshift__": "shl",
+              "bitwise_left_shift": "shl", "__rlshift__": "rshl",
+              "__rshift__": "shr", "bitwise_right_shift": "shr",
+              "__rrshift__": "rshr"}
 _TORCH_UN = {"neg": "neg", "__neg__": "neg", "negative": "neg",
              "exp": "exp", "log": "log", "sqrt": "sqrt", "abs": "abs",
              "__abs__": "abs", "sign": "sign", "floor": "floor",
@@ -117,7 +163,7 @@ _TORCH_UN = {"neg": "neg", "__neg__": "neg", "negative": "neg",
              "sinh": "sinh", "cosh": "cosh", "tanh": "tanh",
              "asinh": "asinh", "acosh": "acosh", "atanh": "atanh",
              "__invert__": "not", "bitwise_not": "not",
-             "logical_not": "not"}
+             "logical_not": "not", "trunc": "trunc", "round": "round"}
 _IDENTITY = frozenset(("as_tensor", "expand", "expand_as", "clone",
                        "contiguous", "reshape", "view", "detach",
                        "squeeze", "unsqueeze"))
@@ -131,8 +177,9 @@ _POW_SPECIAL = {2.0: "({0} * {0})", 3.0: "({0} * {0} * {0})",
 
 class _Recorder:
     def __init__(self):
-        self.nodes = []          # (op, args, kind): kind "d" or "b"
+        self.nodes = []          # (op, args, kind): kind "d", "b" or "i"
         self.cse = {}
+        self.tables = {}         # name → float values
 
     def node(self, op, args, kind):
         key = (op, tuple(_akey(a) for a in args))
@@ -145,6 +192,15 @@ class _Recorder:
         self.cse[key] = sym
         return sym
 
+    def table(self, t):
+        """The name of constant tensor ``t``'s table (by the hash of its
+        float64 values, so it does not depend on the walk's order)."""
+        vals = [float(v) for v in t.detach().double().reshape(-1).tolist()]
+        tag = hashlib.sha256(repr(vals).encode()).hexdigest()[:12]
+        name = f"cs_tab_{tag}"
+        self.tables[name] = vals
+        return name
+
 
 def _akey(a):
     if isinstance(a, _Sym):
@@ -154,6 +210,9 @@ def _akey(a):
     return ("c", float(a).hex())
 
 
+_DTYPES = {"b": torch.bool, "i": torch.int32, "d": torch.float64}
+
+
 class _Sym(torch.Tensor):
     """A placeholder [1] tensor standing for one node of the recording.
     Every torch function or operator applied to it records a node and
@@ -161,8 +220,8 @@ class _Sym(torch.Tensor):
 
     @staticmethod
     def _new(rec, nid, kind):
-        dt = torch.bool if kind == "b" else torch.float64
-        s = torch.Tensor._make_subclass(_Sym, torch.zeros(1, dtype=dt))
+        s = torch.Tensor._make_subclass(_Sym, torch.zeros(
+            1, dtype=_DTYPES[kind]))
         s._rec, s._nid, s._kind = rec, nid, kind
         return s
 
@@ -181,21 +240,23 @@ class _Sym(torch.Tensor):
                     if isinstance(a, _Sym)), None)
         if rec is None:
             raise NotImplementedError(f"emit: torch.{name} on nested "
-                                      f"operands ({_A21})")
+                                      "operands")
         return _record(rec, name, args, kwargs)
 
 
 def _lit(a):
-    """An operand as a node or a Python literal (a constant real tensor,
-    as the walk's ``torch.full`` makes, becomes its value)."""
+    """An operand as a node or a Python literal (a constant real tensor
+    whose entries are equal, as the walk's ``torch.full`` makes, becomes
+    its value)."""
     if isinstance(a, _Sym):
         return a
     if isinstance(a, torch.Tensor):
         flat = a.detach().reshape(-1)
         if flat.numel() == 0 or not bool((flat == flat[0]).all()):
             raise NotImplementedError(
-                "emit: a non-uniform constant tensor reached the model walk "
-                f"(point-list params are {_A21})")
+                "emit: a constant tensor with distinct entries meets a "
+                "walk value elementwise (a vector-valued walk); a point "
+                "list is read through searchsorted and indexing")
         v = flat[0].item()
         return bool(v) if a.dtype == torch.bool else float(v)
     if isinstance(a, bool):
@@ -206,9 +267,33 @@ def _lit(a):
 
 
 def _kind(a):
+    """"b", "i" or "d": a node's kind, or a literal's (a Python int, or
+    an integer tensor, is "i")."""
     if isinstance(a, _Sym):
         return a._kind
-    return "b" if isinstance(a, bool) else "d"
+    if isinstance(a, bool):
+        return "b"
+    if isinstance(a, int) or (isinstance(a, torch.Tensor)
+                              and not a.is_floating_point()
+                              and a.dtype != torch.bool):
+        return "i"
+    return "d"
+
+
+def _table_read(rec, t, idx):
+    """``t[idx]`` of a constant tensor ``t``: a literal for a literal
+    index, else a table read."""
+    if not isinstance(idx, _Sym):
+        return float(t.detach().reshape(-1)[int(idx)])
+    if idx._kind != "i":
+        raise NotImplementedError("emit: a table indexed by a float")
+    if t.dim() != 1:
+        raise NotImplementedError("emit: a table of more than one axis")
+    n = t.shape[0]
+    # a negative index counts from the end, as torch indexes
+    j = rec.node("where", (rec.node("lt", (idx, 0.0), "b"),
+                           rec.node("add", (idx, float(n)), "i"), idx), "i")
+    return rec.node("tab", (rec.table(t), j), "d")
 
 
 def _record(rec, name, args, kwargs):
@@ -218,29 +303,56 @@ def _record(rec, name, args, kwargs):
         dt = kwargs.get("dtype", args[1] if len(args) > 1 else None)
         x = args[0]
         if dt == torch.float64:
-            return rec.node("todouble", (x,), "d") if x._kind == "b" else x
+            return {"b": lambda: rec.node("todouble", (x,), "d"),
+                    "i": lambda: rec.node("itodouble", (x,), "d"),
+                    "d": lambda: x}[x._kind]()
         if dt == torch.bool:
-            return x if x._kind == "b" else rec.node("tobool", (x,), "b")
-        raise NotImplementedError(
-            f"emit: cast to {dt} (integer VA arithmetic is {_A21})")
+            return {"b": lambda: x,
+                    "i": lambda: rec.node("itobool", (x,), "b"),
+                    "d": lambda: rec.node("tobool", (x,), "b")}[x._kind]()
+        if dt == torch.int32:
+            if x._kind == "i":
+                return x
+            if x._kind == "b":
+                x = rec.node("todouble", (x,), "d")
+            return rec.node("toint", (x,), "i")
+        raise NotImplementedError(f"emit: cast to {dt}")
     if name in ("full_like", "ones_like", "zeros_like"):
         dt = kwargs.get("dtype") or args[0].dtype
         v = {"ones_like": 1.0, "zeros_like": 0.0}.get(name)
         if v is None:
             v = float(_lit(args[1] if len(args) > 1 else kwargs["fill_value"]))
         return bool(v) if dt == torch.bool else v
+    if name == "__getitem__" and not isinstance(args[0], _Sym):
+        return _table_read(rec, args[0], args[1])
+    if name == "searchsorted":
+        t, x = args[0], _lit(args[1])
+        if isinstance(t, _Sym) or t.dim() != 1:
+            raise NotImplementedError("emit: searchsorted needs a constant "
+                                      "one-axis table")
+        side = kwargs.get("side")
+        right = bool(kwargs.get("right", False)) or side == "right"
+        return rec.node("search", (rec.table(t), float(t.shape[0]), x,
+                                   right), "i")
     if name == "where":
         c, a, b = (_lit(x) for x in args)
-        kind = "b" if _kind(a) == _kind(b) == "b" else "d"
+        ka, kb = _kind(args[1]), _kind(args[2])
+        kind = "b" if ka == kb == "b" else "d"
+        if ka == kb == "i" and "i" in (_kind(a), _kind(b)):
+            kind = "i"          # an integer node on one side at least
+        elif "i" in (_kind(a), _kind(b)):
+            a, b = (rec.node("itodouble", (v,), "d")
+                    if _kind(v) == "i" else v for v in (a, b))
         return rec.node("where", (c, a, b), kind)
     if name == "clamp":
         x = _lit(args[0])
+        kind = "i" if _kind(args[0]) == "i" else "d"
         lo = kwargs.get("min", args[1] if len(args) > 1 else None)
         hi = kwargs.get("max", args[2] if len(args) > 2 else None)
         if lo is not None:
-            x = rec.node("max", (x, _lit(lo)), "d")
+            x = rec.node("max", (x, _lit(lo)), kind)
         if hi is not None:
-            x = rec.node("min", (x, _lit(hi)), "d")
+            x = rec.node("min", (x, _lit(hi)), kind)
         return x
     if name == "addcmul":
         if kwargs.get("value", 1) != 1:
@@ -249,24 +361,40 @@ def _record(rec, name, args, kwargs):
         return rec.node("add", (a, rec.node("mul", (b, c), "d")), "d")
     if name in _TORCH_UN and len(args) == 1 and not kwargs:
         op = _TORCH_UN[name]
-        kind = "b" if op == "not" else "d"
-        if op == "not" and _kind(args[0]) != "b":
-            raise NotImplementedError(
-                f"emit: bitwise not of a number ({_A21})")
-        return rec.node(op, (_lit(args[0]),), kind)
+        k = _kind(args[0])
+        if op == "not" and k == "i":
+            return rec.node("inot", (_lit(args[0]),), "i")
+        if op == "not" and k != "b":
+            raise NotImplementedError("emit: bitwise not of a float")
+        if op == "neg" and k == "i":
+            return rec.node("neg", (_lit(args[0]),), "i")
+        return rec.node(op, (_lit(args[0]),), "b" if op == "not" else "d")
     if name in _TORCH_BIN and len(args) == 2 and not kwargs:
         op = _TORCH_BIN[name]
-        a, b = _lit(args[0]), _lit(args[1])
-        if op in ("radd", "rsub", "rmul", "rdiv", "rand", "ror", "rpow"):
-            op, a, b = op[1:], b, a
-        if op in ("and", "or") and not (_kind(a) == _kind(b) == "b"):
+        (a, ka), (b, kb) = ((_lit(x), _kind(x)) for x in args)
+        if op in ("radd", "rsub", "rmul", "rdiv", "rand", "ror", "rpow",
+                  "rxor", "rshl", "rshr"):
+            op, a, b, ka, kb = op[1:], b, a, kb, ka
+        if ka == kb == "i" and op in ("and", "or", "xor", "shl", "shr",
+                                      "add", "sub", "mul", "max", "min"):
+            op = {"and": "iand", "or": "ior", "xor": "ixor",
+                  "shl": "ishl", "shr": "ishr"}.get(op, op)
+            return rec.node(op, (a, b), "i")
+        if op in ("and", "or") and not (ka == kb == "b"):
             raise NotImplementedError(
-                f"emit: bitwise '{op}' of numbers ({_A21})")
+                f"emit: '{op}' of a float and a non-float operand")
+        if op in ("xor", "shl", "shr"):
+            raise NotImplementedError(
+                f"emit: bitwise '{op}' needs two integer operands")
+        if "i" in (ka, kb):
+            # an integer met a float: promoted to double, as torch does
+            a, b = (rec.node("itodouble", (v,), "d")
+                    if isinstance(v, _Sym) and v._kind == "i" else v
+                    for v in (a, b))
         kind = "b" if op in _BOOL_OPS else "d"
         return rec.node(op, (a, b), kind)
     raise NotImplementedError(
-        f"emit: torch.{name} in a model walk has no device-code form yet "
-        f"({_A21})")
+        f"emit: torch.{name} in a model walk has no device-code form")
 
 
 def _c_lit(v):
@@ -310,12 +438,9 @@ def emit_group(compiled, key, ctx):
     rec = _Recorder()
     lv = [Dual(rec.node("in", ("lv", k), "d"), rec.node("in", ("lvd", k), "d"))
           for k in range(nlv)]
+    # a point-list static param stays a constant tensor: the walk reads
+    # it as a table
     p = dict(g.static_params)
-    for pt in p.values():
-        if isinstance(pt, torch.Tensor):
-            raise NotImplementedError(
-                f"emit: group {key!r} has a point-list static param "
-                f"({_A21})")
     for k, pn in enumerate(dyn_names(compiled, key)):
         p[pn] = rec.node("in", ("dyn", k), "d")
     ctx_e = ctx.at_time(rec.node("in", ("t",), "d"))
@@ -331,7 +456,7 @@ def emit_group(compiled, key, ctx):
     for k, r in enumerate(q_rows):
         d = r.d if isinstance(r, Dual) else 0.0
         outs.append((f"qd[{k}]", _lit(d)))
-    pre, walk, n_hoist, n_pre, n_walk = _emit_bodies(rec, outs)
+    pre, walk, n_hoist, n_pre, n_walk, ints = _emit_bodies(rec, outs)
     safe = "".join(ch if ch.isalnum() else "_" for ch in key)
     sig_pre = ("__host__ __device__ static inline void {name}_pre("
                "const double* dyn, double t, double* h)")
@@ -342,7 +467,8 @@ def emit_group(compiled, key, ctx):
              + sig.format(name="MODEL") + " {\n" + walk + "}\n")
     tag = hashlib.sha256(probe.encode()).hexdigest()
     name = f"cs_{safe}_{tag[:12]}"
-    text = (PREAMBLE + f"// {key}: {nlv} local unknowns, {nlr} rows, "
+    text = (PREAMBLE + (INT_HELPERS if ints else "")
+            + f"// {key}: {nlv} local unknowns, {nlr} rows, "
             f"{len(dyn_names(compiled, key))} dynamic params, {n_hoist} "
             "hoisted values\n"
             + sig_pre.format(name=name) + " {\n" + pre + "}\n"
@@ -357,9 +483,10 @@ def _emit_bodies(rec, outs):
     the outputs, the nodes that depend on no ``lv``/``lvd`` input in the
     hoisted part and the rest in the walk.  The hoisted values the walk
     (or an output) reads go through ``h``, numbered in the order the walk
-    first reads them; each is read right before its first use.  Returns
-    (hoisted body, walk body, values in ``h``, arithmetic nodes of each
-    part)."""
+    first reads them; each is read right before its first use.  Each part
+    declares the tables it reads first.  Returns (hoisted body, walk body,
+    values in ``h``, arithmetic nodes of each part, whether an integer or
+    table node is used)."""
     order, seen = [], set()
     for _, v in outs:
         if not isinstance(v, _Sym) or v._nid in seen:
@@ -388,15 +515,31 @@ def _emit_bodies(rec, outs):
                 isinstance(a, _Sym) and a._nid in varying for a in args)):
             varying.add(nid)
 
-    def ref(a):
-        return local[a._nid] if isinstance(a, _Sym) else _c_lit(a)
+    def ref(a, kind="d"):
+        if isinstance(a, _Sym):
+            return local[a._nid]
+        if kind == "i" and not isinstance(a, bool):
+            v = int(a)
+            return f"({v})" if v < 0 else str(v)
+        return _c_lit(a)
 
     def define(nid):
         op, args, kind = rec.nodes[nid]
         if op == "in":
             expr = args[0] if args[0] == "t" else f"{args[0]}[{args[1]}]"
+        elif op == "tab":
+            expr = f"{args[0]}[{ref(args[1])}]"
+        elif op == "search":
+            expr = (f"cs_search({args[0]}, {int(args[1])}, {ref(args[2])}, "
+                    f"{_c_lit(args[3])})")
         elif op == "where":
-            expr = "({0} ? {1} : {2})".format(*map(ref, args))
+            expr = "({0} ? {1} : {2})".format(
+                ref(args[0]), ref(args[1], kind), ref(args[2], kind))
+        elif kind == "i" and op in _IBIN:
+            expr = _IBIN[op].format(ref(args[0], "i"), ref(args[1], "i"))
+        elif kind == "i" and op in _IUN:
+            expr = _IUN[op].format(ref(args[0], "i" if op != "toint"
+                                       else "d"))
         elif op == "pow" and not isinstance(args[1], _Sym) \
                 and args[1] in _POW_SPECIAL:
             expr = _POW_SPECIAL[args[1]].format(ref(args[0]))
@@ -404,7 +547,7 @@ def _emit_bodies(rec, outs):
             expr = _BIN[op].format(ref(args[0]), ref(args[1]))
         else:
             expr = _UN[op].format(ref(args[0]))
-        ty = "bool" if kind == "b" else "double"
+        ty = {"b": "bool", "i": "int"}.get(kind, "double")
         return f"  const {ty} {local[nid]} = {expr};\n"
 
     hoist = {}                 # hoisted node → its slot in h
@@ -417,6 +560,8 @@ def _emit_bodies(rec, outs):
             if a._kind == "b":
                 walk.append(f"  const bool {local[a._nid]} = h[{j}] != 0.0;"
                             "\n")
+            elif a._kind == "i":
+                walk.append(f"  const int {local[a._nid]} = (int)h[{j}];\n")
             else:
                 walk.append(f"  const double {local[a._nid]} = h[{j}];\n")
 
@@ -430,16 +575,32 @@ def _emit_bodies(rec, outs):
         val = ref(v)
         if isinstance(v, _Sym) and v._kind == "b":
             val = f"({val} ? 1.0 : 0.0)"
+        elif isinstance(v, _Sym) and v._kind == "i":
+            val = f"((double){val})"
         walk.append(f"  {lhs} = {val};\n")
     pre = [define(nid) for nid in order if nid not in varying]
     for nid, j in hoist.items():
         val = local[nid]
         if rec.nodes[nid][2] == "b":
             val = f"({val} ? 1.0 : 0.0)"
+        elif rec.nodes[nid][2] == "i":
+            val = f"((double){val})"
         pre.append(f"  h[{j}] = {val};\n")
+
+    def tables(nids):
+        names = sorted({rec.nodes[n][1][0] for n in nids
+                        if rec.nodes[n][0] in ("tab", "search")})
+        return "".join(
+            f"  static const double {t}[{len(rec.tables[t])}] = "
+            f"{{{', '.join(_c_lit(v) for v in rec.tables[t])}}};\n"
+            for t in names)
 
     def arith(nids):
         return sum(1 for nid in nids if rec.nodes[nid][0] != "in")
 
-    return ("".join(pre), "".join(walk), len(hoist),
-            arith(n for n in order if n not in varying), arith(varying))
+    ints = any(rec.nodes[n][2] == "i" or rec.nodes[n][0] in ("tab", "search")
+               for n in order)
+    return (tables(n for n in order if n not in varying) + "".join(pre),
+            tables(varying) + "".join(walk), len(hoist),
+            arith(n for n in order if n not in varying), arith(varying),
+            ints)

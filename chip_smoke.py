@@ -12,16 +12,19 @@ card says so.
 
 The schedule (ROADMAP C15): G-xla's child (phase 22, the longest run)
 starts right after the device line, so that its set-up runs beside the
-build; phases 3-10, 12-18 and 37 run in the main process beside it and
+build; phases 3-10, 12-18, 37, 38's world of one and 40's path run in the
+main process beside it and
 beside the other children (phase 19's, G-fused's and phases 25-33's,
 started after phase 8's checking half; phases 34-36's, started after
 phase 12); every phase that times a kernel runs only after all those
 children have ended, so that no other process shares the card while it
 times: phases 3, 6, 8 and 19 check their kernels early and time them
 there (``kernel_times``, ``fused_kernel_times``, ``lu_bench``,
-``sparse``), with phases 20, 24, 11 and 16.  A ``children`` line before
-the timing phases gives every child's start and end on the smoke's
-clock.
+``sparse``), with phases 20, 24, 11 and 16 and the kernel halves of 39
+and 40.  Phase 39 runs in phase 19's child after its main path; phase
+38's two ranks run after every other child has ended and before the
+timing phases.  A ``children`` line before the timing phases gives every
+child's start and end on the smoke's clock.
 
 1. device  — requires CUDA; prints the card's name and power limit; full
    float32 matmuls (no TF32).
@@ -104,7 +107,8 @@ clock.
    (``kernel_times.LV1_FUSED_OPTS``) over the whole 0-700 ns: the gate on
    every lane, one fused launch per step attempt, and cell E's counts
    (``CELL_E``).
-   lv1_repeat — cells D and E over 0-60 ns twice each: bitwise equal.
+   lv1_repeat — cells D and E over 0-60 ns twice each: bitwise equal
+   (the second run of each is phase 38's world of one).
 13. simulate — ``simulate()`` on the card: the README's inverter and a
    netlist with every newly bound card (``benchmarks/netlists.py``), each
    against the same call with ``device="cpu"``: the operating point within
@@ -356,6 +360,37 @@ clock.
    fewer Newton iterations, within 1e-9 V); ``profile_compile`` and
    ``profile_run`` on the card (their keys printed).  Its launches are
    counted in the ``kernels`` line (``a19_launches``).
+38. a18 — sweeps sharded over ranks of ``torch.distributed``
+   (``cedarsim_tpu_torch/parallel/``).  In the main process, right after
+   phase 12's first repeat runs: a world of one on NCCL,
+   ``tran_sweep_sharded`` over cells E (B1) and D (B2/B3), their 256
+   lanes over 0-60 ns (``A18_TSTOP``), each lane's operating point
+   solved inside the sweep from zeros: per-lane counts equal to the
+   repeat run's (``a18_nccl``; its waveforms are phase 12's second run).
+   Once every child has ended and before the timing phases: two gloo
+   ranks sharing the card (``RankPool``, child processes):
+   ``dryrun_child.gates`` (the level-1 DFF's ``vto`` DC sweep, its
+   sharded transient, the RC closed-form gate over distinct-τ lanes),
+   then cell E's 256 lanes, 128 a rank, against the one-rank run: both
+   ranks return the whole result bitwise alike, per-lane counts equal,
+   the waveforms bitwise or within 1e-12 V, the line says which
+   (``a18_gloo``).
+39. a16b — forward-mode AD through the sparse LU (``SparseSolve``), in
+   phase 19's child after its main path: ``tran_sensitivity`` of
+   ``netlists.diode_ladder()`` (259 unknowns, the sparse path) on the
+   card against the same on the CPU (``A16B_CPU_RTOL``) and against the
+   card's central difference (``A16B_FD_RTOL``); S1/S2 launches, S2's
+   under the tangent counted apart.  Its kernel half with the timing
+   phases: S1 and S2 at one lane on the ladder's equilibrated Jacobian,
+   S2 on a tangent right-hand side, bitwise their plain versions, with
+   their times and bounds (``a16b_kernels``).
+40. a21 — the emitter's integer, bitwise and point-list constructs
+   (``netlists.a21_circuit``): its four lanes through B1 (the emitted
+   walk) over 0-12 ns in the main process after phase 37, against the
+   same call on the CPU (B1's plain version): equal counts, waveforms
+   within 1e-6 V (``a21_path``); with the timing phases, B1 on its plan
+   against its plain version within ``FUSED_RTOL``, with its times and
+   bound (``a21_fused_kernel``).
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
@@ -363,9 +398,11 @@ the TPU kernel it replaces, launches on its path (B1 in phase 7 and, on
 the level-1 plan, in phase 12 and at bdf3/bdf5 in phases 28-29, on the
 PVT plan in phase 15, on the CMG plan in phase 21, on the VBIC plan in
 phase 25 and at B = 1 in phase 35's HB warm-up, on the ring's level-1
-plan in phase 36's, and phase 37's; B2/B3 in phase 5, in phase 10, in
-phase 17, in phase 22, in phase 26, in phases 30-32 and in phase 37;
-B4/B5 in phase 8; S1/S2 in phase 19,
+plan in phase 36's, and phase 37's, in phase 38 (``a18_launches``) and
+on the A21 plan in phase 40 (``a21``); B2/B3 in phase 5, in phase 10, in
+phase 17, in phase 22, in phase 26, in phases 30-32, in phase 37 and in
+phase 38's cell D; B4/B5 in phase 8; S1/S2 in phase 19 and under forward
+AD in phase 39 (``a16b``, S2's launches under the tangent apart),
 which name no TPU kernel: ``replaces`` is null and ``jax_counterpart`` the
 XLA function they take the place of), error, times and its bound: the
 larger of the
@@ -1138,22 +1175,22 @@ def phase_lv1(torch, T, gesp_lu, fc, lv1, cell, want, tstop, extra=None):
     return launches
 
 
-def phase_lv1_repeat(torch, T, gesp_lu, fc, lv1):
+def phase_lv1_repeat(torch, T, gesp_lu, fc, lv1, dev):
     """Cells D and E over 0-LV1_REPEAT_TSTOP twice each in this process:
-    the same step counts and bitwise the same waveforms."""
-    equal = {}
-    for cell in ("D", "E"):
-        runs = [lv1_run(torch, T, gesp_lu, fc, lv1, cell,
-                        LV1_REPEAT_TSTOP)[0] for _ in range(2)]
-        equal[cell] = all(
-            (a.n_accepted, a.n_rejected, a.n_newton)
-            == (b.n_accepted, b.n_rejected, b.n_newton)
-            and np.array_equal(a.ts, b.ts) and np.array_equal(a.xs, b.xs)
-            for a, b in zip(*runs))
-    log("lv1_repeat", bitwise_equal=equal, tstop=LV1_REPEAT_TSTOP)
+    the same step counts and bitwise the same waveforms.  The second run
+    of each cell is phase 38's world of one (``phase_a18_one``: the same
+    lanes through ``tran_sweep_sharded``, each lane's operating point
+    solved inside it as ``kernel_times.lv1_lanes`` solves it), so that the
+    two phases share one run.  Returns cell E's world-of-one result and
+    the launches by cell."""
+    first = {cell: lv1_run(torch, T, gesp_lu, fc, lv1, cell,
+                           LV1_REPEAT_TSTOP)[0] for cell in ("D", "E")}
+    res_e, launches, equal = phase_a18_one(torch, T, dev, lv1, first)
+    log("lv1_repeat", bitwise_equal=equal, tstop=LV1_REPEAT_TSTOP,
+        second_run="phase 38's world of one (tran_sweep_sharded)")
     if not all(equal.values()):
         raise AssertionError(f"the level-1 leg is not reproducible: {equal}")
-    return equal
+    return res_e, launches
 
 
 def phase_lv1_fused_kernel(torch, T, fc, lv1, plan):
@@ -2512,9 +2549,10 @@ def sparse_child(out):
     from cedarsim_tpu_torch.ops import fused_chord as fc
     rec, launches, x_op = sparse_main_path(torch, T, gesp_lu, pivot_lu, fc,
                                            torch.device("cuda", 0))
+    a16b = a16b_sparse(torch, T, torch.device("cuda", 0))
     with open(out, "wb") as f:
         np.savez(f, rec=json.dumps(rec), launches=json.dumps(launches),
-                 x_op=x_op)
+                 x_op=x_op, a16b=json.dumps(a16b))
 
 
 def start_child(kind, *args):
@@ -2555,11 +2593,12 @@ def join_child(child):
 
 
 def join_sparse_child(child):
-    """Wait for phase 19's child; returns what ``sparse_main_path`` did."""
+    """Wait for phase 19's child; returns what ``sparse_main_path`` did,
+    and phase 39's record (``a16b_sparse``)."""
     out, waited = join_child(child)
     z = np.load(out, allow_pickle=False)
     return (json.loads(str(z["rec"])), json.loads(str(z["launches"])),
-            z["x_op"], waited)
+            z["x_op"], waited), json.loads(str(z["a16b"]))
 
 
 def phase_sparse_check(torch, T, dev, main):
@@ -3861,6 +3900,362 @@ def phase_a19(torch, T, dev, dff):
     return launches
 
 
+# ----------------------------------------- phases 38-40 (A18, A16b, A21)
+
+#: phase 38: cells E and D over 0-A18_TSTOP (the repeat window of phase
+#: 12, whose first runs are the reference) on a world of one (NCCL), then
+#: cell E on two gloo ranks sharing the card, 128 lanes each
+A18_TSTOP = LV1_REPEAT_TSTOP
+A18_RANKS = 2
+#: the two-rank run against the one-rank run: per-lane counts equal, the
+#: waveforms bitwise or within this
+A18_WAVE_ATOL = 1e-12
+#: phase 39: ``netlists.diode_ladder()`` (259 unknowns, sparse), the
+#: sensitivity of v(b0_4) at 4 ns to R0 over 0-5 ns; the card against the
+#: CPU (the card's model walk rounds apart in its last bits, ROADMAP C13)
+#: and against the card's central difference (R0 ± 0.1 Ω: the adaptive
+#: grid moves with the parameter, 8e-4 apart on the CPU)
+A16B_ARGS = ("b0_4", "r0.r", (0.0, 5e-9), 4e-9)
+A16B_CPU_RTOL = 1e-6
+A16B_FD_H = 0.1
+A16B_FD_RTOL = 1e-2
+#: phase 40: the A21 circuit's fused transient over 0-A21_TSTOP
+A21_TSTOP = 1.2e-8
+
+
+def phase_a18_one(torch, T, dev, lv1, ref):
+    """Phase 38's first half, in the main process: ``tran_sweep_sharded``
+    on a world of one (NCCL) over cells E (B1) and D (B2/B3), the 256
+    lanes of phases 10 and 12, each lane's operating point solved from
+    zeros inside the sweep (as ``kernel_times.lv1_lanes`` solves it),
+    every kernel count from 0 just before and read just after; per-lane
+    counts equal to those of phase 12's first repeat run (``ref``, the
+    same lanes by ``tran`` in this process); whether its waveforms are
+    bitwise those is phase 12's check.  Returns (cell E's result, the
+    launches by cell, bitwise equal by cell)."""
+    import torch.distributed as dist
+    from cedarsim_tpu_torch.parallel.mesh import (make_mesh,
+                                                  tran_sweep_sharded)
+    t0 = time.perf_counter()
+    mesh = make_mesh(device=dev)
+    if (mesh.backend, mesh.size, mesh.device) != ("nccl", 1, dev):
+        raise AssertionError(f"a18: mesh {mesh}")
+    init_s = time.perf_counter() - t0
+    comp, ctx, pb = lv1[:3]
+    zeros = torch.zeros(LV1_LANES, comp.n_x, dtype=comp.dtype, device=dev)
+    rec, launches, res_e, equal = {}, {}, None, {}
+    for cell in ("E", "D"):
+        opts = T.TranOptions(**(kt.LV1_FUSED_OPTS if cell == "E"
+                                else kt.LV1_XLA_OPTS))
+        t1 = time.perf_counter()
+        res, la = counted(lambda: tran_sweep_sharded(
+            comp, None, (0.0, A18_TSTOP), mesh, params=pb, ctx=ctx,
+            opts=opts, x0=zeros))
+        wall = time.perf_counter() - t1
+        sols = ref[cell]
+        want = np.asarray([[s.n_accepted, s.n_rejected, s.n_newton]
+                           for s in sols])
+        got = np.stack([res.n_accepted, res.n_rejected, res.n_newton], 1)
+        if not (res.finished.all() and np.array_equal(got, want)):
+            raise AssertionError(f"a18 cell {cell}: per-lane counts differ "
+                                 f"from tran's in {int((got != want).any(1).sum())}"
+                                 " lanes")
+        bitwise = all(np.array_equal(res.xs[k, :s.n_accepted], s.xs)
+                      and np.array_equal(res.ts[k, :s.n_accepted], s.ts)
+                      for k, s in enumerate(sols))
+        kernel = la["fused"] if cell == "E" else min(la["factor"],
+                                                     la["subst"])
+        others = {k: n for k, n in la.items() if n and k not in (
+            ("fused",) if cell == "E" else ("factor", "subst"))}
+        if kernel <= 0 or others:
+            raise AssertionError(f"a18 cell {cell}: launches {la}")
+        rec[cell] = dict(wall_s=wall, lanes=int(len(sols)),
+                         **{k: int(v.sum()) for k, v in (
+                             ("accepted", res.n_accepted),
+                             ("rejected", res.n_rejected),
+                             ("newton", res.n_newton))},
+                         per_lane_counts_equal=True,
+                         bitwise_equal_tran=bitwise,
+                         launches={k: n for k, n in la.items() if n})
+        launches[cell], equal[cell] = la, bitwise
+        if cell == "E":
+            res_e = res
+    dist.destroy_process_group()
+    log("a18_nccl", world=1, backend="nccl", tstop=A18_TSTOP,
+        init_s=init_s, cells=rec, wall_s=time.perf_counter() - t0)
+    return res_e, launches, equal
+
+
+def phase_a18_pair(torch, dev, one):
+    """Phase 38's second half, once no other child runs and before the
+    timing phases: two gloo ranks sharing the card (``RankPool``, child
+    processes): ``dryrun_child.gates`` (the level-1 DFF's DC sweep of
+    ``vto``, its sharded transient and the RC closed-form gate), then cell
+    E's 256 lanes over 0-A18_TSTOP, 128 a rank, against the one-rank run
+    ``one``: both ranks return the whole result, bitwise alike; per-lane
+    counts equal, and the waveforms bitwise or within A18_WAVE_ATOL (the
+    line says which).  Returns the ranks' B1 launches (summed)."""
+    from cedarsim_tpu_torch.parallel import RankPool, dryrun_child
+    t0 = time.perf_counter()
+    with RankPool(A18_RANKS, device=dev, backend="gloo") as pool:
+        for r, p in enumerate(pool.procs):
+            track_child(f"a18_rank{r}", p)
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        lines = pool.call(dryrun_child.gates)
+        gates_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        runs = pool.call(dryrun_child.lv1_cell, "E", A18_TSTOP)
+        cell_s = time.perf_counter() - t1
+    res = [r for r, _ in runs]
+    for f in ("ts", "xs", "n_accepted", "n_rejected", "n_newton",
+              "finished"):
+        if not np.array_equal(getattr(res[0], f), getattr(res[1], f)):
+            raise AssertionError(f"a18 gloo: the ranks' {f} differ")
+    r2 = res[0]
+    got = np.stack([r2.n_accepted, r2.n_rejected, r2.n_newton], 1)
+    want = np.stack([one.n_accepted, one.n_rejected, one.n_newton], 1)
+    if not (r2.finished.all() and np.array_equal(got, want)):
+        raise AssertionError("a18 gloo: per-lane counts differ from the "
+                             "one-rank run in "
+                             f"{int((got != want).any(1).sum())} lanes")
+    diff = max(float(np.abs(r2.xs[k, :m] - one.xs[k, :m]).max())
+               for k, m in enumerate(one.n_accepted))
+    bitwise = np.array_equal(r2.xs, one.xs) and np.array_equal(r2.ts,
+                                                               one.ts)
+    if not (bitwise or diff <= A18_WAVE_ATOL):
+        raise AssertionError(f"a18 gloo: waveforms {diff:.3g} V apart")
+    fused = sum(la["fused_chord"] for _, la in runs)
+    if fused <= 0 or any(la["lu_factor_gesp_f32"] or la["lu_subst_gesp_f32"]
+                         for _, la in runs):
+        raise AssertionError(f"a18 gloo: launches {[la for _, la in runs]}")
+    if len(set(lines)) != 1:
+        raise AssertionError("a18 gloo: the ranks' gate lines differ")
+    log("a18_gloo", world=A18_RANKS, backend="gloo", device=str(dev),
+        startup_s=up_s, gates=lines[0], gates_s=gates_s, cell="E",
+        lanes_per_rank=LV1_LANES // A18_RANKS, tstop=A18_TSTOP,
+        wall_s=cell_s, per_lane_counts_equal=True,
+        held="bitwise" if bitwise else f"within {A18_WAVE_ATOL} V",
+        max_abs_diff_v=diff,
+        launches_by_rank=[la for _, la in runs],
+        total_s=time.perf_counter() - t0)
+    return fused
+
+
+def a16b_sparse(torch, T, dev):
+    """Phase 39, in phase 19's child after its main path: the diode
+    ladder's ``tran_sensitivity`` (``A16B_ARGS``) by forward-mode AD
+    through the sparse path, on the CPU (S1/S2's plain versions) and on
+    the card (S1/S2), every kernel count from 0 just before the card's
+    call and read just after, S2's launches inside ``SparseSolve.jvp``
+    (the tangent solves) counted apart; the card's central difference.
+    Returns the phase's record."""
+    from cedarsim_tpu_torch.analysis import sensitivity as tsens
+    from cedarsim_tpu_torch.benchmarks import netlists
+    from cedarsim_tpu_torch.core import sparse_ops
+    from cedarsim_tpu_torch.core.compile import (ensure_dynamic,
+                                                 use_sparse_solver)
+    from cedarsim_tpu_torch.ops import sparse_lu
+    text = netlists.diode_ladder()
+    node, wrt, span, t_eval = A16B_ARGS
+    t0 = time.perf_counter()
+    v_cpu, d_cpu = tsens.tran_sensitivity(
+        T.compile_circuit(T.load_spice(text), device="cpu"), *A16B_ARGS)
+    cpu_s = time.perf_counter() - t0
+    card = T.compile_circuit(T.load_spice(text), device=dev)
+    if not (use_sparse_solver(card) and card.n_x == 259):
+        raise AssertionError(f"a16b: n_x {card.n_x}, sparse "
+                             f"{use_sparse_solver(card)}")
+    tangent = [0]
+    jvp = sparse_ops.SparseSolve.jvp
+
+    def counting_jvp(ctx, *grads):
+        n0 = sparse_lu.solve_factored.launches
+        out = jvp(ctx, *grads)
+        tangent[0] += sparse_lu.solve_factored.launches - n0
+        return out
+    sparse_ops.SparseSolve.jvp = staticmethod(counting_jvp)
+    try:
+        t0 = time.perf_counter()
+        (v, d), la = counted(lambda: tsens.tran_sensitivity(card,
+                                                            *A16B_ARGS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sparse_ops.SparseSolve.jvp = staticmethod(jvp)
+    v, d = float(v), float(d)
+    dense = {k: n for k, n in la.items()
+             if n and k not in ("sparse_factor", "sparse_solve")}
+    if min(la["sparse_factor"], la["sparse_solve"], tangent[0]) <= 0 \
+            or dense:
+        raise AssertionError(f"a16b: launches {la}, under the tangent "
+                             f"{tangent[0]}")
+    rel_v = abs(v - float(v_cpu)) / abs(float(v_cpu))
+    rel_d = abs(d - float(d_cpu)) / abs(float(d_cpu))
+    comp = ensure_dynamic(card, [wrt])
+    vals = []
+    for sgn in (1.0, -1.0):
+        p = comp.set_param(comp.params0, wrt, 100.0 + sgn * A16B_FD_H)
+        sol = T.tran(comp, span, params=p, opts=T.TranOptions(
+            max_steps=4096))
+        vals.append(float(sol.interp(node, t_eval)))
+    cd = (vals[0] - vals[1]) / (2 * A16B_FD_H)
+    rel_fd = abs(d - cd) / abs(cd)
+    if not (rel_v <= A16B_CPU_RTOL and rel_d <= A16B_CPU_RTOL
+            and rel_fd <= A16B_FD_RTOL):
+        raise AssertionError(f"a16b: card {v}, {d}; CPU {float(v_cpu)}, "
+                             f"{float(d_cpu)}; central difference {cd}")
+    return dict(n_x=card.n_x, value=v, deriv=d, cpu_value=float(v_cpu),
+                cpu_deriv=float(d_cpu), rel_vs_cpu=[rel_v, rel_d],
+                central_difference=cd, rel_vs_cd=rel_fd, wall_s=wall,
+                cpu_s=cpu_s, launches={k: n for k, n in la.items() if n},
+                s2_launches_under_tangent=tangent[0])
+
+
+def a21_run(T, dev):
+    """The A21 circuit's four lanes (``netlists.a21_lanes``) through the
+    fused engine over 0-A21_TSTOP on ``dev``, every kernel count from 0
+    just before and read just after: (solutions, launches, wall s)."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    comp, ctx, pb = netlists.a21_lanes(dev)
+    opts = T.TranOptions(**kt.LV1_FUSED_OPTS)
+    t0 = time.perf_counter()
+    sols, la = counted(lambda: T.tran(comp, (0.0, A21_TSTOP), params=pb,
+                                      ctx=ctx, opts=opts))
+    return sols, la, time.perf_counter() - t0
+
+
+def phase_a21_path(torch, T, dev):
+    """Phase 40's path, in the main process after phase 37: the A21
+    circuit (integer, bitwise and point-list constructs) through B1 on
+    the card against the same call on the CPU (B1's plain version): every
+    lane finished, equal counts, waveforms within SIM_WAVE_TOL; B1
+    launched once a step attempt and no GESP kernel.  Returns the
+    launches."""
+    sols, la, wall = a21_run(T, dev)
+    cpu, _, cpu_s = a21_run(T, "cpu")
+    if not (0 < la["fused"] == sols[0].n_attempts) or la["factor"] \
+            or la["subst"]:
+        raise AssertionError(f"a21: launches {la}, {sols[0].n_attempts} "
+                             "attempts")
+    worst = 0.0
+    for s, c in zip(sols, cpu):
+        if not (s.converged and c.converged and (s.n_accepted, s.n_rejected,
+                                                 s.n_newton)
+                == (c.n_accepted, c.n_rejected, c.n_newton)):
+            raise AssertionError("a21: the card's lanes are not the CPU's")
+        worst = max(worst, float(np.abs(s.xs - c.xs).max()))
+    if worst > SIM_WAVE_TOL:
+        raise AssertionError(f"a21: card against CPU {worst:.3g} V")
+    log("a21_path", lanes=len(sols), tstop=A21_TSTOP, wall_s=wall,
+        cpu_s=cpu_s, **counts(sols), attempts=sols[0].n_attempts,
+        card_vs_cpu_v=worst, launches={k: n for k, n in la.items() if n})
+    return la
+
+
+def a21_plan(T, dev):
+    """The A21 circuit's lanes on ``dev`` and their fused plan."""
+    from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+    from cedarsim_tpu_torch.benchmarks import netlists
+    comp, ctx, pb = netlists.a21_lanes(dev)
+    return (comp, ctx, pb), fused_plan_for(comp, ctx, pb)
+
+
+def phase_a21_kernel(torch, T, fc, lanes, plan):
+    """Phase 40's kernel half, with the timing phases: B1 on the A21
+    plan against its plain version on its four lanes (the fused options
+    of cell E, h = 1e-12 and 1e-10), with its device, call and plain times
+    and bound."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    info = plan.build()
+    comp, ctx, pb = lanes
+    L = len(netlists.A21_CODES)
+    op = T.solve_dc(comp, pb, ctx, mode="tranop",
+                    x0=torch.zeros(L, comp.n_x, dtype=comp.dtype,
+                                   device=comp.device))
+    worst = dict(xn=0.0, S=0.0, Q=0.0)
+    abs_err = 0.0
+    for h in (1e-12, 1e-10):
+        args, opts_h = kt.fused_args(torch, T, plan, (comp, ctx, pb, op.x),
+                                     h, opts=kt.LV1_FUSED_OPTS)
+        _, err = fused_vs_plain(torch, fc, plan, args, opts_h,
+                                f"a21 h={h}", worst)
+        abs_err = max(abs_err, err["xn_abs"])
+
+    def run():
+        return fc.fused_chord(plan, *args, opts_h)
+    times = (kt.device_ms(run), kt.call_ms(run, 50),
+             kt.call_ms(lambda: fc.fused_chord_plain(plan, *args, opts_h),
+                        5))
+    bnd, nodes = fused_bound(plan, args, run())
+    log("a21_fused_kernel", worst_rel_err=worst, ms_device_call_plain=list(
+        times), shape=[L, comp.n_x], bound_ms=bnd,
+        nodes=nodes, emit_s=info["emit_seconds"],
+        nvcc_s=info["nvcc_seconds"],
+        header=os.path.relpath(info["path"], REPO))
+    return abs_err, times, bnd
+
+
+def a16b_kernel_times(torch, T, dev):
+    """Phase 39's kernel half, with the timing phases: S1 and S2 at one
+    lane on the diode ladder's equilibrated Jacobian at its operating
+    point, S2 on a tangent right-hand side (d_rhs − dA·x, as
+    ``SparseSolve.jvp`` forms it), each bitwise its plain version, with
+    their device, call and plain times and bounds."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    from cedarsim_tpu_torch.core.sparse_ops import TAU, get_sparse_ops
+    from cedarsim_tpu_torch.ops import sparse_lu
+    comp = T.compile_circuit(T.load_spice(netlists.diode_ladder()),
+                             device=dev)
+    sops = get_sparse_ops(comp)
+    plan = sops.plan
+    ctx = T.SimSpec.make()
+    x = T.solve_dc(comp, ctx=ctx, mode="tranop").x
+    S, _, Gv, _ = sops.res_jacs_sparse(x, ctx.with_mode("tranop"))
+    J = sops.add_diag(Gv, ctx.gmin)
+    v, dr, dc = sops.equilibrate(J)
+    v = v[None].contiguous()
+    rng = np.random.default_rng(39)
+    dA = J * torch.as_tensor(rng.standard_normal(J.shape), device=dev)
+    xs = sops.solve(J, S)
+    rhs = ((-sops.matvec(dA, xs)) * dr)[None].contiguous()
+    f = sparse_lu.factor(plan, v, TAU)
+    fp = sparse_lu.factor_plain(plan, v, TAU)
+    xk = sparse_lu.solve_factored(plan, f, rhs)
+    xp = sparse_lu.solve_factored_plain(plan, fp, rhs)
+    torch.cuda.synchronize()
+    for name, k, p in (("S1", f, fp), ("S2", xk, xp)):
+        if not torch.equal(k.view(torch.int64), p.view(torch.int64)):
+            raise AssertionError(f"a16b {name}: not bitwise its plain "
+                                 "version")
+
+    def s1():
+        return sparse_lu.factor(plan, v, TAU)
+
+    def s2():
+        return sparse_lu.solve_factored(plan, f, rhs)
+    # the dense library calls on the same system (a yardstick only)
+    A = torch.zeros(1, comp.n_x, comp.n_x, dtype=torch.float64, device=dev)
+    rows = torch.as_tensor(plan.pos_arow, dtype=torch.int64, device=dev)
+    cols = torch.as_tensor(plan.pos_acol, dtype=torch.int64, device=dev)
+    A[:, rows, cols] = v
+    LU, piv = torch.linalg.lu_factor(A)
+    out = {
+        "factor": (kt.device_ms(s1), kt.call_ms(s1, 50),
+                   kt.call_ms(lambda: sparse_lu.factor_plain(plan, v, TAU),
+                              3), sparse_bound(plan, 1, "factor"),
+                   *library_ms(lambda: torch.linalg.lu_factor(A), 20)),
+        "solve": (kt.device_ms(s2), kt.call_ms(s2, 50),
+                  kt.call_ms(lambda: sparse_lu.solve_factored_plain(
+                      plan, fp, rhs), 3), sparse_bound(plan, 1, "solve"),
+                  *library_ms(lambda: torch.linalg.lu_solve(
+                      LU, piv, rhs[..., None]), 20))}
+    log("a16b_kernels", n=plan.n, nnz_f=plan.nnz_f, n_levels=plan.n_levels,
+        times={k: list(v) for k, v in out.items()}, bitwise_plain=True)
+    out["nnz_f"] = plan.nnz_f
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, device, call, plain_ms,
                  library, library_device, library_device_by, bnd,
                  max_abs_err, **extra):
@@ -3942,6 +4337,8 @@ def run(children):
     th_fused = build_in_thread("fused", plan.build)
     th_lv1 = build_in_thread("fused_lv1", plan_lv1.build)
     th_pvt = build_in_thread("fused_pvt", plan_pvt.build)
+    a21_lv, plan_a21 = a21_plan(T, dev)
+    th_a21 = build_in_thread("fused_a21", plan_a21.build)
     th_pivot = build_in_thread("pivot", pivot_lu.build)
     th_sparse = build_in_thread("sparse", sparse_lu.build)
     th_gesp = build_in_thread("gesp", gesp_lu.build)
@@ -4035,7 +4432,7 @@ def run(children):
     card_children = {which: start_child("a16a17-card", which, cpu_out)
                      for which in A16A17_CARD_CHILDREN}
     children.extend(card_children.values())
-    phase_lv1_repeat(torch, T, gesp_lu, fc, lv1)
+    a18_e, la38 = phase_lv1_repeat(torch, T, gesp_lu, fc, lv1, dev)
     phase_simulate(torch, T, dev)
     phase_sweeps(torch, T, dev)
     th_pvt.join()
@@ -4046,11 +4443,16 @@ def run(children):
     phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
     phase_cmg_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
     la37 = phase_a19(torch, T, dev, dff)
+    th_a21.join()
+    if isinstance(built["fused_a21"], BaseException):
+        raise built["fused_a21"]
+    la40 = phase_a21_path(torch, T, dev)
     out, waited = join_child(child_a14b)
     vl, bl = phase_a14b(out, waited)
     dl3 = phase_a14b3(out + ".a14b3", waited)
-    sparse_state = phase_sparse_check(torch, T, dev,
-                                      join_sparse_child(child_sparse))
+    sparse_main, a16b = join_sparse_child(child_sparse)
+    sparse_state = phase_sparse_check(torch, T, dev, sparse_main)
+    log("a16b", **a16b, ran_in_child=True)
     rets = {}
     for which, child in card_children.items():
         out, _ = join_child(child)
@@ -4063,6 +4465,9 @@ def run(children):
     la36, la36_tran = rets["a17_auto"]
     gl = {"fused": phase_cmg("fused", child_cmg),
           "xla": phase_cmg("xla", child_xla)}
+    # phase 38's two ranks on the card, once every other child has ended
+    # and before the timing phases
+    a18_pair = phase_a18_pair(torch, dev, a18_e)
     log("children", spans={name: [t0, t1]
                            for name, t0, t1 in CHILD_SPANS})
     # the timing phases, alone on the card: 3, 6 and 8's timing
@@ -4079,6 +4484,9 @@ def run(children):
     pabs_err, ptimes, pbound = phase_pvt_fused_kernel(torch, T, fc,
                                                       pvt_state, plan_pvt)
     sparse_entries = phase_sparse(torch, T, dev, sparse_state)
+    a21_abs_err, a21_times, a21_bound = phase_a21_kernel(torch, T, fc,
+                                                         a21_lv, plan_a21)
+    a16b_times = a16b_kernel_times(torch, T, dev)
     one_err = phase_one_stream_fused_kernel(torch, T, fc, (
         ("amp1", amp1, T.SimSpec.make(gmin=vbic_amp.GMIN), (1e-6, 1e-4),
          {"hb_warmup": FUSED_OPTS}),
@@ -4134,6 +4542,19 @@ def run(children):
                           "plain_ms": ctimes[2], "bound_ms": cbound[0],
                           "bound_by": cbound[1]},
                      a19_launches=la37["fused"],
+                     a18_launches={"nccl_world_1": la38["E"]["fused"],
+                                   "gloo_two_ranks": a18_pair},
+                     a21={"model": "integer, bitwise and point-list "
+                                   "constructs (netlists.a21_circuit)",
+                          "launches": la40["fused"],
+                          "max_abs_err": a21_abs_err,
+                          "shape": [len(netlists.A21_CODES),
+                                    a21_lv[0].n_x],
+                          "device_ms": a21_times[0],
+                          "call_ms": a21_times[1],
+                          "plain_ms": a21_times[2],
+                          "bound_ms": a21_bound[0],
+                          "bound_by": a21_bound[1]},
                      vbic={"model": "VBIC with self-heating, AREA per "
                                     "lane",
                            "launches": vl["fused"]["fused"],
@@ -4165,7 +4586,7 @@ def run(children):
             link_launches=dl3["link"][key],
             delay_launches=dl3["delay"][key],
             latch_launches=dl3["latch"][key],
-            a19_launches=la37[key]))
+            a19_launches=la37[key], a18_launches=la38["D"][key]))
     for key, name, source, line in (
             ("gesp", "gesp_solve_f32", src, 164),
             ("pivot", "pivot_solve_f32",
@@ -4180,6 +4601,19 @@ def run(children):
             (e["bound_ms"], e["bound_by"]), e["max_abs_err"], shape=[B, n],
             other_shapes=[{"shape": list(s), **per_shape[s][key]}
                           for s in rest]))
+    for key, la_key in (("factor", "sparse_factor"),
+                        ("solve", "sparse_solve")):
+        dev_ms, call, plain, bnd, lib, lib_dev, lib_by = a16b_times[key]
+        sparse_entries[key]["a16b"] = {
+            "circuit": "netlists.diode_ladder(), forward-mode AD",
+            "launches": a16b["launches"].get(la_key, 0),
+            **({"under_tangent": a16b["s2_launches_under_tangent"],
+                "rhs": "tangent (d_rhs - dA x)"} if key == "solve"
+               else {"under_tangent": 0}),
+            "max_abs_err": 0.0, "shape": [1, a16b_times["nnz_f"]],
+            "device_ms": dev_ms, "call_ms": call, "plain_ms": plain,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
+            "library_device_ms": lib_dev, "library_device_by": lib_by}
     kernels += [sparse_entries["factor"], sparse_entries["solve"]]
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -46,9 +46,18 @@ def lanes():
     return cmg_dff.setup(lanes=2, device="cpu")[0]
 
 
-def test_counts_equal_the_jax_packages(lanes):
-    port, x0, _ = cmg_dff_counts.port_counts(TSTOP, dff=lanes)
-    ref, _ = cmg_dff_counts.reference_counts(TSTOP, x0)
+@pytest.fixture(scope="module")
+def exact_xla(lanes):
+    """G-xla's options with the exact solve over 0-TSTOP on the two lanes:
+    the port's run of ``cmg_dff_counts.port_counts``, made once for the
+    two tests that read it."""
+    return cmg_dff.run("xla", TSTOP, dff=lanes, dense_lu="jax")
+
+
+def test_counts_equal_the_jax_packages(lanes, exact_xla):
+    port = [(bool(s.converged), s.n_accepted, s.n_rejected, s.n_newton)
+            for s in exact_xla["sols"]]
+    ref, _ = cmg_dff_counts.reference_counts(TSTOP, lanes[3].numpy())
     assert all(p[0] for p in port)
     assert port == ref
 
@@ -74,7 +83,7 @@ def test_mixed_chord_solve_needs_the_shunt(lanes, shunt, worst):
 
 
 @pytest.mark.parametrize("engine", ["fused", "xla"])
-def test_cell_g_engines_on_the_cpu(lanes, engine):
+def test_cell_g_engines_on_the_cpu(lanes, engine, exact_xla):
     res = cmg_dff.run(engine, TSTOP, dff=lanes,
                       dense_lu=None if engine == "fused" else "mixed")
     sols = res["sols"]
@@ -84,9 +93,9 @@ def test_cell_g_engines_on_the_cpu(lanes, engine):
     assert res["newton_impl"] == engine
     if engine == "xla":
         assert res["dense_lu"] == "mixed"
-        exact = cmg_dff.run(engine, TSTOP, dff=lanes, dense_lu="jax")
         assert [(s.n_accepted, s.n_rejected, s.n_newton) for s in sols] == \
-            [(s.n_accepted, s.n_rejected, s.n_newton) for s in exact["sols"]]
+            [(s.n_accepted, s.n_rejected, s.n_newton)
+             for s in exact_xla["sols"]]
     assert res["jac_shunt"] == (kt.CMG_FUSED_OPTS if engine == "fused"
                                 else kt.CMG_XLA_OPTS)["jac_shunt"]
 

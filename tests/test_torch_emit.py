@@ -13,8 +13,11 @@ port's eager model walk.
   of whose values cross into the walk.
 - The text and its hash do not depend on the walk's order: emitting twice
   gives the same hash, in this process and under another hash seed.
-- A construct bsim4.va does not use (integer bitwise arithmetic) raises
-  ``NotImplementedError`` naming ROADMAP A21.
+- A construct bsim4.va does not use (integer bitwise arithmetic, ROADMAP
+  A21, done) emits with its integer helpers; a walk that no device code
+  can hold (a vector-valued one) still raises ``NotImplementedError``.
+  ``tests/test_torch_emit_a21.py`` holds such models against the eager
+  walk and the JAX package.
 - The built-in models' walks (``Mos1`` of the level-1 DFF with vto per
   instance, ``Diode`` and ``Bjt``) emit, build on the host and match the
   eager walk per instance (no scatter) within 1e-12 of each entry, at
@@ -292,7 +295,24 @@ endmodule
     ckt.add(dev, "B1", (a, ckt.gnd), {})
     comp = T.compile_circuit(ckt, device="cpu")
     key = [k for k in comp.group_order if "bits" in k][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A21"):
+    e = emit.emit_group(comp, key, T.SimSpec.make().with_mode("tran"))
+    assert "cs_i32(" in e.text and "(~" in e.text and "A21" not in e.text
+
+    class Vector(T.Resistor):
+        """A walk whose current is a vector of two values."""
+        @staticmethod
+        def eval(lv, p, ctx, eps):
+            i = (lv[0] - lv[1]) * torch.tensor([1.0, 2.0],
+                                               dtype=torch.float64)
+            return [i, -i], [0.0, 0.0]
+
+    ckt = T.Circuit()
+    a = ckt.net("a")
+    ckt.add(T.VSource, "V1", (a, ckt.gnd), dict(dc=1.0))
+    ckt.add(Vector, "R1", (a, ckt.gnd), dict(r=1.0))
+    comp = T.compile_circuit(ckt, device="cpu")
+    key = [k for k in comp.group_order if "Vector" in k][0]
+    with pytest.raises(NotImplementedError, match="vector-valued walk"):
         emit.emit_group(comp, key, T.SimSpec.make().with_mode("tran"))
 
 

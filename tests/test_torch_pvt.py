@@ -22,6 +22,7 @@ iterations within 1.5 %, q within 1e-6 V at the end of each window.
 """
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -46,9 +47,11 @@ POINTS, SEGMENTS, TSTOP = 4, 2, 6e-8
 NEWTON_REL = 0.015
 
 
-def _reference(impl):
-    """Per window and lane (accepted, rejected, Newton) and q at each
-    window's end, of the JAX harness's chain at this window."""
+@functools.lru_cache(maxsize=1)
+def _jax_lanes():
+    """The JAX harness's lanes, the same for both engines (made once): the
+    compiled DFF, the contexts, q's index, the points' params, the nominal
+    operating point and each lane's by the light ladder from it."""
     with open(os.path.join(DFF_DIR, "dff_tb_bsim4.cir")) as f:
         nl = J.parse_spice(f.read(), file="dff_tb_bsim4.cir")
     comp = ensure_dynamic(J.compile_circuit(
@@ -71,6 +74,13 @@ def _reference(impl):
     r = jax.vmap(lambda p, x: dc_core(comp, p, ctx_op, x, light))(
         pb, jnp.repeat(op.x[None], POINTS, 0))
     x0 = jnp.where(r.converged[:, None], r.x, op.x[None])
+    return comp, ctx, ctx_op, iq, pb, op, x0
+
+
+def _reference(impl):
+    """Per window and lane (accepted, rejected, Newton) and q at each
+    window's end, of the JAX harness's chain at this window."""
+    comp, ctx, ctx_op, iq, pb, op, x0 = _jax_lanes()
     edges = np.linspace(0.0, TSTOP, SEGMENTS + 1)
     win = window_schedules(comp.breakpoints(TSTOP), edges)
     kw = dict(pvt_sweep.PVT_OPTS, max_steps=8192 // SEGMENTS,

@@ -15,8 +15,12 @@ transient and the kernels.
   whose parameter carries a forward tangent are bitwise those of the run
   without one and carry no tangent, while the states do.
 - Under AD, ``resolve_impl`` gives "auto" the exact float64 solve in the
-  chord loop, an explicit "fused" or "mixed" raises, a sparse circuit
-  raises naming ROADMAP A16b; every hand-written kernel's wrapper (B1,
+  chord loop and an explicit "fused" or "mixed" raises.  A sparse circuit
+  takes forward tangents through the sparse LU (``SparseSolve``): the RC
+  step compiled sparse gives the value and derivative of the dense run,
+  the port's and the JAX package's, within 1e-9 relative;
+  with a leaf that requires grad it raises (no reverse-mode rule).  Every
+  hand-written kernel's wrapper (B1,
   B2-B5, S1/S2) and ``fma_f64`` raise on an input that carries a forward
   tangent or requires grad, on the CPU as on a card.
 """
@@ -77,11 +81,21 @@ def test_divider_dc_sensitivity_and_tf_equal_the_jax_packages():
     assert float(tr["rout"]) == pytest.approx(500.0, rel=1e-9)
 
 
-def test_rc_tran_sensitivity_equals_the_jax_packages_and_the_closed_form():
+RC_ARGS = ("vout", "r1.r", (0.0, 3e-3), 1e-3)
+
+
+@pytest.fixture(scope="module")
+def rc_sensitivities():
+    """The RC step's ``tran_sensitivity`` (value, derivative) by the JAX
+    package and by the port, both dense, computed once for the module."""
     jc, tc = _both(RC_STEP)
-    args = ("vout", "r1.r", (0.0, 3e-3), 1e-3)
-    jv, jdv = jsens.tran_sensitivity(jc, *args)
-    tv, tdv = tsens.tran_sensitivity(tc, *args)
+    return (jsens.tran_sensitivity(jc, *RC_ARGS),
+            tsens.tran_sensitivity(tc, *RC_ARGS))
+
+
+def test_rc_tran_sensitivity_equals_the_jax_packages_and_the_closed_form(
+        rc_sensitivities):
+    (jv, jdv), (tv, tdv) = rc_sensitivities
     assert float(tv) == pytest.approx(float(jv), rel=1e-9)
     assert float(tdv) == pytest.approx(float(jdv), rel=1e-9)
     t, r, c = 1e-3, 1000.0, 1e-6
@@ -141,12 +155,28 @@ def test_fused_or_mixed_transient_with_a_tangent_raises():
                       np.array([3e-3, np.inf]), 3e-9, opts, mask)
 
 
-def test_sparse_circuit_under_ad_names_a16b():
+def test_sparse_circuit_under_ad_names_a16b(rc_sensitivities):
+    """The positive twin of the former refusal (ROADMAP A16b, done): the
+    sparse RC step's forward-mode sensitivity through S1/S2's plain
+    versions equals the dense one's, the port's and the JAX package's
+    (``tests/test_torch_sparse_ad.py`` holds a sparse ladder to the JAX
+    package's sparse path)."""
     comp = ensure_dynamic(
         T.compile_circuit(T.load_spice(RC_STEP), device="cpu",
                           sparse=True), ["r1.r"])
-    with pytest.raises(NotImplementedError, match="A16b"):
-        tsens.tran_sensitivity(comp, "vout", "r1.r", (0.0, 1e-3), 5e-4)
+    tv, tdv = tsens.tran_sensitivity(comp, *RC_ARGS)
+    for v, dv in rc_sensitivities:
+        assert float(tv) == pytest.approx(float(v), rel=1e-9)
+        assert float(tdv) == pytest.approx(float(dv), rel=1e-9)
+
+
+def test_sparse_transient_with_requires_grad_raises():
+    comp = ensure_dynamic(
+        T.compile_circuit(T.load_spice(RC_STEP), device="cpu",
+                          sparse=True), ["r1.r"])
+    p, _ = tsens._with_grad_leaves(comp, comp.params0, ["r1.r"])
+    with pytest.raises(NotImplementedError, match="reverse-mode AD"):
+        T.tran(comp, (0.0, 1e-3), params=p)
 
 
 def _kernel_calls():

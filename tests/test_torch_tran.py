@@ -222,7 +222,8 @@ def test_dff_chord_factors_are_bitwise_pallas(dff_mixed_1ns):
         assert ((lu_t == 0) & (lu_j == 0))[differ].all()
 
 
-def test_dff_mixed_path_reference_finishes_both_lanes(monkeypatch):
+def test_dff_mixed_path_reference_finishes_both_lanes(monkeypatch,
+                                                      dff_mixed_1ns):
     """ROADMAP Queue C against the reference: the JAX package's own mixed
     chord path (its Pallas GESP factor and substitution in interpret mode,
     switched on by ``cedarsim_tpu.ops.linalg._MIXED_INTERPRET``) on the
@@ -237,7 +238,8 @@ def test_dff_mixed_path_reference_finishes_both_lanes(monkeypatch):
                                             _differential_mask, tran_core)
     from cedarsim_tpu.ops import linalg as jlinalg
     from cedarsim_tpu_torch.benchmarks import kernel_times as kt
-    _, _, _, x0_t = kt.dff_lanes(torch, T, "cpu", lanes=2)
+    # the port's per-lane warm DC, as the margin test's fixture made it
+    _, _, _, x0_t = dff_mixed_1ns[3]
     cj = J.compile_circuit(J.elaborate(
         J.parse_spice(_dff_text(), file="dff_tb_bsim4.cir"),
         include_paths=[DFF_DIR]))
@@ -317,6 +319,10 @@ def test_port_never_imports_jax():
         "m = montecarlo.mc_dc(r['compiled'], 4, {'r1.r': ('rel', 0.1)}, "
         "seed=1)\n"
         "assert bool(m.converged.all())\n"
+        # the sharded sweeps, their rank workers and the dry-run child
+        "import cedarsim_tpu_torch.parallel\n"
+        "import cedarsim_tpu_torch.parallel.worker\n"
+        "import cedarsim_tpu_torch.parallel.dryrun_child\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m.startswith('cedarsim_tpu.') or m == "
         "'cedarsim_tpu' for m in sys.modules)\n"
