@@ -30,7 +30,8 @@ emitted as CUDA device code by ``va/emit.py``).  What is still to be ported
 is listed in ROADMAP.md.
 """
 
-from cedarsim_tpu_torch.core.circuit import Circuit
+from cedarsim_tpu_torch import config
+from cedarsim_tpu_torch.core.circuit import Circuit, Net, GROUND
 from cedarsim_tpu_torch.core.context import SimSpec, Modes
 from cedarsim_tpu_torch.core.compile import (CompiledCircuit,
                                              compile_circuit, ensure_dynamic)
@@ -48,7 +49,8 @@ from cedarsim_tpu_torch.frontend.elaborate import elaborate, load_spice
 from cedarsim_tpu_torch.analysis.dc import (NewtonOptions, solve_dc,
                                             dc_core, default_newton_options)
 from cedarsim_tpu_torch.analysis.tran import (TranOptions, TranSolution,
-                                              tran)
+                                              tran, save_checkpoint,
+                                              load_checkpoint)
 from cedarsim_tpu_torch.analysis.sweeps import (
     Sweep, ProductSweep, TandemSweep, SerialSweep, sweepify, dc_sweep,
     data_sweep)
@@ -64,7 +66,8 @@ from cedarsim_tpu_torch.api import (simulate, find_tran_directive,
                                     find_ac_directive)
 
 __all__ = [
-    "Circuit", "SimSpec", "Modes", "CompiledCircuit", "compile_circuit",
+    "config", "Circuit", "Net", "GROUND", "SimSpec", "Modes",
+    "CompiledCircuit", "compile_circuit",
     "ensure_dynamic",
     "Resistor", "Capacitor", "Inductor", "CoupledInductors", "VSource",
     "VSourcePWL", "VSourcePULSE", "VSourceSIN", "VSourceEXP", "ISource",
@@ -75,7 +78,7 @@ __all__ = [
     "Bjt", "Jfet", "Mesfet",
     "parse_spice", "elaborate", "load_spice", "NewtonOptions", "solve_dc",
     "dc_core", "default_newton_options", "TranOptions", "TranSolution",
-    "tran", "Sweep", "ProductSweep",
+    "tran", "save_checkpoint", "load_checkpoint", "Sweep", "ProductSweep",
     "TandemSweep", "SerialSweep", "sweepify", "dc_sweep", "data_sweep",
     "mc_dc",
     "mc_statistics", "ac", "acdec", "noise", "ACSolution", "NoiseSolution",

@@ -118,8 +118,9 @@ class TranOptions:
     shrink: float = 0.2
     bp_restart: float = 0.1        # h multiplier after a breakpoint
     uic: bool = False              # skip operating point, use ICs directly
-    #: corrector formulation: "charge", "cap", or "auto" (charge: the port
-    #: evaluates models in float64 only)
+    #: corrector formulation: "charge", "cap", or "auto" (the cap form
+    #: under mixed-precision evaluation, where it keeps the float32 eval
+    #: noise relative; else charge; :func:`cap_form_of`)
     formulation: str = "auto"
     #: dense linear solver: "jax" (exact float64 ``torch.linalg``), "mixed"
     #: (float32 GESP kernels + float64 refinement) or "auto" ("mixed" on
@@ -144,6 +145,24 @@ class TranOptions:
     #: "history" mode; lookups older than its oldest sample read that
     #: sample
     delay_history: int = 512
+
+
+def cap_form_of(compiled: CompiledCircuit, opts: TranOptions) -> bool:
+    """Whether the corrector is the cap form: ``formulation="cap"``, or
+    "auto" on a circuit whose models evaluate in another dtype than its
+    state (the JAX package's rule)."""
+    return opts.formulation == "cap" or (opts.formulation == "auto"
+                                         and compiled.mixed)
+
+
+def mixed_tran_options() -> TranOptions:
+    """The transient's defaults under ``eval_dtype=float32`` (the JAX
+    package's): Newton and LTE tolerances above the float32 noise floor,
+    the Jacobian shunt, and the per-step chord (``jac_reuse=1``), which
+    with the cap form lets "auto" take the fused chord kernel."""
+    return TranOptions(newton_reltol=1e-4, newton_abstol=5e-7, res_tol=1e-3,
+                       jac_shunt=1e-7, res_rel=3e-5, rtol=1e-2, atol=1e-4,
+                       jac_reuse=1)
 
 
 def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
@@ -226,15 +245,16 @@ def resolve_impl(compiled: CompiledCircuit, opts: TranOptions, ctx=None,
 
 def auto_newton_impl(compiled: CompiledCircuit, opts: TranOptions, ctx,
                      params=None):
-    """"fused" when the corrector is the cap form, ``jac_reuse == 1``, the
-    circuit has no delay or latch slots and no noise is injected (as the
-    JAX package's ``auto_tpu_impl``), the fused plan builds, the
+    """"fused" when the corrector is the cap form (:func:`cap_form_of`),
+    ``jac_reuse == 1``, the circuit has no delay or latch slots and no
+    noise is injected (as the JAX package's ``auto_tpu_impl``), the fused
+    plan builds, the
     temperature is one value (the plan bakes it) and every per-lane leaf
     of ``params`` reaches the kernel (``dyn_leaf_safe``); else "xla".
     Only :class:`~cedarsim_tpu_torch.ops.fused_chord.FusedEnvelopeError`
     counts as "outside the envelope": any other failure (an emit, a
     build) propagates."""
-    if (opts.formulation != "cap" or opts.jac_reuse != 1
+    if (not cap_form_of(compiled, opts) or opts.jac_reuse != 1
             or opts.noise_seed is not None or compiled.n_dly):
         return "xla"
     try:
@@ -513,7 +533,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
 
     if opts.formulation not in ("auto", "charge", "cap"):
         raise ValueError(f"unknown formulation {opts.formulation!r}")
-    cap_form = opts.formulation == "cap"
+    cap_form = cap_form_of(compiled, opts)
     method = opts.method
     if method == "auto":
         method = "bdf2" if cap_form else "trap"
@@ -529,7 +549,8 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
         # the envelope of the fused chord kernel, checked before any step
         if not cap_form:
             raise ValueError("newton_impl='fused' requires the cap-form "
-                             "corrector (formulation='cap')")
+                             "corrector (formulation='cap' or mixed-"
+                             "precision eval_dtype)")
         if noisy or n_dly:
             raise ValueError("newton_impl='fused': noise injection and "
                              "delay/latch channels are not supported "
@@ -1288,6 +1309,21 @@ def _store_columns(compiled, store_vars):
     return tuple(idx), store_map
 
 
+def save_checkpoint(path, ckpt: dict):
+    """Write a transient checkpoint (``sol.checkpoint``) to an ``.npz``
+    file (the JAX package's ``save_checkpoint``)."""
+    np.savez(path, **{k: torch.as_tensor(v).detach().cpu().numpy()
+                      if isinstance(v, torch.Tensor) else np.asarray(v)
+                      for k, v in ckpt.items()})
+
+
+def load_checkpoint(path) -> dict:
+    """A checkpoint from :func:`save_checkpoint`'s file, as numpy arrays;
+    ``tran(resume=)`` puts them on the compiled circuit's device."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
 def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
          opts: TranOptions = None, dc_opts: NewtonOptions = None, x0=None,
          resume: dict = None):
@@ -1305,7 +1341,9 @@ def tran(compiled: CompiledCircuit, tspan, params=None, ctx: SimSpec = None,
     params = compiled.params0 if params is None else params
     if ctx is None:
         ctx = default_ctx(compiled)
-    opts = opts or TranOptions()
+    if opts is None:
+        opts = (mixed_tran_options() if compiled.mixed
+                and compiled.eval_dtype == torch.float32 else TranOptions())
     store_map = None
     if opts.store_vars is not None:
         idx, store_map = _store_columns(compiled, opts.store_vars)

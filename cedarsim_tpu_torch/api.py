@@ -197,7 +197,7 @@ def dc_directive_sweep(args):
 
 def simulate(text_or_circuit, include_paths=(), params=None, temp=None,
              tran_opts: TranOptions = None, file="<netlist>", mc_seed=None,
-             dialect=None, device=None):
+             dialect=None, device=None, eval_dtype=None):
     """Run the analyses requested by the netlist's directives.
 
     ``text_or_circuit``: SPICE or Spectre netlist text, or an elaborated
@@ -212,7 +212,8 @@ def simulate(text_or_circuit, include_paths=(), params=None, temp=None,
     ``NoiseSolution``), ``"measures"`` (name → value) and ``"fourier"``
     (name → harmonics); the analyses after an ``altergroup``/``alter``
     statement under suffixed keys (``"tran@<name>"``).  ``mc_seed`` seeds
-    the elaboration's Monte-Carlo draws."""
+    the elaboration's Monte-Carlo draws.  ``eval_dtype``: the model
+    evaluations' dtype (``compile_circuit``'s; default float64)."""
     if isinstance(text_or_circuit, str):
         text = text_or_circuit
         if dialect not in (None, "spice", "spectre"):
@@ -231,7 +232,8 @@ def simulate(text_or_circuit, include_paths=(), params=None, temp=None,
                 circuit = elaborate(P.SpiceNetlist(nl.title, stmts, nl.path),
                                     include_paths=include_paths,
                                     params=params, mc_seed=mc_seed)
-                res = _run_circuit(circuit, temp, tran_opts, device)
+                res = _run_circuit(circuit, temp, tran_opts, device,
+                                   eval_dtype)
                 if k == 0:
                     out.update(res)
                 else:
@@ -242,11 +244,12 @@ def simulate(text_or_circuit, include_paths=(), params=None, temp=None,
                             mc_seed=mc_seed)
     else:
         circuit = text_or_circuit
-    return _run_circuit(circuit, temp, tran_opts, device)
+    return _run_circuit(circuit, temp, tran_opts, device, eval_dtype)
 
 
-def _run_circuit(circuit, temp=None, tran_opts=None, device=None):
-    compiled = compile_circuit(circuit, device=device)
+def _run_circuit(circuit, temp=None, tran_opts=None, device=None,
+                 eval_dtype=None):
+    compiled = compile_circuit(circuit, device=device, eval_dtype=eval_dtype)
     run_params = None
     # device-targeted alter statements (a1 alter dev=r1 param=r value=2k)
     for cmd, args, kw in circuit.directives:

@@ -1,4 +1,6 @@
-"""Cell G: ``bench.py``'s BSIM-CMG DFF leg through the public ``tran()``.
+"""Cell G: ``bench.py``'s BSIM-CMG DFF leg through the public ``tran()``;
+cells B-f32 and G-f32: ``bench.py``'s accelerator configuration of both
+DFF legs, models evaluated in float32.
 
 The CMG leg of the JAX package's benchmark (``bench.py:99-103``):
 ``benchmarks/gf180_dff/dff_tb_cmg.cir``, 30 BSIM-CMG 107 FinFETs through
@@ -19,18 +21,36 @@ engines, both with the leg's tolerances:
   ``dense_lu="auto"``, which on a card with a lane axis is the float32
   GESP pair B2/B3 (85 unknowns are within ``gesp_lu.max_n``).
 
+Float32 evaluation (``--eval-dtype float32``): the JAX package's benchmark
+builds both legs with ``eval_dtype=float32`` whenever it runs on its chip
+(``bench.py:14-19,119-126,181``).  The leg is compiled with
+``eval_dtype=torch.float32`` (states, time, step control and solves stay
+float64), each lane's warm DC under the float32 Newton defaults
+(``bench.py:221-240``), and run on the fused engine with the formulation
+left "auto" (the cap form and BDF2 under float32 evaluation): B1's
+float32 form, the walk emitted over ``float``, with the rescue's full
+Newton on B2/B3.  Cell B-f32 is ``--leg bsim4`` (``dff_tb_bsim4.cir``, W
+per lane, 128 lanes, ``golden_bsim4.json``), cell G-f32 the CMG leg.
+Every run also reports ``bench.py``'s ``race_lane_agreement``
+(``kernel_times.race_lane_agreement``).
+
     python -m cedarsim_tpu_torch.benchmarks.cmg_dff --engine fused
     python -m cedarsim_tpu_torch.benchmarks.cmg_dff --engine xla \\
         --tstop 6e-8
     python -m cedarsim_tpu_torch.benchmarks.cmg_dff --device cpu \\
         --tstop 2e-9
+    python -m cedarsim_tpu_torch.benchmarks.cmg_dff --leg bsim4 \\
+        --eval-dtype float32
+    python -m cedarsim_tpu_torch.benchmarks.cmg_dff --eval-dtype float32 \\
+        --tstop 2.6e-7
 
-prints one JSON line: lanes, n_x, set-up (the leg's compile, operating
-point and per-lane warm DC; for ``fused`` also the plan, emit and nvcc
-seconds and ptxas's lines), the ``tran`` wall, the counts over all lanes,
-the kernels' launches in that call, the gate's worst error (null when
-no golden point lies inside the window) and, on a card, the card's name
-and power limit.
+prints one JSON line: leg, lanes, n_x, eval dtype, set-up (the leg's
+compile, operating point and per-lane warm DC; for ``fused`` also the
+plan, emit and nvcc seconds, the library's entry and ptxas's lines), the
+``tran`` wall, the counts over all lanes, the kernels' launches in that
+call, the gate's worst error (null when no golden point lies inside the
+window), the race agreement and, on a card, the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -40,33 +60,52 @@ import json
 import sys
 import time
 
-#: the window of cell G (the golden's last point is at 700 ns)
+#: the legs' window (the goldens' last point is at 700 ns)
 TSTOP = 7e-7
 
 
-def setup(lanes=None, device=None):
-    """The leg's lanes (``kernel_times.dff_lanes(leg="cmg")``) and the
-    seconds they took: ((compiled, ctx, per-lane params, per-lane initial
-    states), seconds)."""
+def options(engine="fused", leg="cmg", mixed=False):
+    """The transient options of ``leg`` on ``engine``: the fused engine's
+    (``kernel_times.CMG_FUSED_OPTS``, or cell B's ``FUSED_OPTS`` for
+    BSIM4), with the formulation left "auto" under float32 evaluation
+    (``mixed``: ``bench.py``'s accelerator set), or cell G-xla's
+    (``CMG_XLA_OPTS``)."""
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    if engine == "xla":
+        if leg != "cmg" or mixed:
+            raise ValueError("the xla engine runs cell G only")
+        return dict(kt.CMG_XLA_OPTS)
+    opts = dict(kt.CMG_FUSED_OPTS if leg == "cmg" else kt.FUSED_OPTS)
+    if mixed:
+        del opts["formulation"]
+    return opts
+
+
+def setup(lanes=None, device=None, leg="cmg", eval_dtype=None):
+    """The leg's lanes (``kernel_times.dff_lanes``, models evaluated in
+    ``eval_dtype``; by default the JAX package's lane count for the leg on
+    its chip) and the seconds they took: ((compiled, ctx, per-lane params,
+    per-lane initial states), seconds)."""
     import torch
     import cedarsim_tpu_torch as T
     from cedarsim_tpu_torch.benchmarks import kernel_times as kt
     from cedarsim_tpu_torch.config import resolve_device
     t0 = time.perf_counter()
-    lanes = kt.CMG_LANES if lanes is None else lanes
+    lanes = kt.LEGS[leg]["tpu_nb"] if lanes is None else lanes
     dff = kt.dff_lanes(torch, T, resolve_device(device), lanes=lanes,
-                       leg="cmg")
+                       leg=leg, eval_dtype=eval_dtype)
     return dff, time.perf_counter() - t0
 
 
 def run(engine="fused", tstop=TSTOP, device=None, dff=None, dense_lu=None,
-        plan=None):
-    """Run cell G through ``engine`` ("fused" or "xla") over 0-``tstop``
-    and gate it; ``dff``: the lanes from :func:`setup` (the leg's 32 made
-    here otherwise), ``dense_lu`` overrides the engine's, ``plan``: the
-    fused plan already built.  Every kernel count is set to 0 just before the
-    call and read just after.  Returns the result dict (the solutions
-    under ``"sols"``)."""
+        plan=None, leg="cmg"):
+    """Run ``leg`` (cell G, or B-f32/G-f32 on lanes compiled for float32
+    evaluation) through ``engine`` ("fused" or "xla") over 0-``tstop`` and
+    gate it; ``dff``: the lanes from :func:`setup` (the leg's float64 lanes
+    made here otherwise), ``dense_lu`` overrides the engine's, ``plan``:
+    the fused plan already built.  Every kernel count is set to 0 just
+    before the call and read just after.  Returns the result dict (the
+    solutions under ``"sols"``)."""
     import torch
     import cedarsim_tpu_torch as T
     from cedarsim_tpu_torch.analysis.tran import fused_plan_for, resolve_impl
@@ -75,14 +114,14 @@ def run(engine="fused", tstop=TSTOP, device=None, dff=None, dense_lu=None,
     from cedarsim_tpu_torch.ops import gesp_lu
     setup_s = 0.0
     if dff is None:
-        dff, setup_s = setup(device=device)
+        dff, setup_s = setup(device=device, leg=leg)
     comp, ctx, pb, x0 = dff
     on_card = comp.device.type == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
-    opts = dict(kt.CMG_FUSED_OPTS if engine == "fused" else kt.CMG_XLA_OPTS)
+    opts = options(engine, leg, comp.mixed)
     if dense_lu is not None:
         opts["dense_lu"] = dense_lu
     impl = resolve_impl(comp, T.TranOptions(**opts), ctx, pb)
@@ -94,7 +133,7 @@ def run(engine="fused", tstop=TSTOP, device=None, dff=None, dense_lu=None,
         info = plan.build()
         fused = dict(
             plan_s=plan_s, emit_s=info["emit_seconds"],
-            nvcc_s=info["nvcc_seconds"],
+            nvcc_s=info["nvcc_seconds"], entry=plan.entry,
             ptxas=[ln.strip() for ln in info["log"].splitlines()
                    if any(w in ln for w in ("registers", "spill",
                                             "stack frame"))],
@@ -114,15 +153,17 @@ def run(engine="fused", tstop=TSTOP, device=None, dff=None, dense_lu=None,
     wall = time.perf_counter() - t0
     launches = dict(zip(("fused", "factor", "subst"),
                         (f.launches for f in counters)))
-    worst = kt.gate_golden(sols, kt.golden(T, "cmg"), comp.n_x, tstop)
+    gold = kt.golden(T, leg)
+    worst = kt.gate_golden(sols, gold, comp.n_x, tstop)
     n = len(sols)
     return dict(
-        engine=engine, lanes=n, n_x=comp.n_x, device=str(comp.device),
+        engine=engine, leg=leg, lanes=n, n_x=comp.n_x,
+        device=str(comp.device), eval_dtype=str(comp.eval_dtype),
         dense_lu=impl.dense_lu, newton_impl=impl.newton_impl,
         jac_shunt=impl.jac_shunt, tstop=tstop, setup_s=setup_s,
         **fused, wall_s=wall, transients_per_s=n / wall,
-        worst_golden_err=worst,
-        golden_tolerance=kt.golden(T, "cmg")["tolerance"],
+        worst_golden_err=worst, golden_tolerance=gold["tolerance"],
+        race_lane_agreement=kt.race_lane_agreement(sols, gold, tstop),
         accepted=sum(s.n_accepted for s in sols),
         rejected=sum(s.n_rejected for s in sols),
         newton=sum(s.n_newton for s in sols), attempts=sols[0].n_attempts,
@@ -130,13 +171,21 @@ def run(engine="fused", tstop=TSTOP, device=None, dff=None, dense_lu=None,
 
 
 def main(argv=None):
+    import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--engine", default="fused", choices=["fused", "xla"])
+    ap.add_argument("--leg", default="cmg", choices=["cmg", "bsim4"])
+    ap.add_argument("--eval-dtype", default="float64",
+                    choices=["float64", "float32"])
     ap.add_argument("--tstop", type=float, default=TSTOP)
+    ap.add_argument("--lanes", type=int, default=None)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    rec = run(args.engine, args.tstop, args.device)
+    dff, setup_s = setup(args.lanes, args.device, args.leg,
+                         getattr(torch, args.eval_dtype))
+    rec = run(args.engine, args.tstop, dff=dff, leg=args.leg)
+    rec.update(setup_s=setup_s)
     rec.pop("sols")
     print(json.dumps(rec))
     return 0

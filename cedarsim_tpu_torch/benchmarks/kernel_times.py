@@ -48,7 +48,12 @@ B2's sweep alone (with B4 beside it), ``--lv1`` B1 on the level-1 plan
 alone.  ``--sass`` adds, for each kernel of
 the GESP and pivoting libraries, the count of its floating-point SASS
 instructions by opcode (``cuobjdump -sass``): whether an update compiled
-to a fused multiply-add (``FFMA``) or to a product and a sum.  One JSON
+to a fused multiply-add (``FFMA``) or to a product and a sum.
+``--fused-sass FILE`` only builds cell B's fused plan (float64, 8 lanes)
+and writes its library's machine code (``cuobjdump -sass``) to FILE,
+with the sha256 of the library and of that text in the JSON: run it once
+with ``--tree`` on the parent and once without to see whether a change
+to ``csrc/fused_chord.cu`` left the float64 kernel's code as it was.  One JSON
 object is printed, with the card's name and power limit; ``--out`` also
 writes it to a file.  Needs a CUDA card.
 """
@@ -89,11 +94,11 @@ XLA_OPTS = dict(max_steps=8192, jac_reuse=1, dense_lu="mixed",
                 newton_impl="xla", accept_slack=1.5, jac_shunt=1e-9)
 #: ``bench.py``'s two DFF legs (``bench.py:93-103``; a copy, since the port
 #: does not import ``bench.py``): testbench, golden, the group and the
-#: parameter scattered per lane, the leg's tolerances and (CMG) the JAX
+#: parameter scattered per lane, the leg's tolerances and the JAX
 #: package's lane count for it on its chip
 LEGS = {
     "bsim4": dict(tb="dff_tb_bsim4.cir", golden="golden_bsim4.json",
-                  group="bsim4", param="W",
+                  group="bsim4", param="W", tpu_nb=128,
                   tpu_opts=dict(newton_reltol=1e-4, newton_abstol=5e-7,
                                 res_tol=1e-3, jac_shunt=1e-7, res_rel=3e-5,
                                 rtol=1e-2, atol=1e-4)),
@@ -242,19 +247,21 @@ def dominant_systems(rng, B, n):
     return A, b
 
 
-def dff_lanes(torch, T, dev, lanes=N_LANES, leg="bsim4"):
-    """A DFF leg's testbench (``LEGS[leg]``) compiled on ``dev``, its
-    transient operating point and the per-lane warm DC of the leg's
-    scatter (its parameter times ``linspace(0.99, 1.01)``, the middle lane
-    nominal).  Returns (compiled, ctx, per-lane params, per-lane initial
-    states)."""
+def dff_lanes(torch, T, dev, lanes=N_LANES, leg="bsim4", eval_dtype=None):
+    """A DFF leg's testbench (``LEGS[leg]``) compiled on ``dev`` (models
+    evaluated in ``eval_dtype``, by default float64), its transient
+    operating point and the per-lane warm DC of the leg's scatter (its
+    parameter times ``linspace(0.99, 1.01)``, the middle lane nominal;
+    ``default_newton_options``, the float32 set under float32 evaluation,
+    as ``bench.py:221-240``).  Returns (compiled, ctx, per-lane params,
+    per-lane initial states)."""
     from cedarsim_tpu_torch.analysis.dc import dc_from_nominal
     cfg = LEGS[leg]
     dff_dir = os.path.join(_repo(T), "benchmarks", "gf180_dff")
     with open(os.path.join(dff_dir, cfg["tb"])) as f:
         nl = T.parse_spice(f.read(), file=cfg["tb"])
     comp = T.compile_circuit(T.elaborate(nl, include_paths=[dff_dir]),
-                             device=dev)
+                             device=dev, eval_dtype=eval_dtype)
     ctx = T.SimSpec.make(gmin=1e-15)
     op = T.solve_dc(comp, ctx=ctx, mode="tranop")
     if not bool(op.converged):
@@ -284,6 +291,8 @@ def golden(T, leg="bsim4"):
 
 #: the DFF legs' golden tolerance (bench.py GOLDEN_TOL)
 GOLDEN_TOL = 0.05
+#: the golden points inside the 401 ns race (450 and 550 ns)
+RACE_IDX = (2, 3)
 
 
 def gate_golden(sols, gold, n_x, tstop=float("inf")):
@@ -303,7 +312,7 @@ def gate_golden(sols, gold, n_x, tstop=float("inf")):
         for j, (t_ns, g) in enumerate(zip(gold["samples_ns"], gold["q"])):
             if t_ns * 1e-9 > tstop:
                 continue
-            if j in (2, 3) and lane != nominal:
+            if j in RACE_IDX and lane != nominal:
                 continue        # the race points gate only the nominal lane
             err = abs(float(sol.interp("q", t_ns * 1e-9)) - g)
             worst = err if worst is None else max(worst, err)
@@ -312,6 +321,24 @@ def gate_golden(sols, gold, n_x, tstop=float("inf")):
     if errs:
         raise AssertionError(f"golden gate failed (lane, ns, err): {errs}")
     return worst
+
+
+def race_lane_agreement(sols, gold, tstop):
+    """``bench.py``'s share of the scattered lanes within ``GOLDEN_TOL``
+    of the golden at the race points inside the window (None when none
+    is)."""
+    idx = [j for j in RACE_IDX if gold["samples_ns"][j] * 1e-9 <= tstop]
+    if not idx:
+        return None
+    agree, n = 0, 0
+    for lane, sol in enumerate(sols):
+        if lane == len(sols) // 2:
+            continue
+        for j in idx:
+            q = float(sol.interp("q", gold["samples_ns"][j] * 1e-9))
+            agree += abs(q - gold["q"][j]) <= GOLDEN_TOL
+            n += 1
+    return agree / max(n, 1)
 
 
 def lv1_lanes(torch, T, dev, lanes=LV1_LANES, op=True):
@@ -350,10 +377,82 @@ def _repo(T):
 BDF_A0 = {k: sum(1.0 / j for j in range(1, k + 1)) for k in (3, 5)}
 
 
-def fused_args(torch, T, plan, dff, h, lanes=None, opts=None, order=1):
+#: B1's float32 form against its float32 plain version after the same
+#: number of chord iterations: float32 ulps of each output's largest entry
+#: (the kernel's expf/logf/powf and PyTorch's float32 kernels part in
+#: their last bits, and the CMG DFF's chord, cond(J/r) ~2e10, carries that
+#: to 31 ulps of xn: 3.72e-6 relative at [32, 85], h = 1e-11, in PR 18's
+#: smoke)
+F32_ULPS = 64
+#: Newton tolerances no update or residual meets (each test asks for
+#: |dx| or |f| <= -1): every chord runs to ``max_newton``
+NO_CONVERGENCE = dict(newton_reltol=0.0, newton_abstol=-1.0, res_rel=0.0,
+                      res_tol=-1.0)
+
+
+def check_fused_f32(torch, fc, plan, args, opts):
+    """B1's float32 form against its float32 plain version on ``args``:
+    two launches bitwise equal, every lane's chord converged in both under
+    ``opts`` (each certified by its own residual and update tests); then
+    both again with ``max_newton`` k, the largest count either took, and
+    tolerances no iterate meets (``NO_CONVERGENCE``), so that every lane
+    of both takes exactly k iterations: xn, S and Q of every lane within
+    ``F32_ULPS`` float32 ulps of their largest entries (S of its scale at
+    the predictor, the currents it is summed from).  A wrong walk, ic term
+    or residual moves the iterates, so it shows at k whatever the
+    convergence tests said; last-bit differences of the float32 walks move
+    a lane's converged count (an ill-conditioned chord's, the CMG DFF's,
+    by several iterations), so the converged points are not compared.
+    Raises on a miss; returns (the relative errors at k, k, the lanes held,
+    the lanes whose converged counts differ and the largest difference,
+    xn's largest error at k), and the kernel's converged outputs."""
+    import dataclasses
+    k1 = fc.fused_chord(plan, *args, opts)
+    k2 = fc.fused_chord(plan, *args, opts)
+    p = fc.fused_chord_plain(plan, *args, opts)
+    s_scale = float(fc.fused_chord_plain(
+        plan, *args, dataclasses.replace(opts, max_newton=0))[1]
+        .abs().max())
+    torch.cuda.synchronize()
+    if not all(torch.equal(u, w) for u, w in zip(k1, k2)):
+        raise AssertionError("two launches of the float32 form differ")
+    if not (bool(k1[3][:, 0].all()) and bool(p[3][:, 0].all())):
+        raise AssertionError(f"a chord failed: kernel {k1[3].tolist()}, "
+                             f"plain {p[3].tolist()}")
+    k = int(torch.maximum(k1[3][:, 1], p[3][:, 1]).max())
+    fixed = dataclasses.replace(opts, max_newton=k, **NO_CONVERGENCE)
+    kk = fc.fused_chord(plan, *args, fixed)
+    pk = fc.fused_chord_plain(plan, *args, fixed)
+    torch.cuda.synchronize()
+    if not (bool((kk[3][:, 1] == k).all()) and bool((pk[3][:, 1] == k)
+                                                   .all())):
+        raise AssertionError(f"not every lane took {k} iterations: kernel "
+                             f"{kk[3][:, 1].tolist()}, plain "
+                             f"{pk[3][:, 1].tolist()}")
+    rtol = F32_ULPS * float(torch.finfo(torch.float32).eps)
+    rel = {}
+    for name, u, w in zip(("xn", "S", "Q"), kk[:3], pk[:3]):
+        scale = float(w.abs().max())
+        if name == "S":
+            scale = max(scale, s_scale)
+        rel[name] = float((u - w).abs().max()) / max(scale, 1e-300)
+        if not rel[name] <= rtol:
+            raise AssertionError(f"{name} after {k} iterations: relative "
+                                 f"error {rel[name]:.3g} > {rtol:.3g}")
+    differ = k1[3][:, 1] != p[3][:, 1]
+    return dict(
+        rel=rel, rtol=rtol, fixed_count=k, lanes_held=int(kk[0].shape[0]),
+        lanes_other_count=int(differ.sum()),
+        max_count_diff=int((k1[3][:, 1] - p[3][:, 1]).abs().max()),
+        xn_abs=float((kk[0] - pk[0]).abs().max())), k1
+
+
+def fused_args(torch, T, plan, dff, h, lanes=None, opts=None, order=1,
+               pert=0.05):
     """The fused kernel's inputs on the DFF's lanes (all, or the slice
     ``lanes``): a step ``h`` from the warm state, the node unknowns
-    perturbed by a seeded 0.05 V so that the chord loop iterates; a BE
+    perturbed by a seeded ``pert`` V (0.05) so that the chord loop
+    iterates; a BE
     start (J = C/h + G + the Jacobian shunt at the predictor), or with
     ``order`` k a uniform-step BDFk step whose history sits at the warm
     state (c0 = a0 = ``BDF_A0[k]``, the history combination −a0·x0,
@@ -364,10 +463,10 @@ def fused_args(torch, T, plan, dff, h, lanes=None, opts=None, order=1):
     opts = T.TranOptions(**(FUSED_OPTS if opts is None else opts))
     ctx_t = ctx.with_mode("tran")
     L, n = x0.shape
-    pert = np.zeros((L, n))
-    pert[:, :comp.n_nodes] = np.random.default_rng(0).uniform(
-        -0.05, 0.05, (L, comp.n_nodes))
-    x_pred = x0 + torch.as_tensor(pert, dtype=comp.dtype, device=dev)
+    dx = np.zeros((L, n))
+    dx[:, :comp.n_nodes] = np.random.default_rng(0).uniform(
+        -pert, pert, (L, comp.n_nodes))
+    x_pred = x0 + torch.as_tensor(dx, dtype=comp.dtype, device=dev)
     if lanes is not None:
         pb = {k: {pn: v[lanes] for pn, v in g.items()} for k, g in pb.items()}
         x0, x_pred = x0[lanes], x_pred[lanes]
@@ -485,16 +584,46 @@ def measure(torch, T, dev, which="all"):
 SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU.RCP", "SHFL", "BAR")
 
 
+def _sass(path):
+    """``cuobjdump -sass`` of a built library."""
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def fused_sass(torch, T, dev, out):
+    """Cell B's fused plan (float64; the header does not depend on the
+    lanes' W) built, its library's SASS written to ``out``; returns the
+    library's path, its sha256 and the SASS text's.  Only the package's
+    entry points are called, so ``--tree`` may name an older checkout."""
+    import hashlib
+    from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+    cfg = LEGS["bsim4"]
+    dff_dir = os.path.join(_repo(T), "benchmarks", "gf180_dff")
+    with open(os.path.join(dff_dir, cfg["tb"])) as f:
+        nl = T.parse_spice(f.read(), file=cfg["tb"])
+    comp = T.compile_circuit(T.elaborate(nl, include_paths=[dff_dir]),
+                             device=dev)
+    plan = fused_plan_for(comp, T.SimSpec.make(gmin=1e-15), comp.params0)
+    path = plan.build()["path"]
+    text = _sass(path)
+    with open(out, "w") as f:
+        f.write(text)
+    with open(path, "rb") as f:
+        lib = hashlib.sha256(f.read()).hexdigest()
+    return dict(library=path, library_sha256=lib,
+                sass_sha256=hashlib.sha256(text.encode()).hexdigest(),
+                sass_lines=text.count("\n"))
+
+
 def sass_counts(path):
     """{kernel (mangled name): {opcode: count}} of a built library's
     machine code, from ``cuobjdump -sass`` (opcodes in ``SASS_OPS``; a
     prefix match, so FADD counts FADD.FTZ too)."""
     import re
-    import shutil
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    text = subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, check=True).stdout
+    text = _sass(path)
     out, name = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -552,6 +681,9 @@ def main(argv=None):
                     "with B4 beside it")
     ap.add_argument("--lv1", action="store_true",
                     help="time only B1 on the level-1 DFF's plan")
+    ap.add_argument("--fused-sass", metavar="FILE",
+                    help="only build cell B's fused plan and write its "
+                    "library's SASS to FILE")
     args = ap.parse_args(argv)
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                         "..")
@@ -561,6 +693,11 @@ def main(argv=None):
         raise SystemExit("kernel_times: no CUDA device")
     import cedarsim_tpu_torch as T
     dev = torch.device("cuda", 0)
+    if args.fused_sass:
+        res = {"tree": _repo(T), "card": smi(),
+               **fused_sass(torch, T, dev, args.fused_sass)}
+        print(json.dumps(res), flush=True)
+        return res
     which = ("dense" if args.dense else "factor" if args.factor
              else "lv1" if args.lv1 else "all")
     times, library, ptxas, results = measure(torch, T, dev, which)

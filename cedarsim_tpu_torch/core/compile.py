@@ -22,6 +22,15 @@ Lanes: ``x`` is ``[n_x]`` or ``[L, n_x]``; a parameter leaf is the compiled
 ``[L, ...]``; ``ctx.time`` and ``ctx.temp`` are floats or ``[L]`` tensors.
 Every lane is evaluated independently of the others.
 
+Mixed precision: ``eval_dtype`` (default ``dtype``) is the dtype of the
+model evaluations only.  The walk casts the local unknowns, their tangents,
+the dynamic params, the aux inputs and the context's tensor fields to it;
+the rows and their tangents come back to the state's dtype before the
+scatter, so states, time, the step control and the solves stay in
+``dtype`` (the JAX package's ``_cast_eval``/``_ctx_eval``).  The delay
+ring's samples, the latch states and the noise powers are evaluated in
+``dtype``, as the JAX package evaluates them.
+
 Sparse path: circuits of ``SPARSE_AUTO_THRESHOLD`` unknowns or more (or
 any circuit compiled with ``sparse=True``) solve their Newton systems with
 the static-pattern sparse LU (:func:`use_sparse_solver`); their Jacobian
@@ -85,7 +94,7 @@ class CompiledCircuit:
     SPARSE_AUTO_THRESHOLD = 256
 
     def __init__(self, circuit: Circuit, dtype=None, device=None,
-                 dynamic_params=(), sparse="auto"):
+                 dynamic_params=(), sparse="auto", eval_dtype=None):
         """``device``: the torch device every tensor of the circuit (and of
         every solve on it) lives on; by default the CUDA card, and with no
         card an error (pass ``device="cpu"``).  ``dynamic_params``: param
@@ -93,15 +102,35 @@ class CompiledCircuit:
         (bare names apply to every instance, dotted names to one).
         ``sparse``: the Newton linear algebra, "auto" (sparse at
         ``SPARSE_AUTO_THRESHOLD`` unknowns or more), True or False
-        (:func:`use_sparse_solver`)."""
+        (:func:`use_sparse_solver`).  ``eval_dtype``: the dtype of the
+        model evaluations only (default ``dtype``); ``torch.float32`` runs
+        the device physics in float32 at ~1e-7 relative accuracy, so the
+        Newton and step tolerances loosen (``default_newton_options``, the
+        transient's defaults)."""
         self.circuit = circuit
         self.dtype = dtype or config.real_dtype
+        self.eval_dtype = eval_dtype or self.dtype
         self.device = config.resolve_device(device)
         self.dynamic_params = frozenset(
             d.lower() for d in (dynamic_params or ()))
         self.sparse_mode = sparse
         self._idx_cache = {}
         self._build()
+
+    @property
+    def mixed(self):
+        """True when the models evaluate in another dtype than the state."""
+        return self.eval_dtype != self.dtype
+
+    def _cast_eval(self, v):
+        """A walk input (tensor or Dual) in the eval dtype; anything else
+        (a Python float, a bool or integer tensor) as it is."""
+        if isinstance(v, Dual):
+            return Dual(self._cast_eval(v.v), self._cast_eval(v.d))
+        if (isinstance(v, torch.Tensor) and v.is_floating_point()
+                and v.dtype != self.eval_dtype):
+            return v.to(self.eval_dtype)
+        return v
 
     def _t(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
@@ -317,7 +346,7 @@ class CompiledCircuit:
                 torch.as_tensor(self._padded_idx(key)[0],
                                 device=self.device),
                 torch.as_tensor(g.kcl_mask, device=self.device),
-                torch.eye(nlv, dtype=self.dtype, device=self.device))
+                torch.eye(nlv, dtype=self.eval_dtype, device=self.device))
         return self._idx_cache[ck]
 
     def lane_params(self, params, L):
@@ -353,19 +382,26 @@ class CompiledCircuit:
             out[key] = (p, mult)
         return out
 
-    def _eval_ctx(self, ctx, n_inst):
+    def _eval_ctx(self, ctx, n_inst, cast=False):
         """``ctx`` for a group's flat eval batch: a per-lane time or
         temperature [L] is repeated over each lane's ``n_inst`` padded
-        instances."""
+        instances; with ``cast``, every tensor field in the eval dtype
+        (Python floats stay: they fold on the host)."""
         kw = {}
-        for f in ("time", "temp"):
+        for f in ("time", "temp", "gmin", "scale", "sourcefac"):
             v = getattr(ctx, f)
-            if isinstance(v, torch.Tensor) and v.dim() == 1:
-                kw[f] = v.repeat_interleave(n_inst)
+            if not isinstance(v, torch.Tensor):
+                continue
+            if f in ("time", "temp") and v.dim() == 1:
+                v = v.repeat_interleave(n_inst)
+            if cast:
+                v = self._cast_eval(v)
+            if v is not getattr(ctx, f):
+                kw[f] = v
         return ctx.replace(**kw) if kw else ctx
 
     def evaluate(self, x, ctx: SimSpec, lp, jac=False, v=None, keys=None,
-                 eps=None, dly=None):
+                 eps=None, dly=None, exact=False):
         """Core walk over ``[L, n_x]`` states with prepared lane params
         ``lp`` (:meth:`lane_params`).  Returns (S, Q) [L, n_x]; with
         ``jac=True`` also (G, C) [L, n_x, n_x], with ``jac="sparse"`` (G,
@@ -375,10 +411,14 @@ class CompiledCircuit:
         walk to those groups (in the compiled order): the fused chord
         plan's linear and nonlinear subsets.  ``eps`` [L, n_eps]: the noise
         inputs (None: the walk without noise); ``dly`` [L, n_dly]: the
-        delayed values and latched states (None: zeros)."""
+        delayed values and latched states (None: zeros).  The sums are
+        formed in ``x``'s dtype (the circuit's, but for the fused chord
+        kernel's float32 plain version).  ``exact``: the walk in ``x``'s
+        dtype whatever the eval dtype (the fused plan's linearity probe
+        and its baked constants, as the JAX plan's ``exact=True``)."""
         L, n = x.shape
         n1 = n + 1
-        dt, dev = self.dtype, self.device
+        dt, dev = x.dtype, self.device
         x_pad = torch.cat([x, torch.zeros(L, 1, dtype=dt, device=dev)], 1)
         v_pad = None if v is None else torch.cat(
             [v, torch.zeros(L, 1, dtype=dt, device=dev)], 1)
@@ -401,7 +441,8 @@ class CompiledCircuit:
             walk = [k for k in walk if k in keys]
         for key in walk:
             s, q, ds, dq, scale = self._walk_group(key, x_pad, ctx, lp, L,
-                                                   bool(jac), v_pad, eps, dly)
+                                                   bool(jac), v_pad, eps, dly,
+                                                   exact)
             ridx = self._index(key, L, "row")
             _scatter_add(S, ridx, (s * scale).reshape(-1))
             _scatter_add(Q, ridx, (q * scale).reshape(-1))
@@ -425,13 +466,15 @@ class CompiledCircuit:
         return S, Q
 
     def _walk_group(self, key, x_pad, ctx, lp, L, jac, v_pad, eps,
-                    dly=None):
+                    dly=None, exact=False):
         """One group's model walk over its flat eval batch of ``L`` lanes:
         the row values s, q [B, n_lrow], their tangents ds, dq [B, n_lrow,
         K] (K = n_lvar local Jacobian columns with ``jac``, else the one
         direction of ``v_pad``, else zeros) and the KCL rows' multiplier
-        ``scale`` [B, n_lrow]."""
-        dt, dev = self.dtype, self.device
+        ``scale`` [B, n_lrow], all in ``x_pad``'s dtype; the walk itself
+        runs in the eval dtype (``exact``: in ``x_pad``'s)."""
+        dt, dev = x_pad.dtype, self.device
+        ed = dt if exact else self.eval_dtype
         g = self.groups[key]
         p, mult = lp[key]
         ni = _n_pad(len(g.instances))
@@ -439,21 +482,39 @@ class CompiledCircuit:
         nlv = g.model.n_lvar()
         vi, kcl, eye = self._group_consts(key)
         lvv = x_pad[:, vi].reshape(B, nlv)
+        cast = not exact and (dt != ed or self.mixed)
+        if cast:
+            lvv = lvv.to(ed)
+            p = self._eval_params(g, p)
+        if jac and eye.dtype != ed:
+            eye = eye.to(ed)
         if jac:
             lv = [Dual(lvv[:, k], eye[:, k:k + 1].expand(nlv, B))
                   for k in range(nlv)]
         elif v_pad is not None:
-            tv = v_pad[:, vi].reshape(B, nlv)
+            tv = v_pad[:, vi].reshape(B, nlv).to(ed)
             lv = [Dual(lvv[:, k], tv[None, :, k]) for k in range(nlv)]
         else:
             lv = [lvv[:, k] for k in range(nlv)]
         e = self._group_aux(key, eps, dly, B)
-        s_rows, q_rows = g.model.eval(lv, p, self._eval_ctx(ctx, ni), e)
+        if cast and e is not None:
+            e = [self._cast_eval(a) for a in e]
+        s_rows, q_rows = g.model.eval(lv, p, self._eval_ctx(ctx, ni, cast),
+                                      e)
         K = nlv if jac else 1
-        s, ds = _stack_rows(s_rows, B, K, dt, dev)
-        q, dq = _stack_rows(q_rows, B, K, dt, dev)
+        s, ds = _stack_rows(s_rows, B, K, ed, dev)
+        q, dq = _stack_rows(q_rows, B, K, ed, dev)
         scale = torch.where(kcl, mult[:, None], 1.0)  # [B, n_lrow]
+        if cast:
+            s, ds, q, dq, scale = (a.to(dt) for a in (s, ds, q, dq, scale))
         return s, q, ds, dq, scale
+
+    def _eval_params(self, g, p):
+        """Walk params ``p`` of group ``g`` with the dynamic ones in the
+        eval dtype (the static ones fold on the host, as in the JAX
+        package)."""
+        return {k: (v if k in g.static_params else self._cast_eval(v))
+                for k, v in p.items()}
 
     def local_jacobians(self, x, ctx: SimSpec, params=None):
         """Each group's unscaled local Jacobians at ``x`` [L, n_x]: {key:
@@ -555,10 +616,11 @@ class CompiledCircuit:
             lp = self.lane_params(params, xb.shape[0])
         return xb, single, lp
 
-    def _plain_groups(self, xb, ctx, lp, want):
+    def _plain_groups(self, xb, ctx, lp, want, cast=False):
         """The walk inputs of every group that ``want(model)`` selects at
         ``xb`` [L, n_x]: per group (key, model, params, multiplier, eval
-        batch B, local values [B] each, eval ctx)."""
+        batch B, local values [B] each, eval ctx); with ``cast``, the
+        values, the dynamic params and the ctx in the eval dtype."""
         L = xb.shape[0]
         x_pad = torch.cat([xb, torch.zeros_like(xb[:, :1])], 1)
         out = []
@@ -570,18 +632,20 @@ class CompiledCircuit:
             ni = _n_pad(len(g.instances))
             nlv = g.model.n_lvar()
             lvv = x_pad[:, self._group_consts(key)[0]].reshape(L * ni, nlv)
+            if cast:
+                lvv, p = self._cast_eval(lvv), self._eval_params(g, p)
             out.append((key, g.model, p, mult, L * ni,
                         [lvv[:, k] for k in range(nlv)],
-                        self._eval_ctx(ctx, ni)))
+                        self._eval_ctx(ctx, ni, cast)))
         return out
 
-    def _noisy_groups(self, x, ctx, params):
+    def _noisy_groups(self, x, ctx, params, cast=False):
         """The walk inputs of every group with noise sources at ``x``
         ([n_x] or [L, n_x]): (L, one state?, and per group as
         :meth:`_plain_groups`)."""
         xb, single, lp = self._lane_inputs(x, params)
         return xb.shape[0], single, self._plain_groups(
-            xb, ctx, lp, lambda m: m.n_noise > 0)
+            xb, ctx, lp, lambda m: m.n_noise > 0, cast)
 
     def eps_jacobian(self, x, ctx: SimSpec, params=None, dly=None):
         """∂S/∂eps [..., n_x, n_eps] at ``x``: one walk of each noisy group
@@ -589,24 +653,26 @@ class CompiledCircuit:
         VA's own scale factors on a noise term carried through; the KCL
         rows scaled by the multiplier like S.  ``dly`` [..., n_dly]: the
         aux slots the walk reads (the operating point's, in the noise
-        analysis of a circuit with delay or latch sites)."""
-        L, single, groups = self._noisy_groups(x, ctx, params)
+        analysis of a circuit with delay or latch sites).  Walked in the
+        eval dtype, as the JAX package's derivative of ``residuals``."""
+        L, single, groups = self._noisy_groups(x, ctx, params, self.mixed)
         n1, e1 = self.n_x + 1, self.n_eps + 1
-        dt, dev = self.dtype, self.device
+        dt, ed, dev = self.dtype, self.eval_dtype, self.device
         if dly is not None:
             dly = torch.as_tensor(dly, dtype=dt, device=dev).expand(
                 L, self.n_dly)
         J = torch.zeros(L * n1 * e1, dtype=dt, device=dev)
         for key, model, p, mult, B, lv, ctx_e in groups:
             nn = model.n_noise
-            zero = torch.zeros(B, dtype=dt, device=dev)
-            eye = torch.eye(nn, dtype=dt, device=dev)
+            zero = torch.zeros(B, dtype=ed, device=dev)
+            eye = torch.eye(nn, dtype=ed, device=dev)
             e = [Dual(zero, eye[:, k:k + 1].expand(nn, B)) for k in range(nn)]
             aux = self._group_aux(key, None, dly, B)
             if aux is not None:
-                e = e + aux[nn:]
+                e = e + [self._cast_eval(a) for a in aux[nn:]]
             s_rows, _ = model.eval(lv, p, ctx_e, e)
-            _, ds = _stack_rows(s_rows, B, nn, dt, dev)   # [B, n_lrow, nn]
+            _, ds = _stack_rows(s_rows, B, nn, ed, dev)   # [B, n_lrow, nn]
+            ds = ds.to(dt)
             scale = torch.where(self._group_consts(key)[1], mult[:, None],
                                 1.0)
             _scatter_add(J, self._index(key, L, "eps"),
@@ -968,13 +1034,16 @@ def default_ctx(compiled: CompiledCircuit, temp_c=None) -> SimSpec:
 
 
 def compile_circuit(circuit: Circuit, dtype=None, device=None,
-                    dynamic_params=(), sparse="auto") -> CompiledCircuit:
+                    dynamic_params=(), sparse="auto",
+                    eval_dtype=None) -> CompiledCircuit:
     """Compile a circuit on ``device`` (by default the CUDA card; without
     one, pass ``device="cpu"``).  ``sparse``: "auto" (the sparse Newton
     linear algebra for circuits with n_x >= SPARSE_AUTO_THRESHOLD
-    unknowns), True, or False."""
+    unknowns), True, or False.  ``eval_dtype``: the model evaluations'
+    dtype (default ``dtype``; ``torch.float32`` for mixed precision)."""
     return CompiledCircuit(circuit, dtype=dtype, device=device,
-                           dynamic_params=dynamic_params, sparse=sparse)
+                           dynamic_params=dynamic_params, sparse=sparse,
+                           eval_dtype=eval_dtype)
 
 
 def use_sparse_solver(compiled: CompiledCircuit) -> bool:
@@ -999,5 +1068,6 @@ def ensure_dynamic(compiled: CompiledCircuit, names) -> CompiledCircuit:
         cache[want] = CompiledCircuit(compiled.circuit, dtype=compiled.dtype,
                                       device=compiled.device,
                                       dynamic_params=want,
-                                      sparse=compiled.sparse_mode)
+                                      sparse=compiled.sparse_mode,
+                                      eval_dtype=compiled.eval_dtype)
     return cache[want]

@@ -215,15 +215,35 @@ def safe_pow(a, b):
 
 
 def absolute(x):
+    """|x|, the Verilog-A ``abs``.  Its derivative at 0 over float32
+    values is the JAX package's +1 (``select(x >= 0, g, -g)``), where
+    float32 rounding puts a BSIM4 device's drain exactly on its source's
+    rail at the DFF's operating point; over float64 values it is still
+    sign(0) = 0, which the recorded float64 counts and emitted headers
+    follow (ROADMAP C17)."""
     v = val(x)
-    return _chain(torch.abs(v), x, torch.sign(v))
+    y = torch.abs(v)
+    if isinstance(x, Dual) and v.dtype == torch.float32:
+        return Dual(y, torch.where(v >= 0, x.d, -x.d))
+    return _chain(y, x, torch.sign(v))
 
 
-def limexp(x, lim=80.0):
+def limexp_cap(x):
+    """The Verilog-A ``limexp``'s cap for ``x``: 80, or 55 when ``x`` is
+    float32, where e^80·(1 + x − 80) overflows once x passes ~6,000 (the
+    JAX package's ``_limexp_cap``)."""
+    v = val(x)
+    return 55.0 if (isinstance(v, torch.Tensor)
+                    and v.dtype == torch.float32) else 80.0
+
+
+def limexp(x, lim=None):
     """exp with a linear tail beyond ``lim``, written from the same
     primitives as the JAX package's so its derivative follows theirs.  The
-    default is the Verilog-A ``limexp``'s float64 cap; the built-in
-    devices' ``_limexp`` passes its own 40."""
+    default is the Verilog-A ``limexp``'s cap (:func:`limexp_cap`); the
+    built-in devices' ``_limexp`` passes its own 40."""
+    if lim is None:
+        lim = limexp_cap(x)
     xe = exp(minimum(x, lim))
     return where(val(x) <= lim, xe, math.exp(lim) * (1.0 + (x - lim)))
 

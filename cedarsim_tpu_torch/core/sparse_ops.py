@@ -123,7 +123,8 @@ class SparseOps:
             cpu = CompiledCircuit(compiled.circuit, dtype=compiled.dtype,
                                   device="cpu",
                                   dynamic_params=compiled.dynamic_params,
-                                  sparse=compiled.sparse_mode)
+                                  sparse=compiled.sparse_mode,
+                                  eval_dtype=compiled.eval_dtype)
         n = compiled.n_x
         nv = compiled.n_nodes + compiled.n_internal
         rng = np.random.default_rng(0)

@@ -1,4 +1,5 @@
-// Fused chord-Newton solve for a batch of transient lanes, float64.
+// Fused chord-Newton solve for a batch of transient lanes, in float64 or,
+// built with -DFC_REAL=float, in float32.
 //
 // Replaces the Pallas kernels cedarsim_tpu/ops/fused_chord.py::
 // FusedChordPlan.build_kernel_batched (B1, :632) and ::build_kernel (B1',
@@ -41,13 +42,40 @@
 // so a lane's result does not depend on scheduling: two launches on the
 // same inputs give the same bits, and the same bits as the walk without the
 // cut (the same operations in the same order, built with --fmad=false).
+//
+// The scalar type `real` (FC_REAL, double unless the build defines it) is
+// that of the loop: the model walk (the header is emitted for it), the
+// iterate, the residual and the convergence test.  In float32 this is the
+// Pallas kernel's precision contract (cedarsim_tpu/ops/fused_chord.py:
+// 41-53): the per-step inputs arrive in float64 and are rounded once as
+// they are loaded, the plan's constants arrive in float32, and the state
+// leaves in float64 as x0 + d with the float32 correction d added to the
+// float64 predictor (the Pallas wrapper's x_init + dn); S and Q leave
+// widened.  The one exception is the direction: MT stays float64 in shared
+// memory and -(f * rinv) MT is summed in float64 on the FP64 cores, then
+// rounded to `real`.  The Pallas kernel's float32 product cannot hold the
+// BSIM-CMG DFF's chord: cond(J/r) is ~2e10 there, so rounding MT to
+// float32 alone moves the direction by volts and no step above ~1.5 ps
+// converges (tests/test_torch_mixed_precision.py); the H100 has the
+// float64 units the TPU lacked, and the product is n^2 of the walk's
+// thousands of operations.  No tensor cores (no TF32), no fast-math
+// intrinsics.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include FC_MODEL_HEADER
 
+#ifndef FC_REAL
+#define FC_REAL double
+#define FC_BITS 64
+#endif
+#define FC_CAT2(a, b) a##b
+#define FC_CAT(a, b) FC_CAT2(a, b)
+
 namespace {
+
+typedef FC_REAL real;
 
 struct Args {
   const double* x0;     // [B, n] predictor (the anchor of the iterate)
@@ -57,32 +85,42 @@ struct Args {
   const double* vanch;  // [B, n] (c0 x0 + xdh)/h
   const double* coef;   // [B, 2] (c0/h, t)
   const int* live;      // [B] 0: the lane enters done
-  const double* GlinT;  // [n, n] G_lin transposed (column j at j * n)
-  const double* ClinT;  // [n, n] C_lin transposed
-  const double* qoff;   // [n]
+  const real* GlinT;    // [n, n] G_lin transposed (column j at j * n)
+  const real* ClinT;    // [n, n] C_lin transposed
+  const real* qoff;     // [n]
   const int* inst_group;  // [n_inst]
   const int* inst_var;    // [n_inst, FC_MAX_LVAR], n = ground / pad
-  const double* dyn;      // [B, n_inst, FC_MAX_DYN]
+  const real* dyn;        // [B, n_inst, FC_MAX_DYN]
   const int* row_ptr;     // [n + 1]
   const int* ent_slot;    // [nnz] instance * FC_MAX_LROW + local row
-  const double* ent_scale;  // [B, nnz] $mult on KCL rows, else 1
-  double* hs;             // [B, n_inst, FC_MAX_HOIST] scratch: fc_pre's values
+  const real* ent_scale;  // [B, nnz] $mult on KCL rows, else 1
+  real* hs;               // [B, n_inst, FC_MAX_HOIST] scratch: fc_pre's values
   double* xn;           // [B, n]
   double* S;            // [B, n]
   double* Q;            // [B, n]
   int* stat;            // [B, 2] (ok, Newton iterations)
   int n, n_inst, nnz, max_newton;
-  double reltol, abstol, res_rel, res_tol;
+  real reltol, abstol, res_rel, res_tol;
 };
 
-__device__ double block_max(double v, double* red) {
+// the state a lane leaves with: in float64 the iterate x0 + d as it is; in
+// float32 the float64 predictor plus the widened correction
+__device__ __forceinline__ double state_out(double x0g, double x0s,
+                                            double d) {
+  return x0s + d;
+}
+__device__ __forceinline__ double state_out(double x0g, float x0s, float d) {
+  return x0g + (double)d;
+}
+
+__device__ real block_max(real v, real* red) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
   const int w = threadIdx.x >> 5, nw = (blockDim.x + 31) >> 5;
   __syncthreads();
   if ((threadIdx.x & 31) == 0) red[w] = v;
   __syncthreads();
-  double m = red[0];
+  real m = red[0];
   for (int i = 1; i < nw; ++i) m = fmax(m, red[i]);
   return m;
 }
@@ -90,13 +128,13 @@ __device__ double block_max(double v, double* red) {
 // S, Q and the charge tangent ic at the iterate x0 + d; e0/e1 are this
 // thread's row bounds of the scatter (its row is tid: n <= blockDim.x)
 // (not inlined: the model walk is long, and the kernel calls this twice)
-__device__ __noinline__ void parts(const Args& a, int b, double c0h,
-                                   const double* x0, const double* d,
-                                   const double* va, const double* so,
-                                   const double* hs, int e0, int e1,
-                                   double* x, double* v,
-                                   double* S, double* Q, double* ic,
-                                   double* is, double* iq, double* iqd) {
+__device__ __noinline__ void parts(const Args& a, int b, real c0h,
+                                   const real* x0, const real* d,
+                                   const real* va, const real* so,
+                                   const real* hs, int e0, int e1,
+                                   real* x, real* v,
+                                   real* S, real* Q, real* ic,
+                                   real* is, real* iq, real* iqd) {
   const int n = a.n, tid = threadIdx.x, nt = blockDim.x;
   if (tid < n) {
     x[tid] = x0[tid] + d[tid];
@@ -104,14 +142,14 @@ __device__ __noinline__ void parts(const Args& a, int b, double c0h,
   }
   __syncthreads();
   for (int k = tid; k < a.n_inst; k += nt) {
-    double lv[FC_MAX_LVAR], lvd[FC_MAX_LVAR];
-    double s[FC_MAX_LROW], q[FC_MAX_LROW], qd[FC_MAX_LROW];
+    real lv[FC_MAX_LVAR], lvd[FC_MAX_LVAR];
+    real s[FC_MAX_LROW], q[FC_MAX_LROW], qd[FC_MAX_LROW];
     for (int j = 0; j < FC_MAX_LVAR; ++j) {
       const int idx = a.inst_var[k * FC_MAX_LVAR + j];
-      lv[j] = idx < n ? x[idx] : 0.0;
-      lvd[j] = idx < n ? v[idx] : 0.0;
+      lv[j] = idx < n ? x[idx] : real(0);
+      lvd[j] = idx < n ? v[idx] : real(0);
     }
-    for (int r = 0; r < FC_MAX_LROW; ++r) s[r] = q[r] = qd[r] = 0.0;
+    for (int r = 0; r < FC_MAX_LROW; ++r) s[r] = q[r] = qd[r] = real(0);
     fc_eval(a.inst_group[k], lv, lvd, hs + (size_t)k * FC_MAX_HOIST, s, q,
             qd);
     for (int r = 0; r < FC_MAX_LROW; ++r) {
@@ -123,19 +161,19 @@ __device__ __noinline__ void parts(const Args& a, int b, double c0h,
   __syncthreads();
   if (tid < n) {
     const int i = tid;
-    double sv = 0.0, qv = 0.0, cv = 0.0;
+    real sv = 0, qv = 0, cv = 0;
     for (int j = 0; j < n; ++j) {
-      const double gij = a.GlinT[(size_t)j * n + i];
-      const double cij = a.ClinT[(size_t)j * n + i];
+      const real gij = a.GlinT[(size_t)j * n + i];
+      const real cij = a.ClinT[(size_t)j * n + i];
       sv += gij * x[j];
       qv += cij * x[j];
       cv += cij * v[j];
     }
     sv += so[i];
     qv += a.qoff[i];
-    const double* scale = a.ent_scale + (size_t)b * a.nnz;
+    const real* scale = a.ent_scale + (size_t)b * a.nnz;
     for (int e = e0; e < e1; ++e) {
-      const double sc = scale[e];
+      const real sc = scale[e];
       const int sl = a.ent_slot[e];
       sv += is[sl] * sc;
       qv += iq[sl] * sc;
@@ -149,37 +187,37 @@ __device__ __noinline__ void parts(const Args& a, int b, double c0h,
 }
 
 __global__ void fused_chord_kernel(Args a) {
-  extern __shared__ double sm[];
+  extern __shared__ real sm[];
   const int n = a.n, b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  double* x0 = sm;
-  double* d = x0 + n;
-  double* x = d + n;
-  double* v = x + n;
-  double* S = v + n;
-  double* Q = S + n;
-  double* ic = Q + n;
-  double* g = ic + n;
-  double* dx = g + n;
-  double* ri = dx + n;
-  double* so = ri + n;
-  double* va = so + n;
-  double* MT = va + n;
-  double* is = MT + (size_t)n * n;
-  double* iq = is + (size_t)a.n_inst * FC_MAX_LROW;
-  double* iqd = iq + (size_t)a.n_inst * FC_MAX_LROW;
-  double* red = iqd + (size_t)a.n_inst * FC_MAX_LROW;
-  double* hs = a.hs + (size_t)b * a.n_inst * FC_MAX_HOIST;  // lane b's part
+  real* x0 = sm;
+  real* d = x0 + n;
+  real* x = d + n;
+  real* v = x + n;
+  real* S = v + n;
+  real* Q = S + n;
+  real* ic = Q + n;
+  real* g = ic + n;
+  real* dx = g + n;
+  real* ri = dx + n;
+  real* so = ri + n;
+  real* va = so + n;
+  double* MT = (double*)(va + n);  // float64 in both forms (12 n is even)
+  real* is = (real*)(MT + (size_t)n * n);
+  real* iq = is + (size_t)a.n_inst * FC_MAX_LROW;
+  real* iqd = iq + (size_t)a.n_inst * FC_MAX_LROW;
+  real* red = iqd + (size_t)a.n_inst * FC_MAX_LROW;
+  real* hs = a.hs + (size_t)b * a.n_inst * FC_MAX_HOIST;  // lane b's part
 
   const size_t rb = (size_t)b * n;
   for (int i = tid; i < n; i += nt) {
     x0[i] = a.x0[rb + i];
-    d[i] = 0.0;
+    d[i] = real(0);
     ri[i] = a.rinv[rb + i];
     so[i] = a.soff[rb + i];
     va[i] = a.vanch[rb + i];
   }
   for (int k = tid; k < n * n; k += nt) MT[k] = a.MT[(size_t)b * n * n + k];
-  const double c0h = a.coef[2 * b], t = a.coef[2 * b + 1];
+  const real c0h = a.coef[2 * b], t = a.coef[2 * b + 1];
   // the launch-invariant part of every instance's model walk, once
   for (int k = tid; k < a.n_inst; k += nt) {
     fc_pre(a.inst_group[k], a.dyn + ((size_t)b * a.n_inst + k) * FC_MAX_DYN,
@@ -199,17 +237,20 @@ __global__ void fused_chord_kernel(Args a) {
     int bad_mine = 0;
     for (int i = tid; i < n; i += nt) {
       double acc = 0.0;
-      for (int k = 0; k < n; ++k) acc += g[k] * MT[(size_t)k * n + i];
-      dx[i] = -acc;
-      bad_mine |= !isfinite(-acc);
+      for (int k = 0; k < n; ++k)
+        acc += (double)g[k] * MT[(size_t)k * n + i];
+      const real r = (real)(-acc);
+      dx[i] = r;
+      bad_mine |= !isfinite(r);
     }
     const bool bad = __syncthreads_or(bad_mine) != 0;
-    double m = 0.0;
-    for (int i = tid; i < n; i += nt) m = fmax(m, bad ? 0.0 : fabs(dx[i]));
-    const double mx = block_max(m, red);
-    const double cap = mx > 5.0 ? 5.0 / fmax(mx, 5.0) : 1.0;
+    real m = 0;
+    for (int i = tid; i < n; i += nt)
+      m = fmax(m, bad ? real(0) : fabs(dx[i]));
+    const real mx = block_max(m, red);
+    const real cap = mx > real(5) ? real(5) / fmax(mx, real(5)) : real(1);
     for (int i = tid; i < n; i += nt) {
-      const double di = bad ? 0.0 : dx[i] * cap;
+      const real di = bad ? real(0) : dx[i] * cap;
       dx[i] = di;
       d[i] += di;
     }
@@ -218,8 +259,8 @@ __global__ void fused_chord_kernel(Args a) {
         iqd);
     int viol = 0;
     for (int i = tid; i < n; i += nt) {
-      const double fn = S[i] + ic[i];
-      const double sc = fabs(ic[i]) + fabs(S[i]);
+      const real fn = S[i] + ic[i];
+      const real sc = fabs(ic[i]) + fabs(S[i]);
       viol |= fabs(fn) > a.res_rel * sc + a.res_tol;
       viol |= fabs(dx[i]) > a.reltol * fabs(x0[i] + d[i]) + a.abstol;
     }
@@ -230,7 +271,7 @@ __global__ void fused_chord_kernel(Args a) {
   for (int i = tid; i < n; i += nt) nonfin |= !isfinite(d[i]);
   const bool ok = done && __syncthreads_or(nonfin) == 0;
   for (int i = tid; i < n; i += nt) {
-    a.xn[rb + i] = x0[i] + d[i];
+    a.xn[rb + i] = state_out(a.x0[rb + i], x0[i], d[i]);
     a.S[rb + i] = S[i];
     a.Q[rb + i] = Q[i];
   }
@@ -243,22 +284,24 @@ __global__ void fused_chord_kernel(Args a) {
 }  // namespace
 
 // n <= threads (one circuit row per thread).  Returns cudaGetLastError()
-// after the launch.
-extern "C" int fused_chord_f64(
+// after the launch.  The entry is fused_chord_f64 or, in float32,
+// fused_chord_f32: the plan's constants, dyn and hs in `real`, the rest
+// float64.
+extern "C" int FC_CAT(fused_chord_f, FC_BITS)(
     const double* x0, const double* MT, const double* rinv,
     const double* soff, const double* vanch, const double* coef,
-    const int* live, const double* GlinT, const double* ClinT,
-    const double* qoff, const int* inst_group, const int* inst_var,
-    const double* dyn, const int* row_ptr, const int* ent_slot,
-    const double* ent_scale, double* hs, double* xn, double* S, double* Q,
+    const int* live, const real* GlinT, const real* ClinT,
+    const real* qoff, const int* inst_group, const int* inst_var,
+    const real* dyn, const int* row_ptr, const int* ent_slot,
+    const real* ent_scale, real* hs, double* xn, double* S, double* Q,
     int* stat, int B, int n, int n_inst, int nnz, int max_newton,
     double reltol, double abstol, double res_rel, double res_tol,
     int threads, long long smem, void* stream) {
   if (n > threads) return (int)cudaErrorInvalidValue;
   Args a{x0, MT, rinv, soff, vanch, coef, live, GlinT, ClinT, qoff,
          inst_group, inst_var, dyn, row_ptr, ent_slot, ent_scale, hs, xn,
-         S, Q, stat, n, n_inst, nnz, max_newton, reltol, abstol, res_rel,
-         res_tol};
+         S, Q, stat, n, n_inst, nnz, max_newton, (real)reltol,
+         (real)abstol, (real)res_rel, (real)res_tol};
   // opt into more than 48 KB of dynamic shared memory once per size: the
   // attribute belongs to the kernel function, so this records what it was
   // given

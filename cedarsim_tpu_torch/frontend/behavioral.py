@@ -84,10 +84,19 @@ _CMP = {"==": lambda a, b: a == b, "!=": lambda a, b: a != b,
         "||": lambda a, b: (a != 0) | (b != 0)}
 
 
-def _truth(x):
-    """1.0 / 0.0 for a test on values (no tangent), a float for floats."""
+def _truth(x, *operands):
+    """1.0 / 0.0 for a test on values (no tangent), a float for floats: in
+    the floating dtype of the tensor ``operands`` (float64 without one),
+    as the JAX package's ``result_type(a, b, 1.0)``."""
     if isinstance(x, torch.Tensor):
-        return x.to(torch.float64)
+        dts = [o.dtype for o in operands
+               if isinstance(o, torch.Tensor) and o.is_floating_point()]
+        dt = torch.float64
+        if dts:
+            dt = dts[0]
+            for d in dts[1:]:
+                dt = torch.promote_types(dt, d)
+        return x.to(dt)
     return 1.0 if x else 0.0
 
 
@@ -163,7 +172,7 @@ def eval_expr(ast, probe_vals, env, ctx):
             return -float(x) if D.is_scalar(x) else -x
         if k == "not":
             x = val(ev(e[1]))
-            return _truth(x == 0)
+            return _truth(x == 0, x)
         if k == "bin":
             op = e[1]
             a, b = ev(e[2]), ev(e[3])
@@ -176,7 +185,7 @@ def eval_expr(ast, probe_vals, env, ctx):
                 return _fmod(a, b)
             if op in ("**", "^"):
                 return D.power(a, b)
-            return _truth(_CMP[op](val(a), val(b)))
+            return _truth(_CMP[op](val(a), val(b)), val(a), val(b))
         if k == "cond":
             c = val(ev(e[1]))
             return D.where(c != 0, ev(e[2]), ev(e[3]))

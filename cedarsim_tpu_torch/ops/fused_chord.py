@@ -12,9 +12,21 @@ kernel of ``csrc/fused_chord.cu`` (replacing the Pallas kernels B1,
 ``build_kernel_batched``, and B1′, ``build_kernel``), on a CPU tensor its
 plain PyTorch version :func:`fused_chord_plain`; there is no other path.
 
-The TPU kernel computes in float32 because Mosaic has no float64; the
-H100 has it, so the kernel and its plain version compute the same loop in
-float64 (the golden comes from float64 physics).  The Mosaic envelope
+The TPU kernel computes in float32 because Mosaic has no float64.  The
+H100 has it, so on a circuit whose models evaluate in float64 the kernel
+and its plain version compute the loop in float64 (the golden comes from
+float64 physics).  On a circuit compiled with ``eval_dtype=float32`` the
+plan takes the kernel's float32 form, the Pallas kernel's precision
+contract: the model walk (emitted over ``float``), the iterate, the
+residual and the convergence test in float32, the per-step inputs rounded
+once as they enter, the state leaving in float64 as the predictor plus the
+widened correction (``FusedChordPlan.real``; ``csrc/fused_chord.cu`` built
+with ``-DFC_REAL=float``).  Its one departure: the direction −(f·rinv)·MT
+is summed in float64 from the float64 MT in both forms (the Pallas
+kernel's float32 product cannot converge the BSIM-CMG DFF's chord, whose
+J/r has a condition number near 2e10).  The split's
+probe and the baked ``G_lin``/``C_lin``/``q_off`` are float64-exact in
+both forms (the JAX plan's ``exact=True``).  The Mosaic envelope
 constants of the JAX plan (``MAX_NL_PARAMS``, ``AUTO_MAX_B``,
 ``MAX_N_BATCHED``, the lane-packing plan) are not copied: the one limit
 here is the card's shared memory per block, which bounds n_x through this
@@ -51,6 +63,9 @@ NVCC_FLAGS = cuda_lib.NVCC_FLAGS + ("--fmad=false",)
 #: the kernel's block: at most this many threads (the emitted model walk
 #: may take up to 255 registers a thread, and an SM has 65,536)
 MAX_THREADS = 256
+#: the float32 form's flags: the kernel's scalar type and its entry
+#: ``fused_chord_f32``
+NVCC_FLAGS_F32 = NVCC_FLAGS + ("-DFC_REAL=float", "-DFC_BITS=32")
 #: per-iteration step cap of the chord loop (the Pallas kernel's CAP)
 STEP_CAP = 5.0
 
@@ -118,7 +133,11 @@ class FusedChordPlan:
         self.n_x = compiled.n_x
         self.ctx = ctx
         self.params = params
-        dev, dt = compiled.device, compiled.dtype
+        #: the kernel's scalar type: float32 on a circuit whose models
+        #: evaluate in float32, else float64
+        self.real = (torch.float32 if compiled.eval_dtype == torch.float32
+                     else torch.float64)
+        dev, dt = compiled.device, self.real
         self._build_split(params, ctx)
         self.G_lin_t = torch.as_tensor(self.G_lin, dtype=dt, device=dev)
         self.C_lin_t = torch.as_tensor(self.C_lin, dtype=dt, device=dev)
@@ -135,12 +154,16 @@ class FusedChordPlan:
     # ----------------------------------------------------------- the split
 
     def _sub_res(self, keys, params, ctx, x, t):
-        """(S, Q) [n_x] over the groups ``keys`` at one state ``x``."""
+        """(S, Q) [n_x] over the groups ``keys`` at one state ``x``, in
+        float64 whatever the eval dtype (the probe and the baked constants
+        must be float64-clean: under float32 evaluation the probe's 1e-9
+        affine test would drown in the eval noise and class every linear
+        group as nonlinear)."""
         comp = self.compiled
         xt = torch.as_tensor(np.asarray(x), dtype=comp.dtype,
                              device=comp.device)[None]
         S, Q = comp.evaluate(xt, ctx.at_time(t), comp.lane_params(params, 1),
-                             keys=keys)
+                             keys=keys, exact=True)
         return S[0].cpu().numpy(), Q[0].cpu().numpy()
 
     def _sub_jac(self, keys, params, ctx, x, t=0.0):
@@ -148,7 +171,7 @@ class FusedChordPlan:
         xt = torch.as_tensor(np.asarray(x), dtype=comp.dtype,
                              device=comp.device)[None]
         out = comp.evaluate(xt, ctx.at_time(t), comp.lane_params(params, 1),
-                            jac=True, keys=keys)
+                            jac=True, keys=keys, exact=True)
         return (out[0][0].cpu().numpy(), out[1][0].cpu().numpy(),
                 out[2][0].cpu().numpy(), out[3][0].cpu().numpy())
 
@@ -200,7 +223,7 @@ class FusedChordPlan:
         dev = comp.device
         n = self.n_x
         t0 = time.perf_counter()
-        self.emitted = [(key, emit.emit_group(comp, key, ctx))
+        self.emitted = [(key, emit.emit_group(comp, key, ctx, self.real))
                         for key in self.nl_keys]     # (key, emit.Emitted)
         self.emit_seconds = time.perf_counter() - t0
         self.max_hoist = max([e.n_hoist for _, e in self.emitted] + [1])
@@ -251,8 +274,9 @@ class FusedChordPlan:
         # below keeps n_x far under MAX_THREADS (n_x <= 164 on an H100)
         self.threads = min(MAX_THREADS,
                            -(-max(self.n_inst, n, 1) // 32) * 32)
-        self.smem_bytes = 8 * (12 * n + n * n
-                               + 3 * self.n_inst * self.max_lrow + 32)
+        es = torch.empty((), dtype=self.real).element_size()
+        self.smem_bytes = (es * (12 * n + 3 * self.n_inst * self.max_lrow
+                                 + 32) + 8 * n * n)
         limit = cuda_lib.smem_per_block(dev)
         self.smem_limit = limit
         if self.smem_bytes > limit:
@@ -261,36 +285,48 @@ class FusedChordPlan:
                 f"(n_x={n}, {self.n_inst} nonlinear instances) exceed the "
                 f"card's {limit} B per block; use newton_impl='xla'")
 
+    @property
+    def entry(self):
+        """The kernel library's C entry: ``fused_chord_f64`` or, in the
+        float32 form, ``fused_chord_f32``."""
+        return ("fused_chord_f32" if self.real == torch.float32
+                else "fused_chord_f64")
+
     def header(self):
         """The emitted model header: every nonlinear group's two functions
-        and the ``fc_pre`` and ``fc_eval`` dispatches the kernel calls."""
-        parts = [e.text for _, e in self.emitted] or [emit.PREAMBLE]
+        and the ``fc_pre`` and ``fc_eval`` dispatches the kernel calls,
+        over the plan's scalar type."""
+        f32 = self.real == torch.float32
+        parts = [e.text for _, e in self.emitted] or [
+            emit.PREAMBLE_F32 if f32 else emit.PREAMBLE]
         pre = "".join(f"    case {gi}: {e.name}_pre(dyn, t, h); break;\n"
                       for gi, (_, e) in enumerate(self.emitted))
         walk = "".join(
             f"    case {gi}: {e.name}(lv, lvd, h, s, q, qd); break;\n"
             for gi, (_, e) in enumerate(self.emitted))
-        return ("".join(parts)
+        text = ("".join(parts)
                 + f"#define FC_MAX_LVAR {self.max_lvar}\n"
                 f"#define FC_MAX_LROW {self.max_lrow}\n"
                 f"#define FC_MAX_DYN {self.max_dyn}\n"
-                f"#define FC_MAX_HOIST {self.max_hoist}\n"
-                "__device__ static inline void fc_pre(int g, const double* "
-                "dyn, double t, double* h) {\n"
+                f"#define FC_MAX_HOIST {self.max_hoist}\n")
+        real = "float" if f32 else "double"
+        return (text
+                + f"__device__ static inline void fc_pre(int g, const {real}* "
+                f"dyn, {real} t, {real}* h) {{\n"
                 "  switch (g) {\n" + pre + "    default: break;\n  }\n}\n"
-                "__device__ static inline void fc_eval(int g, const double* "
-                "lv, const double* lvd, const double* h, double* s, "
-                "double* q, double* qd) {\n"
+                f"__device__ static inline void fc_eval(int g, const {real}* "
+                f"lv, const {real}* lvd, const {real}* h, {real}* s, "
+                f"{real}* q, {real}* qd) {{\n"
                 "  switch (g) {\n" + walk + "    default: break;\n  }\n}\n")
 
     def hoist_scratch(self, B):
         """The kernel's device-memory scratch for the hoisted values, [B,
-        n_inst, FC_MAX_HOIST] float64 (written by the kernel before it is
-        read; it stays out of shared memory, so the envelope above is
-        that of the walk without the cut)."""
+        n_inst, FC_MAX_HOIST] in the plan's scalar type (written by the
+        kernel before it is read; it stays out of shared memory, so the
+        envelope above is that of the walk without the cut)."""
         comp = self.compiled
         return torch.empty(B, max(self.n_inst, 1), self.max_hoist,
-                           dtype=torch.float64, device=comp.device)
+                           dtype=self.real, device=comp.device)
 
     # ------------------------------------------------------------ envelope
 
@@ -322,10 +358,11 @@ class FusedChordPlan:
 
     def nl_param_rows(self, lp, L):
         """The nonlinear groups' dynamic params [L, n_inst, max_dyn] (in
-        ``dyn_layout`` order per group) from prepared lane params."""
+        ``dyn_layout`` order per group, in the plan's scalar type) from
+        prepared lane params."""
         comp = self.compiled
         dyn = torch.zeros(L, max(self.n_inst, 1), self.max_dyn,
-                          dtype=comp.dtype, device=comp.device)
+                          dtype=self.real, device=comp.device)
         names = {}
         for gi, pn in self.dyn_layout:
             names.setdefault(gi, []).append(pn)
@@ -354,10 +391,10 @@ class FusedChordPlan:
             o = self._nl_offsets[gi]
             mult[:, o:o + ni] = lp[key][1].view(L, -1)[:, :ni]
         scale = torch.where(self._ent_kcl[None, :],
-                            mult[:, self._ent_inst], 1.0)
+                            mult[:, self._ent_inst], 1.0).to(self.real)
         ln = _Lanes(L, lp, self.nl_param_rows(lp, L),
                     scale.contiguous() if self.nnz else
-                    torch.ones(L, 1, dtype=comp.dtype, device=comp.device))
+                    torch.ones(L, 1, dtype=self.real, device=comp.device))
         self._lanes_last = (params, ln)
         return ln
 
@@ -384,16 +421,16 @@ class FusedChordPlan:
         already built) and nvcc's ``log``."""
         if self._lib is not None:
             return self.build_info
+        f32 = self.real == torch.float32
         b = cuda_lib.build_library(
-            "fused", SOURCE, NVCC_FLAGS,
+            "fused", SOURCE, NVCC_FLAGS_F32 if f32 else NVCC_FLAGS,
             header=("FC_MODEL_HEADER", self.header()))
-        lib = b["lib"]
+        fn = getattr(b["lib"], self.entry)
         p, i, d, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
                        ctypes.c_longlong)
-        lib.fused_chord_f64.argtypes = (
-            [p] * 21 + [i] * 5 + [d] * 4 + [i, ll, p])
-        lib.fused_chord_f64.restype = i
-        self._lib = lib
+        fn.argtypes = [p] * 21 + [i] * 5 + [d] * 4 + [i, ll, p]
+        fn.restype = i
+        self._lib = fn
         self.build_info = dict(path=b["path"],
                                emit_seconds=self.emit_seconds,
                                nvcc_seconds=b["seconds"], log=b["log"])
@@ -462,10 +499,17 @@ def fused_chord_plain(plan, x0, MT, rinv, soff, vanch, coef, live, lanes,
     """Plain PyTorch version of the kernel: the same chord loop over the
     lanes, the nonlinear parts from the eager model walk
     (``evaluate(keys=nl_keys, v=...)``) and the linear parts from
-    ``G_lin``/``C_lin``/``s_off``.  Returns (xn, S, Q, stat [L, 2] int32
-    = (ok, Newton iterations))."""
+    ``G_lin``/``C_lin``/``s_off``, in the plan's scalar type: in the float32
+    form the inputs are rounded once to float32, the loop runs in float32
+    but for the direction, summed in float64 from the float64 ``MT`` and
+    rounded, and the state leaves as ``x0 + d`` in float64 (S and Q
+    widened).
+    Returns (xn, S, Q, stat [L, 2] int32 = (ok, Newton iterations))."""
     comp = plan.compiled
     L = x0.shape[0]
+    x0_in = x0
+    x0, rinv, soff, vanch, coef = (
+        a.to(plan.real) for a in (x0, rinv, soff, vanch, coef))
     c0h, t = coef[:, 0], coef[:, 1]
     ctx_t = plan.ctx.at_time(t)
     G, C, qoff = plan.G_lin_t, plan.C_lin_t, plan.q_off_t
@@ -490,7 +534,7 @@ def fused_chord_plain(plan, x0, MT, rinv, soff, vanch, coef, live, lanes,
         if not bool(active.any()):
             break
         g = (S + ic) * rinv
-        dx = -(g[:, :, None] * MT).sum(1)
+        dx = (-(g.to(MT.dtype)[:, :, None] * MT).sum(1)).to(plan.real)
         bad = ~torch.isfinite(dx).all(-1)
         dx = torch.where(bad[:, None], torch.zeros_like(dx), dx)
         mx = dx.abs().amax(-1)
@@ -510,7 +554,9 @@ def fused_chord_plain(plan, x0, MT, rinv, soff, vanch, coef, live, lanes,
         done = torch.where(active, ~viol & ~bad, done)
         it = it + active.to(torch.int32)
     ok = done & torch.isfinite(d).all(-1)
-    return x0 + d, S, Q, torch.stack([ok.to(torch.int32), it], -1)
+    xn = x0 + d if plan.real == x0_in.dtype else x0_in + d.to(x0_in.dtype)
+    return (xn, S.to(x0_in.dtype), Q.to(x0_in.dtype),
+            torch.stack([ok.to(torch.int32), it], -1))
 
 
 def _check(name, t, shape, dtype=torch.float64):
@@ -562,7 +608,7 @@ def fused_chord(plan, x0, MT, rinv, soff, vanch, coef, live, lanes, opts):
         raise ValueError(f"fused_chord: inputs on {x0.device}, the plan on "
                          f"{plan.compiled.device}")
     plan.build()
-    lib = plan._lib
+    fn = plan._lib
     xn = torch.empty_like(x0)
     S = torch.empty_like(x0)
     Q = torch.empty_like(x0)
@@ -570,7 +616,7 @@ def fused_chord(plan, x0, MT, rinv, soff, vanch, coef, live, lanes, opts):
     if B == 0:
         return xn, S, Q, stat
     hs = plan.hoist_scratch(B)
-    err = lib.fused_chord_f64(
+    err = fn(
         x0.data_ptr(), MT.data_ptr(), rinv.data_ptr(), soff.data_ptr(),
         vanch.data_ptr(), coef.data_ptr(), live.data_ptr(),
         plan.G_lin_T.data_ptr(), plan.C_lin_T.data_ptr(),
@@ -583,7 +629,7 @@ def fused_chord(plan, x0, MT, rinv, soff, vanch, coef, live, lanes, opts):
         float(opts.newton_abstol), float(opts.res_rel), float(opts.res_tol),
         plan.threads, plan.smem_bytes,
         cuda_lib.current_stream(x0.device))
-    cuda_lib.raise_on(err, "fused_chord_f64")
+    cuda_lib.raise_on(err, plan.entry)
     fused_chord.launches += 1
     fused_chord.launches_by_lanes[B] += 1
     return xn, S, Q, stat

@@ -78,6 +78,10 @@ def op_key(compiled, params, ctx, mode) -> str | None:
     try:
         h = hashlib.sha256()
         h.update(f"op/torch/{compiled.dtype}/{mode}".encode())
+        if compiled.mixed:
+            # the eval dtype, as the JAX package's key carries it (a
+            # float64 circuit's key is the one it always was)
+            h.update(f"/eval/{compiled.eval_dtype}".encode())
         h.update("|".join(compiled.node_names).encode())
         for key in compiled.group_order:
             g = compiled.groups[key]

@@ -250,8 +250,9 @@ _DMATH1 = {
     "log10": lambda x: 1.0 / (x * math.log(10.0)),
     "sqrt": lambda x: 0.5 / D.sqrt(D.maximum(x, 1e-300)),
     "abs": D.sign,
-    "limexp": lambda x: D.where(val(x) <= 80.0, D.exp(D.minimum(x, 80.0)),
-                                math.exp(80.0)),
+    "limexp": lambda x: D.where(
+        val(x) <= D.limexp_cap(x), D.exp(D.minimum(x, D.limexp_cap(x))),
+        math.exp(D.limexp_cap(x))),
     "sin": D.cos, "cos": lambda x: -D.sin(x),
     "tan": lambda x: 1.0 + D.tan(x) * D.tan(x),
     "asin": lambda x: 1.0 / D.sqrt(D.maximum(1 - x * x, 1e-300)),

@@ -52,14 +52,31 @@ differ (a point-list param, such as a piecewise-linear table) becomes a
 values; the walk reads it through ``searchsorted`` and indexing.  Headers
 that use none of these are the bytes they were before they were taken
 (their helper block is emitted only where one is used).
+
+Float32: ``emit_group(..., dtype=torch.float32)`` records the walk on
+float32 placeholders (so the interpreter makes its constants, its
+``limexp`` cap and its casts as it does for a float32 evaluation) and
+writes it over ``float``: ``float`` inputs, outputs and locals, every
+literal the float32 value the walk's Python float rounds to (``0.1f``:
+the shortest decimal that reads back as that float), the ``f`` forms of
+the math functions (``expf``, ``logf``, ``powf``, ``sqrtf``, ...) and
+float overloads of the ``cs_*`` helpers (:data:`PREAMBLE_F32`).  Integer
+and bitwise nodes stay ``int``, and a hoisted ``int`` travels through
+``h`` as its bits (``cs_ibits``/``cs_bitsi``), so it is exact at any
+value; a table is ``static const float``, its values rounded to float32,
+searched by ``cs_search`` over ``float`` (:data:`INT_HELPERS_F32`; a
+translation unit holds headers of one scalar type).  The float64 text is
+unchanged.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import re
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from cedarsim_tpu_torch.core.dual import Dual
@@ -86,6 +103,25 @@ __host__ __device__ static inline double cs_sign(double a) {
 #endif
 """
 
+#: :data:`PREAMBLE` of a float32 header: the helpers' float overloads
+PREAMBLE_F32 = """\
+#pragma once
+#include <math.h>
+#ifndef __CUDACC__
+#define __host__
+#define __device__
+#endif
+#ifndef CS_EMIT_HELPERS_F32
+#define CS_EMIT_HELPERS_F32
+__host__ __device__ static inline float cs_max(float a, float b) {
+  return (a > b || a != a) ? a : b; }
+__host__ __device__ static inline float cs_min(float a, float b) {
+  return (a < b || a != a) ? a : b; }
+__host__ __device__ static inline float cs_sign(float a) {
+  return (float)((a > 0.0f) - (a < 0.0f)); }
+#endif
+"""
+
 #: C helpers of the integer, bitwise and table nodes, emitted (once a
 #: translation unit) only in a header that uses one
 INT_HELPERS = """\
@@ -107,6 +143,40 @@ __host__ __device__ static inline int cs_search(const double* t, int n,
   int i = 0;
   while (i < n && (right ? t[i] <= x : t[i] < x)) ++i;
   return i; }
+#endif
+"""
+
+#: :data:`INT_HELPERS` of a float32 header: the same integer helpers over
+#: ``float``, and the bit moves of a hoisted ``int`` through a float32
+#: ``h`` slot
+INT_HELPERS_F32 = """\
+#ifndef CS_EMIT_INT_HELPERS_F32
+#define CS_EMIT_INT_HELPERS_F32
+#include <string.h>
+__host__ __device__ static inline int cs_i32(float a) {
+  return a != a ? 0 : a >= 2147483648.0f ? 2147483647
+       : a <= -2147483648.0f ? (-2147483647 - 1) : (int)a; }
+__host__ __device__ static inline int cs_shl(int a, int b) {
+  return (b < 0 || b >= 32) ? 0 : (int)((unsigned)a << b); }
+__host__ __device__ static inline int cs_shr(int a, int b) {
+  return (b < 0 || b >= 32) ? (a < 0 ? -1 : 0) : (a >> b); }
+__host__ __device__ static inline int cs_imax(int a, int b) {
+  return a > b ? a : b; }
+__host__ __device__ static inline int cs_imin(int a, int b) {
+  return a < b ? a : b; }
+__host__ __device__ static inline int cs_search(const float* t, int n,
+                                                float x, bool right) {
+  int i = 0;
+  while (i < n && (right ? t[i] <= x : t[i] < x)) ++i;
+  return i; }
+__host__ __device__ static inline float cs_ibits(int a) {
+  float f;
+  memcpy(&f, &a, sizeof f);
+  return f; }
+__host__ __device__ static inline int cs_bitsi(float f) {
+  int a;
+  memcpy(&a, &f, sizeof a);
+  return a; }
 #endif
 """
 
@@ -175,11 +245,33 @@ _POW_SPECIAL = {2.0: "({0} * {0})", 3.0: "({0} * {0} * {0})",
                 -1.0: "(1.0 / {0})", -2.0: "(1.0 / ({0} * {0}))"}
 
 
+_MATH_FNS = ("exp", "log", "sqrt", "fabs", "floor", "ceil", "sin", "cos",
+             "tan", "asin", "acos", "atan", "sinh", "cosh", "tanh", "asinh",
+             "acosh", "atanh", "trunc", "rint", "atan2", "hypot", "fmod",
+             "pow")
+_MATH_RE = re.compile(r"\b(" + "|".join(_MATH_FNS) + r")\(")
+
+
+def _f32_form(template):
+    """A C template of a float64 node in its float32 form: the math
+    functions' ``f`` names, float literals and casts."""
+    t = _MATH_RE.sub(lambda m: m.group(1) + "f(", template)
+    t = re.sub(r"\b([01])\.0\b", r"\1.0f", t)
+    return t.replace("(double)", "(float)")
+
+
+_BIN_F32 = {k: _f32_form(v) for k, v in _BIN.items()}
+_UN_F32 = {k: _f32_form(v) for k, v in _UN.items()}
+_POW_SPECIAL_F32 = {k: _f32_form(v) for k, v in _POW_SPECIAL.items()}
+
+
 class _Recorder:
-    def __init__(self):
+    def __init__(self, real=torch.float64):
         self.nodes = []          # (op, args, kind): kind "d", "b" or "i"
         self.cse = {}
         self.tables = {}         # name → float values
+        #: the dtype of the "d" nodes: float64, or float32
+        self.real = real
 
     def node(self, op, args, kind):
         key = (op, tuple(_akey(a) for a in args))
@@ -221,7 +313,7 @@ class _Sym(torch.Tensor):
     @staticmethod
     def _new(rec, nid, kind):
         s = torch.Tensor._make_subclass(_Sym, torch.zeros(
-            1, dtype=_DTYPES[kind]))
+            1, dtype=rec.real if kind == "d" else _DTYPES[kind]))
         s._rec, s._nid, s._kind = rec, nid, kind
         return s
 
@@ -302,7 +394,7 @@ def _record(rec, name, args, kwargs):
     if name == "to":
         dt = kwargs.get("dtype", args[1] if len(args) > 1 else None)
         x = args[0]
-        if dt == torch.float64:
+        if dt == rec.real:
             return {"b": lambda: rec.node("todouble", (x,), "d"),
                     "i": lambda: rec.node("itodouble", (x,), "d"),
                     "d": lambda: x}[x._kind]()
@@ -397,14 +489,19 @@ def _record(rec, name, args, kwargs):
         f"emit: torch.{name} in a model walk has no device-code form")
 
 
-def _c_lit(v):
+def _c_lit(v, f32=False):
+    """A literal: a bool, or a real as float64 (``repr``) or, with
+    ``f32``, as the float32 value it rounds to (``0.1f``)."""
     if isinstance(v, bool):
         return "true" if v else "false"
+    if f32:
+        with np.errstate(over="ignore"):
+            v = float(np.float32(v))
     if math.isnan(v):
         return "NAN"
     if math.isinf(v):
         return "INFINITY" if v > 0 else "(-INFINITY)"
-    r = repr(float(v))
+    r = str(np.float32(v)) + "f" if f32 else repr(float(v))
     return f"({r})" if r.startswith("-") else r
 
 
@@ -428,14 +525,21 @@ class Emitted(NamedTuple):
     n_walk: int
 
 
-def emit_group(compiled, key, ctx):
+def emit_group(compiled, key, ctx, dtype=None):
     """Emit group ``key``'s model as C++: the hoisted part
     ``<name>_pre(dyn, t, h)`` and the walk ``<name>(lv, lvd, h, s, q, qd)``
-    (module docstring).  Returns an :class:`Emitted`."""
+    (module docstring), over ``double`` or, for ``dtype=torch.float32``,
+    ``float`` (default: the circuit's eval dtype).  Returns an
+    :class:`Emitted`."""
+    dtype = compiled.eval_dtype if dtype is None else dtype
+    if dtype not in (torch.float64, torch.float32):
+        raise ValueError(f"emit: no C form for {dtype}")
+    f32 = dtype == torch.float32
+    real = "float" if f32 else "double"
     g = compiled.groups[key]
     model = g.model
     nlv, nlr = model.n_lvar(), model.n_lrow()
-    rec = _Recorder()
+    rec = _Recorder(dtype)
     lv = [Dual(rec.node("in", ("lv", k), "d"), rec.node("in", ("lvd", k), "d"))
           for k in range(nlv)]
     # a point-list static param stays a constant tensor: the walk reads
@@ -456,18 +560,21 @@ def emit_group(compiled, key, ctx):
     for k, r in enumerate(q_rows):
         d = r.d if isinstance(r, Dual) else 0.0
         outs.append((f"qd[{k}]", _lit(d)))
-    pre, walk, n_hoist, n_pre, n_walk, ints = _emit_bodies(rec, outs)
+    pre, walk, n_hoist, n_pre, n_walk, ints = _emit_bodies(rec, outs, f32)
     safe = "".join(ch if ch.isalnum() else "_" for ch in key)
     sig_pre = ("__host__ __device__ static inline void {name}_pre("
                "const double* dyn, double t, double* h)")
     sig = ("__host__ __device__ static inline void {name}(const double* lv, "
            "const double* lvd, const double* h, double* s, double* q, "
            "double* qd)")
+    if f32:
+        sig_pre, sig = (x.replace("double", real) for x in (sig_pre, sig))
     probe = (sig_pre.format(name="MODEL") + " {\n" + pre + "}\n"
              + sig.format(name="MODEL") + " {\n" + walk + "}\n")
     tag = hashlib.sha256(probe.encode()).hexdigest()
     name = f"cs_{safe}_{tag[:12]}"
-    text = (PREAMBLE + (INT_HELPERS if ints else "")
+    text = ((PREAMBLE_F32 if f32 else PREAMBLE)
+            + ((INT_HELPERS_F32 if f32 else INT_HELPERS) if ints else "")
             + f"// {key}: {nlv} local unknowns, {nlr} rows, "
             f"{len(dyn_names(compiled, key))} dynamic params, {n_hoist} "
             "hoisted values\n"
@@ -477,7 +584,7 @@ def emit_group(compiled, key, ctx):
                    n_hoist, n_pre, n_walk)
 
 
-def _emit_bodies(rec, outs):
+def _emit_bodies(rec, outs, f32=False):
     """Straight-line C for ``outs`` [(lvalue, node or literal)], cut in
     two: only the nodes the outputs need, in depth-first post-order from
     the outputs, the nodes that depend on no ``lv``/``lvd`` input in the
@@ -486,7 +593,11 @@ def _emit_bodies(rec, outs):
     first reads them; each is read right before its first use.  Each part
     declares the tables it reads first.  Returns (hoisted body, walk body,
     values in ``h``, arithmetic nodes of each part, whether an integer or
-    table node is used)."""
+    table node is used).  ``f32``: over ``float``."""
+    real = "float" if f32 else "double"
+    binf, unf, powf = ((_BIN_F32, _UN_F32, _POW_SPECIAL_F32) if f32
+                       else (_BIN, _UN, _POW_SPECIAL))
+    zero, one = ("0.0f", "1.0f") if f32 else ("0.0", "1.0")
     order, seen = [], set()
     for _, v in outs:
         if not isinstance(v, _Sym) or v._nid in seen:
@@ -521,7 +632,7 @@ def _emit_bodies(rec, outs):
         if kind == "i" and not isinstance(a, bool):
             v = int(a)
             return f"({v})" if v < 0 else str(v)
-        return _c_lit(a)
+        return _c_lit(a, f32)
 
     def define(nid):
         op, args, kind = rec.nodes[nid]
@@ -541,13 +652,13 @@ def _emit_bodies(rec, outs):
             expr = _IUN[op].format(ref(args[0], "i" if op != "toint"
                                        else "d"))
         elif op == "pow" and not isinstance(args[1], _Sym) \
-                and args[1] in _POW_SPECIAL:
-            expr = _POW_SPECIAL[args[1]].format(ref(args[0]))
-        elif op in _BIN:
-            expr = _BIN[op].format(ref(args[0]), ref(args[1]))
+                and args[1] in powf:
+            expr = powf[args[1]].format(ref(args[0]))
+        elif op in binf:
+            expr = binf[op].format(ref(args[0]), ref(args[1]))
         else:
-            expr = _UN[op].format(ref(args[0]))
-        ty = {"b": "bool", "i": "int"}.get(kind, "double")
+            expr = unf[op].format(ref(args[0]))
+        ty = {"b": "bool", "i": "int"}.get(kind, real)
         return f"  const {ty} {local[nid]} = {expr};\n"
 
     hoist = {}                 # hoisted node → its slot in h
@@ -558,12 +669,14 @@ def _emit_bodies(rec, outs):
                 and a._nid not in hoist):
             j = hoist[a._nid] = len(hoist)
             if a._kind == "b":
-                walk.append(f"  const bool {local[a._nid]} = h[{j}] != 0.0;"
-                            "\n")
+                walk.append(f"  const bool {local[a._nid]} = h[{j}] != "
+                            f"{zero};\n")
             elif a._kind == "i":
-                walk.append(f"  const int {local[a._nid]} = (int)h[{j}];\n")
+                walk.append(f"  const int {local[a._nid]} = "
+                            + (f"cs_bitsi(h[{j}]);\n" if f32
+                               else f"(int)h[{j}];\n"))
             else:
-                walk.append(f"  const double {local[a._nid]} = h[{j}];\n")
+                walk.append(f"  const {real} {local[a._nid]} = h[{j}];\n")
 
     for nid in order:
         if nid in varying:
@@ -574,25 +687,25 @@ def _emit_bodies(rec, outs):
         read(v)
         val = ref(v)
         if isinstance(v, _Sym) and v._kind == "b":
-            val = f"({val} ? 1.0 : 0.0)"
+            val = f"({val} ? {one} : {zero})"
         elif isinstance(v, _Sym) and v._kind == "i":
-            val = f"((double){val})"
+            val = f"(({real}){val})"
         walk.append(f"  {lhs} = {val};\n")
     pre = [define(nid) for nid in order if nid not in varying]
     for nid, j in hoist.items():
         val = local[nid]
         if rec.nodes[nid][2] == "b":
-            val = f"({val} ? 1.0 : 0.0)"
+            val = f"({val} ? {one} : {zero})"
         elif rec.nodes[nid][2] == "i":
-            val = f"((double){val})"
+            val = f"cs_ibits({val})" if f32 else f"(({real}){val})"
         pre.append(f"  h[{j}] = {val};\n")
 
     def tables(nids):
         names = sorted({rec.nodes[n][1][0] for n in nids
                         if rec.nodes[n][0] in ("tab", "search")})
         return "".join(
-            f"  static const double {t}[{len(rec.tables[t])}] = "
-            f"{{{', '.join(_c_lit(v) for v in rec.tables[t])}}};\n"
+            f"  static const {real} {t}[{len(rec.tables[t])}] = "
+            f"{{{', '.join(_c_lit(v, f32) for v in rec.tables[t])}}};\n"
             for t in names)
 
     def arith(nids):

@@ -391,6 +391,34 @@ child's start and end on the smoke's clock.
    within 1e-6 V (``a21_path``); with the timing phases, B1 on its plan
    against its plain version within ``FUSED_RTOL``, with its times and
    bound (``a21_fused_kernel``).
+41-42. b_f32, g_f32 (cells B-f32 and G-f32) — ``bench.py``'s accelerator
+   configuration of its two DFF legs (``benchmarks/cmg_dff.py``): each
+   compiled with ``eval_dtype=float32`` (the models in float32; states,
+   time, step control and solves float64), W (BSIM4, 128 lanes) or NFIN
+   (CMG, 32 lanes) per lane by ``linspace(0.99, 1.01)``, each lane from
+   its warm DC under the float32 Newton defaults, through the public
+   ``tran()`` with the leg's ``tpu_opts``, ``jac_reuse=1``, the cap form
+   and BDF2 ("auto" under float32 evaluation), ``newton_impl="fused"``
+   (B1's float32 form, ``fused_chord_f32``) and the rescue on B2/B3:
+   ``bench.py``'s golden gate inside the window (B-f32 over 0-700 ns,
+   G-f32 over 0-``G_F32_TSTOP``), its ``race_lane_agreement``, one B1
+   launch per batched step attempt; the counts over 0-``F32_CPU_TSTOP``
+   on the card and on the CPU, each from its own ``F32_CPU_LANES`` lanes,
+   recorded side by side.  Both run in one child process
+   (``--f32-child``, one torch thread) started with the device line,
+   beside G-xla's; their lines are printed from its record once it has
+   ended.
+43. f32_fused_kernel — (with the timing phases; its lanes and plans are
+   set up in the main process while it waits for G-xla's child) B1's
+   float32 form on each leg's plan against its float32 plain version at
+   the phases' shapes (``kernel_times.check_fused_f32``: every lane's
+   chord converged in both, outputs within 64 float32 ulps where the
+   Newton counts agree; where they differ, the two certified points'
+   distance in chord tolerances is recorded); device, call and plain
+   times and the bound (the walk at the float32 rate, the float64
+   direction at the float64 rate), beside the float64 form's device time
+   on the BSIM4 lanes compiled in float64; ptxas's registers, stack and
+   spills of the float32 library beside the float64 one's.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
@@ -399,8 +427,9 @@ the level-1 plan, in phase 12 and at bdf3/bdf5 in phases 28-29, on the
 PVT plan in phase 15, on the CMG plan in phase 21, on the VBIC plan in
 phase 25 and at B = 1 in phase 35's HB warm-up, on the ring's level-1
 plan in phase 36's, and phase 37's, in phase 38 (``a18_launches``) and
-on the A21 plan in phase 40 (``a21``); B2/B3 in phase 5, in phase 10, in
-phase 17, in phase 22, in phase 26, in phases 30-32, in phase 37 and in
+on the A21 plan in phase 40 (``a21``); B1's float32 form
+(``fused_chord_f32``) in phase 41 and, on the CMG plan, 42; B2/B3 in
+phase 5, in phase 10, in phase 17, in phase 22, in phase 26, in phases 30-32, in phase 37 and in
 phase 38's cell D; B4/B5 in phase 8; S1/S2 in phase 19 and under forward
 AD in phase 39 (``a16b``, S2's launches under the tangent apart),
 which name no TPU kernel: ``replaces`` is null and ``jax_counterpart`` the
@@ -434,6 +463,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 from cedarsim_tpu_torch.benchmarks import kernel_times as kt  # noqa: E402
+from cedarsim_tpu_torch.benchmarks import cmg_dff  # noqa: E402
 
 DFF_DIR = os.path.join(REPO, "benchmarks", "gf180_dff")
 #: golden tolerance of the DFF benchmark (bench.py GOLDEN_TOL)
@@ -1042,12 +1072,20 @@ def fused_bound(plan, args, out):
     pre = sum(e.n_pre * ni[key] for key, e in plan.emitted)
     walk = sum(e.n_walk * ni[key] for key, e in plan.emitted)
     nnwt = out[3][:, 1].double().cpu()
-    ops = float((pre + (nnwt + 1) * (walk + 6 * n * n)
-                 + nnwt * 2 * n * n).sum())
+    ops = float((pre + (nnwt + 1) * (walk + 6 * n * n)).sum())
+    ops_dir = float((nnwt * 2 * n * n).sum())
     counted = {key: {"hoisted_nodes": e.n_pre, "walk_nodes": e.n_walk,
                      "hoisted_values": e.n_hoist, "instances": ni[key]}
                for key, e in plan.emitted}
-    return bound(nbytes, ops, "float64"), counted
+    if plan.entry == "fused_chord_f64":
+        return bound(nbytes, ops + ops_dir, "float64"), counted
+    # the float32 form: the walk and the matvecs at the float32 rate, the
+    # direction (summed in float64) at the float64 rate
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (ops / PEAK_OPS_PER_S["float32"]
+             + ops_dir / PEAK_OPS_PER_S["float64"]) * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")), counted
 
 
 def phase_fused_slice(torch, T, gesp_lu, fc, dev, dff, fused_setup):
@@ -1595,6 +1633,26 @@ G_EDGE = (5e-8, 5.102e-8)
 CELL_G_FUSED = (19408, 5569, 91663, 784)
 CELL_G_XLA = (3934, 1461, 39844, 396)
 G_CPU_TSTOP = 2e-9
+#: cells B-f32 and G-f32 (phases 41-42, ``benchmarks/cmg_dff.py``):
+#: ``bench.py``'s accelerator configuration of the BSIM4 and CMG DFF legs
+#: (models in float32, B1's float32 form, 128 and 32 lanes); G-f32's
+#: window; the card's counts against the CPU's over 0-``F32_CPU_TSTOP``
+#: (recorded, and whether they are equal: how far the two agree is the
+#: measurement); B1's float32 form against its float32 plain version
+#: (``kernel_times.check_fused_f32``) at each leg's (h, perturbation)
+#: starts: the CMG chord converges from 1 mV, not from 50 mV
+#: (``tests/test_torch_mixed_fused.py``).  G-f32 runs over 0-260 ns (the
+#: 150 and 250 ns points): over 0-700 ns it passed its gate in 257 s of
+#: ``tran``, and the smoke then ran ~1,000 s, G-xla's ``tran`` 765 s
+#: beside it (PERF.md, PR 18), too near the 1,100 s gate
+G_F32_TSTOP = 2.6e-7
+F32_CPU_TSTOP = 1e-9
+#: the count comparison's lanes (``linspace(0.99, 1.01)`` over 8 lanes,
+#: set up on each side): the CPU's eager walk at the legs' own 128 and 32
+#: lanes took minutes of the host beside G-xla
+F32_CPU_LANES = 8
+F32_STARTS = {"bsim4": ((1e-12, 0.05), (1e-10, 0.05)),
+              "cmg": ((1e-12, 1e-3), (1e-11, 1e-3))}
 #: phase 23: the ASAP7 BSIM-CMG inverter's √PSD against ngspice's table
 #: (the reference's gate, ``tests/test_noise_pdk_goldens.py``) and its PSD
 #: on the card against the CPU's.  The adjoint systems G + jωC reach
@@ -1627,7 +1685,6 @@ def cmg_setup(torch, T, dev):
     """Cell G's lanes on the card (``cmg_dff.setup``) and their fused
     plan: (lanes, set-up s, plan, plan s)."""
     from cedarsim_tpu_torch.analysis.tran import fused_plan_for
-    from cedarsim_tpu_torch.benchmarks import cmg_dff
     cmg, setup_s = cmg_dff.setup(device=dev)
     t0 = time.perf_counter()
     plan = fused_plan_for(*cmg[:3])
@@ -1673,7 +1730,6 @@ def cmg_cpu_counts(T, engine, cmg_cpu, tstop):
     """Cell G's counts through ``engine`` over 0-``tstop`` on the CPU,
     from the CPU's own lanes ``cmg_cpu`` (the kernels' plain versions:
     ``dense_lu="mixed"`` for G-xla)."""
-    from cedarsim_tpu_torch.benchmarks import cmg_dff
     r = cmg_dff.run(engine, tstop, dff=cmg_cpu,
                     dense_lu="mixed" if engine == "xla" else None)
     return (r["accepted"], r["rejected"], r["newton"], r["attempts"])
@@ -1718,7 +1774,6 @@ def cmg_path(T, engine, cmg, plan, cmg_cpu):
     through the latch (``edge_crossed``); the counts recorded for the
     cell; then the card's counts over 0-``G_CPU_TSTOP`` equal to the
     CPU's.  Returns the run's record."""
-    from cedarsim_tpu_torch.benchmarks import cmg_dff
     fused = engine == "fused"
     tstop = cmg_dff.TSTOP if fused else G_XLA_TSTOP
     res = cmg_dff.run(engine, tstop, dff=cmg, plan=plan)
@@ -1760,7 +1815,6 @@ def cmg_child(engine, out):
     to stderr at each step."""
     import torch
     import cedarsim_tpu_torch as T
-    from cedarsim_tpu_torch.benchmarks import cmg_dff
     torch.set_num_threads(2)
     cmg, setup_s, plan, plan_s = cmg_setup(torch, T, torch.device("cuda", 0))
     print(f"cmg_{engine}: set up in {setup_s:.1f} s", file=sys.stderr,
@@ -1782,6 +1836,156 @@ def phase_cmg(engine, child):
         rec = json.load(f)
     log("cmg_" + engine, **rec, ran_in_child=True, waited_s=waited)
     return rec["launches"]
+
+
+def f32_leg_path(leg, dff, cpu_lanes, tstop):
+    """Cell B-f32 (``leg`` "bsim4", phase 41) or G-f32 ("cmg", phase 42):
+    the public ``tran()`` through ``cmg_dff.run`` (every kernel count
+    from 0 just before the call and read just after), gated on the leg's
+    golden as ``bench.py`` gates it inside the window, with its
+    ``race_lane_agreement``; one launch of B1's float32 form
+    (``fused_chord_f32``) per batched step attempt; then the counts over
+    0-``F32_CPU_TSTOP`` on the card and on the CPU, each from its own
+    ``F32_CPU_LANES`` lanes (``cpu_lanes``: (card's, CPU's)), both
+    recorded.  Returns the run's record."""
+    res = cmg_dff.run("fused", tstop, dff=dff, leg=leg)
+    res.pop("sols")
+    la = res["launches"]
+    if la["fused"] != res["attempts"] or la["fused"] <= 0 \
+            or res["entry"] != "fused_chord_f32":
+        raise AssertionError(f"{leg}-f32: launches {la}, {res['attempts']} "
+                             f"step attempts, entry {res.get('entry')}")
+
+    def counts(r):
+        return [r["accepted"], r["rejected"], r["newton"], r["attempts"]]
+    card, cpu = (cmg_dff.run("fused", F32_CPU_TSTOP, dff=d, leg=leg)
+                 for d in cpu_lanes)
+    res["card_vs_cpu_counts"] = dict(
+        tstop=F32_CPU_TSTOP, lanes=F32_CPU_LANES, card=counts(card),
+        cpu=counts(cpu), equal=counts(card) == counts(cpu))
+    res.pop("ptxas", None)
+    return res
+
+
+def f32_child(out):
+    """``--f32-child OUT``: phases 41 and 42 (``f32_leg_path``) in a
+    process of its own, started with the device line beside G-xla's
+    child: each leg's lanes on the card (compiled with
+    ``eval_dtype=float32``), its float32 library (built here), the count
+    comparison's lanes on the card and on the CPU, then the runs; the
+    records saved to OUT (JSON).  One torch thread (G-xla's child, the
+    critical path, shares the host); a line to stderr at each step."""
+    import torch
+    torch.set_num_threads(1)
+    recs = {}
+    card = torch.device("cuda", 0)
+    for leg, tstop in (("bsim4", cmg_dff.TSTOP), ("cmg", G_F32_TSTOP)):
+        dff, setup_s = cmg_dff.setup(device=card, leg=leg,
+                                     eval_dtype=torch.float32)
+        cpu_lanes = [cmg_dff.setup(F32_CPU_LANES, d, leg, torch.float32)[0]
+                     for d in (card, "cpu")]
+        print(f"{leg}_f32: set up in {setup_s:.1f} s", file=sys.stderr,
+              flush=True)
+        recs[leg] = f32_leg_path(leg, dff, cpu_lanes, tstop)
+        recs[leg]["lanes_setup_s"] = setup_s
+        print(f"{leg}_f32: done, tran {recs[leg]['wall_s']:.1f} s",
+              file=sys.stderr, flush=True)
+    with open(out, "w") as f:
+        json.dump(recs, f)
+
+
+def phase_f32(child):
+    """Phases 41 and 42's lines, from their child's record
+    (``f32_child``); returns each leg's launches."""
+    out, waited = join_child(child)
+    with open(out) as f:
+        recs = json.load(f)
+    for leg, name in (("bsim4", "b_f32"), ("cmg", "g_f32")):
+        log(name, **recs[leg], ran_in_child=True, waited_s=waited)
+    return {leg: rec["launches"] for leg, rec in recs.items()}
+
+
+def f32_kernel_setup(torch, T, leg):
+    """Phase 43's inputs for ``leg``, made in the main process while it
+    waits for G-xla's child (no timing): ``cmg_dff``'s float32 lanes on
+    the card (128 BSIM4 or 32 CMG) and their plan, its library loaded; for
+    BSIM4
+    also the same lanes compiled in float64 and their plan."""
+    from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+    dev = torch.device("cuda", 0)
+    dff, setup_s = cmg_dff.setup(device=dev, leg=leg,
+                                 eval_dtype=torch.float32)
+    t0 = time.perf_counter()
+    plan = fused_plan_for(*dff[:3])
+    t_plan = time.perf_counter() - t0
+    info = plan.build()
+    if plan.entry != "fused_chord_f32":
+        raise AssertionError(f"{leg}: the plan's entry is {plan.entry}")
+    f64 = None
+    if leg == "bsim4":
+        d64 = kt.dff_lanes(torch, T, dev, lanes=kt.LEGS[leg]["tpu_nb"],
+                           leg=leg)
+        f64 = (d64, fused_plan_for(*d64[:3]))
+    return dict(dff=dff, plan=plan, info=info, setup_s=setup_s,
+                t_plan=t_plan, f64=f64)
+
+
+def phase_f32_fused_kernel(torch, T, fc, leg, state, f64_log):
+    """Phase 43 (with the timing phases): B1's float32 form on the leg's
+    plan (``f32_kernel_setup``'s ``state``) against its float32 plain
+    version at ``F32_STARTS[leg]`` (``kernel_times.check_fused_f32``); its
+    device, call and plain times and bound at the phase's shape; nvcc
+    seconds and ptxas's registers, stack and spills of the float32
+    library beside the float64 one's (``f64_log``, the same leg's float64
+    plan); on the BSIM4 plan also the float64 form's device time on the
+    same lanes compiled in float64, same shape and start.  Returns (xn's
+    largest error, times, bound, ptxas lines)."""
+    dff, plan, info = state["dff"], state["plan"], state["info"]
+    checks = []
+    abs_err, nnwt = 0.0, []
+    for h, pert in F32_STARTS[leg]:
+        args, opts = kt.fused_args(torch, T, plan, dff, h,
+                                   opts=cmg_dff.options("fused", leg, True),
+                                   pert=pert)
+        try:
+            chk, k1 = kt.check_fused_f32(torch, fc, plan, args, opts)
+        except AssertionError as e:
+            raise AssertionError(f"{leg} f32 h={h}: {e}") from None
+        checks.append(dict(h=h, pert=pert, **chk))
+        abs_err = max(abs_err, chk["xn_abs"])
+        nnwt.append([int(k1[3][:, 1].min()), int(k1[3][:, 1].max())])
+
+    def run():
+        return fc.fused_chord(plan, *args, opts)
+    times = (kt.device_ms(run), kt.call_ms(run, 20),
+             kt.call_ms(lambda: fc.fused_chord_plain(plan, *args, opts), 1,
+                        rounds=2))
+    bnd, counted = fused_bound(plan, args, run())
+    f64_ms = None
+    if state["f64"] is not None:
+        # the float64 form on the same lanes compiled in float64, at the
+        # same shape and start (phase 20 gives the CMG plan's, [32, 85])
+        d64, p64 = state["f64"]
+        h, pert = F32_STARTS[leg][-1]
+        a64, o64 = kt.fused_args(torch, T, p64, d64, h,
+                                 opts=cmg_dff.options("fused", leg, True),
+                                 pert=pert)
+        f64_ms = kt.device_ms(lambda: fc.fused_chord(p64, *a64, o64))
+
+    def lines(log_text):
+        return [ln.strip() for ln in log_text.splitlines()
+                if any(w in ln for w in ("registers", "spill",
+                                         "stack frame"))]
+    ptxas = {"float32": lines(info["log"]), "float64": lines(f64_log)}
+    log("f32_fused_kernel", leg=leg, checks=checks, nnwt_min_max=nnwt,
+        ms_device_call_plain=list(times), shape=list(dff[3].shape),
+        float64_form_device_ms=f64_ms,
+        bound_ms=bnd, nodes=counted, threads=plan.threads,
+        smem_bytes=plan.smem_bytes, lanes_setup_s=state["setup_s"],
+        plan_s=state["t_plan"],
+        emit_s=info["emit_seconds"], nvcc_s=info["nvcc_seconds"],
+        ptxas=ptxas, library=os.path.relpath(info["path"], REPO))
+    return abs_err, times, bnd, ptxas
 
 
 def phase_cmg_noise(torch, T, gesp_lu, pivot_lu, fc, dev):
@@ -4307,6 +4511,9 @@ def run(children):
     # yet); every kernel-timing phase waits for it (ROADMAP C15)
     child_xla = start_child("cmg", "xla")
     children.append(child_xla)
+    # phases 41-42 (cells B-f32, G-f32) from here too, beside G-xla's
+    child_f32 = start_child("f32")
+    children.append(child_f32)
     dff = dff_setup(torch, T, dev)
     t_lv1 = time.perf_counter()
     lv1 = kt.lv1_lanes(torch, T, dev)
@@ -4463,8 +4670,13 @@ def run(children):
         rets[which] = rec["ret"]
     la35 = rets["a17_driven"]
     la36, la36_tran = rets["a17_auto"]
+    # phase 43's lanes and plans, while G-xla's child (the critical path)
+    # runs on
+    f32_state = {leg: f32_kernel_setup(torch, T, leg)
+                 for leg in ("bsim4", "cmg")}
     gl = {"fused": phase_cmg("fused", child_cmg),
           "xla": phase_cmg("xla", child_xla)}
+    f32l = phase_f32(child_f32)
     # phase 38's two ranks on the card, once every other child has ended
     # and before the timing phases
     a18_pair = phase_a18_pair(torch, dev, a18_e)
@@ -4487,6 +4699,9 @@ def run(children):
     a21_abs_err, a21_times, a21_bound = phase_a21_kernel(torch, T, fc,
                                                          a21_lv, plan_a21)
     a16b_times = a16b_kernel_times(torch, T, dev)
+    f32k = {leg: phase_f32_fused_kernel(torch, T, fc, leg, f32_state[leg],
+                                        lg["log"])
+            for leg, lg in (("bsim4", info), ("cmg", plan_cmg.build()))}
     one_err = phase_one_stream_fused_kernel(torch, T, fc, (
         ("amp1", amp1, T.SimSpec.make(gmin=vbic_amp.GMIN), (1e-6, 1e-4),
          {"hb_warmup": FUSED_OPTS}),
@@ -4567,6 +4782,25 @@ def run(children):
                                          "launches": la35["fused"],
                                          "max_abs_err": one_err["amp1"]}}),
     ]
+    f32_err, f32_times, f32_bound, f32_ptxas = f32k["bsim4"]
+    c32_err, c32_times, c32_bound, c32_ptxas = f32k["cmg"]
+    kernels.append(kernel_entry(
+        "fused_chord_f32", "cedarsim_tpu_torch/csrc/fused_chord.cu",
+        "cedarsim_tpu/ops/fused_chord.py:632", f32l["bsim4"]["fused"],
+        *f32_times, None, None, None, f32_bound, f32_err,
+        also_replaces="cedarsim_tpu/ops/fused_chord.py:526",
+        model="BSIM4, W per lane, eval_dtype=float32 (cell B-f32)",
+        shape=[kt.LEGS["bsim4"]["tpu_nb"], dff[0].n_x], ptxas=f32_ptxas,
+        rescue_launches={k: f32l["bsim4"][k] for k in ("factor", "subst")},
+        cmg={"model": "BSIM-CMG 107, NFIN per lane, eval_dtype=float32 "
+                      "(cell G-f32)",
+             "launches": f32l["cmg"]["fused"], "max_abs_err": c32_err,
+             "shape": [kt.LEGS["cmg"]["tpu_nb"], cmg[0].n_x],
+             "device_ms": c32_times[0], "call_ms": c32_times[1],
+             "plain_ms": c32_times[2], "bound_ms": c32_bound[0],
+             "bound_by": c32_bound[1], "ptxas": c32_ptxas,
+             "rescue_launches": {k: f32l["cmg"][k]
+                                 for k in ("factor", "subst")}}))
     design = {
         "factor": "dense_solve.cuh FACTOR instantiation: one warp per "
                   "system, rows in registers, steps in panels of 4 "
@@ -4629,6 +4863,8 @@ if __name__ == "__main__":
         sparse_child(sys.argv[2])
     elif len(sys.argv) == 4 and sys.argv[1] == "--cmg-child":
         cmg_child(sys.argv[2], sys.argv[3])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--f32-child":
+        f32_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--a14b-both-child":
         a14b_both_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--a16a17-child":

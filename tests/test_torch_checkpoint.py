@@ -10,7 +10,9 @@ reuse (``jac_reuse >= 2``).
   then to 20 ns): each window's accepted, rejected and Newton counts equal
   the JAX package's chained windows, and the output within 1e-6 V; the RC
   step chained through a checkpoint meets its closed form.
-- ``resume`` past tstop raises, as ``tests/test_checkpoint.py`` asserts.
+- ``resume`` past tstop raises, as ``tests/test_checkpoint.py`` asserts;
+  that file's ``.npz`` round trip (``save_checkpoint``,
+  ``load_checkpoint``) twinned.
 - ``jac_reuse=4`` (one stream, and lanes): the JAX package's accepted,
   rejected and Newton counts.
 - ``tran_core`` over two windows from ``blank_checkpoint`` equals the JAX
@@ -109,6 +111,35 @@ def test_rc_resume_continues_the_physics():
     for t in (3e-6, 4.9e-6):
         exact = 3.3 * (1 - math.exp(-(t - 1.0005e-6) / 1e-6))
         assert abs(float(s2.interp("vout", t)) - exact) < 0.02
+
+
+def test_checkpoint_file_round_trip_matches_jax(tmp_path):
+    """``tests/test_checkpoint.py``'s round trip through an ``.npz`` file
+    (``save_checkpoint``/``load_checkpoint``): the same fields come back as
+    arrays, the resumed segment continues the physics (within 0.02 V of
+    the closed form and of the run over the whole span) from the saved
+    time, and with the JAX package's counts; the JAX package reads the
+    port's file."""
+    c, cj = _rc(T), _rc(J)
+    s1 = T.tran(c, (0.0, 2e-6))
+    path = tmp_path / "seg1.npz"
+    T.save_checkpoint(path, s1.checkpoint)
+    ck = T.load_checkpoint(path)
+    assert set(ck) == set(s1.checkpoint)
+    assert all(isinstance(v, np.ndarray) for v in ck.values())
+    for f, v in s1.checkpoint.items():
+        np.testing.assert_array_equal(ck[f], np.asarray(v))
+    s2 = T.tran(c, (0.0, 8e-6), resume=ck)
+    ref = T.tran(c, (0.0, 8e-6))
+    assert s2.converged and s2.ts[0] >= 2e-6 - 1e-9
+    for t in (3e-6, 4.9e-6):
+        exact = 3.3 * (1 - math.exp(-(t - 1.0005e-6) / 1e-6))
+        assert abs(float(s2.interp("vout", t)) - exact) < 0.02
+        assert abs(float(s2.interp("vout", t))
+                   - float(ref.interp("vout", t))) < 0.02
+    j1 = J.tran(cj, (0.0, 2e-6))
+    j2 = J.tran(cj, (0.0, 8e-6), resume=J.load_checkpoint(path))
+    assert _counts(s2) == _counts(j2) and _counts(s1) == _counts(j1)
 
 
 @pytest.mark.parametrize("lanes", [None, 2])

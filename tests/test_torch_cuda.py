@@ -40,6 +40,12 @@ which sets JAX up for the other files):
   BSIM-CMG DFF of cell G, NFIN per lane) at 1 and 32 lanes; on the VBIC
   plan (cell V's amplifier, AREA per lane) at 1 and 32 lanes; on the
   level-1 plan at a uniform-step BDF3 and BDF5 start.
+- B1's float32 form (a circuit compiled with ``eval_dtype=float32``)
+  against its float32 plain version on the BSIM4 DFF's plan at B in {1,
+  8, 128} and on the CMG plan at 2 and 32 lanes
+  (``kernel_times.check_fused_f32``): every chord converged in both, xn,
+  S and Q within 64 float32 ulps where the Newton counts agree, two
+  launches bitwise equal.
 - The RC step as one stream under "mixed" takes the exact solve (no GESP
   launch), as the JAX package's unbatched chord pair does.
 - The dense solves B4 (fused GESP, ``gesp_lu.lu_solve_gesp_f32``) and B5
@@ -427,6 +433,46 @@ def test_fused_kernel_matches_plain_cmg(cuda_device, B):
     for h in (1e-12, 1e-10):
         _check_fused_kernel(plan, *kt.fused_args(
             torch, T, plan, cmg, h, opts=kt.CMG_FUSED_OPTS))
+
+
+def _check_fused_f32_kernel(plan, args, opts):
+    """The float32 form against its float32 plain version
+    (``kernel_times.check_fused_f32``), two launches counted."""
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    assert plan.real == torch.float32
+    n0 = fc.fused_chord.launches
+    _, k = kt.check_fused_f32(torch, fc, plan, args, opts)
+    assert fc.fused_chord.launches == n0 + 2
+    assert int(k[3][:, 1].max()) >= 2
+
+
+@pytest.mark.parametrize("B", [1, 8, 128])
+def test_fused_f32_kernel_matches_plain_bsim4(cuda_device, B):
+    """B1's float32 form on the BSIM4 DFF compiled with
+    ``eval_dtype=float32`` (cell B-f32's plan, W per lane), h = 1e-12 and
+    1e-10 from the lanes' warm DC."""
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    dff = kt.dff_lanes(torch, T, cuda_device, lanes=B,
+                       eval_dtype=torch.float32)
+    plan = fused_plan_for(*dff[:3])
+    assert plan.entry == "fused_chord_f32"
+    for h in (1e-12, 1e-10):
+        _check_fused_f32_kernel(plan, *kt.fused_args(torch, T, plan, dff,
+                                                     h))
+
+
+@pytest.mark.parametrize("B", [2, 32])
+def test_fused_f32_kernel_matches_plain_cmg(cuda_device, B):
+    """B1's float32 form on the CMG plan (cell G-f32's), the leg's fused
+    options, h = 1e-12 and 1e-11 with the nodes moved by 1 mV (the chord
+    converges there; ``tests/test_torch_mixed_fused.py``)."""
+    from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    cmg = kt.dff_lanes(torch, T, cuda_device, lanes=B, leg="cmg",
+                       eval_dtype=torch.float32)
+    plan = fused_plan_for(*cmg[:3])
+    for h in (1e-12, 1e-11):
+        _check_fused_f32_kernel(plan, *kt.fused_args(
+            torch, T, plan, cmg, h, opts=kt.CMG_FUSED_OPTS, pert=1e-3))
 
 
 @pytest.mark.parametrize("B", [1, 32])

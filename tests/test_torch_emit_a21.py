@@ -81,8 +81,9 @@ class JPwl(JDeviceModel):
         return s, jnp.zeros_like(s)
 
 
-def _jax_circuit(with_pwl=True):
-    """``netlists.a21_circuit`` in the JAX package."""
+def _jax_circuit(with_pwl=True, eval_dtype=None):
+    """``netlists.a21_circuit`` in the JAX package (models evaluated in
+    ``eval_dtype``, default its dtype)."""
     ckt = J.Circuit()
     vin, a = ckt.net("in"), ckt.net("a")
     ckt.add(J.VSourcePULSE, "V1", (vin, ckt.gnd),
@@ -94,7 +95,8 @@ def _jax_circuit(with_pwl=True):
             dict(is_=1e-14, code=5.0))
     if with_pwl:
         ckt.add(JPwl, "P1", (a, ckt.gnd), {})
-    return J.compile_circuit(ckt, dynamic_params=["code"])
+    return J.compile_circuit(ckt, dynamic_params=["code"],
+                             eval_dtype=eval_dtype)
 
 
 @pytest.fixture(scope="module")
@@ -225,8 +227,11 @@ BASE = dict(formulation="cap", jac_reuse=1, newton_reltol=1e-4,
             newton_abstol=1e-9, res_tol=1e-9, res_rel=1e-6)
 
 
-def test_chord_solve_matches_pallas(va_only):
-    cj, ct = va_only
+def chord_vs_pallas(cj, ct, opts=BASE):
+    """One chord solve of ``len(CODES)`` lanes through B1's plain version
+    on ``ct`` and through the JAX package's Pallas kernel in interpret
+    mode on ``cj``, both with the Newton options ``opts``: (xn, ok, Newton
+    counts) of the port's, then of theirs, as numpy arrays."""
     L = len(CODES)
     t, h = 2.5e-9, 1e-11
     ctx = T.SimSpec.make()
@@ -245,7 +250,7 @@ def test_chord_solve_matches_pallas(va_only):
     tp = fc.get_fused_plan(ct, CTX)
     assert tp.nl_keys == [_key(ct, "a21")]
     jp = JPlan(cj, J.SimSpec.make().with_mode("tran"))
-    jopts = JTranOptions(**BASE, newton_impl="fused")
+    jopts = JTranOptions(**opts, newton_impl="fused")
     so_j = np.asarray(jp.s_off(t, J.SimSpec.make().with_mode("tran")))
     key = _key(ct, "a21")
     pj = {k: {pn: jnp.asarray(np.repeat(np.asarray(v)[None], L, 0))
@@ -256,18 +261,23 @@ def test_chord_solve_matches_pallas(va_only):
         return jp(jnp.asarray(x), jnp.asarray(Jl), jnp.asarray(so_j), 1.0,
                   h, jnp.asarray(xd), t, jopts, params=p, interpret=True)
 
-    xn_j, _, _, ok_j, _ = jax.vmap(one)(x_pred, Jm, xdh, pj)
-    xn_j, ok_j = np.asarray(xn_j), np.asarray(ok_j)
+    xn_j, _, _, ok_j, nn_j = jax.vmap(one)(x_pred, Jm, xdh, pj)
     tx = torch.as_tensor
     ones = torch.ones(L, dtype=torch.float64)
     so_t = tp.s_off(t * ones, CTX, pb)
     xn_t, _, _, ok_t, nnwt = tp(
         tx(x_pred), tx(Jm), so_t, ones, h * ones, tx(xdh), t * ones,
-        T.TranOptions(**BASE, newton_impl="fused"), params=pb)
-    assert ok_t.tolist() == ok_j.astype(bool).tolist()
+        T.TranOptions(**opts, newton_impl="fused"), params=pb)
+    return (xn_t.numpy(), ok_t.numpy(), nnwt.numpy(), np.asarray(xn_j),
+            np.asarray(ok_j).astype(bool), np.asarray(nn_j).astype(int))
+
+
+def test_chord_solve_matches_pallas(va_only):
+    xn_t, ok_t, nnwt, xn_j, ok_j, _ = chord_vs_pallas(*va_only)
+    assert ok_t.tolist() == ok_j.tolist()
     assert bool(ok_t.all()) and int(nnwt.min()) >= 2
     tol = 1e-4 * float(np.abs(xn_j).max()) + 1e-6
-    np.testing.assert_allclose(xn_t.numpy(), xn_j, rtol=0, atol=tol)
+    np.testing.assert_allclose(xn_t, xn_j, rtol=0, atol=tol)
 
 
 def test_fused_transient_on_the_a21_circuit(circuits):
