@@ -1050,7 +1050,7 @@ def tran_core(compiled: CompiledCircuit, params, ctx: SimSpec, x0, xdot0,
                     def chord_solve(b):
                         return sops.solve_factorized(fct, J, b)
                 elif mixed:
-                    fct = linalg.chord_factor(J)
+                    fct = linalg.chord_factor(J, nv)
 
                     def chord_solve(b):
                         return linalg.chord_backsolve(*fct, J, b)

@@ -4,6 +4,7 @@ at the shapes of its path.
     python -m cedarsim_tpu_torch.benchmarks.kernel_times [--out FILE]
     python cedarsim_tpu_torch/benchmarks/kernel_times.py --tree DIR
     python -m cedarsim_tpu_torch.benchmarks.kernel_times --factor
+    python -m cedarsim_tpu_torch.benchmarks.kernel_times --b1
 
 Two times per kernel, both from CUDA events on the card:
 
@@ -45,7 +46,9 @@ whether its outputs are bitwise equal to those saved there and their
 largest difference relative to the saved outputs' largest magnitude.
 ``--dense`` times B4 and B5 alone (bench shapes and sweep), ``--factor``
 B2's sweep alone (with B4 beside it), ``--lv1`` B1 on the level-1 plan
-alone.  ``--sass`` adds, for each kernel of
+alone, ``--b1`` B1 on cell B's plan (8 lanes) and on cell G's CMG plan
+(32 lanes) alone, with each library's registers, stack and spills.
+``--sass`` adds, for each kernel of
 the GESP and pivoting libraries, the count of its floating-point SASS
 instructions by opcode (``cuobjdump -sass``): whether an update compiled
 to a fused multiply-add (``FFMA``) or to a product and a sum.
@@ -492,7 +495,10 @@ def measure(torch, T, dev, which="all"):
     ``FACTOR_SWEEP``, B4 and B5 over ``SWEEP`` and ``solve_ex`` at the
     bench's shapes; nvcc's register and spill lines per library; each
     kernel's outputs).  ``which``: "all", "dense" (B4 and B5 alone),
-    "factor" (B2's sweep alone) or "lv1" (B1 on the level-1 plan alone)."""
+    "factor" (B2's sweep alone), "lv1" (B1 on the level-1 plan alone) or
+    "b1" (B1 on cell B's plan at 8 lanes and on cell G's CMG plan at
+    ``CMG_LANES``, each at h = 1e-12 with its leg's fused options, and
+    their libraries' ptxas lines)."""
     from cedarsim_tpu_torch.benchmarks import lu_bench
     from cedarsim_tpu_torch.ops import gesp_lu, pivot_lu
     out, results = {}, {}
@@ -532,6 +538,19 @@ def measure(torch, T, dev, which="all"):
             put(f"B1 fused_chord_f64 lv1 {B}x{lv1[0].n_x}",
                 (B, lv1[0].n_x),
                 lambda a=args, o=opts: fc.fused_chord(plan, *a, o), 50)
+    if which == "b1":
+        from cedarsim_tpu_torch.analysis.tran import fused_plan_for
+        from cedarsim_tpu_torch.ops import fused_chord as fc
+        for leg, lanes, opts_leg in (("bsim4", N_LANES, FUSED_OPTS),
+                                     ("cmg", CMG_LANES, CMG_FUSED_OPTS)):
+            dff = dff_lanes(torch, T, dev, lanes=lanes, leg=leg)
+            plan = fused_plan_for(*dff[:3])
+            logs[f"fused_chord {leg}"] = plan.build()["log"]
+            args, opts = fused_args(torch, T, plan, dff, 1e-12,
+                                    opts=opts_leg)
+            put(f"B1 fused_chord_f64 {leg}", (lanes, dff[0].n_x),
+                lambda a=args, o=opts, p=plan: fc.fused_chord(p, *a, o),
+                50 if leg == "bsim4" else 20)
     if which == "all":
         from cedarsim_tpu_torch.analysis.tran import fused_plan_for
         from cedarsim_tpu_torch.ops import fused_chord as fc
@@ -555,7 +574,8 @@ def measure(torch, T, dev, which="all"):
         put("B3 gesp_subst_f32", A32.shape,
             lambda: gesp_lu.lu_subst_gesp_f32(LU, b32), 200)
     library = {}
-    dense = () if which in ("factor", "lv1") else lu_bench.SHAPES + tuple(
+    dense = () if which in ("factor", "lv1", "b1") else \
+        lu_bench.SHAPES + tuple(
         s for s in SWEEP if s not in lu_bench.SHAPES)
     for B, nb in dense:
         A, b = lu_bench.make_systems(B, nb)
@@ -681,6 +701,9 @@ def main(argv=None):
                     "with B4 beside it")
     ap.add_argument("--lv1", action="store_true",
                     help="time only B1 on the level-1 DFF's plan")
+    ap.add_argument("--b1", action="store_true",
+                    help="time only B1 (float64) on cell B's and cell G's "
+                    "plans")
     ap.add_argument("--fused-sass", metavar="FILE",
                     help="only build cell B's fused plan and write its "
                     "library's SASS to FILE")
@@ -699,7 +722,7 @@ def main(argv=None):
         print(json.dumps(res), flush=True)
         return res
     which = ("dense" if args.dense else "factor" if args.factor
-             else "lv1" if args.lv1 else "all")
+             else "lv1" if args.lv1 else "b1" if args.b1 else "all")
     times, library, ptxas, results = measure(torch, T, dev, which)
     flat = {f"{k}#{i}": a for k, v in results.items()
             for i, a in enumerate(v)}

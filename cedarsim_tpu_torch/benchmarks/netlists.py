@@ -48,6 +48,14 @@ the times at which their waveforms are compared.
   (a two-tap FIR and a one-pole IIR on a 1 µs clock), as text, and
   ``VA_TRANSITION_RAMP``, the transition module with a literal zero
   delay.
+- :func:`pass_switch` / :func:`pass_switch_lanes`: one gf180
+  ``nfet_06v0`` of ``models_bsim4.spice`` as a closed pass switch (gate
+  at 5 V, W = 3.6 µm, L = 0.6 µm, a 10 kΩ load), the track phase of a
+  sample-and-hold or a closed transmission gate.  At its operating point
+  the drain sits exactly on the source (vds = 0), where BSIM4's ``vds =
+  abs(vds_r)`` is differentiated at its kink (ROADMAP C17) and where the
+  DELTA-smoothed Vdseff's tangent, identically zero there, is a rounding
+  residue (C18).
 
 The gf180 decks include files of ``DFF_DIR``: pass it in
 ``include_paths``.
@@ -118,6 +126,55 @@ ALL_CARDS_TIMES = (5e-9, 15e-9, 25e-9, 35e-9, 45e-9)
 #: the gf180 DFF benchmark's directory (its decks and model cards)
 DFF_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "benchmarks", "gf180_dff")
+
+
+#: the pass switch's input: ``ac`` (DC 0, AC 1) or ``sin`` (a 0.1 V,
+#: 1 MHz sine from 0 V, AC 1), its width and load
+SWITCH_INPUTS = {"ac": "DC 0 AC 1", "sin": "SIN(0 0.1 1MEG) AC 1"}
+SWITCH_W = 3.6e-6
+SWITCH_RL = 1e4
+
+
+def pass_switch(source="ac"):
+    """The pass switch's netlist (``include_paths=[DFF_DIR]``): VIN drives
+    the drain with ``SWITCH_INPUTS[source]``, OUT is the source node."""
+    return f"""* closed pass switch: the track phase of a sample-and-hold
+.option gmin=1e-15
+.include "models_bsim4.spice"
+VG G 0 5
+VIN IN 0 {SWITCH_INPUTS[source]}
+X1 IN G OUT 0 nfet_06v0 W={SWITCH_W:g} L=6e-07
+RL OUT 0 {SWITCH_RL:g}
+.end
+"""
+
+
+def pass_switch_lanes(device=None, widths=(0.5, 1.0, 2.0, 4.0),
+                      source="sin"):
+    """:func:`pass_switch` compiled on ``device``, one lane per entry of
+    ``widths`` (the switch's W times it), and each lane's transient
+    operating point, where every lane's OUT is exactly 0 V: (compiled,
+    ctx, per-lane params, per-lane states)."""
+    import torch
+    import cedarsim_tpu_torch as T
+    nl = T.parse_spice(pass_switch(source), file="pass_switch.cir")
+    comp = T.compile_circuit(T.elaborate(nl, include_paths=[DFF_DIR]),
+                             device=device, dynamic_params=("W",))
+    ctx = T.SimSpec.make(gmin=1e-15)
+    L = len(widths)
+    key = next(k for k in comp.group_order if "bsim4" in k.lower())
+    pb = {k: {pn: v.expand((L,) + tuple(v.shape)) for pn, v in g.items()}
+          for k, g in comp.params0.items()}
+    pb[key] = dict(pb[key])
+    pb[key]["W"] = comp.params0[key]["W"][None, :] * torch.as_tensor(
+        widths, dtype=comp.dtype, device=comp.device)[:, None]
+    op = T.solve_dc(comp, pb, ctx, mode="tranop",
+                    x0=torch.zeros(L, comp.n_x, dtype=comp.dtype,
+                                   device=comp.device))
+    if not bool(op.converged.all()):
+        raise AssertionError("pass switch: operating point did not "
+                             "converge")
+    return comp, ctx, pb, op.x
 
 
 def dff_ac_noise(n_per_decade=50, fstart=1.0, fstop=1e15):

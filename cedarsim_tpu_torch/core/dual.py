@@ -20,9 +20,10 @@ Plain Python floats and tensors pass through every function here; only a
 is a Python float (a built-in device's static params) the result is a
 Python float, computed in float64 with NaN and infinity as numpy gives them.
 
-Two sets of rules live here.  ``safe_sqrt``, ``safe_log``, ``safe_pow`` and
-``absolute`` are the Verilog-A math set of the interpreter.  ``sqrt``,
-``log``, ``power``, ``fabs`` and the rounding functions follow
+Two sets of rules live here.  ``safe_sqrt``, ``safe_log`` and ``safe_pow``
+are the Verilog-A math set of the interpreter (its ``abs`` is ``fabs``,
+``absolute``).  ``sqrt``, ``log``, ``power``, ``fabs`` and the rounding
+functions follow
 ``jax.numpy``'s own (``lax``) rules, which the JAX package's built-in
 devices (``cedarsim_tpu/devices/``) and behavioral sources differentiate
 with: √x's tangent is 0.5/√x, log's 1/x, xʸ's y·xʸ⁻¹ and log(x)·xʸ (x = 0
@@ -83,7 +84,21 @@ class Dual:
         return Dual(self.v / b, self.d / b)
 
     def __rtruediv__(self, b):
-        return Dual(b / self.v, self.d * (-b / (self.v * self.v)))
+        return Dual(rdiv(b, self.v), self.d * rdiv(-b, self.v * self.v))
+
+
+def rdiv(b, v):
+    """``b / v``.  A number ``b`` over a float64 tensor ``v`` is one IEEE
+    division, as ``lax.div`` and the emitted walk divide (a tensor's own
+    ``b / v`` is ``v.reciprocal() * b``, two roundings: at the pass
+    switch's tie that left OUT 1.4e-34 V off the JAX package's 0, ROADMAP
+    C18).  Over float32 values it stays ``v.reciprocal() * b``, which the
+    float32 tier's recorded counts and bounds follow (C18, open for
+    float32); every other pair is ``b / v``."""
+    if (isinstance(v, torch.Tensor) and v.dtype == torch.float64
+            and not isinstance(b, (torch.Tensor, Dual))):
+        return torch.div(b, v)
+    return b / v
 
 
 def val(x):
@@ -214,20 +229,6 @@ def safe_pow(a, b):
     return Dual(y, d)
 
 
-def absolute(x):
-    """|x|, the Verilog-A ``abs``.  Its derivative at 0 over float32
-    values is the JAX package's +1 (``select(x >= 0, g, -g)``), where
-    float32 rounding puts a BSIM4 device's drain exactly on its source's
-    rail at the DFF's operating point; over float64 values it is still
-    sign(0) = 0, which the recorded float64 counts and emitted headers
-    follow (ROADMAP C17)."""
-    v = val(x)
-    y = torch.abs(v)
-    if isinstance(x, Dual) and v.dtype == torch.float32:
-        return Dual(y, torch.where(v >= 0, x.d, -x.d))
-    return _chain(y, x, torch.sign(v))
-
-
 def limexp_cap(x):
     """The Verilog-A ``limexp``'s cap for ``x``: 80, or 55 when ``x`` is
     float32, where e^80·(1 + x − 80) overflows once x passes ~6,000 (the
@@ -307,7 +308,8 @@ def power(a, b):
 
 
 def fabs(x):
-    """|x| with lax's tangent: +dx where x >= 0, else -dx."""
+    """|x| with lax's tangent: +dx where x >= 0, else -dx, so +1 at 0 in
+    every dtype (``jnp.abs``'s ``select(x >= 0, g, -g)``)."""
     if is_scalar(x):
         return abs(float(x))
     v = val(x)
@@ -315,6 +317,13 @@ def fabs(x):
     if not isinstance(x, Dual):
         return y
     return Dual(y, torch.where(v >= 0, x.d, -x.d))
+
+
+#: the Verilog-A ``abs``, ``fabs``'s rule (ROADMAP C17): BSIM4 takes ``vds
+#: = abs(vds_r)``, so at a drain exactly on its source (a closed switch at
+#: zero bias, a DC from zeros) sign(0) = 0 would drop the device's output
+#: conductance
+absolute = fabs
 
 
 def _unary(f, df):

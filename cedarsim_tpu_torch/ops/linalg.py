@@ -22,9 +22,12 @@ device: its lanes (sweep points, frequencies) are held to tolerances.
 
 The mixed-precision chord pair (``TranOptions.dense_lu="mixed"``) is batched
 over an explicit lane axis: :func:`chord_factor` row-equilibrates J in f64
-and factors it in float32 with the GESP kernel (``ops/gesp_lu.py``; perm is
-the identity), and :func:`chord_backsolve` substitutes in float32 and runs
-``_REFINE`` float64 refinement passes against the true J.  The Newton loop's
+and factors it in float32 with the GESP kernel (``ops/gesp_lu.py``, no
+pivoting; a lane whose factor rounds a pivot to 0 is factored again with
+its voltage sources' rows swapped onto their nodes, the transient's one
+departure from the JAX package's order, ROADMAP C19), and
+:func:`chord_backsolve` substitutes in float32 and runs ``_REFINE``
+float64 refinement passes against the true J.  The Newton loop's
 own f64 residual test stays the correctness gate above this.
 """
 
@@ -35,6 +38,8 @@ import torch
 from cedarsim_tpu_torch.ops import gesp_lu
 
 _REFINE = 2
+#: lanes that :func:`chord_factor` factored again in the source row order
+reordered = 0
 
 
 def matvec(A, v):
@@ -109,26 +114,80 @@ def lu_solve_exact(LU, piv, r, b):
     return torch.linalg.lu_solve(LU, piv, rhs)[..., 0]
 
 
-def chord_factor(J):
+def source_row_order(J, first_branch):
+    """A row order for one system J [n, n] (any dtype, any device): each
+    branch row from ``first_branch`` on whose diagonal is 0 (a voltage
+    source's or a controlled voltage source's equation) trades places with
+    the row of a node that it sets: the node with the largest |J[b, p]|
+    whose own row holds the branch current (J[p, b] != 0) and a nonzero
+    diagonal, each node taken once (first by index on a tie).  So each
+    source's node voltage is pinned where its KCL row stood, which keeps
+    the leading blocks of an unpivoted elimination away from the circuit's
+    floating-node singularity: in the natural order every supply node's
+    KCL precedes its branch row, and the last of them is left with the
+    circuit's conductance to ground (gmin, the shunt, C/h) as its pivot.
+    Returns a list: new row i is J's row ``order[i]``."""
+    Jc = J.detach().to("cpu")
+    n = Jc.shape[-1]
+    nz = Jc != 0
+    diag = nz.diagonal()
+    taken = torch.zeros(n, dtype=torch.bool)
+    order = list(range(n))
+    for b in range(first_branch, n):
+        if diag[b]:
+            continue
+        cand = nz[b] & nz[:, b] & diag & ~taken
+        if not bool(cand.any()):
+            continue
+        p = int(torch.where(cand, Jc[b].abs(), -1.0).argmax())
+        taken[p] = True
+        order[b], order[p] = order[p], order[b]
+    return order
+
+
+def chord_factor(J, first_branch=None):
     """GESP factor of a batch of Jacobians J [L, n, n] (float64): returns
-    (LU float32, perm, rowscale) for :func:`chord_backsolve`."""
-    L, n, _ = J.shape
+    (LU float32, perm, rowscale) for :func:`chord_backsolve`.  The factor
+    runs in J's own row order, as the JAX package's does.  Given
+    ``first_branch`` (the index of the first branch unknown), a lane whose
+    factor there rounds a pivot to 0 (GESP boosts it to ``gesp_lu.TAU``,
+    and the solve along it then overflows float32) is factored again in
+    :func:`source_row_order`; perm is then [L, n] (the identity on the
+    other lanes), else None.  The module's ``reordered`` counts the lanes
+    factored again."""
+    global reordered
     r = _equilibrate(J)
-    LU = gesp_lu.lu_factor_gesp_f32(
-        (J / r[..., None]).to(torch.float32).contiguous())
-    perm = torch.arange(n, device=J.device).expand(L, n)
-    return LU, perm, r
+    Js = (J / r[..., None]).to(torch.float32).contiguous()
+    LU = gesp_lu.lu_factor_gesp_f32(Js)
+    if first_branch is None:
+        return LU, None, r
+    broke = (LU.diagonal(dim1=-2, dim2=-1).abs() <= gesp_lu.TAU).any(-1)
+    if not bool(broke.any()):
+        return LU, None, r
+    L, n, _ = J.shape
+    perm = torch.arange(n, device=J.device).repeat(L, 1)
+    lanes = torch.nonzero(broke).flatten().tolist()
+    for i in lanes:
+        perm[i] = torch.as_tensor(source_row_order(J[i], first_branch),
+                                  device=J.device)
+    LU_p = gesp_lu.lu_factor_gesp_f32(
+        Js.gather(1, perm[:, :, None].expand(L, n, n)).contiguous())
+    reordered += len(lanes)
+    return torch.where(broke[:, None, None], LU_p, LU), perm, r
 
 
 def chord_backsolve(LU, perm, r, J, b):
     """Solve J x = b [L, n] with factors from :func:`chord_factor`: float32
-    substitution plus ``_REFINE`` float64 refinement passes, the residual
+    substitution (of b's rows in the factor's order ``perm``, where it is
+    not None) plus ``_REFINE`` float64 refinement passes, the residual
     b − J·x a float64 batched matvec."""
-    del perm                      # GESP factors are unpivoted
 
     def subst(v):
+        v = v / r
+        if perm is not None:
+            v = v.gather(1, perm)
         return gesp_lu.lu_subst_gesp_f32(
-            LU, (v / r).to(torch.float32).contiguous()).to(J.dtype)
+            LU, v.to(torch.float32).contiguous()).to(J.dtype)
 
     x = subst(b)
     for _ in range(_REFINE):

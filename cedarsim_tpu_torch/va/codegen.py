@@ -162,15 +162,15 @@ def _pdiv(a, b):
     a, b = _pair(a), _pair(b)
     if b[1] is not None:
         raise VACodegenError("division by a ddt() expression")
-    q = None if a[1] is None else a[1] / b[0]
+    q = None if a[1] is None else D.rdiv(a[1], b[0])
     d = None
     if a[2] is not None or b[2] is not None:
         # d(a/b) = da/b − a·db/b² (formed only where a tangent exists: the
         # walk runs eagerly, so an unused tangent would still cost its ops)
         d = _dmerge(_dscale(a[2], 1.0 / b[0]),
-                    _dscale(b[2], -a[0] / (b[0] * b[0])),
+                    _dscale(b[2], D.rdiv(-a[0], b[0] * b[0])),
                     lambda x, y: x + y)
-    return (a[0] / b[0], q, d)
+    return (D.rdiv(a[0], b[0]), q, d)
 
 
 def _scalar(a, what="expression"):

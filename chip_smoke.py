@@ -12,8 +12,8 @@ card says so.
 
 The schedule (ROADMAP C15): G-xla's child (phase 22, the longest run)
 starts right after the device line, so that its set-up runs beside the
-build; phases 3-10, 12-18, 37, 38's world of one and 40's path run in the
-main process beside it and
+build; phases 3-10, 12-18, 37, 38's world of one, 40's path and 44 run in
+the main process beside it and
 beside the other children (phase 19's, G-fused's and phases 25-33's,
 started after phase 8's checking half; phases 34-36's, started after
 phase 12); every phase that times a kernel runs only after all those
@@ -21,10 +21,13 @@ children have ended, so that no other process shares the card while it
 times: phases 3, 6, 8 and 19 check their kernels early and time them
 there (``kernel_times``, ``fused_kernel_times``, ``lu_bench``,
 ``sparse``), with phases 20, 24, 11 and 16 and the kernel halves of 39
-and 40.  Phase 39 runs in phase 19's child after its main path; phase
-38's two ranks run after every other child has ended and before the
-timing phases.  A ``children`` line before the timing phases gives every
-child's start and end on the smoke's clock.
+and 40.  Phase 39 runs in phase 19's child after its main path, phase 17
+in a child of its own from phase 16's end.  Once every child but
+G-xla's has ended, phase 38's two ranks (beside phase 43's set-up), the
+one-stream kernel check (phases 35-36's plans) and phase 20's checking
+half run beside G-xla's child alone, before its join.  A ``children``
+line before the timing phases gives every child's start and end on the
+smoke's clock.
 
 1. device  — requires CUDA; prints the card's name and power limit; full
    float32 matmuls (no TF32).
@@ -131,10 +134,21 @@ child's start and end on the smoke's clock.
    per lane) against its plain version at [256, 25] on the PVT lanes'
    operating points, as phase 6; its times, bound and ptxas lines.
 17. pvt_xla — the harness with ``impl="xla"`` (B2/B3, ``dense_lu=
-   "mixed"``): 16 points over 0-100 ns (``PVT_XLA_TSTOP``), both GESP
-   kernels launched, B1 not,
-   every count equal to the same call with ``device="cpu"`` (the kernels'
-   plain versions), run here after it.
+   "mixed"``): 16 points over 0-100 ns (``PVT_XLA_TSTOP``) in two
+   windows, both GESP kernels launched, B1 not, the counts
+   ``CELL_P_XLA``; every lane's counts in both windows equal to those of
+   the same call with ``device="cpu"`` (the kernels' plain versions), run
+   here after it (``CELL_P_XLA_CPU``), but for the lanes
+   ``PVT_XLA_PARTED``, whose steps part in the second window at the 50 ns
+   clock edge's breakpoint (the step controller's choice there follows
+   the walk's last bits, which the card rounds apart from the CPU,
+   ROADMAP C13's class): each side's counts there are held to its own
+   recorded ones.  Then the same call on the card with B2 and B3 replaced
+   by their plain versions: every lane's counts in both windows those of
+   the kernels' run, so the lanes part by the card's walk, not by the
+   kernels.  It runs in a child process (``--pvt-xla-child``,
+   its line printed from its record), started once phase 16 has ended,
+   beside phases 18-40 and 44.
 18. ac_noise — AC and noise through ``simulate`` on the card, no
    hand-written kernel launched (all five counts stay 0: the complex
    solve is ``torch.linalg.solve``, as the JAX package's is outside
@@ -193,10 +207,11 @@ child's start and end on the smoke's clock.
    (``torch.linalg.lu_factor``/``lu_solve``, float64 [L, 452, 452]) and
    the bound.
 
-20. cmg_fused_kernel — (run after phase 37, once the children have
-   ended) B1 on the CMG plan (the BSIM-CMG 107 walk emitted: 449 hoisted,
-   3,131 walk nodes) against its plain version on cell G's 32 lanes, as
-   phase 6 with the leg's fused options; its device, call and plain times
+20. cmg_fused_kernel — B1 on the CMG plan (the BSIM-CMG 107 walk
+   emitted: 449 hoisted, 3,135 walk nodes) against its plain version on
+   cell G's 32 lanes, as phase 6 with the leg's fused options (checked
+   beside G-xla's child alone, before its join); its device, call and
+   plain times (after every child has ended)
    and bound at [32, 85]; emit and nvcc seconds, ptxas's registers, stack
    and spills; shared memory a lane.
 21. cmg_fused (cell G) — ``bench.py``'s BSIM-CMG DFF leg
@@ -219,7 +234,9 @@ child's start and end on the smoke's clock.
    operating point's latch state), at the golden's first level (0 V)
    after it (``edge_crossed``); the counts ``CELL_G_XLA``; over
    0-``G_CPU_TSTOP`` the counts equal to the same call's on the CPU
-   (``dense_lu="mixed"``, the kernels' plain versions).
+   (``dense_lu="mixed"``, the kernels' plain versions), which phase 21's
+   child runs: G-xla's child runs nothing on the host beside its own
+   run.
    Phases 21 and 22 run in two child processes (one an engine, each
    setting its lanes up on the card): 22 from the start, beside the
    build and phases 3-18 and 37, 21 from phase 8 on, beside phases 9-18
@@ -331,7 +348,7 @@ child's start and end on the smoke's clock.
    drawn with numpy from a fixed seed, the same starts on the card and
    the CPU: the distinct operating points and their counts, every lane
    within 1e-9 V of the CPU's.
-   After the timing phases, B1 at B = 1 on the amplifier's and the ring's
+   Before G-xla's join, B1 at B = 1 on the amplifier's and the ring's
    plans against its plain version (``one_stream_fused_kernel``, as
    phases 11 and 24: two step sizes under each option set those
    transients use), the source of the ``ring`` and ``hb_warmup`` entries'
@@ -367,7 +384,8 @@ child's start and end on the smoke's clock.
    lanes over 0-60 ns (``A18_TSTOP``), each lane's operating point
    solved inside the sweep from zeros: per-lane counts equal to the
    repeat run's (``a18_nccl``; its waveforms are phase 12's second run).
-   Once every child has ended and before the timing phases: two gloo
+   Once every child but G-xla's has ended, before its join and beside
+   phase 43's set-up (a thread of the main process waits on them): two gloo
    ranks sharing the card (``RankPool``, child processes):
    ``dryrun_child.gates`` (the level-1 DFF's ``vto`` DC sweep, its
    sharded transient, the RC closed-form gate over distinct-τ lanes),
@@ -419,6 +437,18 @@ child's start and end on the smoke's clock.
    direction at the float64 rate), beside the float64 form's device time
    on the BSIM4 lanes compiled in float64; ptxas's registers, stack and
    spills of the float32 library beside the float64 one's.
+44. switch  — (in the main process after phase 40, before the children
+   are joined; its plan's library builds with the others) ROADMAP C17
+   and C18: the pass switch (``netlists.pass_switch``: a gf180
+   ``nfet_06v0`` closed at zero drain-source bias, the track phase of a
+   sample-and-hold).  Its DC operating point, AC and OUT's noise on the
+   card against the same calls on the CPU (OUT exactly 0 V on the CPU,
+   the card within SIM_DC_TOL; AC within AC_RTOL, the PSD within
+   PSD_RTOL; the gain IN to OUT a closed switch's); B1 (float64) on the
+   switch's plan at four lanes (W per lane) at their operating points,
+   where every vds is exactly 0, against its plain version; a 0-2 µs
+   track-phase transient of those lanes through B1 (a 0.1 V, 1 MHz sine
+   on IN), its counts on every lane the CPU's.
 
 The line before the last is the card's name and power limit from
 ``nvidia-smi``; before it, one JSON line with each kernel's route, source,
@@ -427,7 +457,8 @@ the level-1 plan, in phase 12 and at bdf3/bdf5 in phases 28-29, on the
 PVT plan in phase 15, on the CMG plan in phase 21, on the VBIC plan in
 phase 25 and at B = 1 in phase 35's HB warm-up, on the ring's level-1
 plan in phase 36's, and phase 37's, in phase 38 (``a18_launches``) and
-on the A21 plan in phase 40 (``a21``); B1's float32 form
+on the A21 plan in phase 40 (``a21``), on the pass switch's plan in
+phase 44 (``switch``); B1's float32 form
 (``fused_chord_f32``) in phase 41 and, on the CMG plan, 42; B2/B3 in
 phase 5, in phase 10, in phase 17, in phase 22, in phase 26, in phases 30-32, in phase 37 and in
 phase 38's cell D; B4/B5 in phase 8; S1/S2 in phase 19 and under forward
@@ -479,24 +510,36 @@ N_LANES = kt.N_LANES
 #: over that window were recorded on the card (0-700 ns: 11478, 1107,
 #: 28560, 1580)
 CELL_A_TSTOP = 1.6e-7
-CELL_A = (3086, 279, 7475, 428)
-CELL_B = (4832, 1291, 16754, 776)
+CELL_A = (3086, 279, 7491, 428)
+CELL_B = (4799, 1306, 16653, 772)
 #: cells D and E, the level-1 DFF at 256 lanes through the mixed chord path
 #: and the fused engine (accepted, rejected, Newton, attempts over all
 #: lanes); cell D over 0-260 ns (``LV1_SHORT_TSTOP``; over 0-700 ns it was
-#: 384556, 57104, 1024766, 1740), cell E over 0-700 ns
-CELL_D = (164482, 23578, 435608, 744)
+#: 384556, 57104, 1024766, 1740), cell E over 0-700 ns.  Cell D's lanes
+#: whose GESP factor rounds a pivot to 0 are factored again in the source
+#: row order (``linalg.chord_factor``, ROADMAP C19: 12 lanes; before it,
+#: 164482, 23578, 435608, 744)
+CELL_D = (164464, 23562, 435335, 744)
 CELL_E = (161553, 30938, 505888, 756)
 #: the PVT sweep (phase 15): 256 points, one chunk, two windows (accepted,
 #: rejected, Newton over all lanes, batched step attempts over both
 #: windows), and the 16-point run through the GESP kernels over
-#: 0-``PVT_XLA_TSTOP`` (phase 17; its counts are those of the same call on
-#: the CPU)
+#: 0-``PVT_XLA_TSTOP`` (phase 17)
 PVT_POINTS = 256
 PVT_SEGMENTS = 2
-CELL_P = (158702, 38472, 532508, 816)
+CELL_P = (157702, 38581, 528815, 808)
 PVT_XLA_POINTS = 16
 PVT_XLA_TSTOP = 1e-7
+#: phase 17's counts over 0-PVT_XLA_TSTOP (accepted, rejected, Newton,
+#: attempts) on the card and on the CPU, and the lanes whose counts
+#: (accepted, rejected, Newton) in the second window (50-100 ns) part
+#: between the two: lane → (the card's, the CPU's).  Lane 2's step at the
+#: 50 ns clock edge's breakpoint follows the walk's last bits, which the
+#: card rounds apart from the CPU (ROADMAP C13's class); every other lane,
+#: and every lane in the first window, is equal
+CELL_P_XLA = (2079, 308, 5241, 160)
+CELL_P_XLA_CPU = (2072, 309, 5225, 156)
+PVT_XLA_PARTED = {2: ((93, 20, 300), (86, 21, 284))}
 #: the level-1 leg's gate (bench.py:554-557): (ns, level) of q
 LV1_GATE = ((150.0, 0.0), (250.0, 0.0), (700.0, 5.0))
 LV1_TSTOP = 7e-7
@@ -783,8 +826,8 @@ class MixedMargin:
         torch, lg, acc = self.torch, self.linalg, self.acc
         self.saved = factor, backsolve = lg.chord_factor, lg.chord_backsolve
 
-        def chord_factor(J):
-            LU, perm, r = factor(J)
+        def chord_factor(J, *args):
+            LU, perm, r = factor(J, *args)
             fin = torch.isfinite(LU)
             acc[0] += J.shape[0]
             acc[1] += (LU.diagonal(dim1=-2, dim2=-1).abs() <= 1e-20).any(-1) \
@@ -1200,7 +1243,10 @@ def lv1_run(torch, T, gesp_lu, fc, lv1, cell, tstop, method=None):
 def phase_lv1(torch, T, gesp_lu, fc, lv1, cell, want, tstop, extra=None):
     """Phases 10 and 12: cell D or E over 0-``tstop`` at 256 lanes, gated
     on every lane at the points inside the window, its counts held to
-    ``want``."""
+    ``want``; the lanes that the chord factor took again in the source
+    row order (``linalg.reordered``, ROADMAP C19) printed."""
+    from cedarsim_tpu_torch.ops import linalg
+    r0 = linalg.reordered
     sols, launches, wall = lv1_run(torch, T, gesp_lu, fc, lv1, cell, tstop)
     worst = gate_lv1(sols, tstop)
     if want is not None:
@@ -1209,7 +1255,7 @@ def phase_lv1(torch, T, gesp_lu, fc, lv1, cell, want, tstop, extra=None):
         lanes=len(sols), setup_s=lv1[4], wall_s=wall,
         transients_per_s=len(sols) / wall, worst_gate_err=worst,
         **counts(sols), attempts=sols[0].n_attempts, launches=launches,
-        **(extra or {}), card=smi())
+        reordered_lanes=linalg.reordered - r0, **(extra or {}), card=smi())
     return launches
 
 
@@ -1446,38 +1492,85 @@ def phase_pvt_fused_kernel(torch, T, fc, pvt_state, plan):
     return abs_err, times, bnd
 
 
-def phase_pvt_xla(torch, gesp_lu, fc, dev):
+def phase_pvt_xla(torch, gesp_lu, fc, dev, emit=log):
     """Phase 17: the harness through the GESP kernels (``impl="xla"``),
-    16 points over 0-100 ns, its counts those of the same call on the
-    CPU."""
+    16 points over 0-100 ns in two windows, its counts ``CELL_P_XLA``;
+    every lane's counts in both windows those of the same call on the
+    CPU but for the lanes ``PVT_XLA_PARTED`` (each side's counts held to
+    its own there, the CPU's totals to ``CELL_P_XLA_CPU``); and the same
+    call on the card with B2 and B3 replaced by their plain versions, its
+    every lane's counts the kernels' run's (the witness that the lanes
+    part by the card's walk, not by the kernels)."""
     from cedarsim_tpu_torch.benchmarks import pvt_sweep
     fc.fused_chord.launches = 0
     gesp_lu.lu_factor_gesp_f32.launches = 0
     gesp_lu.lu_subst_gesp_f32.launches = 0
     torch.cuda.synchronize()
     res = pvt_sweep.run_chunked(PVT_XLA_POINTS, PVT_XLA_POINTS, PVT_SEGMENTS,
-                                "xla", PVT_XLA_TSTOP, device=dev)
+                                "xla", PVT_XLA_TSTOP, device=dev,
+                                details=True)
     torch.cuda.synchronize()
     launches = {"fused": fc.fused_chord.launches,
                 "factor": gesp_lu.lu_factor_gesp_f32.launches,
                 "subst": gesp_lu.lu_subst_gesp_f32.launches}
     t0 = time.perf_counter()
     cpu = pvt_sweep.run_chunked(PVT_XLA_POINTS, PVT_XLA_POINTS, PVT_SEGMENTS,
-                                "xla", PVT_XLA_TSTOP, device="cpu")
+                                "xla", PVT_XLA_TSTOP, device="cpu",
+                                details=True)
     cpu_s = time.perf_counter() - t0
+    # the witness: the card's run with the kernels' plain versions
+    kernels = (gesp_lu.lu_factor_gesp_f32, gesp_lu.lu_subst_gesp_f32)
+    t0 = time.perf_counter()
+    try:
+        gesp_lu.lu_factor_gesp_f32 = gesp_lu.lu_factor_gesp_f32_plain
+        gesp_lu.lu_subst_gesp_f32 = gesp_lu.lu_subst_gesp_f32_plain
+        plain = pvt_sweep.run_chunked(PVT_XLA_POINTS, PVT_XLA_POINTS,
+                                      PVT_SEGMENTS, "xla", PVT_XLA_TSTOP,
+                                      device=dev, details=True)
+    finally:
+        gesp_lu.lu_factor_gesp_f32, gesp_lu.lu_subst_gesp_f32 = kernels
+    plain_s = time.perf_counter() - t0
 
     def counts(r):
         return (r["accepted"], r["rejected"], r["newton"], r["attempts"])
-    got, want = counts(res), counts(cpu)
-    log("pvt_xla", **res, launches=launches, cpu_counts=want,
-        cpu_ok=cpu["ok"], cpu_s=cpu_s, card=smi())
+
+    def lanes(r):
+        """Per window, per lane (accepted, rejected, Newton)."""
+        ch, = r.pop("chunks")
+        return [np.stack([np.asarray(ch[c])[k] for c in
+                          ("accepted", "rejected", "newton")], -1).tolist()
+                for k in range(PVT_SEGMENTS)]
+    card, on_cpu, with_plain = lanes(res), lanes(cpu), lanes(plain)
+    parted = {i: [card[1][i], on_cpu[1][i]] for i in range(PVT_XLA_POINTS)
+              if card[1][i] != on_cpu[1][i]}
+    emit("pvt_xla", **res, launches=launches, cpu_counts=counts(cpu),
+         first_window_equal=card[0] == on_cpu[0],
+         parted_after_edge=parted, cpu_ok=cpu["ok"], cpu_s=cpu_s,
+         plain_kernels_counts=counts(plain),
+         plain_kernels_lanes_equal=with_plain == card, plain_s=plain_s,
+         card=smi())
     if launches["fused"] or min(launches["factor"], launches["subst"]) <= 0:
         raise AssertionError(f"PVT xla: kernels {launches}")
     if not res["ok"] or res["engine"] != "xla" or res["dense_lu"] != "mixed":
         raise AssertionError(f"PVT xla: {res}")
-    if got != want or not cpu["ok"]:
+    if card[0] != on_cpu[0] or not cpu["ok"]:
+        raise AssertionError(f"PVT xla counts over the first window "
+                             f"{card[0]}, the CPU's {on_cpu[0]}")
+    want = {i: [list(c) for c in pair]
+            for i, pair in PVT_XLA_PARTED.items()}
+    if parted != want:
+        raise AssertionError(f"PVT xla: lanes parted from the CPU's in the "
+                             f"second window (card, CPU) {parted}, "
+                             f"recorded {want}")
+    if (counts(res), counts(cpu)) != (CELL_P_XLA, CELL_P_XLA_CPU):
         raise AssertionError(f"PVT xla counts (accepted, rejected, Newton, "
-                             f"attempts) {got}, the CPU's {want}")
+                             f"attempts) {counts(res)}, the CPU's "
+                             f"{counts(cpu)}, recorded {CELL_P_XLA}, "
+                             f"{CELL_P_XLA_CPU}")
+    if with_plain != card or not plain["ok"]:
+        raise AssertionError(f"PVT xla with B2/B3's plain versions on the "
+                             f"card: per-lane counts {with_plain}, the "
+                             f"kernels' {card}")
     return launches
 
 
@@ -1691,12 +1784,12 @@ def cmg_setup(torch, T, dev):
     return cmg, setup_s, plan, time.perf_counter() - t0
 
 
-def phase_cmg_fused_kernel(torch, T, fc, cmg, plan, t_plan):
-    """Phase 20: B1 on the CMG plan (the BSIM-CMG walk emitted) against
-    its plain version on cell G's 32 lanes, as phase 6 (the leg's fused
-    options, h = 1e-12 and 1e-10); its device, call and plain times and
-    bound at [32, 85]; emit and nvcc seconds, ptxas's lines."""
-    info = plan.build()
+def cmg_fused_kernel_check(torch, T, fc, cmg, plan):
+    """Phase 20's checking half, beside G-xla's child: B1 on the CMG plan
+    (the BSIM-CMG walk emitted) against its plain version on cell G's 32
+    lanes, as phase 6 (the leg's fused options, h = 1e-12 and 1e-10).
+    Returns (worst relative errors, max |xn − plain|, (min, max) Newton
+    iterations per step, the last step's inputs) for the timing half."""
     worst = dict(xn=0.0, S=0.0, Q=0.0)
     abs_err, nnwt = 0.0, []
     for h in (1e-12, 1e-10):
@@ -1706,6 +1799,16 @@ def phase_cmg_fused_kernel(torch, T, fc, cmg, plan, t_plan):
                                  f"cmg h={h}", worst)
         abs_err = max(abs_err, err["xn_abs"])
         nnwt.append([int(k1[3][:, 1].min()), int(k1[3][:, 1].max())])
+    return worst, abs_err, nnwt, (args, opts)
+
+
+def phase_cmg_fused_kernel(torch, T, fc, cmg, plan, t_plan, checked):
+    """Phase 20's timing half, alone on the card: the line of B1 on the
+    CMG plan, with ``checked`` (``cmg_fused_kernel_check``'s return); its
+    device, call and plain times and bound at [32, 85]; emit and nvcc
+    seconds, ptxas's lines."""
+    info = plan.build()
+    worst, abs_err, nnwt, (args, opts) = checked
 
     def run():
         return fc.fused_chord(plan, *args, opts)
@@ -1772,8 +1875,10 @@ def cmg_path(T, engine, cmg, plan, cmg_cpu):
     batched step attempt and no GESP launch, G-xla B2 and B3 launched
     through ``dense_lu="auto"`` and no B1, and the first clock edge
     through the latch (``edge_crossed``); the counts recorded for the
-    cell; then the card's counts over 0-``G_CPU_TSTOP`` equal to the
-    CPU's.  Returns the run's record."""
+    cell; then the card's counts over 0-``G_CPU_TSTOP``, held here to
+    the CPU's from the CPU lanes ``cmg_cpu``, or, where that is None
+    (G-xla), recorded for ``phase_cmg`` to hold to the CPU's that
+    G-fused's child ran.  Returns the run's record."""
     fused = engine == "fused"
     tstop = cmg_dff.TSTOP if fused else G_XLA_TSTOP
     res = cmg_dff.run(engine, tstop, dff=cmg, plan=plan)
@@ -1797,6 +1902,9 @@ def cmg_path(T, engine, cmg, plan, cmg_cpu):
     card = cmg_dff.run(engine, G_CPU_TSTOP, dff=cmg, plan=plan)
     got = (card["accepted"], card["rejected"], card["newton"],
            card["attempts"])
+    if cmg_cpu is None:
+        res["card_counts_short"] = dict(tstop=G_CPU_TSTOP, counts=got)
+        return res
     want = cmg_cpu_counts(T, engine, cmg_cpu, G_CPU_TSTOP)
     if got != want:
         raise AssertionError(f"cell G {engine} over 0-{G_CPU_TSTOP:g} s: "
@@ -1809,33 +1917,48 @@ def cmg_child(engine, out):
     """``--cmg-child ENGINE OUT``: phase 21 ("fused") or 22 ("xla"),
     cell G through one engine (``cmg_path``), in a process of its own: the
     lanes' set-up on the card, the fused plan (its library built by the
-    main process before), the CPU's lanes for the count comparison, then
-    the run; its record saved to OUT (JSON).  Two torch threads, so that
-    its CPU run shares the host with the smoke's other processes; a line
-    to stderr at each step."""
+    main process before), G-fused's CPU lanes for the count comparison
+    of both engines, then the run; its record saved to OUT (JSON).  Two
+    torch threads, so that its CPU run shares the host with the smoke's
+    other processes; a line to stderr at each step."""
     import torch
     import cedarsim_tpu_torch as T
     torch.set_num_threads(2)
     cmg, setup_s, plan, plan_s = cmg_setup(torch, T, torch.device("cuda", 0))
     print(f"cmg_{engine}: set up in {setup_s:.1f} s", file=sys.stderr,
           flush=True)
-    cmg_cpu = cmg_dff.setup(device="cpu")[0]
+    cmg_cpu = cmg_dff.setup(device="cpu")[0] if engine == "fused" else None
     rec = cmg_path(T, engine, cmg, plan, cmg_cpu)
     rec.update(lanes_setup_s=setup_s, plan_s=plan_s)
+    if engine == "fused":
+        # G-xla's CPU side, from lanes of its own: G-xla's child, the
+        # smoke's critical path, runs nothing on the host beside its run
+        rec["xla_cpu_counts"] = cmg_cpu_counts(
+            T, "xla", cmg_dff.setup(device="cpu")[0], G_CPU_TSTOP)
     print(f"cmg_{engine}: done, tran {rec['wall_s']:.1f} s", file=sys.stderr,
           flush=True)
     with open(out, "w") as f:
         json.dump(rec, f)
 
 
-def phase_cmg(engine, child):
+def phase_cmg(engine, child, cpu_counts=None):
     """Phase 21 or 22's line, from its child's record (``cmg_child``);
-    returns the run's launches."""
+    G-xla's card counts over 0-``G_CPU_TSTOP`` held to ``cpu_counts``, the
+    CPU's from G-fused's child.  Returns (the run's launches, the CPU's
+    G-xla counts that G-fused's child recorded, or None)."""
     out, waited = join_child(child)
     with open(out) as f:
         rec = json.load(f)
+    xla_cpu = rec.pop("xla_cpu_counts", None)
+    if engine == "xla":
+        got = tuple(rec.pop("card_counts_short")["counts"])
+        if got != tuple(cpu_counts):
+            raise AssertionError(f"cell G {engine} over 0-{G_CPU_TSTOP:g} "
+                                 f"s: counts {got} on the card, "
+                                 f"{tuple(cpu_counts)} on the CPU")
+        rec["card_equals_cpu_counts"] = dict(tstop=G_CPU_TSTOP, counts=got)
     log("cmg_" + engine, **rec, ran_in_child=True, waited_s=waited)
-    return rec["launches"]
+    return rec["launches"], xla_cpu
 
 
 def f32_leg_path(leg, dff, cpu_lanes, tstop):
@@ -3662,6 +3785,22 @@ def a16a17_card_child(which, cpu_out, out):
         json.dump({"lines": lines, "ret": ret}, f)
 
 
+def pvt_xla_child(out):
+    """``--pvt-xla-child OUT``: phase 17 on the card in a child process,
+    started once phase 16 has ended, beside the main process's phases
+    18-40 and 44 (two torch threads for its CPU run): its line and its
+    launches written to ``out`` as JSON for the main process to print."""
+    import torch
+    from cedarsim_tpu_torch.ops import fused_chord as fc
+    from cedarsim_tpu_torch.ops import gesp_lu
+    torch.set_num_threads(2)
+    lines = []
+    la = phase_pvt_xla(torch, gesp_lu, fc, torch.device("cuda", 0),
+                       emit=lambda phase, **kw: lines.append([phase, kw]))
+    with open(out, "w") as f:
+        json.dump({"lines": lines, "ret": la}, f)
+
+
 def a16a17_cpu(out=None):
     """The CPU's side of phases 34-36 (one intra-op thread, so that it
     takes one core beside the card's processes); written to ``out`` as
@@ -4191,8 +4330,8 @@ def phase_a18_one(torch, T, dev, lv1, ref):
 
 
 def phase_a18_pair(torch, dev, one):
-    """Phase 38's second half, once no other child runs and before the
-    timing phases: two gloo ranks sharing the card (``RankPool``, child
+    """Phase 38's second half, once no child but G-xla's runs, before
+    the timing phases: two gloo ranks sharing the card (``RankPool``, child
     processes): ``dryrun_child.gates`` (the level-1 DFF's DC sweep of
     ``vto``, its sharded transient and the RC closed-form gate), then cell
     E's 256 lanes over 0-A18_TSTOP, 128 a rank, against the one-rank run
@@ -4355,6 +4494,115 @@ def phase_a21_path(torch, T, dev):
         cpu_s=cpu_s, **counts(sols), attempts=sols[0].n_attempts,
         card_vs_cpu_v=worst, launches={k: n for k, n in la.items() if n})
     return la
+
+
+#: phase 44: the pass switch's AC frequencies, its transient window and
+#: the relative bound on its AC gain at the operating point, where the
+#: closed switch passes IN to OUT through its on resistance (the 10 kΩ
+#: load's divider, 0.89 at W = 3.6 µm; sign(0) = 0 at vds = 0 read 0 there,
+#: ROADMAP C17)
+SWITCH_FREQS = np.array([1e3, 1e6, 1e8])
+SWITCH_TSTOP = 2e-6
+SWITCH_GAIN = (0.85, 0.95)
+
+
+def switch_ac_noise(T, device):
+    """The pass switch (``netlists.pass_switch``, DC 0 and AC 1 on IN)
+    compiled on ``device``: its DC operating point, AC and OUT's noise
+    over ``SWITCH_FREQS``, each from the public calls."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    comp = T.compile_circuit(T.elaborate(
+        T.parse_spice(netlists.pass_switch("ac"), file="pass_switch.cir"),
+        include_paths=[netlists.DFF_DIR]), device=device)
+    ctx = T.SimSpec.make(gmin=1e-15)
+    op = T.solve_dc(comp, ctx=ctx)
+    ac = T.ac(comp, SWITCH_FREQS, ctx=ctx)
+    ns = T.noise(comp, "out", SWITCH_FREQS, ctx=ctx)
+    return comp, op, ac, ns
+
+
+def switch_run(T, lanes):
+    """The switch's track phase (a 0.1 V, 1 MHz sine on IN from 0 V) on
+    ``lanes`` (``netlists.pass_switch_lanes``: W per lane, each lane from
+    its operating point, OUT exactly 0 V) through the fused engine over
+    0-SWITCH_TSTOP, every kernel count from 0 just before and read just
+    after: (solutions, launches, wall s)."""
+    comp, ctx, pb, x0 = lanes
+    t0 = time.perf_counter()
+    sols, la = counted(lambda: T.tran(
+        comp, (0.0, SWITCH_TSTOP), params=pb, ctx=ctx, x0=x0,
+        opts=T.TranOptions(**FUSED_OPTS)))
+    return sols, la, time.perf_counter() - t0
+
+
+def phase_switch(torch, T, fc, dev, lanes, plan):
+    """Phase 44 (ROADMAP C17, C18), in the main process before the
+    children are joined: the pass switch with its drain exactly on its
+    source.  Its DC operating point, AC and noise on the card against
+    the same calls on the CPU (the ops within SIM_DC_TOL; AC within
+    AC_RTOL, the PSD within PSD_RTOL; the AC gain IN to OUT inside
+    SWITCH_GAIN, a closed switch); B1 (float64) on the switch's plan at
+    the lanes' operating points, vds exactly 0, a step of 1e-10 s,
+    against its plain version (``fused_vs_plain``); the track phase on
+    those lanes through B1 against the same call on the CPU: equal counts
+    on every lane, waveforms within SIM_WAVE_TOL, one B1 launch a step
+    attempt.  OUT sits exactly at 0 V on the CPU (the JAX package's
+    operating point); the card's is recorded beside it.  Returns the
+    phase's B1 record for the kernels line."""
+    from cedarsim_tpu_torch.benchmarks import netlists
+    t0 = time.perf_counter()
+    comp, op, ac, ns = switch_ac_noise(T, dev)
+    on_card(comp, "switch")
+    _, op_p, ac_p, ns_p = switch_ac_noise(T, "cpu")
+    x_c, x_p = op.x.cpu(), op_p.x
+    vc, vp = ac.v.cpu(), ac_p.v
+    ac_err = float(((vc - vp).abs().amax(1) / vp.abs().amax(1)).max())
+    psd_err = float(np.max(np.abs(ns.psd - ns_p.psd) / ns_p.psd))
+    gain = np.abs(np.asarray(ac["out"]))
+    i_out = comp.node_names.index("out")
+    ties = [float(x_c[i_out]), float(x_p[i_out])]
+    op_err = float((x_c - x_p).abs().max())
+    if ties[1] != 0.0 or op_err > SIM_DC_TOL:
+        raise AssertionError(f"switch: OUT at {ties} V (card, CPU); card "
+                             f"vs CPU op {op_err:.3g} V")
+    if not (ac_err <= AC_RTOL and psd_err <= PSD_RTOL
+            and np.all(ns.psd > 0)
+            and SWITCH_GAIN[0] <= gain.min() <= gain.max() <= SWITCH_GAIN[1]):
+        raise AssertionError(f"switch: AC {ac_err:.3g}, PSD {psd_err:.3g}, "
+                             f"gain {gain.tolist()}")
+    ac_s = time.perf_counter() - t0
+    worst = dict(xn=0.0, S=0.0, Q=0.0)
+    args, opts_h = kt.fused_args(torch, T, plan, lanes, 1e-10, pert=0.0)
+    _, err = fused_vs_plain(torch, fc, plan, args, opts_h, "switch B1",
+                            worst)
+    sols, la, wall = switch_run(T, lanes)
+    cpu_lanes = netlists.pass_switch_lanes("cpu")
+    cpu, _, cpu_s = switch_run(T, cpu_lanes)
+    if not (0 < la["fused"] == sols[0].n_attempts) or la["factor"] \
+            or la["subst"]:
+        raise AssertionError(f"switch: launches {la}, {sols[0].n_attempts} "
+                             "attempts")
+    wave = 0.0
+    for s, c in zip(sols, cpu):
+        if not (s.converged and c.converged and (s.n_accepted, s.n_rejected,
+                                                 s.n_newton)
+                == (c.n_accepted, c.n_rejected, c.n_newton)):
+            raise AssertionError("switch: the card's lanes are not the "
+                                 "CPU's")
+        wave = max(wave, float(np.abs(s.xs - c.xs).max()))
+    if wave > SIM_WAVE_TOL:
+        raise AssertionError(f"switch: card against CPU {wave:.3g} V")
+    log("switch", out_v=ties, op_card_vs_cpu=op_err, ac_card_vs_cpu=ac_err,
+        psd_card_vs_cpu=psd_err, gain=gain.tolist(), ac_noise_s=ac_s, b1_worst_rel_err=worst,
+        b1_max_abs_err=err["xn_abs"], lanes=len(sols), tstop=SWITCH_TSTOP,
+        wall_s=wall, cpu_s=cpu_s, **counts(sols),
+        attempts=sols[0].n_attempts, card_vs_cpu_v=wave,
+        launches={k: n for k, n in la.items() if n},
+        phase_s=time.perf_counter() - t0)
+    return {"model": "BSIM4 pass switch at vds = 0 (netlists.pass_switch, "
+                     "W per lane)",
+            "launches": la["fused"], "max_abs_err": err["xn_abs"],
+            "shape": [len(sols), lanes[0].n_x]}
 
 
 def a21_plan(T, dev):
@@ -4546,6 +4794,11 @@ def run(children):
     th_pvt = build_in_thread("fused_pvt", plan_pvt.build)
     a21_lv, plan_a21 = a21_plan(T, dev)
     th_a21 = build_in_thread("fused_a21", plan_a21.build)
+    # phase 44's lanes (the pass switch, vds = 0) and plan
+    from cedarsim_tpu_torch.benchmarks import netlists
+    sw_lanes = netlists.pass_switch_lanes(dev)
+    plan_sw = fused_plan_for(*sw_lanes[:3])
+    th_sw = build_in_thread("fused_switch", plan_sw.build)
     th_pivot = build_in_thread("pivot", pivot_lu.build)
     th_sparse = build_in_thread("sparse", sparse_lu.build)
     th_gesp = build_in_thread("gesp", gesp_lu.build)
@@ -4560,7 +4813,6 @@ def run(children):
     # the one-stream plans of phases 35-36's warm-ups (the amplifier at
     # nominal AREA, the ring oscillator), built now so that those phases
     # find their libraries
-    from cedarsim_tpu_torch.benchmarks import netlists
     amp1 = T.compile_circuit(T.elaborate(T.parse_spice(netlists.VBIC_AMP)),
                              device=dev, dynamic_params=("area",))
     ring = T.compile_circuit(T.load_spice(RING_NETLIST), device=dev)
@@ -4646,7 +4898,8 @@ def run(children):
     if isinstance(built["fused_pvt"], BaseException):
         raise built["fused_pvt"]
     _, pl = phase_pvt(torch, gesp_lu, fc, dev, pvt_state, plan_pvt)
-    xl = phase_pvt_xla(torch, gesp_lu, fc, dev)
+    child_pvt_xla = start_child("pvt-xla")
+    children.append(child_pvt_xla)
     phase_ac_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
     phase_cmg_noise(torch, T, gesp_lu, pivot_lu, fc, dev)
     la37 = phase_a19(torch, T, dev, dff)
@@ -4654,6 +4907,16 @@ def run(children):
     if isinstance(built["fused_a21"], BaseException):
         raise built["fused_a21"]
     la40 = phase_a21_path(torch, T, dev)
+    th_sw.join()
+    if isinstance(built["fused_switch"], BaseException):
+        raise built["fused_switch"]
+    sw44 = phase_switch(torch, T, fc, dev, sw_lanes, plan_sw)
+    out, waited = join_child(child_pvt_xla)
+    with open(out) as f:
+        rec = json.load(f)
+    for phase, kw in rec["lines"]:
+        log(phase, **kw, ran_in_child=True, waited_s=waited)
+    xl = rec["ret"]
     out, waited = join_child(child_a14b)
     vl, bl = phase_a14b(out, waited)
     dl3 = phase_a14b3(out + ".a14b3", waited)
@@ -4670,16 +4933,29 @@ def run(children):
         rets[which] = rec["ret"]
     la35 = rets["a17_driven"]
     la36, la36_tran = rets["a17_auto"]
-    # phase 43's lanes and plans, while G-xla's child (the critical path)
-    # runs on
+    # beside G-xla's child alone (the critical path, ROADMAP C16): phase
+    # 38's two ranks on the card (child processes, which a thread of this
+    # process waits on) beside phase 43's lanes and plans, then the checks
+    # that time nothing, B1 on the one-stream plans and phase 20's
+    # checking half
+    th_a18 = build_in_thread("a18_pair",
+                             lambda: phase_a18_pair(torch, dev, a18_e))
     f32_state = {leg: f32_kernel_setup(torch, T, leg)
                  for leg in ("bsim4", "cmg")}
-    gl = {"fused": phase_cmg("fused", child_cmg),
-          "xla": phase_cmg("xla", child_xla)}
+    gl_fused, xla_cpu = phase_cmg("fused", child_cmg)
     f32l = phase_f32(child_f32)
-    # phase 38's two ranks on the card, once every other child has ended
-    # and before the timing phases
-    a18_pair = phase_a18_pair(torch, dev, a18_e)
+    th_a18.join()
+    if isinstance(built["a18_pair"], BaseException):
+        raise built["a18_pair"]
+    a18_pair = built["a18_pair"]
+    one_err = phase_one_stream_fused_kernel(torch, T, fc, (
+        ("amp1", amp1, T.SimSpec.make(gmin=vbic_amp.GMIN), (1e-6, 1e-4),
+         {"hb_warmup": FUSED_OPTS}),
+        ("ring", ring, T.SimSpec.make(), (1e-12, 1e-10),
+         {"hb_warmup": FUSED_OPTS, "kicked_tran": RING_TRAN_OPTS})))
+    cmg_checked = cmg_fused_kernel_check(torch, T, fc, cmg[:4], plan_cmg)
+    gl = {"fused": gl_fused,
+          "xla": phase_cmg("xla", child_xla, xla_cpu)[0]}
     log("children", spans={name: [t0, t1]
                            for name, t0, t1 in CHILD_SPANS})
     # the timing phases, alone on the card: 3, 6 and 8's timing
@@ -4688,7 +4964,7 @@ def run(children):
     ftimes, fbounds = phase_fused_kernel_times(fc, plan, ftiming)
     lu_launches, per_shape = phase_lu(torch, gesp_lu, pivot_lu, dev)
     cabs_err, ctimes, cbound = phase_cmg_fused_kernel(
-        torch, T, fc, cmg[:4], plan_cmg, t_plan_cmg)
+        torch, T, fc, cmg[:4], plan_cmg, t_plan_cmg, cmg_checked)
     vabs_err, vtimes, vbound = phase_vbic_fused_kernel(
         torch, T, fc, amp, plan_vbic, t_plan_vbic)
     labs_err, ltimes, lbounds = phase_lv1_fused_kernel(torch, T, fc, lv1,
@@ -4702,11 +4978,6 @@ def run(children):
     f32k = {leg: phase_f32_fused_kernel(torch, T, fc, leg, f32_state[leg],
                                         lg["log"])
             for leg, lg in (("bsim4", info), ("cmg", plan_cmg.build()))}
-    one_err = phase_one_stream_fused_kernel(torch, T, fc, (
-        ("amp1", amp1, T.SimSpec.make(gmin=vbic_amp.GMIN), (1e-6, 1e-4),
-         {"hb_warmup": FUSED_OPTS}),
-        ("ring", ring, T.SimSpec.make(), (1e-12, 1e-10),
-         {"hb_warmup": FUSED_OPTS, "kicked_tran": RING_TRAN_OPTS})))
     src = "cedarsim_tpu_torch/csrc/gesp_lu.cu"
     b1p = ftimes["B1'"]
     n1 = lv1[0].n_x
@@ -4770,6 +5041,7 @@ def run(children):
                           "plain_ms": a21_times[2],
                           "bound_ms": a21_bound[0],
                           "bound_by": a21_bound[1]},
+                     switch=sw44,
                      vbic={"model": "VBIC with self-heating, AREA per "
                                     "lane",
                            "launches": vl["fused"]["fused"],
@@ -4867,6 +5139,8 @@ if __name__ == "__main__":
         f32_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--a14b-both-child":
         a14b_both_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--pvt-xla-child":
+        pvt_xla_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--a16a17-child":
         a16a17_cpu(sys.argv[2])
     elif len(sys.argv) == 5 and sys.argv[1] == "--a16a17-card-child":

@@ -5,7 +5,7 @@ JAX package's, over one window on the CPU.
 
 The input is cell A's (``kernel_times.XLA_OPTS``, ``jac_shunt=1e-9``) at two
 lanes: the DFF from the port's per-lane warm DC at W·0.99 and nominal
-(``kernel_times.dff_lanes(lanes=2)``).  Three runs, each giving per lane
+(``kernel_times.dff_lanes(lanes=2)``).  Four runs, each giving per lane
 (finished, accepted, rejected, Newton iterations):
 
 * ``port_twice``: the port with its plain GESP kernels on the CPU, the
@@ -22,11 +22,13 @@ lanes: the DFF from the port's per-lane warm DC at W·0.99 and nominal
   _MIXED_INTERPRET``), the two lanes vmapped through ``tran_core`` as
   ``bench.py`` runs them.
 
-The factor rounds once in all three (the Pallas factor under XLA, the
-port's plain factor through ``rounding.fma_f32``).  ``tests/
-test_torch_tran.py`` holds the 0-1 ns window to the reference's counts;
-the longer window is a measurement (``PERF.md``).  One JSON object is
-printed.
+The factor rounds once in all of them (the Pallas factor under XLA, the
+port's plain factor through ``rounding.fma_f32``); the port's runs factor
+a lane again in the source row order where its factor rounds a pivot to 0
+(``ops/linalg.py::chord_factor``, ROADMAP C19), the reference's do not.
+``tests/test_torch_tran.py`` holds the 0-1 ns window to the recorded
+counts of the port and the reference; the longer window is a measurement
+(``PERF.md``).  One JSON object is printed.
 """
 
 import argparse

@@ -112,7 +112,7 @@ def test_chord_pair_matches_jax_mixed(monkeypatch):
     LU, perm, r = tlinalg.chord_factor(Jt)
     x_t = tlinalg.chord_backsolve(LU, perm, r, Jt, bt)
     assert LU.dtype == torch.float32
-    assert torch.equal(perm, torch.arange(n).expand(B, n))
+    assert perm is None             # J's own row order, as the JAX pair's
     assert _rel(x_t.numpy(), x_j) <= 1e-10
     x_e = np.linalg.solve(J, b[..., None])[..., 0]
     assert _rel(x_t.numpy(), x_e) <= 1e-10

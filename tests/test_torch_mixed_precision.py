@@ -37,9 +37,9 @@ step control and solves in float64) against the JAX package's
 - AC of the BSIM4 DFF (``netlists.dff_ac_noise``: AC 1 on the supply) at
   its float32 operating point, where the float32 rounding of the rails
   puts several devices' drains exactly on their sources (``vds =
-  abs(vds_r)``: the float32 walk takes JAX's derivative +1 there, the
-  float64 walk sign(0) = 0, ROADMAP C17): the solution within the bounds
-  the test states of the JAX package's.
+  abs(vds_r)``: the walk takes JAX's derivative +1 there, in float32 and
+  float64 alike, ROADMAP C17): the solution within the bounds the test
+  states of the JAX package's.
 """
 
 import os
@@ -260,13 +260,13 @@ def test_dff_ac_under_float32():
     """At the DFF's float32 operating point several BSIM4 devices sit at
     vds = 0 exactly (their drain rounds to the rail of their source),
     where ``vds = abs(vds_r)`` (``bsim4.va:452``) takes JAX's derivative
-    +1 in the float32 walk (``core/dual.py::absolute``; sign(0) = 0 there
-    parted the AC by 56 % at 1 kHz, ROADMAP C17).  The AC solution within
-    the stated bounds of the JAX package's, relative to its largest entry
-    per frequency (1e-6 up to 1 MHz, 1e-4 at 100 MHz, 1e-2 at 1-10 GHz:
-    there C's float32 spread, 1.6e-3 of its largest entry between the two
-    walks, weighs in); the same walk over float64 values keeps sign(0) =
-    0 at those ties."""
+    +1 (``core/dual.py::absolute``; sign(0) = 0 there parted the AC by
+    56 % at 1 kHz, ROADMAP C17).  The AC solution within the stated
+    bounds of the JAX package's, relative to its largest entry per
+    frequency (1e-6 up to 1 MHz, 1e-4 at 100 MHz, 1e-2 at 1-10 GHz: there
+    C's float32 spread, 1.6e-3 of its largest entry between the two
+    walks, weighs in); the walk over float64 values takes the same +1 at
+    those ties."""
     text = netlists.dff_ac_noise(1)
     ct = _compile(T, text, [DFF_DIR], "dff_ac.cir", torch.float32)
     cj = _compile(J, text, [DFF_DIR], "dff_ac.cir", jnp.float32)
@@ -288,7 +288,7 @@ def test_dff_ac_under_float32():
     assert any(xf[grp.var_idx[j, 0]] == xf[grp.var_idx[j, 2]]
                for j in range(len(grp.instances)))
     for dt, want in ((torch.float32, [1.0, 1.0, -1.0]),
-                     (torch.float64, [0.0, 1.0, -1.0])):
+                     (torch.float64, [1.0, 1.0, -1.0])):
         y = D.absolute(D.Dual(torch.tensor([0.0, 2.0, -2.0], dtype=dt),
                               torch.ones(3, dtype=dt)))
         assert y.d.tolist() == want, dt

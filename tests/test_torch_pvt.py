@@ -18,7 +18,16 @@ port's two engines' plain versions:
   interpret mode;
 
 each lane's accepted and rejected steps in each window equal, Newton
-iterations within 1.5 %, q within 1e-6 V at the end of each window.
+iterations within 1.5 %, q within 1e-6 V at the end of each window.  One
+lane parts (``PARTED``): since ROADMAP C17 (``abs``'s derivative at 0
+the JAX package's), the 5.25 V, W·1.03 lane takes 91 accepted steps and
+275 Newton iterations over 30-60 ns in both engines where the reference
+takes 93 and 287 (its rejected steps and q as the reference's); the two
+step sequences part at the first step after the 50 ns clock edge's
+breakpoint, 50.051 ns against 50.013 ns, from states equal to 1e-16
+relative: the step controller's choice there follows the walk's last
+bits, which XLA rounds apart from the port (C2's class).  Before C17 the
+two agreed there.
 """
 
 import dataclasses
@@ -45,6 +54,9 @@ DFF_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                        "benchmarks", "gf180_dff")
 POINTS, SEGMENTS, TSTOP = 4, 2, 6e-8
 NEWTON_REL = 0.015
+#: {(window, lane): {count: (the port's, the reference's)}} where they
+#: part (module docstring), in both engines
+PARTED = {(1, 3): {"accepted": (91, 93), "newton": (275, 287)}}
 
 
 @functools.lru_cache(maxsize=1)
@@ -132,15 +144,22 @@ def test_pvt_chunked_matches_jax(impl):
     edges = np.linspace(0.0, TSTOP, SEGMENTS + 1)
     for k, rw in enumerate(ref):
         assert rw["finished"].all()
-        np.testing.assert_array_equal(ch["accepted"][k], rw["accepted"])
+        got = {c: ch[c][k].copy() for c in ("accepted", "newton")}
+        for (kw, i), pairs in PARTED.items():
+            for c, pair in pairs.items():
+                if kw == k:
+                    assert (got[c][i], rw[c][i]) == pair, (c, k, i)
+                    got[c][i] = rw[c][i]
+        np.testing.assert_array_equal(got["accepted"], rw["accepted"])
         np.testing.assert_array_equal(ch["rejected"][k], rw["rejected"])
-        np.testing.assert_allclose(ch["newton"][k], rw["newton"],
+        np.testing.assert_allclose(got["newton"], rw["newton"],
                                    rtol=NEWTON_REL)
         t_end = edges[k + 1] * (1 - 1e-9)
         for i in range(POINTS):
             q = float(np.interp(t_end, ch["ts"][i], ch["q"][i]))
             assert abs(q - rw["q"][i]) <= 1e-6, (impl, k, i, q, rw["q"][i])
-    assert res["accepted"] == int(sum(r["accepted"].sum() for r in ref))
+    assert res["accepted"] == int(sum(r["accepted"].sum() for r in ref)) \
+        + sum(p["accepted"][0] - p["accepted"][1] for p in PARTED.values())
 
 
 def test_pvt_whole_grid_run():

@@ -10,13 +10,16 @@ forms and against the JAX package's ``tran``.
   1e-3 V at ten times, accepted steps within 10 %; the nominal lane equals
   a solo run of the port to 1e-12 V (lane independence).
 - gf180 DFF, 0-1 ns from the smoke's per-lane warm DC at W·0.99 and
-  nominal (ROADMAP Queue C, C1): the port's mixed path finishes both lanes
-  with the reference's accepted and rejected steps, with no boosted pivot
-  and no non-finite solve; every float32 factor of that run is bitwise the
-  Pallas factor in interpret mode; the exact chord beside it; and the JAX
-  package's own mixed path (its Pallas kernels in interpret mode) on the
-  same input, with its counts (``tests/mixed_path_counts.py`` prints all
-  of them, over any window).
+  nominal (ROADMAP Queue C, C1, C19): the port's mixed path finishes both
+  lanes with no chord solve on a boosted factor and none non-finite (a
+  lane whose factor in J's own row order rounds a pivot to 0 is factored
+  again in the source row order), with the reference's accepted and
+  rejected steps on the lane where the reference boosts no pivot; every
+  float32 factor of that run is bitwise the Pallas factor in interpret
+  mode; the exact chord beside it; and the JAX package's own mixed path
+  (its Pallas kernels in interpret mode) on the same input, with its
+  counts and its boosted factors and non-finite substitutions per lane
+  (``tests/mixed_path_counts.py`` prints the counts over any window).
 - The package never imports JAX (a fresh interpreter), on the RC step, on
   a VA diode through the fused chord path, and in the dense-LU bench's
   module.
@@ -139,34 +142,53 @@ def test_dff_lanes_mixed_vs_jax():
 #: per lane (W·0.99, nominal): accepted, rejected, Newton iterations over
 #: 0-1 ns of the port's mixed path (plain kernels on the CPU: the factor
 #: rounding each update once, the substitution each term twice) and of the
-#: JAX package's mixed path (Pallas in interpret mode).  The accepted and
-#: rejected steps agree; the Newton count of the W·0.99 lane does not (the
-#: substitution's order of sums, PERF.md).  Over 0-20 ns both give 36 / 0 /
-#: 35 on both lanes.
-PORT_1NS = [(38, 1, 82), (36, 0, 35)]
-REFERENCE_1NS = [(38, 1, 55), (36, 0, 35)]
+#: JAX package's mixed path (Pallas in interpret mode), both from the port's
+#: per-lane warm DC.  Since ROADMAP C17 that start differs from the one
+#: before by at most 1.2e-16 V, and from it the factor in J's own row
+#: order rounds the pivot of clkn's KCL row (3e-8 of its row, under
+#: float32's resolution: every supply node's KCL precedes its source's
+#: branch row) to 0 on both packages' paths.  The JAX package's boosts it
+#: on the W·0.99 lane (``REFERENCE_1NS_FAULTS``: boosted factors and
+#: non-finite substitutions there) and takes a rejected step; the port
+#: factors such a lane again in the source row order (ROADMAP C19), so
+#: that no chord solve runs on a boosted factor: on the nominal lane, where
+#: the reference boosts nothing, the two take the same accepted and
+#: rejected steps.  From the start before C17: the port 38 / 1 / 82 and
+#: 36 / 0 / 35, the reference 38 / 1 / 55 and 36 / 0 / 35.
+PORT_1NS = [(39, 2, 97), (36, 0, 35)]
+REFERENCE_1NS = [(38, 1, 49), (36, 0, 40)]
+REFERENCE_1NS_FAULTS = [(1, 11), (0, 0)]
+#: lanes that the port's run factors again in the source row order
+PORT_1NS_REORDERED = 2
 
 
 @pytest.fixture(scope="module")
 def dff_mixed_1ns():
     """The port's mixed path on the 2-lane DFF over 0-1 ns (cell A's
     options, from the per-lane warm DC), recording every float32 factor
-    (input and packed LU) and counting boosted pivots, chord solves and
-    non-finite solves.  Returns (solutions, factors, counts, inputs)."""
+    (input and packed LU) and counting the chord factors with a boosted
+    pivot (those that the chord solves use), the lanes factored again,
+    the chord solves and the non-finite solves.  Returns (solutions,
+    factors, counts, inputs)."""
     from cedarsim_tpu_torch.benchmarks import kernel_times as kt
     from cedarsim_tpu_torch.ops import gesp_lu, linalg
     dff = kt.dff_lanes(torch, T, "cpu", lanes=2)
     comp, ctx, pb, x0 = dff
     factor, backsolve = gesp_lu.lu_factor_gesp_f32, linalg.chord_backsolve
+    chord_factor = linalg.chord_factor
     factors = []
     seen = dict(boosted=0, solves=0, nonfinite=0)
 
     def lu_factor_gesp_f32(A):
         LU = factor(A)
         factors.append((A.clone(), LU))
+        return LU
+
+    def chord_factor_counted(J, *args):
+        LU, perm, r = chord_factor(J, *args)
         seen["boosted"] += int((LU.diagonal(dim1=-2, dim2=-1).abs()
                                 <= 1e-20).any(-1).sum())
-        return LU
+        return LU, perm, r
 
     def chord_backsolve(*args):
         x = backsolve(*args)
@@ -176,27 +198,60 @@ def dff_mixed_1ns():
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(gesp_lu, "lu_factor_gesp_f32", lu_factor_gesp_f32)
+        mp.setattr(linalg, "chord_factor", chord_factor_counted)
         mp.setattr(linalg, "chord_backsolve", chord_backsolve)
+        mp.setattr(linalg, "reordered", 0)
         sols = T.tran(comp, (0.0, 1e-9), params=pb, ctx=ctx, x0=x0,
                       opts=T.TranOptions(**kt.XLA_OPTS))
+        seen["reordered"] = linalg.reordered
     return sols, factors, seen, dff
 
 
 def test_dff_mixed_path_float32_margin(dff_mixed_1ns):
-    """ROADMAP Queue C, C1, closed: the DFF's first nanosecond from the
+    """ROADMAP Queue C, C1 and C19: the DFF's first nanosecond from the
     per-lane warm DC of the smoke's W scatter at two lanes (W·0.99 and
     nominal), cell A's options.  With the factor rounding each update once
     (as the Pallas factor does under XLA), the port's mixed path finishes
-    both lanes with the reference's accepted and rejected steps, no factor
-    boosts a pivot and no chord solve is non-finite; the exact float64
-    chord finishes both lanes with no rejected step."""
+    both lanes, no chord solve runs on a factor with a boosted pivot and
+    none is non-finite; it takes the counts ``PORT_1NS``, the reference's
+    accepted and rejected steps on the lane where the reference boosts no
+    pivot.  The lanes whose factor in J's own order rounds a pivot to 0
+    are factored again in the source row order; without that (the factor
+    in J's own order alone, as the JAX package's) the same run boosts
+    pivots and takes non-finite solves.  The exact float64 chord finishes
+    both lanes with no rejected step."""
     from cedarsim_tpu_torch.benchmarks import kernel_times as kt
+    from cedarsim_tpu_torch.ops import linalg
     sols, _, seen, (comp, ctx, pb, x0) = dff_mixed_1ns
     assert [(s.converged, s.n_accepted, s.n_rejected, s.n_newton)
             for s in sols] == [(True, *c) for c in PORT_1NS]
-    assert [c[:2] for c in PORT_1NS] == [c[:2] for c in REFERENCE_1NS]
+    clean = [i for i, f in enumerate(REFERENCE_1NS_FAULTS) if f == (0, 0)]
+    assert clean == [1]
+    assert [PORT_1NS[i][:2] for i in clean] == \
+        [REFERENCE_1NS[i][:2] for i in clean]
     assert seen["boosted"] == 0
     assert seen["solves"] > 100 and seen["nonfinite"] == 0
+    assert seen["reordered"] == PORT_1NS_REORDERED
+    # J's own row order alone: the factor boosts and the solves overflow
+    natural = dict(boosted=0, nonfinite=0)
+    chord_factor, backsolve = linalg.chord_factor, linalg.chord_backsolve
+
+    def own_order(J, *args):
+        LU, perm, r = chord_factor(J)
+        natural["boosted"] += int((LU.diagonal(dim1=-2, dim2=-1).abs()
+                                   <= 1e-20).any(-1).sum())
+        return LU, perm, r
+
+    def counted(*args):
+        x = backsolve(*args)
+        natural["nonfinite"] += int((~torch.isfinite(x)).any(-1).sum())
+        return x
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(linalg, "chord_factor", own_order)
+        mp.setattr(linalg, "chord_backsolve", counted)
+        T.tran(comp, (0.0, 1e-9), params=pb, ctx=ctx, x0=x0,
+               opts=T.TranOptions(**kt.XLA_OPTS))
+    assert natural["boosted"] > 0 and natural["nonfinite"] > 0
     exact = T.tran(comp, (0.0, 1e-9), params=pb, ctx=ctx, x0=x0,
                    opts=T.TranOptions(**dict(kt.XLA_OPTS, dense_lu="auto")))
     assert all(s.converged and s.n_rejected == 0 for s in exact)
@@ -230,13 +285,16 @@ def test_dff_mixed_path_reference_finishes_both_lanes(monkeypatch,
     margin test's input: the DFF from the port's per-lane warm DC at W·0.99
     and nominal, cell A's options, 0-1 ns, the two lanes vmapped through
     ``tran_core`` as ``bench.py`` runs them.  The reference finishes both
-    lanes with the counts ``REFERENCE_1NS``, whose accepted and rejected
-    steps the port's mixed path gives too (the margin test)."""
+    lanes with the counts ``REFERENCE_1NS``; per lane, its factors with a
+    pivot boosted to 1e-20 and its substitutions with a non-finite entry
+    are ``REFERENCE_1NS_FAULTS`` (the W·0.99 lane's factor in J's own row
+    order rounds a pivot to 0, as the port's does, ROADMAP C19)."""
     import jax
     import jax.numpy as jnp
     from cedarsim_tpu.analysis.tran import (_consistent_xdot,
                                             _differential_mask, tran_core)
     from cedarsim_tpu.ops import linalg as jlinalg
+    from cedarsim_tpu.ops import pallas_lu
     from cedarsim_tpu_torch.benchmarks import kernel_times as kt
     # the port's per-lane warm DC, as the margin test's fixture made it
     _, _, _, x0_t = dff_mixed_1ns[3]
@@ -263,15 +321,42 @@ def test_dff_mixed_path_reference_finishes_both_lanes(monkeypatch,
         h0 = min(h0, max(float(bps[0]) * 0.1, tstop * 1e-9))
     d = cj.dtype
     monkeypatch.setattr(jlinalg, "_MIXED_INTERPRET", True)
+    # per lane: the factors with a boosted pivot and the substitutions with
+    # a non-finite entry, read from the Pallas kernels' outputs
+    faults = np.zeros((2, 2), dtype=int)
+    factor = pallas_lu.lu_factor_batched_sublane_f32
+    subst = pallas_lu.lu_subst_batched_sublane_f32
+
+    def add(col):
+        def f(hit):
+            faults[:, col] += np.asarray(hit).astype(int)
+        return f
+
+    def factor_seen(A, **kw):
+        LU = factor(A, **kw)
+        jax.debug.callback(add(0), (jnp.abs(jnp.diagonal(
+            LU, axis1=-2, axis2=-1)) <= 1e-20).any(-1))
+        return LU
+
+    def subst_seen(LU, b, **kw):
+        x = subst(LU, b, **kw)
+        jax.debug.callback(add(1), (~jnp.isfinite(x)).any(-1))
+        return x
+    monkeypatch.setattr(pallas_lu, "lu_factor_batched_sublane_f32",
+                        factor_seen)
+    monkeypatch.setattr(pallas_lu, "lu_subst_batched_sublane_f32",
+                        subst_seen)
     run = jax.jit(jax.vmap(lambda p, x, xd, m: tran_core(
         cj, p, ctx, x, xd, jnp.asarray(0.0, d), jnp.asarray(tstop, d),
         jnp.asarray(bps, d), jnp.asarray(h0, d), opts, m)))
     _, _, _, k, fin, nrej, nnwt, final = run(pb, x0, xd0, mask)
+    jax.effects_barrier()
     counts = list(zip(np.asarray(k).tolist(), np.asarray(nrej).tolist(),
                       np.asarray(nnwt).tolist()))
     assert np.asarray(fin).all(), counts
     np.testing.assert_allclose(np.asarray(final["t"]), tstop, rtol=1e-12)
     assert counts == REFERENCE_1NS
+    assert [tuple(f) for f in faults.tolist()] == REFERENCE_1NS_FAULTS
 
 
 def test_port_never_imports_jax():
